@@ -1,0 +1,136 @@
+"""Lazy rebinning: keep state sorted, rebuild the cell structure only on drift.
+
+Counterpart of ``smoothed_particle_hydrodynamics_tpu/ops/lazy.py``; its
+module docstring derives the bound.  In short: the state lives in the
+sorted frame, and the window tables and cell ids stay frozen between
+rebins.  The kernels' pair mask tests current distances, so frozen bins
+change only which candidates are considered, and they still cover every
+true pair while the per-axis displacement spread since binning stays within
+``cell_size - h``.  ``lazy_step`` checks that bound against the positions
+the sweeps are about to use and rebuilds first when it would be broken.
+
+The JAX package decides inside the compiled step with ``lax.cond``; here
+the decision is one host read of the drift test per step.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import SphConfig, _f32
+from ..state import (ParticleState, StepDiagnostics, make_step_diagnostics,
+                     stack_diagnostics)
+from .grid import inverse_order, unsort_stacked
+from .integrate import kdk_integrate
+from .sweeps_t import PreparedT, prepare_t, sweeps_sorted
+
+
+class LazyCarry(NamedTuple):
+    """Sorted-frame state + frozen binning structure."""
+
+    state: ParticleState    # sorted frame
+    order: torch.Tensor     # [N] i64: state[i] == initial_state[order[i]]
+    pos_bin: torch.Tensor   # [N, 3] sorted-frame positions at bin time
+    cid: torch.Tensor       # [N] i32 frozen cell ids
+    ws: torch.Tensor        # [nblocks*9] i32 frozen window starts
+    wc: torch.Tensor        # [nblocks*9] i32 frozen chunk counts
+    steps_since: int        # steps since the last rebin
+    rebin_count: int        # rebins so far (the initial binning excluded)
+
+
+def skin_half(cfg: SphConfig) -> float:
+    """Half the tolerated per-axis displacement spread (world units); the
+    full budget is ``2 * skin_half = cell_size - h``."""
+    return max(0.5 * (cfg.cell_size - cfg.h), 0.0)
+
+
+def drift_spread(position: torch.Tensor, pos_bin: torch.Tensor) -> torch.Tensor:
+    """Max over axes of the displacement spread (max_k d^a - min_k d^a)."""
+    delta = position - pos_bin
+    return (delta.amax(0) - delta.amin(0)).max()
+
+
+def _validate(cfg: SphConfig) -> None:
+    if cfg.compat:
+        raise ValueError("the lazy loop supports default mode only")
+    if cfg.second_kick == "full":
+        raise ValueError("the lazy loop requires second_kick in ('gravity', "
+                         "'none'): 'full' re-evaluates forces inside the "
+                         "integrator")
+    if cfg.pallas_layout != "sublane":
+        raise ValueError("the lazy loop uses the sublane sweep layout")
+
+
+def _bin(cfg: SphConfig, state: ParticleState, order: torch.Tensor | None,
+         steps_since: int, rebin_count: int) -> LazyCarry:
+    """Sort ``state`` and build fresh tables; ``order`` is the permutation
+    already applied to ``state`` (None for the caller's own order)."""
+    p = prepare_t(cfg, state)
+    sorted_state = state._replace(
+        position=p.pos_s, velocity=p.vel_s, mass=p.mass_s,
+        density=torch.zeros_like(p.mass_s),
+        acceleration=torch.zeros_like(p.pos_s),
+        neighbor_count=torch.zeros_like(p.cid))
+    return LazyCarry(sorted_state, p.order if order is None else order[p.order],
+                     p.pos_s, p.cid, p.ws, p.wc, steps_since, rebin_count)
+
+
+def init_lazy(cfg: SphConfig, state: ParticleState) -> LazyCarry:
+    """Sort the initial state and build the first binning structure."""
+    _validate(cfg)
+    return _bin(cfg, state, None, 0, 0)
+
+
+def lazy_step(cfg: SphConfig, carry: LazyCarry
+              ) -> tuple[LazyCarry, StepDiagnostics]:
+    """One physics step under frozen bins, rebuilding first if drift demands.
+
+    The drift test is float32, as in the JAX package, so both rebin on the
+    same steps.
+    """
+    spread = drift_spread(carry.state.position, carry.pos_bin)
+    if bool(spread > _f32(2.0 * skin_half(cfg))):
+        carry = _bin(cfg, carry.state, carry.order, 0, carry.rebin_count + 1)
+    else:
+        carry = carry._replace(steps_since=carry.steps_since + 1)
+
+    st = carry.state
+    p = PreparedT(order=carry.order, pos_s=st.position, vel_s=st.velocity,
+                  mass_s=st.mass, cid=carry.cid, ws=carry.ws, wc=carry.wc)
+    acc_s, rho_s, ncount_s = sweeps_sorted(cfg, p)
+    st = st._replace(density=rho_s, neighbor_count=ncount_s)
+    new_state, tally = kdk_integrate(cfg, st, acc_s)
+    return carry._replace(state=new_state), make_step_diagnostics(tally, ncount_s)
+
+
+def unsort_carry(carry: LazyCarry) -> ParticleState:
+    """Recover the original particle indexing from a lazy run's carry."""
+    st = carry.state
+    return ParticleState(*unsort_stacked(inverse_order(carry.order), list(st)))
+
+
+def drive_loop_lazy(cfg: SphConfig, state: ParticleState | None,
+                    num_steps: int, collect_diags: bool = True,
+                    carry: LazyCarry | None = None, keep_carry: bool = False,
+                    scan_block: int = 0):
+    """Host-driven lazy loop (the production path).
+
+    Returns ``(state, diags)`` with the state in the caller's particle
+    order, or ``(carry, diags)`` with ``keep_carry=True`` for chained
+    blocks.  ``scan_block`` is accepted for the JAX package's signature; the
+    steps run one by one here either way.
+    """
+    del scan_block
+    if carry is None:
+        carry = init_lazy(cfg, state)
+    diags = []
+    for _ in range(num_steps):
+        carry, d = lazy_step(cfg, carry)
+        if collect_diags:
+            diags.append(d)
+    stacked = stack_diagnostics(diags) if collect_diags and diags else None
+    if keep_carry:
+        return carry, stacked
+    return unsort_carry(carry), stacked
