@@ -3,9 +3,12 @@
     run   --scene splash -n N --steps S [--block B]   one JSON line per block
     bench --scene splash -n N --steps S [--warmup W]  one JSON line
 
-Both drive the lazy-rebinning loop on ``--device`` (default: cuda when
-present, else cpu with the kernels' plain twins).  ``--set key=value``
-overrides a config field (e.g. ``--set cell_size_factor=1.25``).
+Both drive the lazy-rebinning loop on ``--device`` (default cuda; a run
+without a CUDA device stops with an error, and ``--device cpu`` runs the
+kernels' plain twins on the CPU).  ``--set key=value`` overrides a config
+field (e.g. ``--set cell_size_factor=1.25``); capped mode is
+``--set capped_candidates=4`` (``--set capped_fused=true`` for the fused
+sweep), and ``pallas_window_t=0`` derives the window from the scene.
 """
 
 from __future__ import annotations
@@ -40,13 +43,23 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _device(name: str) -> torch.device:
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {name}: no CUDA device is available "
+                         "(--device cpu runs the kernels' plain twins)")
+    return dev
+
+
 def cmd_run(args) -> int:
     from .models import make_scene
     from .ops.lazy import drive_loop_lazy
+    from .utils.benchmark import resolve_sweep_settings
 
-    dev = torch.device(args.device)
-    cfg, state = make_scene(args.scene, device=dev, seed=args.seed,
-                            **_overrides(args))
+    dev = _device(args.device)
+    ov = _overrides(args)
+    cfg, state = make_scene(args.scene, device=dev, seed=args.seed, **ov)
+    cfg = resolve_sweep_settings(cfg, state, ov)
     carry, done = None, 0
     while done < args.steps:
         k = min(args.block, args.steps - done)
@@ -66,7 +79,11 @@ def cmd_run(args) -> int:
             "neighbor_mean": d.neighbor_mean[-1].item(),
             "neighbor_min": d.neighbor_min[-1].item(),
             "neighbor_max": d.neighbor_max[-1].item(),
+            "truncated_ranges": int(d.truncated_ranges.max().item()),
             "rebin_count": carry.rebin_count,
+            "window_t": cfg.pallas_window_t,
+            "block_t": cfg.pallas_block_t,
+            "capped_sub_len": cfg.capped_sub_len,
             "device": str(dev),
         }), flush=True)
     return 0
@@ -77,7 +94,7 @@ def cmd_bench(args) -> int:
 
     r = run_benchmark(scene=args.scene, lazy=not args.eager, steps=args.steps,
                       warmup=args.warmup, overrides=_overrides(args),
-                      device=args.device, seed=args.seed)
+                      device=str(_device(args.device)), seed=args.seed)
     print(json.dumps(r))
     return 0
 
@@ -91,8 +108,7 @@ def main(argv: list[str] | None = None) -> int:
         p.add_argument("-n", "--num-particles", type=int, default=1_000_000)
         p.add_argument("--steps", type=int, default=20)
         p.add_argument("--seed", type=int, default=11)
-        p.add_argument("--device",
-                       default="cuda" if torch.cuda.is_available() else "cpu")
+        p.add_argument("--device", default="cuda")
         p.add_argument("--set", action="append", metavar="KEY=VALUE")
     sub.choices["run"].add_argument("--block", type=int, default=10)
     sub.choices["bench"].add_argument("--warmup", type=int, default=3)

@@ -85,11 +85,11 @@ class SphConfig:
     pallas_window_t: int = 192          # rows per window chunk (multiple of 8)
     pallas_block_t: int = 128           # sorted particles per block (128/256/512)
     pallas_groups: int = 1              # lane groups: the port supports 1
-    # --- capped candidates ("Subsets"; not ported yet) ----------------------
-    capped_candidates: int = 0
-    capped_reweight: bool = True
-    capped_fused: bool = False
-    capped_sub_len: int = 0
+    # --- capped candidates ("Subsets"; ops/sweeps_t.py) -----------------------
+    capped_candidates: int = 0          # K_c kept candidates per cell (0 = exact)
+    capped_reweight: bool = True        # kept masses * occupancy/kept
+    capped_fused: bool = False          # sub-frame pre-pass + one fused sweep
+    capped_sub_len: int = 0             # sub-frame rows (0 = num_particles)
 
     # ---------------------------------------------------------------------------
     # Derived constants (float32-faithful)

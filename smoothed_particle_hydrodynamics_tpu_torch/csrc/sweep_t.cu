@@ -1,42 +1,58 @@
-// Exact-mode neighbor sweeps over the cell-sorted particle frame, for NVIDIA
-// Hopper (sm_90a).  Plain C interface, loaded with ctypes by
+// Neighbor sweeps over the cell-sorted particle frame, for NVIDIA Hopper
+// (sm_90a).  Plain C interface, loaded with ctypes by
 // smoothed_particle_hydrodynamics_tpu_torch/ops/sweeps_t.py, whose
-// density_t_plain / force_t_plain are the PyTorch versions of the same sums.
+// density_t_plain / force_t_plain / fused_t_plain are the PyTorch versions of
+// the same sums.
 //
-// K1 density_kernel_t replaces _density_kernel_t and K2 force_kernel_t
-// replaces _force_kernel_t, both in
-// smoothed_particle_hydrodynamics_tpu/ops/pallas_step_t.py (exact branch).
+// Replaces, in smoothed_particle_hydrodynamics_tpu/ops/pallas_step_t.py:
+//   K1 density_kernel_t<Excl>  <- _density_kernel_t: exact (kExclRow),
+//      capped (kExclSrc) and the fused path's sub-frame pre-pass
+//      (kExclSrcSrc, self_src_row=5);
+//   K2 force_kernel_t<Excl>    <- _force_kernel_t: exact and capped;
+//   K3 fused_kernel_t          <- _fused_kernel_t (capped only).
 //
 // What they compute.  Particles are sorted by linear cell id
 // (z*ny + y)*nx + x, so each of the 9 (dy, dz) stencil rods of a block of b
-// consecutive sorted particles is one contiguous row window
-// [ws, ws + wc*s_t) of the sorted frame (the window tables of
-// _block_windows_t).  A pair (i, j) counts when
-//     |cid_j - cid_i - delta_rod| <= 1  and  j != i  and  d^2 < h^2,
-// with d^2 in world coordinates.  K1 sums rho_i = sum m_j poly6(d) and the
-// neighbor count (plus the self term when include_self is set); K2 sums the
-// pressure term sum (x_i - x_j) (h-d)^2 (m_j pw_i + m_j pw_j) / (d+eps)
-// and the viscosity term sum (v_j - v_i) (h-d) m_j / rho_j, then applies
-// mu/rho_i and the Laplacian norm, as the TPU kernels do after their sweep.
+// consecutive sorted SELF rows is one contiguous row window
+// [ws, ws + wc*s_t) of the CANDIDATE frame (the window tables of
+// _block_windows_t).  In exact mode both frames are the sorted particles; in
+// capped ("Subsets") mode the candidates are the sub frame: at most K_c
+// hash-chosen particles of each cell, compacted to the front, so windows
+// span extent*K_c rows instead of extent*occupancy.  A pair (i, j) counts when
+//     |cid_j - cid_i - delta_rod| <= 1  and  id_j != own_i  and  d^2 < h^2,
+// with d^2 in world coordinates and the self-exclusion ids of the Excl mode.
+// K1 sums rho_i = sum m_j poly6(d) and the neighbor count (plus the self term
+// when include_self is set); K2 sums the pressure term
+// sum (x_i - x_j) (h-d)^2 (m_j pw_i + m_j pw_j) / (d+eps) and the viscosity
+// term sum (v_j - v_i) (h-d) m_j / rho_j, then applies mu/rho_i and the
+// Laplacian norm, as the TPU kernels do after their sweep.  K3 does K1 and K2
+// in one pass: its rho and count use K1's exact op sequence (so they equal
+// capped K1's bit for bit), and since pw_i needs that rho, the pressure sum
+// is split into P1 = sum (x_i - x_j) c1 and P2 = sum (x_i - x_j) c2 with
+// c1 = (h-d)^2/(d+eps) scale m_j and c2 = the same with m_j pw_j, combined
+// after the walk as pw_i P1 + P2 (the direct-sum form of the TPU kernel's
+// block-relative MXU dots).  The candidates' pw_j come from the pre-pass.
 //
-// Design.  One CUDA block per block of b sorted particles, one thread per
-// particle.  For each rod the block walks the window in tiles of b rows:
-// every thread stages one candidate row into shared memory, then every
-// thread tests the whole tile against its own particle and sums in
-// registers.  The TPU kernels' DMA double-buffering, 128-lane row padding,
-// per-block reference point and MXU reductions are not carried over: the
-// window walk is bounded by the particle count instead of padding rows, and
-// the sums are direct per-pair sums (acc then differs from the TPU's only by
-// reassociation).  Cell ids are int32 (the TPU kernels carry them as f32).
+// Design.  One CUDA block per block of b sorted self rows, one thread per
+// row.  For each rod the block walks the window in tiles of b rows: every
+// thread stages one candidate row into shared memory, then every thread tests
+// the whole tile against its own particle and sums in registers.  The TPU
+// kernels' DMA double-buffering, 128-lane row padding, per-block reference
+// point and MXU reductions are not carried over: the window walk is bounded
+// by the candidate count instead of padding rows, and the sums are direct
+// per-pair sums (acc then differs from the TPU's only by reassociation).
+// Cell ids and source rows are int32 (the TPU kernels carry them as f32,
+// exact only below 2^24).
 //
 // What bounds it.  The instruction rate of the pair tests: every thread
 // tests 9 windows of about (block extent + 2 cells) rows, of which a few
-// percent are neighbors, so most of the instruction stream is the d^2 and cid mask
-// of rejected pairs.  Candidate loads are small next to that (each tile row
-// is read once per block and reused by b threads from shared memory).  The
-// design does nothing yet about the rejected pairs or the divergence of the
-// force's sqrt/divide under the mask; tighter windows, warp-level tiling and
-// tensor-core reductions are later work.
+// percent are neighbors, so most of the instruction stream is the d^2 and cid
+// mask of rejected pairs.  Candidate loads are small next to that (each tile
+// row is read once per block and reused by b threads from shared memory).
+// Capped mode cuts the rows tested per particle by the window shrink; K3 also
+// saves K1's whole pass over the full frame for the price of a pre-pass over
+// the sub frame only.  Tighter windows, warp-level tiling and tensor-core
+// reductions are later work.
 //
 // Rounding.  d^2 and t = h_scaled^2 - d^2 * scale^2 are formed with
 // explicitly rounded intrinsics (no FMA contraction), so the mask sees the
@@ -52,6 +68,13 @@ constexpr int kRods = 9;
 // force candidate columns: x y z rimj*vx rimj*vy rimj*vz rimj mj mj*pwj
 constexpr int kForceCols = 9;
 
+// Self-exclusion: which ids a pair compares to drop the particle itself.
+enum Excl {
+  kExclRow = 0,     // candidate row vs self row: one frame for both (exact)
+  kExclSrc = 1,     // candidate's full-frame row vs self row (capped)
+  kExclSrcSrc = 2,  // candidate's vs self's full-frame row (sub-frame pre-pass)
+};
+
 // Rod r of [(dy, dz) for dy in (-1, 0, 1) for dz in (-1, 0, 1)]: its linear
 // cell-id offset (dz * ny + dy) * nx.
 __device__ __forceinline__ int rod_delta(int r, int nx, int ny) {
@@ -65,24 +88,34 @@ __device__ __forceinline__ float dist2(float dx, float dy, float dz) {
                    __fmul_rn(dz, dz));
 }
 
-__device__ __forceinline__ bool pair_ok(int cid_j, int cid_i, int delta,
-                                        int j, int i, float d2, float h2) {
-  const int dc = cid_j - cid_i - delta;
-  return dc >= -1 && dc <= 1 && j != i && d2 < h2;
+// |cid_j - cid_i - delta| <= 1, in wrapping unsigned arithmetic: a capped sub
+// frame's tail rows carry cell id -2^30, whose difference to any cell lands
+// far outside the band instead of overflowing.
+__device__ __forceinline__ bool in_band(int cid_j, int cid_i, int delta) {
+  const unsigned dc = static_cast<unsigned>(cid_j) -
+                      static_cast<unsigned>(cid_i) -
+                      static_cast<unsigned>(delta) + 1u;
+  return dc <= 2u;
 }
 
 struct DensityArgs {
-  const float* pos;   // [n, 3] sorted positions
-  const float* mass;  // [n]
-  const int* cid;     // [n] sorted (frozen) cell ids
-  const int* ws;      // [nblocks * 9] window starts
-  const int* wc;      // [nblocks * 9] window chunk counts
-  float* rho;         // [n] out
-  int* ncount;        // [n] out
-  int n, s_t, nx, ny, include_self;
+  const float* pos;    // [n, 3] self positions
+  const float* mass;   // [n] self masses (the self term)
+  const int* cid;      // [n] self cell ids (frozen between rebins)
+  const int* src;      // [n] self full-frame rows (kExclSrcSrc only)
+  const float* cpos;   // [m, 3] candidate positions
+  const float* cmass;  // [m] candidate masses (capped: reweighted)
+  const int* ccid;     // [m] candidate cell ids
+  const int* csrc;     // [m] candidate full-frame rows (not kExclRow)
+  const int* ws;       // [nblocks * 9] window starts into the candidates
+  const int* wc;       // [nblocks * 9] window chunk counts
+  float* rho;          // [n] out
+  int* ncount;         // [n] out
+  int n, m, s_t, nx, ny, include_self;
   float h2, h_scaled2, scale2, poly6;
 };
 
+template <int kExcl>
 __global__ void density_kernel_t(DensityArgs a) {
   extern __shared__ float smem[];
   const int b = blockDim.x;
@@ -91,6 +124,7 @@ __global__ void density_kernel_t(DensityArgs a) {
   float* sz = sy + b;
   float* sm = sz + b;
   int* sc = reinterpret_cast<int*>(sm + b);
+  int* ss = sc + b;  // candidate src (not staged for kExclRow)
 
   const int tid = threadIdx.x;
   const int blk = blockIdx.x;
@@ -98,33 +132,37 @@ __global__ void density_kernel_t(DensityArgs a) {
   const bool live = i < a.n;
   float xi = 0.f, yi = 0.f, zi = 0.f;
   int ci = 0;
+  int own = i;
   if (live) {
     xi = a.pos[3 * i];
     yi = a.pos[3 * i + 1];
     zi = a.pos[3 * i + 2];
     ci = a.cid[i];
+    if (kExcl == kExclSrcSrc) own = a.src[i];
   }
   float rho = 0.f;
   int count = 0;
   for (int r = 0; r < kRods; ++r) {
     const int delta = rod_delta(r, a.nx, a.ny);
     const int start = a.ws[blk * kRods + r];
-    const int stop = min(start + a.wc[blk * kRods + r] * a.s_t, a.n);
+    const int stop = min(start + a.wc[blk * kRods + r] * a.s_t, a.m);
     for (int t0 = start; t0 < stop; t0 += b) {
       const int j = t0 + tid;
       if (j < stop) {
-        sx[tid] = a.pos[3 * j];
-        sy[tid] = a.pos[3 * j + 1];
-        sz[tid] = a.pos[3 * j + 2];
-        sm[tid] = a.mass[j];
-        sc[tid] = a.cid[j];
+        sx[tid] = a.cpos[3 * j];
+        sy[tid] = a.cpos[3 * j + 1];
+        sz[tid] = a.cpos[3 * j + 2];
+        sm[tid] = a.cmass[j];
+        sc[tid] = a.ccid[j];
+        if (kExcl != kExclRow) ss[tid] = a.csrc[j];
       }
       __syncthreads();
       const int len = min(b, stop - t0);
       if (live) {
         for (int k = 0; k < len; ++k) {
           const float d2 = dist2(sx[k] - xi, sy[k] - yi, sz[k] - zi);
-          if (pair_ok(sc[k], ci, delta, t0 + k, i, d2, a.h2)) {
+          const int id = kExcl == kExclRow ? t0 + k : ss[k];
+          if (in_band(sc[k], ci, delta) && id != own && d2 < a.h2) {
             const float t = __fsub_rn(a.h_scaled2, __fmul_rn(d2, a.scale2));
             const float w3 = a.poly6 * t * t * t;
             rho += sm[k] * w3;
@@ -146,23 +184,27 @@ __global__ void density_kernel_t(DensityArgs a) {
 }
 
 struct ForceArgs {
-  const float* pos;   // [n, 3] sorted positions
-  const float* vel;   // [n, 3] sorted velocities
-  const float* rho;   // [n] densities from K1
-  const float* cand;  // [n, kForceCols] candidate columns (fused_cand_cols)
-  const int* cid;     // [n]
+  const float* pos;   // [n, 3] self positions
+  const float* vel;   // [n, 3] self velocities
+  const float* rho;   // [n] self densities from K1
+  const int* cid;     // [n] self cell ids
+  const float* cand;  // [m, kForceCols] candidate columns (fused_cand_cols)
+  const int* ccid;    // [m] candidate cell ids
+  const int* csrc;    // [m] candidate full-frame rows (kExclSrc only)
   const int* ws;      // [nblocks * 9]
   const int* wc;      // [nblocks * 9]
   float* acc;         // [n, 3] out: hydro acceleration
-  int n, s_t, nx, ny;
+  int n, m, s_t, nx, ny;
   float h2, h, scale, eps, stiffness, rho0, viscosity, visc_norm;
 };
 
+template <int kExcl>
 __global__ void force_kernel_t(ForceArgs a) {
   extern __shared__ float smem[];
   const int b = blockDim.x;
   float* sf = smem;  // column c of the tile at sf[c * b + row]
   int* sc = reinterpret_cast<int*>(smem + kForceCols * b);
+  int* ss = sc + b;
 
   const int tid = threadIdx.x;
   const int blk = blockIdx.x;
@@ -188,13 +230,14 @@ __global__ void force_kernel_t(ForceArgs a) {
   for (int r = 0; r < kRods; ++r) {
     const int delta = rod_delta(r, a.nx, a.ny);
     const int start = a.ws[blk * kRods + r];
-    const int stop = min(start + a.wc[blk * kRods + r] * a.s_t, a.n);
+    const int stop = min(start + a.wc[blk * kRods + r] * a.s_t, a.m);
     for (int t0 = start; t0 < stop; t0 += b) {
       const int j = t0 + tid;
       if (j < stop) {
         const float* row = a.cand + static_cast<long long>(j) * kForceCols;
         for (int c = 0; c < kForceCols; ++c) sf[c * b + tid] = row[c];
-        sc[tid] = a.cid[j];
+        sc[tid] = a.ccid[j];
+        if (kExcl != kExclRow) ss[tid] = a.csrc[j];
       }
       __syncthreads();
       const int len = min(b, stop - t0);
@@ -204,7 +247,8 @@ __global__ void force_kernel_t(ForceArgs a) {
           const float dy = sf[b + k] - yi;
           const float dz = sf[2 * b + k] - zi;
           const float d2 = dist2(dx, dy, dz);
-          if (pair_ok(sc[k], ci, delta, t0 + k, i, d2, a.h2)) {
+          const int id = kExcl == kExclRow ? t0 + k : ss[k];
+          if (in_band(sc[k], ci, delta) && id != i && d2 < a.h2) {
             const float d = sqrtf(d2) * a.scale;
             const float hd = a.h - d;
             const float num = (hd * hd) * (sf[7 * b + k] * pw_i + sf[8 * b + k]);
@@ -230,26 +274,145 @@ __global__ void force_kernel_t(ForceArgs a) {
   }
 }
 
+struct FusedArgs {
+  const float* pos;   // [n, 3] self positions
+  const float* vel;   // [n, 3] self velocities
+  const float* mass;  // [n] self masses (the self term)
+  const int* cid;     // [n] self cell ids
+  const float* cand;  // [m, kForceCols] sub-frame candidate columns
+  const int* ccid;    // [m] candidate cell ids
+  const int* csrc;    // [m] candidate full-frame rows
+  const int* ws;      // [nblocks * 9]
+  const int* wc;      // [nblocks * 9]
+  float* acc;         // [n, 3] out: hydro acceleration
+  float* rho;         // [n] out
+  int* ncount;        // [n] out
+  int n, m, s_t, nx, ny, include_self;
+  float h2, h_scaled2, scale2, poly6;
+  float h, scale, eps, stiffness, rho0, viscosity, visc_norm;
+};
+
+__global__ void fused_kernel_t(FusedArgs a) {
+  extern __shared__ float smem[];
+  const int b = blockDim.x;
+  float* sf = smem;  // column c of the tile at sf[c * b + row]
+  int* sc = reinterpret_cast<int*>(smem + kForceCols * b);
+  int* ss = sc + b;
+
+  const int tid = threadIdx.x;
+  const int blk = blockIdx.x;
+  const int i = blk * b + tid;
+  const bool live = i < a.n;
+  float xi = 0.f, yi = 0.f, zi = 0.f, vxi = 0.f, vyi = 0.f, vzi = 0.f;
+  int ci = 0;
+  if (live) {
+    xi = a.pos[3 * i];
+    yi = a.pos[3 * i + 1];
+    zi = a.pos[3 * i + 2];
+    vxi = a.vel[3 * i];
+    vyi = a.vel[3 * i + 1];
+    vzi = a.vel[3 * i + 2];
+    ci = a.cid[i];
+  }
+  float rho = 0.f;
+  int count = 0;
+  float p1x = 0.f, p1y = 0.f, p1z = 0.f, p2x = 0.f, p2y = 0.f, p2z = 0.f;
+  float vx = 0.f, vy = 0.f, vz = 0.f;
+  for (int r = 0; r < kRods; ++r) {
+    const int delta = rod_delta(r, a.nx, a.ny);
+    const int start = a.ws[blk * kRods + r];
+    const int stop = min(start + a.wc[blk * kRods + r] * a.s_t, a.m);
+    for (int t0 = start; t0 < stop; t0 += b) {
+      const int j = t0 + tid;
+      if (j < stop) {
+        const float* row = a.cand + static_cast<long long>(j) * kForceCols;
+        for (int c = 0; c < kForceCols; ++c) sf[c * b + tid] = row[c];
+        sc[tid] = a.ccid[j];
+        ss[tid] = a.csrc[j];
+      }
+      __syncthreads();
+      const int len = min(b, stop - t0);
+      if (live) {
+        for (int k = 0; k < len; ++k) {
+          const float dx = sf[k] - xi;
+          const float dy = sf[b + k] - yi;
+          const float dz = sf[2 * b + k] - zi;
+          const float d2 = dist2(dx, dy, dz);
+          if (in_band(sc[k], ci, delta) && ss[k] != i && d2 < a.h2) {
+            // density part: K1's op sequence, so rho and count equal its bits
+            const float mj = sf[7 * b + k];
+            const float t = __fsub_rn(a.h_scaled2, __fmul_rn(d2, a.scale2));
+            const float w3 = a.poly6 * t * t * t;
+            rho += mj * w3;
+            ++count;
+            const float d = sqrtf(d2) * a.scale;
+            const float hd = a.h - d;
+            const float hd2inv = (hd * hd) / (d + a.eps) * a.scale;
+            const float c1 = hd2inv * mj;
+            const float c2 = hd2inv * sf[8 * b + k];
+            p1x -= dx * c1;
+            p1y -= dy * c1;
+            p1z -= dz * c1;
+            p2x -= dx * c2;
+            p2y -= dy * c2;
+            p2z -= dz * c2;
+            const float rim = sf[6 * b + k];
+            vx += (sf[3 * b + k] - vxi * rim) * hd;
+            vy += (sf[4 * b + k] - vyi * rim) * hd;
+            vz += (sf[5 * b + k] - vzi * rim) * hd;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  if (live) {
+    if (a.include_self) {
+      const float h2s = a.h_scaled2;
+      rho += a.mass[i] * a.poly6 * h2s * h2s * h2s;
+    }
+    const float rhoi_inv = 1.f / (rho > 0.f ? rho : 1.f);
+    const float pw_i = (rho - a.rho0) * a.stiffness * rhoi_inv * rhoi_inv;
+    const float mu_rhoi = a.viscosity * rhoi_inv;
+    a.acc[3 * i] = mu_rhoi * vx * a.visc_norm + (pw_i * p1x + p2x) * a.visc_norm;
+    a.acc[3 * i + 1] =
+        mu_rhoi * vy * a.visc_norm + (pw_i * p1y + p2y) * a.visc_norm;
+    a.acc[3 * i + 2] =
+        mu_rhoi * vz * a.visc_norm + (pw_i * p1z + p2z) * a.visc_norm;
+    a.rho[i] = rho;
+    a.ncount[i] = count;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Each entry point launches one kernel on `stream` (a cudaStream_t) and
-// returns cudaGetLastError(): nonzero when the launch was refused.
+// returns cudaGetLastError(): nonzero when the launch was refused.  Pointers
+// a mode does not read (src, csrc) may be null.
 int sph_density_t(const float* pos, const float* mass, const int* cid,
-                  const int* ws, const int* wc, float* rho, int* ncount,
-                  int n, int block, int s_t, int nx, int ny, int include_self,
-                  float h2, float h_scaled2, float scale2, float poly6,
-                  void* stream) {
+                  const int* src, const float* cpos, const float* cmass,
+                  const int* ccid, const int* csrc, const int* ws,
+                  const int* wc, float* rho, int* ncount, int n, int m,
+                  int block, int s_t, int nx, int ny, int include_self,
+                  int excl, float h2, float h_scaled2, float scale2,
+                  float poly6, void* stream) {
   DensityArgs a;
   a.pos = pos;
   a.mass = mass;
   a.cid = cid;
+  a.src = src;
+  a.cpos = cpos;
+  a.cmass = cmass;
+  a.ccid = ccid;
+  a.csrc = csrc;
   a.ws = ws;
   a.wc = wc;
   a.rho = rho;
   a.ncount = ncount;
   a.n = n;
+  a.m = m;
   a.s_t = s_t;
   a.nx = nx;
   a.ny = ny;
@@ -259,28 +422,43 @@ int sph_density_t(const float* pos, const float* mass, const int* cid,
   a.scale2 = scale2;
   a.poly6 = poly6;
   const int nblocks = (n + block - 1) / block;
-  const size_t smem = static_cast<size_t>(block) * 5 * sizeof(float);
-  density_kernel_t<<<nblocks, block, smem,
-                     static_cast<cudaStream_t>(stream)>>>(a);
+  const size_t smem = static_cast<size_t>(block) * 6 * sizeof(float);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (excl) {
+    case kExclRow:
+      density_kernel_t<kExclRow><<<nblocks, block, smem, s>>>(a);
+      break;
+    case kExclSrc:
+      density_kernel_t<kExclSrc><<<nblocks, block, smem, s>>>(a);
+      break;
+    case kExclSrcSrc:
+      density_kernel_t<kExclSrcSrc><<<nblocks, block, smem, s>>>(a);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 int sph_force_t(const float* pos, const float* vel, const float* rho,
-                const float* cand, const int* cid, const int* ws,
-                const int* wc, float* acc, int n, int block, int s_t, int nx,
-                int ny, float h2, float h, float scale, float eps,
-                float stiffness, float rho0, float viscosity, float visc_norm,
-                void* stream) {
+                const int* cid, const float* cand, const int* ccid,
+                const int* csrc, const int* ws, const int* wc, float* acc,
+                int n, int m, int block, int s_t, int nx, int ny, int excl,
+                float h2, float h, float scale, float eps, float stiffness,
+                float rho0, float viscosity, float visc_norm, void* stream) {
   ForceArgs a;
   a.pos = pos;
   a.vel = vel;
   a.rho = rho;
-  a.cand = cand;
   a.cid = cid;
+  a.cand = cand;
+  a.ccid = ccid;
+  a.csrc = csrc;
   a.ws = ws;
   a.wc = wc;
   a.acc = acc;
   a.n = n;
+  a.m = m;
   a.s_t = s_t;
   a.nx = nx;
   a.ny = ny;
@@ -294,9 +472,64 @@ int sph_force_t(const float* pos, const float* vel, const float* rho,
   a.visc_norm = visc_norm;
   const int nblocks = (n + block - 1) / block;
   const size_t smem =
-      static_cast<size_t>(block) * (kForceCols + 1) * sizeof(float);
-  force_kernel_t<<<nblocks, block, smem,
-                   static_cast<cudaStream_t>(stream)>>>(a);
+      static_cast<size_t>(block) * (kForceCols + 2) * sizeof(float);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (excl) {
+    case kExclRow:
+      force_kernel_t<kExclRow><<<nblocks, block, smem, s>>>(a);
+      break;
+    case kExclSrc:
+      force_kernel_t<kExclSrc><<<nblocks, block, smem, s>>>(a);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int sph_fused_t(const float* pos, const float* vel, const float* mass,
+                const int* cid, const float* cand, const int* ccid,
+                const int* csrc, const int* ws, const int* wc, float* acc,
+                float* rho, int* ncount, int n, int m, int block, int s_t,
+                int nx, int ny, int include_self, float h2, float h_scaled2,
+                float scale2, float poly6, float h, float scale, float eps,
+                float stiffness, float rho0, float viscosity, float visc_norm,
+                void* stream) {
+  FusedArgs a;
+  a.pos = pos;
+  a.vel = vel;
+  a.mass = mass;
+  a.cid = cid;
+  a.cand = cand;
+  a.ccid = ccid;
+  a.csrc = csrc;
+  a.ws = ws;
+  a.wc = wc;
+  a.acc = acc;
+  a.rho = rho;
+  a.ncount = ncount;
+  a.n = n;
+  a.m = m;
+  a.s_t = s_t;
+  a.nx = nx;
+  a.ny = ny;
+  a.include_self = include_self;
+  a.h2 = h2;
+  a.h_scaled2 = h_scaled2;
+  a.scale2 = scale2;
+  a.poly6 = poly6;
+  a.h = h;
+  a.scale = scale;
+  a.eps = eps;
+  a.stiffness = stiffness;
+  a.rho0 = rho0;
+  a.viscosity = viscosity;
+  a.visc_norm = visc_norm;
+  const int nblocks = (n + block - 1) / block;
+  const size_t smem =
+      static_cast<size_t>(block) * (kForceCols + 2) * sizeof(float);
+  fused_kernel_t<<<nblocks, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,6 +8,9 @@ change only which candidates are considered, and they still cover every
 true pair while the per-axis displacement spread since binning stays within
 ``cell_size - h``.  ``lazy_step`` checks that bound against the positions
 the sweeps are about to use and rebuilds first when it would be broken.
+In capped mode the sub frame (kept set, reweighted masses, its window
+tables) is frozen and rebuilt with the bins; its positions and velocities
+are gathered fresh every step.
 
 The JAX package decides inside the compiled step with ``lax.cond``; here
 the decision is one host read of the drift test per step.
@@ -24,7 +27,8 @@ from ..state import (ParticleState, StepDiagnostics, make_step_diagnostics,
                      stack_diagnostics)
 from .grid import inverse_order, unsort_stacked
 from .integrate import kdk_integrate
-from .sweeps_t import PreparedT, prepare_t, sweeps_sorted
+from .sweeps_t import (SUB_FIELDS, PreparedT, prepare_t, sweeps_sorted,
+                       truncated_ranges)
 
 
 class LazyCarry(NamedTuple):
@@ -38,6 +42,13 @@ class LazyCarry(NamedTuple):
     wc: torch.Tensor        # [nblocks*9] i32 frozen chunk counts
     steps_since: int        # steps since the last rebin
     rebin_count: int        # rebins so far (the initial binning excluded)
+    # capped mode only (None otherwise), frozen with the bins:
+    sub_perm: torch.Tensor | None = None     # [S] i32 sub row -> sorted row
+    cand_cid: torch.Tensor | None = None     # [S] i32 sub cids
+    wm_sub: torch.Tensor | None = None       # [S] reweighted cand masses
+    sub_dropped: torch.Tensor | None = None  # i32 kept rows beyond S
+    ws_sub: torch.Tensor | None = None       # fused: sub-block windows
+    wc_sub: torch.Tensor | None = None       # fused: sub-block chunk counts
 
 
 def skin_half(cfg: SphConfig) -> float:
@@ -74,7 +85,8 @@ def _bin(cfg: SphConfig, state: ParticleState, order: torch.Tensor | None,
         acceleration=torch.zeros_like(p.pos_s),
         neighbor_count=torch.zeros_like(p.cid))
     return LazyCarry(sorted_state, p.order if order is None else order[p.order],
-                     p.pos_s, p.cid, p.ws, p.wc, steps_since, rebin_count)
+                     p.pos_s, p.cid, p.ws, p.wc, steps_since, rebin_count,
+                     **{k: getattr(p, k) for k in SUB_FIELDS})
 
 
 def init_lazy(cfg: SphConfig, state: ParticleState) -> LazyCarry:
@@ -98,11 +110,13 @@ def lazy_step(cfg: SphConfig, carry: LazyCarry
 
     st = carry.state
     p = PreparedT(order=carry.order, pos_s=st.position, vel_s=st.velocity,
-                  mass_s=st.mass, cid=carry.cid, ws=carry.ws, wc=carry.wc)
+                  mass_s=st.mass, cid=carry.cid, ws=carry.ws, wc=carry.wc,
+                  **{k: getattr(carry, k) for k in SUB_FIELDS})
     acc_s, rho_s, ncount_s = sweeps_sorted(cfg, p)
     st = st._replace(density=rho_s, neighbor_count=ncount_s)
     new_state, tally = kdk_integrate(cfg, st, acc_s)
-    return carry._replace(state=new_state), make_step_diagnostics(tally, ncount_s)
+    return carry._replace(state=new_state), make_step_diagnostics(
+        tally, ncount_s, truncated_ranges(p))
 
 
 def unsort_carry(carry: LazyCarry) -> ParticleState:

@@ -25,14 +25,23 @@ Backend = Literal["pallas", "pairwise"]
 
 def compute_forces(cfg: SphConfig, state: ParticleState,
                    backend: Backend = "pallas"
-                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(acceleration, density, neighbor_count) at the current state."""
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+    """(acceleration, density, neighbor_count, truncated_ranges) at the
+    current state."""
+    if cfg.capped_candidates and backend != "pallas":
+        # only the sweeps implement the capped subsample; running exact
+        # physics under a capped config would hide that the cap is off
+        raise ValueError(f"capped_candidates={cfg.capped_candidates} is only "
+                         f"implemented by the pallas backend (got "
+                         f"{backend!r}); unset it for the exact backends")
     if backend == "pallas":
         return sweeps_t.compute_step_quantities(cfg, state)
     if backend == "pairwise":
         rho = pairwise.compute_density(cfg, state)
         acc = pairwise.compute_acceleration(cfg, state, rho)
-        return acc, rho, pairwise.neighbor_counts(cfg, state)
+        zero = torch.zeros((), dtype=torch.int32, device=rho.device)
+        return acc, rho, pairwise.neighbor_counts(cfg, state), zero
     raise ValueError(f"unknown backend {backend!r} (torch package: 'pallas' "
                      "or 'pairwise')")
 
@@ -40,10 +49,10 @@ def compute_forces(cfg: SphConfig, state: ParticleState,
 def step(cfg: SphConfig, state: ParticleState, backend: Backend = "pallas"
          ) -> tuple[ParticleState, StepDiagnostics]:
     """One physics step (forces + KDK integration + diagnostics)."""
-    acc, rho, ncount = compute_forces(cfg, state, backend)
+    acc, rho, ncount, truncated = compute_forces(cfg, state, backend)
     state = state._replace(density=rho, neighbor_count=ncount)
     new_state, tally = kdk_integrate(cfg, state, acc)
-    return new_state, make_step_diagnostics(tally, ncount)
+    return new_state, make_step_diagnostics(tally, ncount, truncated)
 
 
 def drive_loop(cfg: SphConfig, state: ParticleState, num_steps: int,

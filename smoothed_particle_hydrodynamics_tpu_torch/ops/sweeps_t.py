@@ -1,28 +1,42 @@
-"""Exact-mode neighbor sweeps on the cell-sorted frame.
+"""Neighbor sweeps on the cell-sorted frame, exact and capped.
 
-Counterpart of ``smoothed_particle_hydrodynamics_tpu/ops/pallas_step_t.py``
-(exact branch; the capped "Subsets" branches and the fused capped sweep are
-still to be ported).  ``prepare_t`` bins and sorts the particles and builds
-the per-(block, rod) window tables; ``density_sweep_t`` and
-``force_sweep_t`` run the two sweep kernels over them.
+Counterpart of ``smoothed_particle_hydrodynamics_tpu/ops/pallas_step_t.py``.
+``prepare_t`` bins and sorts the particles and builds the per-(block, rod)
+window tables; ``sweeps_sorted`` runs the sweeps over them.
+
+Capped ("Subsets") mode, ``cfg.capped_candidates = K_c``: the candidates of
+every pair sum come from a SUB FRAME holding at most K_c particles of each
+cell (the K_c lowest by a position-free hash, so an unbiased subsample),
+compacted to the front and bounded to ``capped_sub_len`` rows; the self rows
+stay the full sorted frame.  Windows are built over the sub frame's cids, so
+a rod window spans extent*K_c rows instead of extent*occupancy.
+``capped_reweight`` scales kept masses by occupancy/kept so densities stay
+unbiased.  ``capped_fused`` replaces the two sweeps by a density pre-pass
+over the sub frame (the candidates' pressures) and one fused pass.
 
 Each kernel has a wrapper and a plain PyTorch twin here:
 
-* ``density_t`` -> CUDA kernel ``density_kernel_t`` (``csrc/sweep_t.cu``),
-  replacing ``_density_kernel_t``; twin ``density_t_plain``;
-* ``force_t`` -> CUDA kernel ``force_kernel_t``, replacing
-  ``_force_kernel_t``; twin ``force_t_plain``.
+* ``density_t`` (exact), ``density_capped_t`` (capped) and
+  ``density_pre_t`` (the fused path's sub-frame pre-pass) -> CUDA kernel
+  ``density_kernel_t<Excl>`` (``csrc/sweep_t.cu``), replacing
+  ``_density_kernel_t``; twins ``density_t_plain`` and
+  ``density_pre_t_plain``;
+* ``force_t`` (exact) and ``force_capped_t`` -> ``force_kernel_t<Excl>``,
+  replacing ``_force_kernel_t``; twin ``force_t_plain``;
+* ``fused_t`` -> ``fused_kernel_t``, replacing ``_fused_kernel_t``; twin
+  ``fused_t_plain``.
 
 A wrapper given CPU tensors computes with the twin; given CUDA tensors it
 launches the kernel (built from source on first use) or raises; any other
 device raises.  ``<wrapper>.launches`` counts kernel launches.
 
-Differences from the JAX package: cell ids are int32 (the TPU kernels carry
-f32 ids, exact below 2^24 cells), window walks stop at the particle count
-instead of reading padded rows, and the force sums are direct per-pair sums
-(no per-block reference point, no MXU reduction), so accelerations differ
-from the TPU's by reassociation only.  Lane groups (``pallas_groups > 1``)
-are not ported.
+Differences from the JAX package: cell ids and source rows are int32 (the
+TPU kernels carry f32, exact below 2^24 cells and, in capped mode, 2^24
+particles), window walks stop at the candidate count instead of reading
+padded rows, the sub frame's unkept tail rows get cell id ``TAIL_CID``
+instead of -10, and the force sums are direct per-pair sums (no per-block
+reference point, no MXU reduction), so accelerations differ from the TPU's
+by reassociation only.  Lane groups (``pallas_groups > 1``) are not ported.
 """
 
 from __future__ import annotations
@@ -46,8 +60,14 @@ LANE = 128   # padded-frame granule of the JAX package's window tables
 # The 9 (dy, dz) stencil rods; rod r's linear-id offset is (dz*ny + dy)*nx.
 RODS = [(dy, dz) for dy in (-1, 0, 1) for dz in (-1, 0, 1)]
 NRODS = len(RODS)
+# Cell id of the sub frame's tail rows (unkept particles beyond the kept
+# count): no rod band [cid_i + delta - 1, cid_i + delta + 1] reaches it.
+TAIL_CID = -(1 << 30)
 # pair elements per twin chunk ([blocks, b, s_t] tensors), bounding its memory
 _PAIR_BUDGET = 1 << 25
+# Self-exclusion modes of the density and force kernels (csrc/sweep_t.cu):
+# candidate row vs self row, candidate src vs self row, src vs src.
+EXCL_ROW, EXCL_SRC, EXCL_SRC_SRC = 0, 1, 2
 
 
 def _blane(cfg: SphConfig) -> int:
@@ -59,10 +79,11 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _n_pad(cfg: SphConfig, n: int) -> int:
-    """The JAX package's padded candidate length: window starts clip to
-    ``n_pad - window`` exactly as there, so the tables compare equal."""
-    return _round_up(n + cfg.pallas_window_t, LANE)
+def _n_pad(cfg: SphConfig, rows: int) -> int:
+    """The JAX package's padded length of a candidate frame of ``rows``
+    rows: window starts clip to ``_n_pad - window`` exactly as there, so the
+    tables compare equal."""
+    return _round_up(rows + cfg.pallas_window_t, LANE)
 
 
 def rod_deltas(cfg: SphConfig) -> list[int]:
@@ -72,11 +93,9 @@ def rod_deltas(cfg: SphConfig) -> list[int]:
 def _validate(cfg: SphConfig) -> None:
     if cfg.compat:
         raise ValueError("the sweeps support default mode only")
-    if cfg.capped_candidates:
-        raise NotImplementedError("capped_candidates is not ported to the "
-                                  "torch package yet")
-    if cfg.num_cells >= 1 << 31:
-        raise ValueError("cell ids are int32: num_cells must be < 2^31")
+    if cfg.num_cells >= 1 << 30:
+        raise ValueError("cell ids are int32 with a -2^30 tail sentinel: "
+                         "num_cells must be < 2^30")
     if min(cfg.grid_nx, cfg.grid_ny, cfg.grid_nz) < 3:
         raise ValueError(
             "the rod mask needs grid dims >= 3 in every axis "
@@ -92,7 +111,12 @@ def _validate(cfg: SphConfig) -> None:
 
 
 class PreparedT(NamedTuple):
-    """Sorted fields + window tables shared by both sweeps."""
+    """Sorted fields + window tables shared by the sweeps.
+
+    The optional fields exist only in capped mode (``sub_*`` and the sub
+    frame's reweighted masses) and, for ``ws_sub``/``wc_sub``, only with
+    ``capped_fused``.
+    """
 
     order: torch.Tensor    # [N] i64: sorted row -> original index
     pos_s: torch.Tensor    # [N, 3] sorted
@@ -101,29 +125,44 @@ class PreparedT(NamedTuple):
     cid: torch.Tensor      # [N] i32 sorted cell ids
     ws: torch.Tensor       # [nblocks*9] i32 window starts
     wc: torch.Tensor       # [nblocks*9] i32 window chunk counts
+    sub_perm: torch.Tensor | None = None     # [S] i32 sub row -> sorted row
+    cand_cid: torch.Tensor | None = None     # [S] i32 sub cids (TAIL_CID tail)
+    wm_sub: torch.Tensor | None = None       # [S] f32 reweighted cand mass
+    sub_dropped: torch.Tensor | None = None  # i32: kept rows beyond S
+    ws_sub: torch.Tensor | None = None       # fused: sub-block window starts
+    wc_sub: torch.Tensor | None = None       # fused: sub-block chunk counts
+
+
+SUB_FIELDS = ("sub_perm", "cand_cid", "wm_sub", "sub_dropped", "ws_sub",
+              "wc_sub")
 
 
 def _block_windows_t(cfg: SphConfig, cid_sorted: torch.Tensor, nblocks: int,
-                     window: int, n: int, n_pad: int
+                     window: int, n: int, n_pad: int,
+                     cid_search: torch.Tensor | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per (block, rod): 8-aligned window start + chunk count of ``window``
     rows, flattened in (block, rod) order.
 
     A block's rod window spans the cells from (first cid + delta - 1) to
-    (last cid + delta + 1), looked up in one bincount + cumsum of the sorted
-    cids.  Any superset of the true window gives the same sums (the kernels'
-    cid mask rejects the extra rows), so the GPU walks the rows
-    ``[ws, ws + wc*window)`` directly.
+    (last cid + delta + 1) of ``cid_sorted`` (the self rows), looked up in
+    one bincount + cumsum of ``cid_search`` (the candidate rows, default the
+    same).  Search cids >= num_cells (the capped sub frame's tail) land in a
+    bucket no window reaches.  Any superset of the true window gives the
+    same sums (the kernels' cid mask rejects the extra rows), so the GPU
+    walks the rows ``[ws, ws + wc*window)`` directly.
     """
+    if cid_search is None:
+        cid_search = cid_sorted
     b = _blane(cfg)
     last = cfg.num_cells - 1
     deltas = torch.tensor(rod_deltas(cfg), dtype=torch.int64,
                           device=cid_sorted.device)
-    cid64 = cid_sorted.long()
-    blocks = F.pad(cid64, (0, nblocks * b - n), value=last).view(nblocks, b)
+    blocks = F.pad(cid_sorted.long(), (0, nblocks * b - n),
+                   value=last).view(nblocks, b)
     lo = (blocks[:, :1] + deltas - 1).clamp(0, last)
     hi = (blocks[:, -1:] + deltas + 1).clamp(0, last)
-    counts = torch.bincount(cid64.clamp(0, cfg.num_cells),
+    counts = torch.bincount(cid_search.long().clamp(0, cfg.num_cells),
                             minlength=cfg.num_cells + 1)
     cum = F.pad(counts.cumsum(0), (1, 0))
     w_start = cum[lo]
@@ -136,11 +175,103 @@ def _block_windows_t(cfg: SphConfig, cid_sorted: torch.Tensor, nblocks: int,
             w_chunks.to(torch.int32).reshape(-1))
 
 
+# ---------------------------------------------------------------------------
+# Capped sub frame
+# ---------------------------------------------------------------------------
+
+def _hash32(idx: torch.Tensor) -> torch.Tensor:
+    """Knuth multiplicative hash, 31 bits: the JAX package's wrapping int32
+    ``idx * -1640531527 & 0x7FFFFFFF``, computed exactly in int64
+    (2654435769 == -1640531527 mod 2^32)."""
+    return (idx.long() * 2654435769) & 0x7FFFFFFF
+
+
+def _hash_bits(cfg: SphConfig) -> int:
+    """Spare low bits of an i32 after the cell id; with >= 8 the JAX package
+    packs (cid << hb) | hash_top_hb into one sort key."""
+    return 31 - max((cfg.num_cells - 1).bit_length(), 1)
+
+
+def _capped_order(cid: torch.Tensor, hb: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cid_sorted i32, order i64): a stable sort by (cell, hash of the input
+    row), so cell members land in hash order and "rank < K_c" is an unbiased
+    within-cell subsample.  ``hb >= 8`` is the JAX package's packed key
+    (cid, top hb hash bits), ties broken by input row; otherwise its two-key
+    (cid, full hash) sort.  Both become one int64 key here."""
+    bits = hb if hb >= 8 else 31
+    iota = torch.arange(cid.shape[0], device=cid.device)
+    key = (cid.long() << bits) | (_hash32(iota) >> (31 - bits))
+    key_s, order = torch.sort(key, stable=True)
+    return (key_s >> bits).to(torch.int32), order
+
+
+def _run_rank_occ(cid_sorted: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rank within the cid run, run occupancy) per sorted row, from each
+    row's run bounds found by binary search in the sorted cids.  (The JAX
+    package scans run-boundary flags with cummax/cummin; on an H100,
+    torch's cummax and cummin took ~2.7 ms each at 1M rows.)"""
+    start = torch.searchsorted(cid_sorted, cid_sorted, side="left")
+    end = torch.searchsorted(cid_sorted, cid_sorted, side="right")
+    iota = torch.arange(cid_sorted.shape[0], device=cid_sorted.device)
+    return iota - start, end - start
+
+
+def sub_len(cfg: SphConfig, n: int) -> int:
+    """Static sub-frame length for capped mode (0 config = full N)."""
+    return min(cfg.capped_sub_len or n, n)
+
+
+def derive_sub_len(cfg: SphConfig, state: ParticleState,
+                   margin: float = 1.15) -> int:
+    """Host-side: bound the kept-candidate count from the current occupancy
+    histogram (sum of min(occ, K_c) per cell) with margin for drift between
+    rebins, 128-rounded; 0 (= full N) when that bound is no smaller.
+    Overflow is counted (``sub_dropped``), never silent."""
+    if not cfg.capped_candidates:
+        return 0
+    cid = linear_cell_id(cfg, cell_coords(cfg, state.position)).cpu().numpy()
+    occ = np.bincount(cid, minlength=cfg.num_cells)
+    kept = np.minimum(occ, cfg.capped_candidates).sum()
+    v = -(-int(kept * margin + 128) // 128) * 128
+    return 0 if v >= state.n else v
+
+
+def _sub_frame(cfg: SphConfig, cid_sorted: torch.Tensor, mass_s: torch.Tensor
+               ) -> tuple[dict, torch.Tensor]:
+    """The capped sub frame of a (cell, hash)-sorted frame: its PreparedT
+    fields and the cids its windows search (tail rows at num_cells)."""
+    n = cid_sorted.shape[0]
+    k_c = cfg.capped_candidates
+    rank, occ = _run_rank_occ(cid_sorted)
+    keep = rank < k_c
+    # kept rows to the front, both parts in row (= cid) order
+    perm_full = torch.sort((~keep).to(torch.int32), stable=True).indices
+    s_len = sub_len(cfg, n)
+    sub_perm = perm_full[:s_len].to(torch.int32)
+    n_kept = keep.sum()
+    sub_dropped = (n_kept - s_len).clamp(min=0).to(torch.int32)
+    in_kept = torch.arange(s_len, device=cid_sorted.device) < n_kept
+    cid_sub = cid_sorted[sub_perm]
+    if cfg.capped_reweight:
+        w = occ.to(torch.float32) / occ.clamp(max=k_c).to(torch.float32)
+    else:  # reference-faithful truncation: kept masses unscaled
+        w = torch.ones_like(mass_s)
+    fields = dict(
+        sub_perm=sub_perm,
+        cand_cid=torch.where(in_kept, cid_sub, TAIL_CID),
+        wm_sub=(mass_s * w)[sub_perm],
+        sub_dropped=sub_dropped)
+    return fields, torch.where(in_kept, cid_sub, cfg.num_cells)
+
+
 def derive_window_t(cfg: SphConfig, state: ParticleState,
                     percentile: float = 90.0) -> int:
     """Pick ``pallas_window_t`` from the state's rod-window lengths: the
-    given percentile rounded up to 8 rows (at least 64).  Host-side, once
-    per run."""
+    given percentile rounded up to 8 rows (at least 64).  In capped mode the
+    windows index the sub frame, so the per-cell cap is replayed on the
+    occupancy histogram.  Host-side, once per run."""
     b = _blane(cfg)
     n = state.n
     cid = np.sort(linear_cell_id(cfg, cell_coords(cfg, state.position))
@@ -153,8 +284,15 @@ def derive_window_t(cfg: SphConfig, state: ParticleState,
                  0, cfg.num_cells - 1)
     hi = np.clip(blocks[:, -1][:, None] + deltas[None, :] + 1,
                  0, cfg.num_cells - 1)
-    a = np.searchsorted(cid, lo.ravel(), side="left")
-    e = np.searchsorted(cid, hi.ravel(), side="right")
+    if cfg.capped_candidates:
+        capped = np.minimum(np.bincount(cid, minlength=cfg.num_cells),
+                            cfg.capped_candidates)
+        cum = np.concatenate([[0], np.cumsum(capped)])
+        a = cum[lo.ravel()]
+        e = cum[np.minimum(hi.ravel() + 1, cfg.num_cells)]
+    else:
+        a = np.searchsorted(cid, lo.ravel(), side="left")
+        e = np.searchsorted(cid, hi.ravel(), side="right")
     lens = np.maximum(e - a, 0)
     lens = lens[lens > 0]
     if lens.size == 0:
@@ -164,32 +302,45 @@ def derive_window_t(cfg: SphConfig, state: ParticleState,
 
 
 def prepare_t(cfg: SphConfig, state: ParticleState) -> PreparedT:
-    """Binning + stable sort by cell id + per-block window tables.
+    """Binning + stable sort + per-block window tables (+ the sub frame).
 
-    The sort is stable (ties keep the input order), as the JAX package's
-    pair sort is, so ``order`` and the sorted frame match it exactly.
+    The sorts are stable, as the JAX package's pair sorts are, so ``order``,
+    the sorted frame and (capped) the kept set match it exactly.
     """
     _validate(cfg)
     n = state.n
-    nblocks = -(-n // _blane(cfg))
+    b = _blane(cfg)
+    nblocks = -(-n // b)
     cid = linear_cell_id(cfg, cell_coords(cfg, state.position))
-    cid_sorted, order = torch.sort(cid, stable=True)
+    if cfg.capped_candidates:
+        cid_sorted, order = _capped_order(cid, _hash_bits(cfg))
+    else:
+        cid_sorted, order = torch.sort(cid, stable=True)
     stacked = torch.cat([state.position, state.velocity, state.mass[:, None]],
                         dim=1)[order]
+    mass_s = stacked[:, 6].contiguous()
+    sub, cid_search, n_cand = {}, cid_sorted, n
+    if cfg.capped_candidates:
+        sub, cid_search = _sub_frame(cfg, cid_sorted, mass_s)
+        n_cand = sub_len(cfg, n)
     ws, wc = _block_windows_t(cfg, cid_sorted, nblocks, cfg.pallas_window_t,
-                              n, _n_pad(cfg, n))
+                              n, _n_pad(cfg, n_cand), cid_search)
+    if cfg.capped_candidates and cfg.capped_fused:
+        # the pre-pass sweeps the sub frame FROM the sub frame
+        sub["ws_sub"], sub["wc_sub"] = _block_windows_t(
+            cfg, cid_search, -(-n_cand // b), cfg.pallas_window_t, n_cand,
+            _n_pad(cfg, n_cand), cid_search)
     return PreparedT(order=order, pos_s=stacked[:, 0:3].contiguous(),
-                     vel_s=stacked[:, 3:6].contiguous(),
-                     mass_s=stacked[:, 6].contiguous(),
-                     cid=cid_sorted.contiguous(), ws=ws, wc=wc)
+                     vel_s=stacked[:, 3:6].contiguous(), mass_s=mass_s,
+                     cid=cid_sorted.contiguous(), ws=ws, wc=wc, **sub)
 
 
 def fused_cand_cols(cfg: SphConfig, pos_c: torch.Tensor, vel_c: torch.Tensor,
                     rho_c: torch.Tensor, m_c: torch.Tensor) -> torch.Tensor:
-    """[N, 9] force candidate columns: x y z, rimj*vx rimj*vy rimj*vz, rimj,
+    """[M, 9] force candidate columns: x y z, rimj*vx rimj*vy rimj*vz, rimj,
     mj, mj*pwj with rimj = mj/rhoj and pwj = pj/rhoj^2 (the JAX package's
     lanes 0:3, 4:8, 9, 10; its ones, cid and src lanes serve the MXU and the
-    capped mode)."""
+    capped mode, whose cids and srcs ride in their own int32 arrays here)."""
     rhoj_inv = physics.safe_inv(rho_c)
     p_j = physics.pressure_from_density(cfg, rho_c)
     rimj = rhoj_inv * m_c
@@ -202,11 +353,12 @@ def fused_cand_cols(cfg: SphConfig, pos_c: torch.Tensor, vel_c: torch.Tensor,
 # Plain PyTorch twins: the same window walk, mask and sums as tensor ops.
 # ---------------------------------------------------------------------------
 
-def _window_chunks(cfg: SphConfig, n: int, ws: torch.Tensor, wc: torch.Tensor):
+def _window_chunks(cfg: SphConfig, n: int, m: int, ws: torch.Tensor,
+                   wc: torch.Tensor):
     """Yield ``(blocks, rod, rows, valid)`` for every (block slice, rod,
-    chunk) visit of the sweep.  ``rows`` [nb, s_t] are the chunk's candidate
-    rows clamped into [0, n); ``valid`` marks rows inside the block's window
-    and the particle array."""
+    chunk) visit of a sweep of ``n`` self rows over ``m`` candidate rows.
+    ``rows`` [nb, s_t] are the chunk's candidate rows clamped into [0, m);
+    ``valid`` marks rows inside the block's window and the candidates."""
     b = _blane(cfg)
     s = cfg.pallas_window_t
     nblocks = -(-n // b)
@@ -220,8 +372,8 @@ def _window_chunks(cfg: SphConfig, n: int, ws: torch.Tensor, wc: torch.Tensor):
         for r in range(NRODS):
             for k in range(wmax[r]):
                 rows = ws2[blocks, r, None] + k * s + lane
-                valid = (k < wc2[blocks, r, None]) & (rows < n)
-                yield blocks, r, rows.clamp(max=n - 1), valid
+                valid = (k < wc2[blocks, r, None]) & (rows < m)
+                yield blocks, r, rows.clamp(max=m - 1), valid
 
 
 def _self_rows(x: torch.Tensor, nblocks: int, b: int) -> torch.Tensor:
@@ -229,76 +381,111 @@ def _self_rows(x: torch.Tensor, nblocks: int, b: int) -> torch.Tensor:
     return F.pad(x, (0, nblocks * b - x.shape[0])).view(nblocks, b, 1)
 
 
-def _pair_mask(cfg, rows, valid, cid, ci, own, delta, d2) -> torch.Tensor:
-    """|cid_j - cid_i - delta| <= 1, j != i, d^2 < h^2 on [nb, b, s_t]."""
-    dc = cid[rows][:, None, :] - ci - delta
-    return ((dc.abs() <= 1) & (rows[:, None, :] != own)
-            & valid[:, None, :] & (d2 < cfg.h2))
+def _pair_chunks(cfg: SphConfig, pos_s, cid, ws, wc, cand_pos, cand_cid,
+                 cand_src=None, self_src=None):
+    """Yield ``(blocks, rows, dxyz, d2, mask)`` for every chunk visit: the
+    [nb, b, s_t] candidate-minus-self offsets, d^2 and pair mask
+    |cid_j - cid_i - delta| <= 1, id_j != own_i, d^2 < h^2.  The ids are
+    the candidate row vs the self row (``cand_src`` None), the candidate's
+    src vs the self row, or src vs ``self_src``."""
+    n, m = pos_s.shape[0], cand_pos.shape[0]
+    b = _blane(cfg)
+    nblocks = -(-n // b)
+    xyz = [_self_rows(pos_s[:, c], nblocks, b) for c in range(3)]
+    ci = _self_rows(cid, nblocks, b)
+    own = (torch.arange(nblocks * b, device=pos_s.device).view(nblocks, b, 1)
+           if self_src is None else _self_rows(self_src, nblocks, b))
+    deltas = rod_deltas(cfg)
+    for blocks, r, rows, valid in _window_chunks(cfg, n, m, ws, wc):
+        pj = cand_pos[rows]                                # [nb, s_t, 3]
+        dxyz = [pj[:, None, :, c] - xyz[c][blocks] for c in range(3)]
+        d2 = dxyz[0] * dxyz[0] + dxyz[1] * dxyz[1] + dxyz[2] * dxyz[2]
+        # two-sided, not abs(): a wrapped difference to TAIL_CID may be -2^31
+        dc = cand_cid[rows][:, None, :] - ci[blocks] - deltas[r]
+        idj = rows if cand_src is None else cand_src[rows]
+        mask = ((dc >= -1) & (dc <= 1) & (idj[:, None, :] != own[blocks])
+                & valid[:, None, :] & (d2 < cfg.h2))
+        yield blocks, rows, dxyz, d2, mask
+
+
+def _density_terms(cfg: SphConfig, d2, mask, m_j):
+    """One chunk's rho and count sums (shared by the density and fused
+    twins, so their rho agree bit for bit)."""
+    t = cfg.h_scaled2 - d2 * _f32(cfg.sim_scale * cfg.sim_scale)
+    w3 = cfg.poly6_norm * t * t * t
+    mw = m_j * w3
+    return (torch.where(mask, mw, torch.zeros_like(mw)).sum(-1),
+            mask.sum(-1, dtype=torch.int32))
+
+
+def _self_term(cfg: SphConfig, rho: torch.Tensor, mass: torch.Tensor):
+    if cfg.include_self_density:
+        h2s = cfg.h_scaled2
+        rho = rho + mass * cfg.poly6_norm * h2s * h2s * h2s
+    return rho
 
 
 def density_t_plain(cfg: SphConfig, pos_s: torch.Tensor, mass_s: torch.Tensor,
-                    cid: torch.Tensor, ws: torch.Tensor, wc: torch.Tensor
+                    cid: torch.Tensor, ws: torch.Tensor, wc: torch.Tensor,
+                    cand_pos=None, cand_mass=None, cand_cid=None,
+                    cand_src=None, self_src=None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Twin of the density kernel: (rho [N] f32, ncount [N] i32)."""
+    """Twin of the density kernel: (rho [N] f32, ncount [N] i32).  The
+    candidates default to the self rows (exact mode)."""
+    if cand_pos is None:
+        cand_pos, cand_mass, cand_cid = pos_s, mass_s, cid
     n = pos_s.shape[0]
     b = _blane(cfg)
     nblocks = -(-n // b)
-    dev = pos_s.device
-    xi, yi, zi = (_self_rows(pos_s[:, c], nblocks, b) for c in range(3))
-    ci = _self_rows(cid, nblocks, b)
-    own = torch.arange(nblocks * b, device=dev).view(nblocks, b, 1)
-    deltas = rod_deltas(cfg)
-    scale2 = _f32(cfg.sim_scale * cfg.sim_scale)
-    rho = torch.zeros(nblocks, b, dtype=torch.float32, device=dev)
-    count = torch.zeros(nblocks, b, dtype=torch.int32, device=dev)
-    for blocks, r, rows, valid in _window_chunks(cfg, n, ws, wc):
-        pj = pos_s[rows]                                   # [nb, s_t, 3]
-        dx = pj[:, None, :, 0] - xi[blocks]
-        dy = pj[:, None, :, 1] - yi[blocks]
-        dz = pj[:, None, :, 2] - zi[blocks]
-        d2 = dx * dx + dy * dy + dz * dz
-        mask = _pair_mask(cfg, rows, valid, cid, ci[blocks], own[blocks],
-                          deltas[r], d2)
-        t = cfg.h_scaled2 - d2 * scale2
-        w3 = cfg.poly6_norm * t * t * t
-        mw = mass_s[rows][:, None, :] * w3
-        rho[blocks] += torch.where(mask, mw, torch.zeros_like(mw)).sum(-1)
-        count[blocks] += mask.sum(-1, dtype=torch.int32)
-    rho = rho.view(-1)[:n]
-    if cfg.include_self_density:
-        h2s = cfg.h_scaled2
-        rho = rho + mass_s * cfg.poly6_norm * h2s * h2s * h2s
-    return rho, count.view(-1)[:n]
+    rho = torch.zeros(nblocks, b, dtype=torch.float32, device=pos_s.device)
+    count = torch.zeros(nblocks, b, dtype=torch.int32, device=pos_s.device)
+    for blocks, rows, _, d2, mask in _pair_chunks(
+            cfg, pos_s, cid, ws, wc, cand_pos, cand_cid, cand_src, self_src):
+        r_add, c_add = _density_terms(cfg, d2, mask, cand_mass[rows][:, None, :])
+        rho[blocks] += r_add
+        count[blocks] += c_add
+    return _self_term(cfg, rho.view(-1)[:n], mass_s), count.view(-1)[:n]
+
+
+def density_pre_t_plain(cfg: SphConfig, pos_sub: torch.Tensor,
+                        mass_sub: torch.Tensor, wm_sub: torch.Tensor,
+                        cid_sub: torch.Tensor, src_sub: torch.Tensor,
+                        ws_sub: torch.Tensor, wc_sub: torch.Tensor
+                        ) -> torch.Tensor:
+    """Twin of the sub-frame pre-pass (``density_pre_t``): rho [S]."""
+    return density_t_plain(cfg, pos_sub, mass_sub, cid_sub, ws_sub, wc_sub,
+                           pos_sub, wm_sub, cid_sub, src_sub, src_sub)[0]
+
+
+def _force_setup(vel_s: torch.Tensor, nblocks: int, b: int):
+    vi = [_self_rows(vel_s[:, c], nblocks, b) for c in range(3)]
+    return vi, torch.zeros(6, nblocks, b, dtype=torch.float32,
+                           device=vel_s.device)
 
 
 def force_t_plain(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
                   rho_s: torch.Tensor, cand: torch.Tensor, cid: torch.Tensor,
-                  ws: torch.Tensor, wc: torch.Tensor) -> torch.Tensor:
-    """Twin of the force kernel: hydro acceleration [N, 3] f32."""
+                  ws: torch.Tensor, wc: torch.Tensor, cand_cid=None,
+                  cand_src=None) -> torch.Tensor:
+    """Twin of the force kernel: hydro acceleration [N, 3] f32.  ``cand``
+    is ``fused_cand_cols`` of the candidates (default: the self rows)."""
+    if cand_cid is None:
+        cand_cid = cid
     n = pos_s.shape[0]
     b = _blane(cfg)
     nblocks = -(-n // b)
-    dev = pos_s.device
-    xi, yi, zi = (_self_rows(pos_s[:, c], nblocks, b) for c in range(3))
-    vi = [_self_rows(vel_s[:, c], nblocks, b) for c in range(3)]
     rhoi = F.pad(rho_s, (0, nblocks * b - n), value=1.0).view(nblocks, b, 1)
-    ci = _self_rows(cid, nblocks, b)
-    own = torch.arange(nblocks * b, device=dev).view(nblocks, b, 1)
-    deltas = rod_deltas(cfg)
     h = cfg.h_scaled
     scale = _f32(cfg.sim_scale)
     eps = _f32(cfg.pressure_softening)
     rhoi_inv = physics.safe_inv(rhoi)
     pw_i = (rhoi - _f32(cfg.rho0)) * _f32(cfg.stiffness) * rhoi_inv * rhoi_inv
-    # [6, nblocks, b]: pressure sums (x, y, z), then viscosity sums (x, y, z)
-    sums = torch.zeros(6, nblocks, b, dtype=torch.float32, device=dev)
-    for blocks, r, rows, valid in _window_chunks(cfg, n, ws, wc):
+    # sums[0:3]: pressure sums (x, y, z); sums[3:6]: viscosity sums
+    vi, sums = _force_setup(vel_s, nblocks, b)
+    for blocks, rows, dxyz, d2, mask in _pair_chunks(
+            cfg, pos_s, cid, ws, wc, cand[:, 0:3], cand_cid, cand_src):
         cj = cand[rows]                                    # [nb, s_t, 9]
         col = [cj[:, None, :, c] for c in range(9)]
-        dxyz = (col[0] - xi[blocks], col[1] - yi[blocks], col[2] - zi[blocks])
-        d2 = dxyz[0] * dxyz[0] + dxyz[1] * dxyz[1] + dxyz[2] * dxyz[2]
-        mask = _pair_mask(cfg, rows, valid, cid, ci[blocks], own[blocks],
-                          deltas[r], d2)
         zero = torch.zeros_like(d2)
         d = torch.sqrt(d2) * scale
         hd = torch.where(mask, h - d, zero)
@@ -315,6 +502,56 @@ def force_t_plain(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
     return acc.view(-1, 3)[:n]
 
 
+def fused_t_plain(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
+                  mass_s: torch.Tensor, cid: torch.Tensor, ws: torch.Tensor,
+                  wc: torch.Tensor, cand: torch.Tensor, cand_cid: torch.Tensor,
+                  cand_src: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Twin of the fused kernel: (acc [N, 3], rho [N], ncount [N]) in one
+    walk over the sub-frame candidates ``cand`` (``fused_cand_cols`` with
+    the pre-pass densities).  The pressure sum is split into pw_i-free
+    P1 (m_j) and P2 (m_j pw_j) sums, combined with the walk's own rho."""
+    n = pos_s.shape[0]
+    b = _blane(cfg)
+    nblocks = -(-n // b)
+    dev = pos_s.device
+    h = cfg.h_scaled
+    scale = _f32(cfg.sim_scale)
+    eps = _f32(cfg.pressure_softening)
+    rho = torch.zeros(nblocks, b, dtype=torch.float32, device=dev)
+    count = torch.zeros(nblocks, b, dtype=torch.int32, device=dev)
+    # sums[0:3]: P1, sums[3:6]: viscosity; p2[0:3]: P2
+    vi, sums = _force_setup(vel_s, nblocks, b)
+    p2 = torch.zeros(3, nblocks, b, dtype=torch.float32, device=dev)
+    for blocks, rows, dxyz, d2, mask in _pair_chunks(
+            cfg, pos_s, cid, ws, wc, cand[:, 0:3], cand_cid, cand_src):
+        cj = cand[rows]
+        col = [cj[:, None, :, c] for c in range(9)]
+        r_add, c_add = _density_terms(cfg, d2, mask, col[7])
+        rho[blocks] += r_add
+        count[blocks] += c_add
+        zero = torch.zeros_like(d2)
+        d = torch.sqrt(d2) * scale
+        hd = torch.where(mask, h - d, zero)
+        hd2inv = (hd * hd) / (d + eps) * scale
+        c1, c2 = hd2inv * col[7], hd2inv * col[8]
+        for a in range(3):
+            sums[a, blocks] -= torch.where(mask, dxyz[a] * c1, zero).sum(-1)
+            p2[a, blocks] -= torch.where(mask, dxyz[a] * c2, zero).sum(-1)
+            vis = (col[3 + a] - vi[a][blocks] * col[6]) * hd
+            sums[3 + a, blocks] += torch.where(mask, vis, zero).sum(-1)
+    rho = _self_term(cfg, rho.view(-1)[:n], mass_s)
+    rhoi_inv = physics.safe_inv(rho)
+    pw_i = (rho - _f32(cfg.rho0)) * _f32(cfg.stiffness) * rhoi_inv * rhoi_inv
+    mu_rhoi = _f32(cfg.viscosity) * rhoi_inv
+    norm = cfg.visc_lap_norm
+    sums, p2 = sums.view(6, -1)[:, :n], p2.view(3, -1)[:, :n]
+    acc = torch.stack([mu_rhoi * sums[3 + a] * norm
+                       + (pw_i * sums[a] + p2[a]) * norm
+                       for a in range(3)], dim=-1)
+    return acc, rho, count.view(-1)[:n]
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -324,10 +561,12 @@ def _kernels() -> ctypes.CDLL:
     """Build (first use) and bind ``csrc/sweep_t.cu``."""
     lib = build.load_library("sweep_t")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sph_density_t.argtypes = [p] * 7 + [i] * 6 + [f] * 4 + [p]
+    lib.sph_density_t.argtypes = [p] * 12 + [i] * 8 + [f] * 4 + [p]
     lib.sph_density_t.restype = i
-    lib.sph_force_t.argtypes = [p] * 8 + [i] * 5 + [f] * 8 + [p]
+    lib.sph_force_t.argtypes = [p] * 10 + [i] * 7 + [f] * 8 + [p]
     lib.sph_force_t.restype = i
+    lib.sph_fused_t.argtypes = [p] * 12 + [i] * 7 + [f] * 11 + [p]
+    lib.sph_fused_t.restype = i
     lib.sph_error_string.argtypes = [i]
     lib.sph_error_string.restype = ctypes.c_char_p
     return lib
@@ -361,104 +600,283 @@ def _raise_on(lib: ctypes.CDLL, err: int, kernel: str) -> None:
                            f"({lib.sph_error_string(err).decode()})")
 
 
-def _tables(cfg: SphConfig, n: int, pos_s, cid, ws, wc) -> dict:
-    """The specs every sweep kernel shares: positions, cids, window tables."""
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _self_specs(cfg: SphConfig, n: int, pos_s, cid, ws, wc) -> dict:
+    """The specs every sweep kernel shares: self positions and cids, and
+    the window tables of its self blocks."""
     nt = -(-n // _blane(cfg)) * NRODS
     return dict(pos_s=(pos_s, torch.float32, (n, 3)),
                 cid=(cid, torch.int32, (n,)),
                 ws=(ws, torch.int32, (nt,)), wc=(wc, torch.int32, (nt,)))
 
 
-def density_t(cfg: SphConfig, pos_s: torch.Tensor, mass_s: torch.Tensor,
-              cid: torch.Tensor, ws: torch.Tensor, wc: torch.Tensor
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(rho [N] f32, ncount [N] i32) of the sorted particles."""
-    if _use_plain(pos_s):
-        return density_t_plain(cfg, pos_s, mass_s, cid, ws, wc)
-    n, dev = pos_s.shape[0], pos_s.device
-    _check(dev, mass_s=(mass_s, torch.float32, (n,)),
-           **_tables(cfg, n, pos_s, cid, ws, wc))
+def _cand_specs(m: int, cand_cid, cand_src) -> dict:
+    specs = dict(cand_cid=(cand_cid, torch.int32, (m,)))
+    if cand_src is not None:
+        specs["cand_src"] = (cand_src, torch.int32, (m,))
+    return specs
+
+
+def _launch_density(cfg: SphConfig, excl: int, pos_s, mass_s, cid, ws, wc,
+                    cand_pos, cand_mass, cand_cid, cand_src, self_src,
+                    kernel: str):
+    n, m, dev = pos_s.shape[0], cand_pos.shape[0], pos_s.device
+    specs = dict(mass_s=(mass_s, torch.float32, (n,)),
+                 cand_pos=(cand_pos, torch.float32, (m, 3)),
+                 cand_mass=(cand_mass, torch.float32, (m,)),
+                 **_self_specs(cfg, n, pos_s, cid, ws, wc),
+                 **_cand_specs(m, cand_cid, cand_src))
+    if self_src is not None:
+        specs["self_src"] = (self_src, torch.int32, (n,))
+    _check(dev, **specs)
     rho = torch.empty(n, dtype=torch.float32, device=dev)
     ncount = torch.empty(n, dtype=torch.int32, device=dev)
     lib = _kernels()
     err = lib.sph_density_t(
-        pos_s.data_ptr(), mass_s.data_ptr(), cid.data_ptr(), ws.data_ptr(),
-        wc.data_ptr(), rho.data_ptr(), ncount.data_ptr(),
-        n, _blane(cfg), cfg.pallas_window_t, cfg.grid_nx, cfg.grid_ny,
-        int(cfg.include_self_density), cfg.h2, cfg.h_scaled2,
-        _f32(cfg.sim_scale * cfg.sim_scale), cfg.poly6_norm,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, err, "density_kernel_t")
-    density_t.launches += 1
+        pos_s.data_ptr(), mass_s.data_ptr(), cid.data_ptr(), _ptr(self_src),
+        cand_pos.data_ptr(), cand_mass.data_ptr(), cand_cid.data_ptr(),
+        _ptr(cand_src), ws.data_ptr(), wc.data_ptr(), rho.data_ptr(),
+        ncount.data_ptr(), n, m, _blane(cfg), cfg.pallas_window_t,
+        cfg.grid_nx, cfg.grid_ny, int(cfg.include_self_density), excl,
+        cfg.h2, cfg.h_scaled2, _f32(cfg.sim_scale * cfg.sim_scale),
+        cfg.poly6_norm, _stream(dev))
+    _raise_on(lib, err, kernel)
     return rho, ncount
 
 
-density_t.launches = 0
+def density_t(cfg: SphConfig, pos_s: torch.Tensor, mass_s: torch.Tensor,
+              cid: torch.Tensor, ws: torch.Tensor, wc: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact mode: (rho [N] f32, ncount [N] i32) of the sorted particles,
+    their candidates the same sorted frame."""
+    if _use_plain(pos_s):
+        return density_t_plain(cfg, pos_s, mass_s, cid, ws, wc)
+    out = _launch_density(cfg, EXCL_ROW, pos_s, mass_s, cid, ws, wc, pos_s,
+                          mass_s, cid, None, None, "density_kernel_t")
+    density_t.launches += 1
+    return out
+
+
+def density_capped_t(cfg: SphConfig, pos_s: torch.Tensor,
+                     mass_s: torch.Tensor, cid: torch.Tensor,
+                     ws: torch.Tensor, wc: torch.Tensor,
+                     cand_pos: torch.Tensor, cand_mass: torch.Tensor,
+                     cand_cid: torch.Tensor, cand_src: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Capped mode: (rho, ncount) of the sorted particles over the sub
+    frame's candidates; ``cand_src`` (the sub frame's sorted rows) excludes
+    each particle itself."""
+    if _use_plain(pos_s):
+        return density_t_plain(cfg, pos_s, mass_s, cid, ws, wc, cand_pos,
+                               cand_mass, cand_cid, cand_src)
+    out = _launch_density(cfg, EXCL_SRC, pos_s, mass_s, cid, ws, wc,
+                          cand_pos, cand_mass, cand_cid, cand_src, None,
+                          "density_kernel_t<capped>")
+    density_capped_t.launches += 1
+    return out
+
+
+def density_pre_t(cfg: SphConfig, pos_sub: torch.Tensor,
+                  mass_sub: torch.Tensor, wm_sub: torch.Tensor,
+                  cid_sub: torch.Tensor, src_sub: torch.Tensor,
+                  ws_sub: torch.Tensor, wc_sub: torch.Tensor) -> torch.Tensor:
+    """Fused path's pre-pass: rho [S] of the sub-frame rows over the sub
+    frame itself.  Self rows carry the TRUE mass (the self term), the
+    candidates the reweighted ``wm_sub``; exclusion compares src with src."""
+    if _use_plain(pos_sub):
+        return density_pre_t_plain(cfg, pos_sub, mass_sub, wm_sub, cid_sub,
+                                   src_sub, ws_sub, wc_sub)
+    rho, _ = _launch_density(cfg, EXCL_SRC_SRC, pos_sub, mass_sub, cid_sub,
+                             ws_sub, wc_sub, pos_sub, wm_sub, cid_sub,
+                             src_sub, src_sub, "density_kernel_t<prepass>")
+    density_pre_t.launches += 1
+    return rho
+
+
+def _launch_force(cfg: SphConfig, excl: int, pos_s, vel_s, rho_s, cand, cid,
+                  ws, wc, cand_cid, cand_src, kernel: str) -> torch.Tensor:
+    n, m, dev = pos_s.shape[0], cand.shape[0], pos_s.device
+    _check(dev, vel_s=(vel_s, torch.float32, (n, 3)),
+           rho_s=(rho_s, torch.float32, (n,)),
+           cand=(cand, torch.float32, (m, 9)),
+           **_self_specs(cfg, n, pos_s, cid, ws, wc),
+           **_cand_specs(m, cand_cid, cand_src))
+    acc = torch.empty(n, 3, dtype=torch.float32, device=dev)
+    lib = _kernels()
+    err = lib.sph_force_t(
+        pos_s.data_ptr(), vel_s.data_ptr(), rho_s.data_ptr(), cid.data_ptr(),
+        cand.data_ptr(), cand_cid.data_ptr(), _ptr(cand_src), ws.data_ptr(),
+        wc.data_ptr(), acc.data_ptr(), n, m, _blane(cfg),
+        cfg.pallas_window_t, cfg.grid_nx, cfg.grid_ny, excl,
+        cfg.h2, cfg.h_scaled, _f32(cfg.sim_scale),
+        _f32(cfg.pressure_softening), _f32(cfg.stiffness), _f32(cfg.rho0),
+        _f32(cfg.viscosity), cfg.visc_lap_norm, _stream(dev))
+    _raise_on(lib, err, kernel)
+    return acc
 
 
 def force_t(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
             rho_s: torch.Tensor, cand: torch.Tensor, cid: torch.Tensor,
             ws: torch.Tensor, wc: torch.Tensor) -> torch.Tensor:
-    """Hydro acceleration [N, 3] f32 of the sorted particles; ``cand`` is
-    ``fused_cand_cols`` of the candidates (the same sorted frame)."""
+    """Exact mode: hydro acceleration [N, 3] f32 of the sorted particles;
+    ``cand`` is ``fused_cand_cols`` of the same sorted frame."""
     if _use_plain(pos_s):
         return force_t_plain(cfg, pos_s, vel_s, rho_s, cand, cid, ws, wc)
-    n, dev = pos_s.shape[0], pos_s.device
-    _check(dev, vel_s=(vel_s, torch.float32, (n, 3)),
-           rho_s=(rho_s, torch.float32, (n,)),
-           cand=(cand, torch.float32, (n, 9)),
-           **_tables(cfg, n, pos_s, cid, ws, wc))
-    acc = torch.empty(n, 3, dtype=torch.float32, device=dev)
-    lib = _kernels()
-    err = lib.sph_force_t(
-        pos_s.data_ptr(), vel_s.data_ptr(), rho_s.data_ptr(), cand.data_ptr(),
-        cid.data_ptr(), ws.data_ptr(), wc.data_ptr(), acc.data_ptr(),
-        n, _blane(cfg), cfg.pallas_window_t, cfg.grid_nx, cfg.grid_ny,
-        cfg.h2, cfg.h_scaled, _f32(cfg.sim_scale),
-        _f32(cfg.pressure_softening), _f32(cfg.stiffness), _f32(cfg.rho0),
-        _f32(cfg.viscosity), cfg.visc_lap_norm,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, err, "force_kernel_t")
+    acc = _launch_force(cfg, EXCL_ROW, pos_s, vel_s, rho_s, cand, cid, ws,
+                        wc, cid, None, "force_kernel_t")
     force_t.launches += 1
     return acc
 
 
-force_t.launches = 0
+def force_capped_t(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
+                   rho_s: torch.Tensor, cand: torch.Tensor, cid: torch.Tensor,
+                   ws: torch.Tensor, wc: torch.Tensor, cand_cid: torch.Tensor,
+                   cand_src: torch.Tensor) -> torch.Tensor:
+    """Capped mode: hydro acceleration [N, 3] over the sub frame's
+    candidates (``fused_cand_cols`` of the sub frame, reweighted masses)."""
+    if _use_plain(pos_s):
+        return force_t_plain(cfg, pos_s, vel_s, rho_s, cand, cid, ws, wc,
+                             cand_cid, cand_src)
+    acc = _launch_force(cfg, EXCL_SRC, pos_s, vel_s, rho_s, cand, cid, ws,
+                        wc, cand_cid, cand_src, "force_kernel_t<capped>")
+    force_capped_t.launches += 1
+    return acc
+
+
+def fused_t(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
+            mass_s: torch.Tensor, cid: torch.Tensor, ws: torch.Tensor,
+            wc: torch.Tensor, cand: torch.Tensor, cand_cid: torch.Tensor,
+            cand_src: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused capped sweep: (acc [N, 3], rho [N], ncount [N]) in one pass
+    over the sub frame's candidates."""
+    if _use_plain(pos_s):
+        return fused_t_plain(cfg, pos_s, vel_s, mass_s, cid, ws, wc, cand,
+                             cand_cid, cand_src)
+    n, m, dev = pos_s.shape[0], cand.shape[0], pos_s.device
+    _check(dev, vel_s=(vel_s, torch.float32, (n, 3)),
+           mass_s=(mass_s, torch.float32, (n,)),
+           cand=(cand, torch.float32, (m, 9)),
+           **_self_specs(cfg, n, pos_s, cid, ws, wc),
+           **_cand_specs(m, cand_cid, cand_src))
+    acc = torch.empty(n, 3, dtype=torch.float32, device=dev)
+    rho = torch.empty(n, dtype=torch.float32, device=dev)
+    ncount = torch.empty(n, dtype=torch.int32, device=dev)
+    lib = _kernels()
+    err = lib.sph_fused_t(
+        pos_s.data_ptr(), vel_s.data_ptr(), mass_s.data_ptr(), cid.data_ptr(),
+        cand.data_ptr(), cand_cid.data_ptr(), cand_src.data_ptr(),
+        ws.data_ptr(), wc.data_ptr(), acc.data_ptr(), rho.data_ptr(),
+        ncount.data_ptr(), n, m, _blane(cfg), cfg.pallas_window_t,
+        cfg.grid_nx, cfg.grid_ny, int(cfg.include_self_density),
+        cfg.h2, cfg.h_scaled2, _f32(cfg.sim_scale * cfg.sim_scale),
+        cfg.poly6_norm, cfg.h_scaled, _f32(cfg.sim_scale),
+        _f32(cfg.pressure_softening), _f32(cfg.stiffness), _f32(cfg.rho0),
+        _f32(cfg.viscosity), cfg.visc_lap_norm, _stream(dev))
+    _raise_on(lib, err, "fused_kernel_t")
+    fused_t.launches += 1
+    return acc, rho, ncount
+
+
+WRAPPERS = (density_t, density_capped_t, density_pre_t, force_t,
+            force_capped_t, fused_t)
+for _w in WRAPPERS:
+    _w.launches = 0
 
 
 # ---------------------------------------------------------------------------
 # Sweeps
 # ---------------------------------------------------------------------------
 
-def density_sweep_t(cfg: SphConfig, p: PreparedT
+def gather_sub_pv(p: PreparedT) -> tuple[torch.Tensor, torch.Tensor]:
+    """(positions [S, 3], velocities [S, 3]) of the capped sub frame,
+    gathered fresh each step (positions drift between rebins) and shared by
+    the step's sweeps."""
+    return p.pos_s[p.sub_perm], p.vel_s[p.sub_perm]
+
+
+def density_sweep_t(cfg: SphConfig, p: PreparedT, pv_sub=None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """(rho_s, ncount_s) in sorted order."""
-    return density_t(cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc)
+    if not cfg.capped_candidates:
+        return density_t(cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc)
+    pos_c, _ = gather_sub_pv(p) if pv_sub is None else pv_sub
+    return density_capped_t(cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc,
+                            pos_c, p.wm_sub, p.cand_cid, p.sub_perm)
 
 
-def force_sweep_t(cfg: SphConfig, p: PreparedT, rho_s: torch.Tensor
-                  ) -> torch.Tensor:
-    """acc_s [N, 3] in sorted order (hydro only; gravity/CFL by the caller)."""
-    cand = fused_cand_cols(cfg, p.pos_s, p.vel_s, rho_s, p.mass_s)
-    return force_t(cfg, p.pos_s, p.vel_s, rho_s, cand, p.cid, p.ws, p.wc)
+def force_sweep_t(cfg: SphConfig, p: PreparedT, rho_s: torch.Tensor,
+                  pv_sub=None) -> torch.Tensor:
+    """acc_s [N, 3] in sorted order (hydro only; gravity/CFL by the caller).
+    Capped: the candidates' densities are ``rho_s`` at their sorted rows,
+    their masses the reweighted ``wm_sub``."""
+    if not cfg.capped_candidates:
+        cand = fused_cand_cols(cfg, p.pos_s, p.vel_s, rho_s, p.mass_s)
+        return force_t(cfg, p.pos_s, p.vel_s, rho_s, cand, p.cid, p.ws, p.wc)
+    pos_c, vel_c = gather_sub_pv(p) if pv_sub is None else pv_sub
+    cand = fused_cand_cols(cfg, pos_c, vel_c, rho_s[p.sub_perm], p.wm_sub)
+    return force_capped_t(cfg, p.pos_s, p.vel_s, rho_s, cand, p.cid, p.ws,
+                          p.wc, p.cand_cid, p.sub_perm)
+
+
+def density_sub_t(cfg: SphConfig, p: PreparedT, pv_sub) -> torch.Tensor:
+    """Fused-path pre-pass: capped density [S] of the sub-frame rows only
+    (the candidates' pressures are its only consumer).  Tail rows
+    [n_kept, S) get values no pair ever reads: their candidates fail the
+    cid band."""
+    return density_pre_t(cfg, pv_sub[0], p.mass_s[p.sub_perm], p.wm_sub,
+                         p.cand_cid, p.sub_perm, p.ws_sub, p.wc_sub)
+
+
+def fused_sweep_t(cfg: SphConfig, p: PreparedT, rho_sub: torch.Tensor,
+                  pv_sub) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One fused pass: (acc_s hydro-only, rho_s, ncount_s) for all N, the
+    candidates' pressures from the pre-pass densities ``rho_sub``."""
+    cand = fused_cand_cols(cfg, pv_sub[0], pv_sub[1], rho_sub, p.wm_sub)
+    return fused_t(cfg, p.pos_s, p.vel_s, p.mass_s, p.cid, p.ws, p.wc, cand,
+                   p.cand_cid, p.sub_perm)
 
 
 def sweeps_sorted(cfg: SphConfig, p: PreparedT
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Both sweeps + gravity + CFL clamp, all in the sorted frame."""
-    rho_s, ncount_s = density_sweep_t(cfg, p)
-    acc_s = force_sweep_t(cfg, p, rho_s)
+    """The sweeps + gravity + CFL clamp, all in the sorted frame.  Capped
+    mode with ``capped_fused`` runs the pre-pass and the fused pass instead
+    of the two full sweeps."""
+    pv_sub = gather_sub_pv(p) if cfg.capped_candidates else None
+    if cfg.capped_candidates and cfg.capped_fused:
+        rho_sub = density_sub_t(cfg, p, pv_sub)
+        acc_s, rho_s, ncount_s = fused_sweep_t(cfg, p, rho_sub, pv_sub)
+    else:
+        rho_s, ncount_s = density_sweep_t(cfg, p, pv_sub)
+        acc_s = force_sweep_t(cfg, p, rho_s, pv_sub)
     acc_s = acc_s + physics.central_gravity(cfg, p.pos_s)
     acc_s = acc_s + torch.tensor(cfg.gravity, dtype=torch.float32,
                                  device=acc_s.device)
     return physics.cfl_clamp(cfg, acc_s), rho_s, ncount_s
 
 
+def truncated_ranges(p: PreparedT) -> torch.Tensor:
+    """The step's counted candidate loss: capped kept rows beyond the sub
+    frame (0 in exact mode, whose windows are walked in full)."""
+    if p.sub_dropped is not None:
+        return p.sub_dropped
+    return torch.zeros((), dtype=torch.int32, device=p.pos_s.device)
+
+
 def compute_step_quantities(cfg: SphConfig, state: ParticleState
-                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(acc, rho, neighbor_count) in the caller's particle order."""
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor, torch.Tensor]:
+    """(acc, rho, neighbor_count, truncated_ranges) in the caller's
+    particle order."""
     p = prepare_t(cfg, state)
     acc_s, rho_s, ncount_s = sweeps_sorted(cfg, p)
     acc, rho, ncount = unsort_stacked(inverse_order(p.order),
                                       [acc_s, rho_s, ncount_s])
-    return acc, rho, ncount
+    return acc, rho, ncount, truncated_ranges(p)

@@ -83,10 +83,14 @@ class StepDiagnostics(NamedTuple):
     migration_dropped: torch.Tensor  # i32: slab path
 
 
-def make_step_diagnostics(tally, neighbor_count: torch.Tensor) -> StepDiagnostics:
-    """Assemble the per-step record from an energy tally and the neighbor
-    counts.  The loss counters are 0: the exact sweeps walk every candidate
-    window in full and the single-device path has no halo or migration."""
+def make_step_diagnostics(tally, neighbor_count: torch.Tensor,
+                          truncated_ranges: torch.Tensor | None = None
+                          ) -> StepDiagnostics:
+    """Assemble the per-step record from an energy tally, the neighbor
+    counts and the candidate rows the sweeps dropped (capped mode's sub-frame
+    overflow; None = 0).  The other loss counters are 0: the sweeps walk every
+    candidate window in full and the single-device path has no halo or
+    migration."""
     nc = neighbor_count
     zero = torch.zeros((), dtype=torch.int32, device=nc.device)
     return StepDiagnostics(
@@ -97,7 +101,7 @@ def make_step_diagnostics(tally, neighbor_count: torch.Tensor) -> StepDiagnostic
         neighbor_max=nc.max(),
         neighbor_min=nc.min(),
         overflow_cells=zero,
-        truncated_ranges=zero,
+        truncated_ranges=zero if truncated_ranges is None else truncated_ranges,
         halo_dropped=zero,
         migration_dropped=zero,
     )

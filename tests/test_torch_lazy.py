@@ -24,6 +24,11 @@ from smoothed_particle_hydrodynamics_tpu_torch.ops import lazy as tlazy
 from smoothed_particle_hydrodynamics_tpu_torch.ops import step as tstep
 from smoothed_particle_hydrodynamics_tpu_torch.state import state_from_numpy
 
+# The twins gain nothing from intra-op threads at these sizes, and under
+# pytest-xdist eight torch threads per worker oversubscribe the cores (on an
+# 8-core host the torch test files took 682 s with them, 55 s with one).
+torch.set_num_threads(1)
+
 STEPS = 6
 BAR = 1e-5
 
@@ -149,3 +154,51 @@ def test_cli_run_prints_one_line_per_block(capsys):
     assert [x["step"] for x in lines] == [2, 3]
     assert all(np.isfinite(x["kinetic_energy"]) for x in lines)
     assert all(x["neighbor_max"] >= x["neighbor_min"] for x in lines)
+
+
+def test_cli_refuses_to_fall_back_to_cpu(monkeypatch):
+    """--device defaults to cuda; with no CUDA device the run stops with an
+    error instead of carrying on on the CPU."""
+    from smoothed_particle_hydrodynamics_tpu_torch.__main__ import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for cmd in ("run", "bench"):
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            main([cmd, "-n", "384", "--steps", "1"])
+
+
+def test_pairwise_backend_rejects_capped_config():
+    _, _, tc, ts = _scenes(num_particles=256)
+    with pytest.raises(ValueError, match="capped_candidates"):
+        tstep.compute_forces(tc.replace(capped_candidates=4), ts,
+                             backend="pairwise")
+
+
+def test_cli_run_resolves_capped_settings(capsys):
+    """run and bench resolve capped mode's block (256), the derived window
+    and the derived sub-frame length through one function."""
+    import json
+
+    from smoothed_particle_hydrodynamics_tpu_torch.__main__ import main
+    from smoothed_particle_hydrodynamics_tpu_torch.utils.benchmark import (
+        resolve_sweep_settings, run_benchmark)
+
+    ov = dict(num_particles=1024, grid_nx=16, grid_ny=16, grid_nz=16,
+              cell_size_factor=1.25, capped_candidates=4, pallas_window_t=0)
+    from smoothed_particle_hydrodynamics_tpu_torch.models import make_scene
+
+    want = resolve_sweep_settings(*make_scene("splash", seed=11, **ov), ov)
+    assert want.pallas_block_t == 256 and want.pallas_window_t >= 64
+    assert 0 < want.capped_sub_len < 1024
+    assert main(["run", "-n", "1024", "--steps", "2", "--block", "2",
+                 "--device", "cpu"]
+                + [f"--set={k}={v}" for k, v in ov.items()
+                   if k != "num_particles"]) == 0
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert (line["block_t"], line["window_t"], line["capped_sub_len"]) == (
+        want.pallas_block_t, want.pallas_window_t, want.capped_sub_len)
+    assert line["truncated_ranges"] == 0 and np.isfinite(line["kinetic_energy"])
+    r = run_benchmark(steps=1, warmup=1, device="cpu", overrides=ov)
+    assert (r["block_t"], r["window_t"], r["capped_sub_len"]) == (
+        want.pallas_block_t, want.pallas_window_t, want.capped_sub_len)
+    assert r["truncated_ranges"] == [0, 0] and r["finite"]

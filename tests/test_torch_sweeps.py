@@ -20,6 +20,11 @@ from smoothed_particle_hydrodynamics_tpu_torch.ops import pairwise as tpair
 from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t
 from smoothed_particle_hydrodynamics_tpu_torch.state import state_from_numpy
 
+# The twins gain nothing from intra-op threads at these sizes, and under
+# pytest-xdist eight torch threads per worker oversubscribe the cores (on an
+# 8-core host the torch test files took 682 s with them, 55 s with one).
+torch.set_num_threads(1)
+
 RHO_BAR, ACC_BAR = 1e-6, 1e-4
 
 
@@ -75,7 +80,8 @@ def test_step_quantities_match_pairwise_oracles():
     """Whole sweep path (sort, tables, both sweeps, gravity, CFL, unsort)
     against the torch and the JAX O(N^2) oracles."""
     jc, js, tc, ts = _scenes(num_particles=1024)
-    acc, rho, nc = sweeps_t.compute_step_quantities(tc, ts)
+    acc, rho, nc, truncated = sweeps_t.compute_step_quantities(tc, ts)
+    assert int(truncated) == 0
     rho_o = tpair.compute_density(tc, ts)
     np.testing.assert_array_equal(nc.numpy(),
                                   tpair.neighbor_counts(tc, ts).numpy())
@@ -89,23 +95,26 @@ def test_step_quantities_match_pairwise_oracles():
     assert _rel(acc_o.numpy(), acc_jo) <= ACC_BAR
 
 
-def test_wrappers_take_twin_on_cpu_only():
-    """CPU tensors run the twin without touching the launch counters; a
-    device that is neither cpu nor cuda raises instead of falling back."""
-    _, _, tc, ts = _scenes(num_particles=256)
+@pytest.mark.parametrize("kw", [
+    {}, dict(capped_candidates=4, pallas_block_t=256),
+    dict(capped_candidates=4, pallas_block_t=256, capped_fused=True)])
+def test_wrappers_take_twin_on_cpu_only(kw):
+    """CPU tensors run the twins without touching any launch counter (exact,
+    capped and fused paths); a device that is neither cpu nor cuda raises
+    instead of falling back."""
+    _, _, tc, ts = _scenes(num_particles=256, **kw)
     p = sweeps_t.prepare_t(tc, ts)
-    before = (sweeps_t.density_t.launches, sweeps_t.force_t.launches)
-    rho, _ = sweeps_t.density_sweep_t(tc, p)
-    sweeps_t.force_sweep_t(tc, p, rho)
-    assert (sweeps_t.density_t.launches, sweeps_t.force_t.launches) == before
+    before = [w.launches for w in sweeps_t.WRAPPERS]
+    sweeps_t.sweeps_sorted(tc, p)
+    assert [w.launches for w in sweeps_t.WRAPPERS] == before
     meta = p._replace(pos_s=p.pos_s.to("meta"))
     with pytest.raises(ValueError, match="cuda"):
-        sweeps_t.density_sweep_t(tc, meta)
+        sweeps_t.sweeps_sorted(tc, meta)
 
 
 @pytest.mark.parametrize("kw,err", [
     (dict(pallas_groups=2), NotImplementedError),
-    (dict(capped_candidates=4), NotImplementedError),
+    (dict(capped_candidates=4, pallas_groups=2), NotImplementedError),
     (dict(pallas_window_t=60), ValueError),
     (dict(grid_nx=2), ValueError),
 ])
