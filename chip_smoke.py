@@ -5,8 +5,9 @@
 
 Phases (every failed check raises, and the script exits nonzero):
 
-1. build the sweep kernels (``csrc/sweep_t.cu``) with nvcc; print the build
-   time and ptxas's register/spill report;
+1. build the kernels (``csrc/sweep_t.cu``, ``csrc/sweep_lane.cu``) with
+   nvcc, one process per source, started together; print the build time and
+   ptxas's register/spill report;
 2. exact mode, 32k splash: K1 and K2 against their plain PyTorch twins on
    the card (neighbor counts equal, rho rel-L2 <= 1e-6, acc rel-L2 <= 1e-4);
 3. exact mode, 4096-particle splash: the kernel-backed step quantities
@@ -21,16 +22,30 @@ Phases (every failed check raises, and the script exits nonzero):
 7. capped mode, 1M splash shapes: the same kernel-vs-twin checks and times,
    and the capped density mean over the exact one on the same state in
    (0.99, 1.01) (the sampling is unbiased);
-8. the main paths, each with the launch counters reset just before:
+8. lane layout, 32k packed splash with 128-row windows (multi-chunk) and the
+   1M lane splash shapes (window 512): ``density_kernel_lane`` and
+   ``force_kernel_lane`` against their twins, with times at 1M;
+9. backend parity: ``run_parity_check`` on the 32k disk (sublane kernels
+   against the cell-list sweeps), then lane against cell-list and lane
+   against sublane on the same states of the 32k disk and the 100k dam
+   break, with the same bars;
+10. the main paths, each with the launch counters reset just before:
    ``run_benchmark`` drives the 1M lazy splash (3 warmup + 20 timed steps)
    exact, capped two-pass and capped fused (bench.py's ``capped_k4`` row:
-   block 256, window and sub-frame length derived).  Each kernel of a path
+   block 256, window and sub-frame length derived), then the 1M lane splash
+   eager (rebinned every step) for 3 + 20 steps.  Each kernel of a path
    must have launched once per step, no step may drop candidates
-   (``truncated_ranges`` 0) and the final state must be finite.
+   (``truncated_ranges`` 0) and the final state must be finite.  Last, the
+   32k disk runs 100 steps under the lazy sublane driver (central gravity,
+   ``second_kick="gravity"``), printing KE, PE and |L| at the start and
+   the end, with a finite state.
 
 It then prints the card's name and power limit, one JSON line of kernel
-records, and last ``{"ok": true, "device": {...}}``.  With no CUDA device it
-exits 1 before printing any result.
+records (time, twin time, launches, error, and the bound: the larger of the
+bytes each call must move over 3.35 TB/s and the flops on the pairs within
+h over 67 TFLOP/s f32, the H100 SXM's published peaks), and last
+``{"ok": true, "device": {...}}``.  With no CUDA device it exits 1 before
+printing any result.
 """
 
 from __future__ import annotations
@@ -39,38 +54,88 @@ import json
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import torch
 
 # the main paths: bench.py's headline row (1M splash, lazy rebinning, 1.25h
-# cells) and its capped_k4 row, two-pass and fused
+# cells) and its capped_k4 row, two-pass and fused; the lane layout's eager
+# 1M splash on its own 1.0h cells with the JAX defaults (window 512, 128-row
+# blocks)
 MAIN = dict(num_particles=1_000_000, cell_size_factor=1.25, pallas_window_t=208)
 CAPPED = dict(num_particles=1_000_000, cell_size_factor=1.25,
               capped_candidates=4, pallas_window_t=0)
 FUSED = dict(CAPPED, capped_fused=True)
+LANE = dict(num_particles=1_000_000, pallas_layout="lane")
 WARMUP, STEPS = 3, 20
+DISK_STEPS = 100
 RHO_BAR, ACC_BAR = 1e-6, 1e-4
-SOURCE = "smoothed_particle_hydrodynamics_tpu_torch/csrc/sweep_t.cu"
-TPU = "smoothed_particle_hydrodynamics_tpu/ops/pallas_step_t.py"
-# kernel record name -> (wrapper, its plain twin (both in ops/sweeps_t.py),
-# TPU kernel file:line)
+# H100 SXM published peaks: HBM bytes/s, f32
+# FLOP/s outside the tensor cores
+HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
+PKG = "smoothed_particle_hydrodynamics_tpu_torch"
+SOURCE_T = f"{PKG}/csrc/sweep_t.cu"
+SOURCE_LANE = f"{PKG}/csrc/sweep_lane.cu"
+TPU_T = "smoothed_particle_hydrodynamics_tpu/ops/pallas_step_t.py"
+TPU_LANE = "smoothed_particle_hydrodynamics_tpu/ops/pallas_step.py"
+
+
+class Kernel(NamedTuple):
+    module: str          # "t" (ops/sweeps_t.py) or "lane" (ops/sweeps_lane.py)
+    wrapper: str
+    twin: str
+    source: str
+    replaces: str        # TPU kernel file:line
+    flops_per_pair: int  # f32 operations on a pair within h, from the source
+
+
 KERNELS = {
-    "density_kernel_t": ("density_t", "density_t_plain", f"{TPU}:293"),
-    "force_kernel_t": ("force_t", "force_t_plain", f"{TPU}:360"),
-    "density_kernel_t<capped>": ("density_capped_t", "density_t_plain",
-                                 f"{TPU}:321"),
-    "force_kernel_t<capped>": ("force_capped_t", "force_t_plain",
-                               f"{TPU}:403"),
-    "density_kernel_t<prepass>": ("density_pre_t", "density_pre_t_plain",
-                                  f"{TPU}:318"),
-    "fused_kernel_t": ("fused_t", "fused_t_plain", f"{TPU}:497"),
+    "density_kernel_t": Kernel("t", "density_t", "density_t_plain", SOURCE_T,
+                               f"{TPU_T}:293", 15),
+    "force_kernel_t": Kernel("t", "force_t", "force_t_plain", SOURCE_T,
+                             f"{TPU_T}:360", 36),
+    "density_kernel_t<capped>": Kernel("t", "density_capped_t",
+                                       "density_t_plain", SOURCE_T,
+                                       f"{TPU_T}:321", 15),
+    "force_kernel_t<capped>": Kernel("t", "force_capped_t", "force_t_plain",
+                                     SOURCE_T, f"{TPU_T}:403", 36),
+    "density_kernel_t<prepass>": Kernel("t", "density_pre_t",
+                                        "density_pre_t_plain", SOURCE_T,
+                                        f"{TPU_T}:318", 15),
+    "fused_kernel_t": Kernel("t", "fused_t", "fused_t_plain", SOURCE_T,
+                             f"{TPU_T}:497", 48),
+    "density_kernel_lane": Kernel("lane", "density_lane", "density_lane_plain",
+                                  SOURCE_LANE, f"{TPU_LANE}:196", 15),
+    "force_kernel_lane": Kernel("lane", "force_lane", "force_lane_plain",
+                                SOURCE_LANE, f"{TPU_LANE}:244", 40),
 }
-# which kernels each main path runs
+# which kernels each main path runs (the first path a kernel is in gives its
+# launch count in the kernels line)
 PATHS = {
     "exact": (MAIN, ("density_kernel_t", "force_kernel_t")),
     "capped": (CAPPED, ("density_kernel_t<capped>", "force_kernel_t<capped>")),
     "fused": (FUSED, ("density_kernel_t<prepass>", "fused_kernel_t")),
+    "lane": (LANE, ("density_kernel_lane", "force_kernel_lane")),
 }
+
+
+def _module(name: str):
+    from smoothed_particle_hydrodynamics_tpu_torch.ops import (sweeps_lane,
+                                                               sweeps_t)
+
+    return {"t": sweeps_t, "lane": sweeps_lane}[KERNELS[name].module]
+
+
+def wrapper(name: str):
+    return getattr(_module(name), KERNELS[name].wrapper)
+
+
+def reset_launches() -> None:
+    from smoothed_particle_hydrodynamics_tpu_torch.ops import (sweeps_lane,
+                                                               sweeps_t)
+
+    for w in sweeps_t.WRAPPERS + sweeps_lane.WRAPPERS:
+        w.launches = 0
 
 
 def check(ok: bool, what: str) -> None:
@@ -119,8 +184,11 @@ def agree(label: str, name: str, kernel, twin, counts=None, bar=RHO_BAR
 
 def exact_vs_twins(cfg, p, label: str):
     """Exact K1 and K2 against their twins on the same card tensors.
-    Returns the max abs errors and the arguments used (for timing)."""
+    Returns the max abs errors, the arguments used (for timing) and the
+    pairs within h each kernel sums (for its bound)."""
     from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
+    from smoothed_particle_hydrodynamics_tpu_torch.utils.walk_stats import (
+        sublane_rows_per_thread)
 
     args_d = (cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc)
     rho_k, nc_k = sw.density_t(*args_d)
@@ -129,18 +197,22 @@ def exact_vs_twins(cfg, p, label: str):
     args_f = (cfg, p.pos_s, p.vel_s, rho_k, cand, p.cid, p.ws, p.wc)
     acc_k, acc_p = sw.force_t(*args_f), sw.force_t_plain(*args_f)
     torch.cuda.synchronize()
-    print(f"[{label}] max_wc={p.wc.max().item()}")
+    print(f"[{label}] max_wc={p.wc.max().item()} rows tested per thread="
+          f"{sublane_rows_per_thread(cfg, p, p.pos_s.shape[0]):.1f}")
     errs = {"density_kernel_t": agree(label, "density_kernel_t", rho_k, rho_p,
                                       (nc_k, nc_p)),
             "force_kernel_t": agree(label, "force_kernel_t", acc_k, acc_p,
                                     bar=ACC_BAR)}
-    return errs, {"density_kernel_t": args_d, "force_kernel_t": args_f}
+    pairs = int(nc_k.sum())
+    return (errs, {"density_kernel_t": args_d, "force_kernel_t": args_f},
+            {"density_kernel_t": pairs, "force_kernel_t": pairs})
 
 
 def capped_vs_twins(cfg, p, label: str):
     """The four capped kernels against their twins on the same card
     tensors, and K3's rho/counts against capped K1's.  Returns the max abs
-    errors and the arguments used (for timing)."""
+    errors, the arguments used (for timing) and the pairs within h each
+    kernel sums (for its bound)."""
     from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
 
     pos_c, vel_c = sw.gather_sub_pv(p)
@@ -160,7 +232,10 @@ def capped_vs_twins(cfg, p, label: str):
     rho_k, nc_k = sw.density_capped_t(*args["density_kernel_t<capped>"])
     rho_p, nc_p = sw.density_t_plain(*args["density_kernel_t<capped>"])
     sub_k = sw.density_pre_t(*args["density_kernel_t<prepass>"])
-    sub_p = sw.density_pre_t_plain(*args["density_kernel_t<prepass>"])
+    # density_pre_t_plain's own call, keeping the counts
+    sub_p, sub_nc = sw.density_t_plain(
+        cfg, pos_c, p.mass_s[p.sub_perm], p.cand_cid, p.ws_sub, p.wc_sub,
+        pos_c, p.wm_sub, p.cand_cid, p.sub_perm, p.sub_perm)
     # the force candidates' densities: rho at their sorted rows (two-pass)
     # or the pre-pass output (fused)
     cand_2 = sw.fused_cand_cols(cfg, pos_c, vel_c, rho_k[p.sub_perm], p.wm_sub)
@@ -196,19 +271,85 @@ def capped_vs_twins(cfg, p, label: str):
     check(bits[1], f"{label}: fused counts == two-pass capped counts")
     check(rel_l2(frho_k, rho_k) <= RHO_BAR,
           f"{label}: fused rho vs two-pass capped rho")
-    return errs, args
+    capped = int(nc_k.sum())
+    pairs = {"density_kernel_t<capped>": capped,
+             "force_kernel_t<capped>": capped,
+             "density_kernel_t<prepass>": int(sub_nc.sum()),
+             "fused_kernel_t": int(fnc_k.sum())}
+    return errs, args, pairs
 
 
-def timed(args: dict) -> dict:
-    """{name: (kernel ms, twin ms)} at the given arguments of each kernel."""
-    from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
+def lane_vs_twins(cfg, st, label: str):
+    """The lane kernels against their twins on the same card tensors.
+    Returns the max abs errors, the arguments used (for timing) and the
+    pairs within h each kernel sums (for its bound)."""
+    from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_lane as sl
+    from smoothed_particle_hydrodynamics_tpu_torch.utils.walk_stats import (
+        lane_rows_per_thread)
 
+    p = sl.prepare_lane(cfg, st)
+    n = st.n
+    args_d = (cfg, sl.density_fields(cfg, p), p.ws, p.wc, n)
+    rho_k, nc_k = sl.density_lane(*args_d)
+    rho_p, nc_p = sl.density_lane_plain(*args_d)
+    args_f = (cfg, sl.force_fields(cfg, p, rho_k), p.ws, p.wc, n)
+    acc_k, acc_p = sl.force_lane(*args_f), sl.force_lane_plain(*args_f)
+    torch.cuda.synchronize()
+    print(f"[{label}] window={cfg.pallas_window} block={cfg.pallas_block_rows}"
+          f" max_wc={p.wc.max().item()} "
+          f"truncated={int(p.truncated_ranges)} rows tested per thread="
+          f"{lane_rows_per_thread(cfg, p):.1f}")
+    check(int(p.truncated_ranges) == 0, f"{label}: no chunk clamped")
+    errs = {"density_kernel_lane": agree(label, "density_kernel_lane", rho_k,
+                                         rho_p, (nc_k, nc_p)),
+            "force_kernel_lane": agree(label, "force_kernel_lane", acc_k,
+                                       acc_p, bar=ACC_BAR)}
+    pairs = int(nc_k.sum())
+    return (errs, {"density_kernel_lane": args_d, "force_kernel_lane": args_f},
+            {"density_kernel_lane": pairs, "force_kernel_lane": pairs})
+
+
+def io_bytes(args: tuple, out) -> int:
+    """Bytes a call must move: each input tensor read once (a tensor passed
+    twice counts once), each output written once."""
+    outs = out if isinstance(out, tuple) else (out,)
+    ins = {(a.data_ptr(), a.nbytes) for a in args if isinstance(a, torch.Tensor)}
+    return sum(b for _, b in ins) + sum(o.nbytes for o in outs)
+
+
+def timed(args: dict, pairs: dict) -> dict:
+    """Per kernel at the given arguments: kernel and twin ms (CUDA events)
+    and the bound, the larger of its bytes over the HBM rate and its flops
+    on the pairs within h over the f32 rate."""
     out = {}
     for name, a in args.items():
-        kern, twin = (getattr(sw, f) for f in KERNELS[name][:2])
-        out[name] = (time_ms(lambda: kern(*a), 10),
-                     time_ms(lambda: twin(*a), 3))
+        kern = wrapper(name)
+        twin = getattr(_module(name), KERNELS[name].twin)
+        nbytes = io_bytes(a, kern(*a))
+        flops = pairs[name] * KERNELS[name].flops_per_pair
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+        out[name] = dict(ms=time_ms(lambda: kern(*a), 10),
+                         plain_ms=time_ms(lambda: twin(*a), 3),
+                         bound_ms=max(t_bytes, t_ops) * 1e3,
+                         bound_by="bytes" if t_bytes >= t_ops else "operations",
+                         bytes=nbytes, flops=flops)
     return out
+
+
+def compare(label: str, a, b, names: str) -> None:
+    """Two backends' (acc, rho, aux) on one state: counts equal, rho and acc
+    within the bars, no candidate range cut on either side."""
+    (acc_a, rho_a, aux_a), (acc_b, rho_b, aux_b) = a, b
+    equal = bool(torch.equal(aux_a.neighbor_count, aux_b.neighbor_count))
+    r_rho, r_acc = rel_l2(rho_a, rho_b), rel_l2(acc_a, acc_b)
+    cut = (int(aux_a.truncated_ranges), int(aux_b.truncated_ranges))
+    print(f"[{label}] {names}: counts_equal={equal} mean_neighbors="
+          f"{aux_a.neighbor_count.float().mean().item():.3f} "
+          f"rho_rel_l2={r_rho:.3e} acc_rel_l2={r_acc:.3e} truncated={cut}")
+    check(equal, f"{label}: {names} neighbor counts equal")
+    check(r_rho <= RHO_BAR, f"{label}: {names} rho rel-L2 {r_rho}")
+    check(r_acc <= ACC_BAR, f"{label}: {names} acc rel-L2 {r_acc}")
+    check(cut == (0, 0), f"{label}: {names} truncated ranges {cut}")
 
 
 def main() -> int:
@@ -217,12 +358,18 @@ def main() -> int:
         return 1
     from smoothed_particle_hydrodynamics_tpu_torch.models import make_scene
     from smoothed_particle_hydrodynamics_tpu_torch.ops import pairwise
+    from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
     from smoothed_particle_hydrodynamics_tpu_torch.ops.grid import (
         cell_coords, linear_cell_id)
-    from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
+    from smoothed_particle_hydrodynamics_tpu_torch.ops.integrate import (
+        energy_tally)
+    from smoothed_particle_hydrodynamics_tpu_torch.ops.lazy import (
+        drive_loop_lazy)
+    from smoothed_particle_hydrodynamics_tpu_torch.ops.step import (
+        compute_forces)
     from smoothed_particle_hydrodynamics_tpu_torch.utils import build
     from smoothed_particle_hydrodynamics_tpu_torch.utils.benchmark import (
-        resolve_sweep_settings, run_benchmark)
+        resolve_sweep_settings, run_benchmark, run_parity_check)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -230,15 +377,19 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}"
           f" torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # 1. build from the checkout's sources
+    # 1. build from the checkout's sources, one nvcc per source in parallel
     t0 = time.perf_counter()
-    build.load_library("sweep_t")
-    print(f"[build] sweep_t.cu built+loaded in {time.perf_counter() - t0:.2f} s")
-    print(build.build_log("sweep_t").strip())
+    build.build_libraries(["sweep_t", "sweep_lane"])
+    print(f"[build] sweep_t.cu + sweep_lane.cu built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name in ("sweep_t", "sweep_lane"):
+        build.load_library(name)
+        print(build.build_log(name).strip())
 
     def oracle(label, cfg, st):
         """Step quantities against the pairwise oracle (hydro only)."""
-        acc, rho, nc, trunc = sw.compute_step_quantities(cfg, st)
+        acc, rho, aux = sw.compute_step_quantities(cfg, st)
+        nc, trunc = aux.neighbor_count, aux.truncated_ranges
         rho_o = pairwise.compute_density(cfg, st)
         nc_o = pairwise.neighbor_counts(cfg, st)
         acc_o = pairwise.compute_acceleration(cfg, st, rho_o)
@@ -268,8 +419,8 @@ def main() -> int:
 
     # 4. the exact main path's shapes: agreement and times, kernel vs twin
     cfg, st = make_scene("splash", device=dev, **MAIN)
-    errs, args = exact_vs_twins(cfg, sw.prepare_t(cfg, st), "exact 1M")
-    times = timed(args)
+    errs, args, pairs = exact_vs_twins(cfg, sw.prepare_t(cfg, st), "exact 1M")
+    times = timed(args, pairs)
     del args
 
     # 5. capped kernels vs twins, 32k splash (derived sub frame, with tail)
@@ -292,9 +443,10 @@ def main() -> int:
     cfg, st = make_scene("splash", device=dev, **FUSED)
     cfg = resolve_sweep_settings(cfg, st, FUSED)
     p = sw.prepare_t(cfg, st)
-    capped_errs, args = capped_vs_twins(cfg, p, "capped 1M")
+    capped_errs, args, capped_pairs = capped_vs_twins(cfg, p, "capped 1M")
     errs.update(capped_errs)
-    times.update(timed(args))
+    pairs.update(capped_pairs)
+    times.update(timed(args, capped_pairs))
     exact = cfg.replace(capped_candidates=0)
     rho_e = sw.density_sweep_t(exact, sw.prepare_t(exact, st))[0]
     rho_c = sw.density_sweep_t(cfg.replace(capped_fused=False), p)[0]
@@ -302,48 +454,119 @@ def main() -> int:
     print(f"[capped 1M] capped rho mean / exact rho mean on the same state: "
           f"{ratio:.6f}")
     check(0.99 < ratio < 1.01, f"capped density unbiased: ratio {ratio}")
-    for name, (k_ms, p_ms) in times.items():
-        print(f"[1M] {name}: kernel {k_ms:.4f} ms, plain twin {p_ms:.4f} ms")
     del p, args, st, rho_e, rho_c
 
-    # 8. the main paths, counted
+    # 8. lane kernels vs twins: a 32k packed splash with 128-row windows
+    #    (multi-chunk walks), then the lane main path's 1M shapes, timed
+    cfg, st = make_scene("splash", device=dev, num_particles=32768,
+                         grid_nx=32, grid_ny=32, grid_nz=32,
+                         pallas_layout="lane", pallas_window=128)
+    lane_vs_twins(cfg, st, "lane 32k")
+    cfg, st = make_scene("splash", device=dev, **LANE)
+    lane_errs, args, lane_pairs = lane_vs_twins(cfg, st, "lane 1M")
+    errs.update(lane_errs)
+    pairs.update(lane_pairs)
+    times.update(timed(args, lane_pairs))
+    del args, st
+    for name, t in times.items():
+        print(f"[1M] {name}: kernel {t['ms']:.4f} ms, plain twin "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms'] * 1e3:.3f} us "
+              f"({t['bound_by']}: {t['bytes']} bytes, {t['flops']} flops on "
+              f"{pairs[name]} pairs)")
+
+    # 9. backend parity on the card: the bench parity check (sublane kernels
+    #    vs cell-list sweeps, 32k disk), then lane vs cell-list and lane vs
+    #    sublane on the same states of the 32k disk and the 100k dam break
+    r = run_parity_check(n=32768, scene="disk", device="cuda")
+    print(f"[parity] {json.dumps(r)}")
+    check(r["pass"] and r["rho_rel_l2"] <= RHO_BAR
+          and r["acc_rel_l2"] <= ACC_BAR, f"parity check {r}")
+    for scene in ("disk", "dam_break"):
+        cfg, st = make_scene(scene, device=dev)
+        label = f"{scene} {st.n}"
+        cl = compute_forces(cfg, st, backend="celllist")
+        sub = compute_forces(cfg, st, backend="pallas")
+        lane = compute_forces(cfg.replace(pallas_layout="lane"), st,
+                              backend="pallas")
+        compare(label, lane, cl, "lane vs celllist")
+        compare(label, lane, sub, "lane vs sublane")
+        print(f"[{label}] overflow_cells celllist={int(cl[2].overflow_cells)}"
+              f" lane={int(lane[2].overflow_cells)}")
+    del cl, sub, lane, st
+
+    # 10. the main paths, counted
     launches = {}
     for path, (ov, names) in PATHS.items():
-        for wrapper in sw.WRAPPERS:
-            wrapper.launches = 0
-        r = run_benchmark(scene="splash", lazy=True, steps=STEPS,
+        lazy = path != "lane"
+        reset_launches()
+        r = run_benchmark(scene="splash", lazy=lazy, steps=STEPS,
                           warmup=WARMUP, overrides=ov, device="cuda")
-        counts = {name: getattr(sw, KERNELS[name][0]).launches
-                  for name in KERNELS}
+        counts = {name: wrapper(name).launches for name in KERNELS}
         total_steps = r["warmup_steps"] + r["steps"]
-        print(f"[main {path}] 1M splash lazy: {r['ms_per_step']:.4f} ms/step, "
+        print(f"[main {path}] 1M splash {'lazy' if lazy else 'eager'} "
+              f"{r['pallas_layout']}: {r['ms_per_step']:.4f} ms/step, "
               f"{r['value']:.6e} particle-steps/s over {r['steps']} steps "
               f"(warmup {r['warmup_steps']} steps, {r['warmup_s']:.2f} s); "
-              f"window {r['window_t']} block {r['block_t']} sub_len "
-              f"{r['capped_sub_len']}; rebins in timed steps {r['rebins']}; "
+              + (f"window {r['window']} block_rows {r['block_rows']}; "
+                 if r["pallas_layout"] == "lane" else
+                 f"window_t {r['window_t']} block_t {r['block_t']} sub_len "
+                 f"{r['capped_sub_len']}; ")
+              + f"rebins in timed steps {r['rebins']}; "
               f"launches {counts} for {total_steps} steps; max truncated "
-              f"{max(r['truncated_ranges'])}; neighbor mean "
+              f"{max(r['truncated_ranges'])}; max overflow_cells "
+              f"{max(r['overflow_cells'])}; neighbor mean "
               f"{r['neighbor_mean'][-1]:.4f}; KE {r['kinetic_energy'][0]:.6e} "
               f"-> {r['kinetic_energy'][-1]:.6e}; finite={r['finite']}")
         for name in names:
             check(counts[name] == total_steps, f"{path}: {name} launched "
                   f"{counts[name]} times in {total_steps} steps")
-            launches[name] = counts[name]
+            launches.setdefault(name, counts[name])
         check(len(r["truncated_ranges"]) == total_steps
               and max(r["truncated_ranges"]) == 0,
               f"{path}: truncated_ranges {r['truncated_ranges']}")
         check(r["finite"], f"{path}: positions, velocities and KE finite")
+
+    # the 32k disk under the lazy sublane driver: central gravity and the
+    # gravity-only closing kick
+    cfg, st = make_scene("disk", device=dev)
+    t0 = energy_tally(cfg, st.position, st.velocity, st.mass)
+    reset_launches()
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    final, d = drive_loop_lazy(cfg, st, DISK_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    counts = {name: wrapper(name).launches
+              for name in ("density_kernel_t", "force_kernel_t")}
+    finite = bool(torch.isfinite(final.position).all()
+                  and torch.isfinite(final.velocity).all()
+                  and torch.isfinite(d.kinetic_energy).all())
+    print(f"[disk {st.n}] lazy sublane {DISK_STEPS} steps in {wall:.3f} s: "
+          f"KE {t0.kinetic.item():.6e} -> {d.kinetic_energy[-1].item():.6e}, "
+          f"PE {t0.potential.item():.6e} -> "
+          f"{d.potential_energy[-1].item():.6e}, |L| "
+          f"{t0.angular_momentum.item():.6e} -> "
+          f"{d.angular_momentum[-1].item():.6e}; neighbor mean "
+          f"{d.neighbor_mean[-1].item():.4f}; launches {counts}; max "
+          f"truncated {int(d.truncated_ranges.max())}; finite={finite}")
+    for name, c in counts.items():
+        check(c == DISK_STEPS, f"disk: {name} launched {c} times in "
+              f"{DISK_STEPS} steps")
+    check(int(d.truncated_ranges.max()) == 0, "disk: no candidates dropped")
+    check(finite, "disk: positions, velocities and KE finite")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip())
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": replaces, "launches": launches[name],
-         "max_abs_err": errs[name], "ms": times[name][0],
-         "plain_ms": times[name][1]}
-        for name, (_, _, replaces) in KERNELS.items()]}))
+        {"name": name, "route": "cuda", "source": k.source,
+         "replaces": k.replaces, "launches": launches[name],
+         "max_abs_err": errs[name], "ms": times[name]["ms"],
+         "plain_ms": times[name]["plain_ms"],
+         "bound_ms": times[name]["bound_ms"],
+         "bound_by": times[name]["bound_by"], "library_ms": None}
+        for name, k in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

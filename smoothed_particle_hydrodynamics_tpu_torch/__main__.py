@@ -1,14 +1,21 @@
 """Command line: ``python -m smoothed_particle_hydrodynamics_tpu_torch``.
 
-    run   --scene splash -n N --steps S [--block B]   one JSON line per block
-    bench --scene splash -n N --steps S [--warmup W]  one JSON line
+    run   --scene S -n N --steps K [--block B]   one JSON line per block
+    bench --scene S -n N --steps K [--warmup W]  one JSON line
 
-Both drive the lazy-rebinning loop on ``--device`` (default cuda; a run
-without a CUDA device stops with an error, and ``--device cpu`` runs the
-kernels' plain twins on the CPU).  ``--set key=value`` overrides a config
-field (e.g. ``--set cell_size_factor=1.25``); capped mode is
-``--set capped_candidates=4`` (``--set capped_fused=true`` for the fused
-sweep), and ``pallas_window_t=0`` derives the window from the scene.
+``--scene`` is one of disk, dam_break, splash (default), honey,
+dam_break_10m.  ``--backend`` is ``auto`` (default: pallas on cuda,
+celllist on cpu), ``pallas``, ``celllist`` or ``pairwise``.  As in the JAX
+CLI, the lazy-rebinning loop drives the pallas backend in the sublane
+layout (unless ``second_kick=full`` or ``bench --eager``); every other
+choice runs the eager loop, which rebins every step.  ``--device`` defaults
+to cuda, and a run without a CUDA device stops with an error; ``--device
+cpu`` runs the kernels' plain twins on the CPU.  ``--set key=value``
+overrides a config field (e.g. ``--set cell_size_factor=1.25``,
+``--set pallas_layout=lane``); capped mode is ``--set capped_candidates=4``
+(``--set capped_fused=true`` for the fused sweep); ``pallas_window_t=0``
+derives the sublane window and ``range_slice=0`` the cell-list slice from
+the scene.
 """
 
 from __future__ import annotations
@@ -51,21 +58,37 @@ def _device(name: str) -> torch.device:
     return dev
 
 
+def _backend(name: str, dev: torch.device) -> str:
+    """``auto`` = the kernels on the card, the cell-list sweeps on the CPU
+    (the JAX CLI's rule, ``cli.py:41-55``)."""
+    if name != "auto":
+        return name
+    return "pallas" if dev.type == "cuda" else "celllist"
+
+
 def cmd_run(args) -> int:
     from .models import make_scene
     from .ops.lazy import drive_loop_lazy
-    from .utils.benchmark import resolve_sweep_settings
+    from .ops.step import drive_loop
+    from .utils.benchmark import resolve_sweep_settings, uses_lazy
 
     dev = _device(args.device)
+    backend = _backend(args.backend, dev)
     ov = _overrides(args)
     cfg, state = make_scene(args.scene, device=dev, seed=args.seed, **ov)
     cfg = resolve_sweep_settings(cfg, state, ov)
-    carry, done = None, 0
+    lazy = uses_lazy(cfg, backend)
+    carry, done, rebins = None, 0, args.steps
     while done < args.steps:
         k = min(args.block, args.steps - done)
         t0 = time.perf_counter()
-        carry, d = drive_loop_lazy(cfg, state if carry is None else None, k,
-                                   carry=carry, keep_carry=True)
+        if lazy:
+            carry, d = drive_loop_lazy(cfg, state if carry is None else None,
+                                       k, carry=carry, keep_carry=True)
+            rebins = carry.rebin_count
+        else:
+            state, d = drive_loop(cfg, state, k, backend=backend)
+            rebins = done + k
         _sync(dev)
         dt = time.perf_counter() - t0
         done += k
@@ -80,7 +103,10 @@ def cmd_run(args) -> int:
             "neighbor_min": d.neighbor_min[-1].item(),
             "neighbor_max": d.neighbor_max[-1].item(),
             "truncated_ranges": int(d.truncated_ranges.max().item()),
-            "rebin_count": carry.rebin_count,
+            "overflow_cells": int(d.overflow_cells.max().item()),
+            "rebin_count": rebins,
+            "backend": backend,
+            "lazy": lazy,
             "window_t": cfg.pallas_window_t,
             "block_t": cfg.pallas_block_t,
             "capped_sub_len": cfg.capped_sub_len,
@@ -92,9 +118,11 @@ def cmd_run(args) -> int:
 def cmd_bench(args) -> int:
     from .utils.benchmark import run_benchmark
 
-    r = run_benchmark(scene=args.scene, lazy=not args.eager, steps=args.steps,
-                      warmup=args.warmup, overrides=_overrides(args),
-                      device=str(_device(args.device)), seed=args.seed)
+    dev = _device(args.device)
+    r = run_benchmark(scene=args.scene, lazy=False if args.eager else None,
+                      steps=args.steps, warmup=args.warmup,
+                      overrides=_overrides(args), device=str(dev),
+                      seed=args.seed, backend=_backend(args.backend, dev))
     print(json.dumps(r))
     return 0
 
@@ -109,6 +137,9 @@ def main(argv: list[str] | None = None) -> int:
         p.add_argument("--steps", type=int, default=20)
         p.add_argument("--seed", type=int, default=11)
         p.add_argument("--device", default="cuda")
+        p.add_argument("--backend", default="auto",
+                       choices=["auto", "pallas", "celllist", "pairwise"],
+                       help="auto = pallas on cuda, celllist on cpu")
         p.add_argument("--set", action="append", metavar="KEY=VALUE")
     sub.choices["run"].add_argument("--block", type=int, default=10)
     sub.choices["bench"].add_argument("--warmup", type=int, default=3)

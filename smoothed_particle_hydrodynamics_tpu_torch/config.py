@@ -78,10 +78,10 @@ class SphConfig:
     neighborhood: NeighborhoodMode = "octant"
 
     # --- sweep tuning (names shared with the JAX package) -----------------------
-    pallas_block_rows: int = 128        # lane layout only (not ported)
-    pallas_window: int = 512            # lane layout only (not ported)
+    pallas_block_rows: int = 128        # lane layout: sorted rows per block
+    pallas_window: int = 512            # lane layout: rows per window chunk (x128)
     pallas_interpret: bool = False      # JAX interpreter mode; unused here
-    pallas_layout: str = "sublane"      # the port implements "sublane"
+    pallas_layout: str = "sublane"      # "sublane" (sweeps_t) or "lane" (sweeps_lane)
     pallas_window_t: int = 192          # rows per window chunk (multiple of 8)
     pallas_block_t: int = 128           # sorted particles per block (128/256/512)
     pallas_groups: int = 1              # lane groups: the port supports 1

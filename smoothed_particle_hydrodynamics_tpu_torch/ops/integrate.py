@@ -2,8 +2,8 @@
 ``smoothed_particle_hydrodynamics_tpu/ops/integrate.py``).
 
 The closing kick re-evaluates only the central point-mass gravity
-(``second_kick="gravity"``) or nothing (``"none"``); ``"full"`` needs a
-force re-evaluation and is not ported.  Default-mode tallies only.
+(``second_kick="gravity"``) or nothing (``"none"``); ``"full"`` re-evaluates
+the whole force and is applied by ``ops.step``.  Default-mode tallies only.
 """
 
 from __future__ import annotations
@@ -41,8 +41,8 @@ def kdk_integrate(cfg: SphConfig, state: ParticleState,
     elif cfg.second_kick == "none":
         new_vel = v_half
     else:
-        raise ValueError("second_kick='full' needs a force re-evaluation and "
-                         "is not ported to the torch package yet")
+        raise ValueError("second_kick='full' must be handled by the step "
+                         "function (ops.step), which re-evaluates the force")
 
     if cfg.boundary == "reflect":
         new_pos, new_vel = reflect_boundary(cfg, state.position, new_pos, new_vel)

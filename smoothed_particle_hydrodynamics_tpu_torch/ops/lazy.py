@@ -115,8 +115,10 @@ def lazy_step(cfg: SphConfig, carry: LazyCarry
     acc_s, rho_s, ncount_s = sweeps_sorted(cfg, p)
     st = st._replace(density=rho_s, neighbor_count=ncount_s)
     new_state, tally = kdk_integrate(cfg, st, acc_s)
+    # the sublane frame has no per-cell capacity: no cell overflows
+    zero = torch.zeros((), dtype=torch.int32, device=ncount_s.device)
     return carry._replace(state=new_state), make_step_diagnostics(
-        tally, ncount_s, truncated_ranges(p))
+        tally, ncount_s, zero, truncated_ranges(p))
 
 
 def unsort_carry(carry: LazyCarry) -> ParticleState:

@@ -39,8 +39,18 @@ def density_sum(cfg: SphConfig, m_j: torch.Tensor, d: torch.Tensor,
     w = cfg.poly6_norm * t * t * t
     w = torch.where(mask & (d <= cfg.h_scaled), w, torch.zeros_like(w))
     rho = (m_j * w).sum(-1)
-    if cfg.include_self_density and m_self is not None:
-        rho = rho + m_self * cfg.poly6_norm * h2 * h2 * h2
+    if m_self is not None:
+        rho = self_density(cfg, rho, m_self)
+    return rho
+
+
+def self_density(cfg: SphConfig, rho: torch.Tensor, mass: torch.Tensor
+                 ) -> torch.Tensor:
+    """rho plus the textbook self term m_i poly6(0) when
+    ``include_self_density`` is set."""
+    if cfg.include_self_density:
+        h2s = cfg.h_scaled2
+        rho = rho + mass * cfg.poly6_norm * h2s * h2s * h2s
     return rho
 
 

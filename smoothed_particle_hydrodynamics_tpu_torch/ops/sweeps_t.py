@@ -53,16 +53,20 @@ from ..config import SphConfig, _f32
 from ..state import ParticleState
 from ..utils import build
 from . import physics
-from .grid import cell_coords, inverse_order, linear_cell_id, unsort_stacked
+from .celllist import CellListAux
+from .grid import (NO_CELL, RODS, cell_coords, inverse_order, linear_cell_id,
+                   rod_deltas, unsort_stacked)
+from .launch import check as _check
+from .launch import raise_on as _raise_on
+from .launch import stream as _stream
+from .launch import use_plain as _use_plain
 
 SUB = 8      # window starts align down to this many rows
 LANE = 128   # padded-frame granule of the JAX package's window tables
-# The 9 (dy, dz) stencil rods; rod r's linear-id offset is (dz*ny + dy)*nx.
-RODS = [(dy, dz) for dy in (-1, 0, 1) for dz in (-1, 0, 1)]
 NRODS = len(RODS)
 # Cell id of the sub frame's tail rows (unkept particles beyond the kept
-# count): no rod band [cid_i + delta - 1, cid_i + delta + 1] reaches it.
-TAIL_CID = -(1 << 30)
+# count).
+TAIL_CID = NO_CELL
 # pair elements per twin chunk ([blocks, b, s_t] tensors), bounding its memory
 _PAIR_BUDGET = 1 << 25
 # Self-exclusion modes of the density and force kernels (csrc/sweep_t.cu):
@@ -84,10 +88,6 @@ def _n_pad(cfg: SphConfig, rows: int) -> int:
     rows: window starts clip to ``_n_pad - window`` exactly as there, so the
     tables compare equal."""
     return _round_up(rows + cfg.pallas_window_t, LANE)
-
-
-def rod_deltas(cfg: SphConfig) -> list[int]:
-    return [(dz * cfg.grid_ny + dy) * cfg.grid_nx for dy, dz in RODS]
 
 
 def _validate(cfg: SphConfig) -> None:
@@ -418,13 +418,6 @@ def _density_terms(cfg: SphConfig, d2, mask, m_j):
             mask.sum(-1, dtype=torch.int32))
 
 
-def _self_term(cfg: SphConfig, rho: torch.Tensor, mass: torch.Tensor):
-    if cfg.include_self_density:
-        h2s = cfg.h_scaled2
-        rho = rho + mass * cfg.poly6_norm * h2s * h2s * h2s
-    return rho
-
-
 def density_t_plain(cfg: SphConfig, pos_s: torch.Tensor, mass_s: torch.Tensor,
                     cid: torch.Tensor, ws: torch.Tensor, wc: torch.Tensor,
                     cand_pos=None, cand_mass=None, cand_cid=None,
@@ -444,7 +437,8 @@ def density_t_plain(cfg: SphConfig, pos_s: torch.Tensor, mass_s: torch.Tensor,
         r_add, c_add = _density_terms(cfg, d2, mask, cand_mass[rows][:, None, :])
         rho[blocks] += r_add
         count[blocks] += c_add
-    return _self_term(cfg, rho.view(-1)[:n], mass_s), count.view(-1)[:n]
+    return (physics.self_density(cfg, rho.view(-1)[:n], mass_s),
+            count.view(-1)[:n])
 
 
 def density_pre_t_plain(cfg: SphConfig, pos_sub: torch.Tensor,
@@ -540,7 +534,7 @@ def fused_t_plain(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
             p2[a, blocks] -= torch.where(mask, dxyz[a] * c2, zero).sum(-1)
             vis = (col[3 + a] - vi[a][blocks] * col[6]) * hd
             sums[3 + a, blocks] += torch.where(mask, vis, zero).sum(-1)
-    rho = _self_term(cfg, rho.view(-1)[:n], mass_s)
+    rho = physics.self_density(cfg, rho.view(-1)[:n], mass_s)
     rhoi_inv = physics.safe_inv(rho)
     pw_i = (rho - _f32(cfg.rho0)) * _f32(cfg.stiffness) * rhoi_inv * rhoi_inv
     mu_rhoi = _f32(cfg.viscosity) * rhoi_inv
@@ -572,40 +566,8 @@ def _kernels() -> ctypes.CDLL:
     return lib
 
 
-def _use_plain(x: torch.Tensor) -> bool:
-    """CPU tensors take the twin, CUDA tensors the kernel; nothing else."""
-    if x.device.type == "cpu":
-        return True
-    if x.device.type == "cuda":
-        return False
-    raise ValueError(f"sweep kernels run on cuda (twin on cpu), got a "
-                     f"tensor on {x.device}")
-
-
-def _check(device: torch.device, **specs) -> None:
-    """Each spec is (tensor, dtype, shape): the kernels take contiguous
-    tensors on one device, of exactly these types and shapes."""
-    for name, (t, dtype, shape) in specs.items():
-        if (t.device != device or t.dtype != dtype
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(
-                f"{name}: need a contiguous {dtype} tensor of shape {shape} "
-                f"on {device}; got {t.dtype} {tuple(t.shape)} on {t.device}"
-                f"{'' if t.is_contiguous() else ' (not contiguous)'}")
-
-
-def _raise_on(lib: ctypes.CDLL, err: int, kernel: str) -> None:
-    if err:
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {err} "
-                           f"({lib.sph_error_string(err).decode()})")
-
-
 def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _self_specs(cfg: SphConfig, n: int, pos_s, cid, ws, wc) -> dict:
@@ -871,12 +833,15 @@ def truncated_ranges(p: PreparedT) -> torch.Tensor:
 
 
 def compute_step_quantities(cfg: SphConfig, state: ParticleState
-                            ) -> tuple[torch.Tensor, torch.Tensor,
-                                       torch.Tensor, torch.Tensor]:
-    """(acc, rho, neighbor_count, truncated_ranges) in the caller's
-    particle order."""
+                            ) -> tuple[torch.Tensor, torch.Tensor, CellListAux]:
+    """(acc, rho, aux) in the caller's particle order, the cell-list
+    backend's contract.  This layout has no per-cell capacity, so
+    ``aux.overflow_cells`` is 0, as in the JAX package; its only counted
+    loss is the capped sub frame's overflow."""
     p = prepare_t(cfg, state)
     acc_s, rho_s, ncount_s = sweeps_sorted(cfg, p)
     acc, rho, ncount = unsort_stacked(inverse_order(p.order),
                                       [acc_s, rho_s, ncount_s])
-    return acc, rho, ncount, truncated_ranges(p)
+    zero = torch.zeros((), dtype=torch.int32, device=acc.device)
+    return acc, rho, CellListAux(neighbor_count=ncount, overflow_cells=zero,
+                                 truncated_ranges=truncated_ranges(p))

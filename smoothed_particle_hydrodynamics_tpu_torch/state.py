@@ -84,13 +84,13 @@ class StepDiagnostics(NamedTuple):
 
 
 def make_step_diagnostics(tally, neighbor_count: torch.Tensor,
+                          overflow_cells: torch.Tensor,
                           truncated_ranges: torch.Tensor | None = None
                           ) -> StepDiagnostics:
     """Assemble the per-step record from an energy tally, the neighbor
-    counts and the candidate rows the sweeps dropped (capped mode's sub-frame
-    overflow; None = 0).  The other loss counters are 0: the sweeps walk every
-    candidate window in full and the single-device path has no halo or
-    migration."""
+    counts, the backend's count of cells over ``cell_capacity`` and the
+    candidate ranges it cut (None = 0).  The halo and migration counters are
+    0: the single-device path has neither."""
     nc = neighbor_count
     zero = torch.zeros((), dtype=torch.int32, device=nc.device)
     return StepDiagnostics(
@@ -100,7 +100,7 @@ def make_step_diagnostics(tally, neighbor_count: torch.Tensor,
         neighbor_mean=nc.to(torch.float32).mean(),
         neighbor_max=nc.max(),
         neighbor_min=nc.min(),
-        overflow_cells=zero,
+        overflow_cells=overflow_cells,
         truncated_ranges=zero if truncated_ranges is None else truncated_ranges,
         halo_dropped=zero,
         migration_dropped=zero,

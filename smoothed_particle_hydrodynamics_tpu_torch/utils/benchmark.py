@@ -1,16 +1,19 @@
-"""Throughput benchmark (counterpart of
-``smoothed_particle_hydrodynamics_tpu/utils/benchmark.py::run_benchmark``).
+"""Throughput benchmark and backend parity check (counterpart of
+``smoothed_particle_hydrodynamics_tpu/utils/benchmark.py``).
 
-Steady-state particle-steps/s of the step loop after warmup.  The fence is
-``torch.cuda.synchronize()``: the host clock runs around work that ends in
-a device sync.  A CUDA run reports the card it ran on; a CPU run (tests,
-small n) says ``cpu`` and is never a device number.
+``run_benchmark``: steady-state particle-steps/s of a step loop after
+warmup.  The fence is ``torch.cuda.synchronize()``: the host clock runs
+around work that ends in a device sync.  ``run_parity_check``: the
+``pallas`` sweeps against the ``celllist`` sweeps on one state.  A CUDA run
+reports the card it ran on; a CPU run (tests, small n) says ``cpu`` and is
+never a device number.
 """
 
 from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
 
 from ..config import SphConfig
@@ -23,16 +26,28 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _device(device: str) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r}: no CUDA device")
+    return dev
+
+
+def _device_name(dev: torch.device) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
 def resolve_sweep_settings(cfg: SphConfig, state: ParticleState,
                            overrides: dict) -> SphConfig:
-    """The settings the JAX CLI resolves before a run on the sweeps
-    (``cli.py:101-123``), shared by ``run`` and ``bench``: capped mode takes
-    256-row blocks unless ``overrides`` set ``pallas_block_t`` (its windows
-    are K_c-bounded, so wider blocks halve the per-(block, rod) visits for
-    little window growth); ``pallas_window_t=0`` derives the window from
-    this state (capped-aware); capped ``capped_sub_len=0`` derives the
-    sub-frame bound from the occupancy histogram."""
-    from ..ops import sweeps_t
+    """The settings the JAX CLI resolves before a run (``cli.py:101-129``),
+    shared by ``run`` and ``bench``: capped mode takes 256-row blocks unless
+    ``overrides`` set ``pallas_block_t`` (its windows are K_c-bounded, so
+    wider blocks halve the per-(block, rod) visits for little window
+    growth); ``pallas_window_t=0`` derives the sublane window from this
+    state (capped-aware); capped ``capped_sub_len=0`` derives the sub-frame
+    bound from the occupancy histogram; ``range_slice=0`` derives the
+    cell-list candidate slice from the 3-cell occupancies."""
+    from ..ops import celllist, sweeps_t
 
     if cfg.capped_candidates and "pallas_block_t" not in overrides:
         cfg = cfg.replace(pallas_block_t=256)
@@ -40,28 +55,46 @@ def resolve_sweep_settings(cfg: SphConfig, state: ParticleState,
         cfg = cfg.replace(pallas_window_t=sweeps_t.derive_window_t(cfg, state))
     if cfg.capped_candidates and cfg.capped_sub_len == 0:
         cfg = cfg.replace(capped_sub_len=sweeps_t.derive_sub_len(cfg, state))
+    if cfg.range_slice == 0:
+        cfg = cfg.replace(range_slice=celllist.derive_range_slice(cfg, state))
     return cfg
 
 
-def run_benchmark(scene: str = "splash", lazy: bool = True, steps: int = 20,
-                  warmup: int = 3, overrides: dict | None = None,
-                  device: str = "cuda", seed: int | None = None) -> dict:
+def uses_lazy(cfg: SphConfig, backend: str) -> bool:
+    """The JAX CLI's rule for driving the lazy loop (``cli.py:242-246``):
+    the pallas backend in the sublane layout, default mode, and a closing
+    kick that needs no force re-evaluation."""
+    return (backend == "pallas" and not cfg.compat
+            and cfg.pallas_layout == "sublane" and cfg.second_kick != "full")
+
+
+def run_benchmark(scene: str = "splash", lazy: bool | None = True,
+                  steps: int = 20, warmup: int = 3, overrides: dict | None = None,
+                  device: str = "cuda", seed: int | None = None,
+                  backend: str = "pallas") -> dict:
     """Run ``warmup`` steps, then time ``steps`` steps; returns one record.
 
-    ``lazy=True`` drives ``ops.lazy.drive_loop_lazy`` (the production path);
-    ``lazy=False`` the eager per-step-rebin ``ops.step.drive_loop``.
+    ``lazy=True`` drives ``ops.lazy.drive_loop_lazy`` (the production path,
+    the pallas backend only); ``lazy=False`` the eager per-step-rebin
+    ``ops.step.drive_loop`` on ``backend``; ``lazy=None`` picks by
+    ``uses_lazy``.
     """
     from ..ops.lazy import drive_loop_lazy
     from ..ops.step import drive_loop
 
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("run_benchmark(device='cuda'): no CUDA device")
+    if lazy and backend != "pallas":
+        # the lazy driver always runs the sublane sweeps; a record labelled
+        # with another backend would name an engine that never ran
+        raise ValueError(f"lazy=True benchmarks the pallas backend; got "
+                         f"backend={backend!r}")
+    dev = _device(device)
     kw = dict(overrides or {})
     if seed is not None:
         kw["seed"] = seed
     cfg, state = make_scene(scene, device=dev, **kw)
     cfg = resolve_sweep_settings(cfg, state, kw)
+    if lazy is None:
+        lazy = uses_lazy(cfg, backend)
 
     if lazy:
         def advance(carry, n, first=False):
@@ -70,7 +103,7 @@ def run_benchmark(scene: str = "splash", lazy: bool = True, steps: int = 20,
                                    keep_carry=True)
     else:
         def advance(st, n, first=False):
-            return drive_loop(cfg, st, n)
+            return drive_loop(cfg, st, n, backend=backend)
 
     t0 = time.perf_counter()
     carry, wdiags = advance(state, max(warmup, 1), first=True)
@@ -85,11 +118,18 @@ def run_benchmark(scene: str = "splash", lazy: bool = True, steps: int = 20,
 
     final = carry.state if lazy else carry
     n = cfg.num_particles
+
+    def per_step(name):  # warmup steps first
+        return (getattr(wdiags, name).tolist()
+                + getattr(diags, name).tolist())
+
     return {
         "metric": "particle-steps/s",
         "value": n * steps / elapsed,
         "ms_per_step": elapsed * 1000.0 / steps,
         "scene": scene,
+        "backend": backend,
+        "pallas_layout": cfg.pallas_layout,
         "lazy": lazy,
         "num_particles": n,
         "steps": steps,
@@ -97,18 +137,56 @@ def run_benchmark(scene: str = "splash", lazy: bool = True, steps: int = 20,
         "warmup_s": warmup_s,
         "window_t": cfg.pallas_window_t,
         "block_t": cfg.pallas_block_t,
+        "window": cfg.pallas_window,          # lane layout
+        "block_rows": cfg.pallas_block_rows,  # lane layout
         "capped_sub_len": cfg.capped_sub_len,
         # rebins inside the timed steps (the eager loop rebins every step)
         "rebins": carry.rebin_count - rebins_before if lazy else steps,
         "kinetic_energy": diags.kinetic_energy.tolist(),
         "neighbor_mean": diags.neighbor_mean.tolist(),
-        # candidate rows dropped per step, warmup steps first (capped
-        # sub-frame overflow)
-        "truncated_ranges": (wdiags.truncated_ranges.tolist()
-                             + diags.truncated_ranges.tolist()),
+        # per step, warmup steps first: candidates dropped (capped sub-frame
+        # overflow, lane chunks beyond the 127 clamp, cell-list slices) and
+        # cells over cell_capacity
+        "truncated_ranges": per_step("truncated_ranges"),
+        "overflow_cells": per_step("overflow_cells"),
         "finite": bool(torch.isfinite(final.position).all()
                        and torch.isfinite(final.velocity).all()
                        and torch.isfinite(diags.kinetic_energy).all()),
-        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                   else "cpu"),
+        "device": _device_name(dev),
+    }
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a = a.detach().cpu().double().numpy()
+    b = b.detach().cpu().double().numpy()
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def run_parity_check(n: int = 32768, scene: str = "disk",
+                     device: str = "cuda") -> dict:
+    """``pallas`` (the config's layout, sublane by default) against
+    ``celllist`` on the same state: neighbor counts equal, rho rel-L2
+    < 1e-5, acc rel-L2 < 1e-4.  On the CPU the kernels' plain twins run and
+    n is capped at 2048, as the JAX package caps its interpreter-mode run;
+    on the card the kernels run.  Returns the JAX package's keys."""
+    from ..ops.step import compute_forces
+
+    dev = _device(device)
+    on_cpu = dev.type == "cpu"
+    if on_cpu:
+        n = min(n, 2048)
+    cfg, state = make_scene(scene, num_particles=n, device=dev)
+    acc_p, rho_p, aux_p = compute_forces(cfg, state, backend="pallas")
+    acc_c, rho_c, aux_c = compute_forces(cfg, state, backend="celllist")
+    nc_equal = bool(torch.equal(aux_p.neighbor_count, aux_c.neighbor_count))
+    rho_l2, acc_l2 = _rel_l2(rho_p, rho_c), _rel_l2(acc_p, acc_c)
+    return {
+        "n": n,
+        "scene": scene,
+        "device": _device_name(dev),
+        "interpret": on_cpu,
+        "neighbor_counts_equal": nc_equal,
+        "rho_rel_l2": rho_l2,
+        "acc_rel_l2": acc_l2,
+        "pass": nc_equal and rho_l2 < 1e-5 and acc_l2 < 1e-4,
     }

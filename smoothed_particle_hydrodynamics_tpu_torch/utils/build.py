@@ -58,21 +58,41 @@ def build_log(name: str) -> str:
     return library_path(name).with_suffix(".log").read_text()
 
 
+def build_libraries(names: list[str]) -> None:
+    """Build each missing library of ``csrc/<name>.cu``: one nvcc process
+    per source, all started together.
+
+    Raises RuntimeError with nvcc's stderr when a build fails.
+    """
+    procs = {}
+    for name in names:
+        so = library_path(name)
+        if so.exists():
+            continue
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True),
+                       so, tmp)
+    failed = []
+    for name, (proc, so, tmp) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed (exit {proc.returncode}) on "
+                          f"{name}.cu:\n{err}")
+            continue
+        so.with_suffix(".log").write_text(err)
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its library is missing, then load it.
 
     Raises RuntimeError with nvcc's stderr when the build fails.
     """
-    so = library_path(name)
-    if not so.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC_DIR / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {proc.returncode}) on "
-                               f"{name}.cu:\n{proc.stderr}")
-        so.with_suffix(".log").write_text(proc.stderr)
-        os.replace(tmp, so)
-    return ctypes.CDLL(str(so))
+    build_libraries([name])
+    return ctypes.CDLL(str(library_path(name)))

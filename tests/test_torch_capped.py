@@ -163,9 +163,11 @@ def test_keep_all_cap_equals_exact():
     cid = linear_cell_id(tc, cell_coords(tc, ts.position))
     occ_max = int(torch.bincount(cid.long()).max())
     capped_cfg = tc.replace(capped_candidates=occ_max)
-    acc_c, rho_c, nc_c, trunc = sweeps_t.compute_step_quantities(capped_cfg, ts)
-    acc_e, rho_e, nc_e, _ = sweeps_t.compute_step_quantities(
+    acc_c, rho_c, aux_c = sweeps_t.compute_step_quantities(capped_cfg, ts)
+    acc_e, rho_e, aux_e = sweeps_t.compute_step_quantities(
         tc.replace(capped_candidates=0), ts)
+    nc_c, nc_e, trunc = (aux_c.neighbor_count, aux_e.neighbor_count,
+                         aux_c.truncated_ranges)
     _eq(nc_c, nc_e.numpy())
     _eq(nc_c, tpair.neighbor_counts(tc, ts).numpy())
     assert int(trunc) == 0

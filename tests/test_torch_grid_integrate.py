@@ -57,7 +57,7 @@ def test_splash_scene_matches_jax_layout():
     """Same config, same drop/pool split and velocities; pool rows differ
     from the JAX ones only by the lattice jitter (< 0.2 spacing per axis)."""
     jc, js = jscene("splash", **SPLASH)
-    tc, ts = tscene("splash", **SPLASH)
+    tc, ts = tscene("splash", device="cpu", **SPLASH)
     assert _tcfg(jc) == tc
     n_drop = int(tc.num_particles * 0.15)
     np.testing.assert_array_equal(ts.velocity.numpy(), np.asarray(js.velocity))

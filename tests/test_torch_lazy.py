@@ -187,11 +187,12 @@ def test_cli_run_resolves_capped_settings(capsys):
               cell_size_factor=1.25, capped_candidates=4, pallas_window_t=0)
     from smoothed_particle_hydrodynamics_tpu_torch.models import make_scene
 
-    want = resolve_sweep_settings(*make_scene("splash", seed=11, **ov), ov)
+    want = resolve_sweep_settings(
+        *make_scene("splash", device="cpu", seed=11, **ov), ov)
     assert want.pallas_block_t == 256 and want.pallas_window_t >= 64
     assert 0 < want.capped_sub_len < 1024
     assert main(["run", "-n", "1024", "--steps", "2", "--block", "2",
-                 "--device", "cpu"]
+                 "--device", "cpu", "--backend", "pallas"]
                 + [f"--set={k}={v}" for k, v in ov.items()
                    if k != "num_particles"]) == 0
     line = json.loads(capsys.readouterr().out.splitlines()[-1])

@@ -80,8 +80,9 @@ def test_step_quantities_match_pairwise_oracles():
     """Whole sweep path (sort, tables, both sweeps, gravity, CFL, unsort)
     against the torch and the JAX O(N^2) oracles."""
     jc, js, tc, ts = _scenes(num_particles=1024)
-    acc, rho, nc, truncated = sweeps_t.compute_step_quantities(tc, ts)
-    assert int(truncated) == 0
+    acc, rho, aux = sweeps_t.compute_step_quantities(tc, ts)
+    nc = aux.neighbor_count
+    assert int(aux.truncated_ranges) == 0 and int(aux.overflow_cells) == 0
     rho_o = tpair.compute_density(tc, ts)
     np.testing.assert_array_equal(nc.numpy(),
                                   tpair.neighbor_counts(tc, ts).numpy())
