@@ -38,7 +38,31 @@ Phases (every failed check raises, and the script exits nonzero):
    (``truncated_ranges`` 0) and the final state must be finite.  Last, the
    32k disk runs 100 steps under the lazy sublane driver (central gravity,
    ``second_kick="gravity"``), printing KE, PE and |L| at the start and
-   the end, with a finite state.
+   the end, with a finite state;
+11. the distributed slab engine's six kernel callers (``parallel/
+   slab_sweeps.py``: exact K1/K2, capped K1/K2, the sub-frame pre-pass K1
+   and K3 over a rank's extended frame, ``self_base = h_cap``) against
+   their twins on the 1M splash at world size 1 (bench.py's ``slab_1dev``
+   and ``slab_capped_k4`` geometry: occupancy split, caps at headroom
+   1.05, window derived, K_c 4 on 256-row blocks): counts equal, rho
+   rel-L2 <= 1e-6, acc rel-L2 <= 1e-4, every row finite; kernel and twin
+   times with their bounds;
+12. the slab engine at world size 1 (an NCCL group of one rank) against the
+   single-chip lazy step, one step from the same 1M splash state, exact and
+   capped: neighbor mean, max and min equal to the single-chip counts', KE
+   and PE rel <= 1e-5, collected positions rel-L2 <= 1e-6;
+13. two ranks on the one card (``spawn_ranks``, gloo, both on cuda:0; NCCL
+   refuses two ranks on one device): the 32k splash on its 32^3 grid, exact,
+   capped and fused, a rebuild step and a frozen step, against the same
+   engine at world size 1 on the same state: neighbor stats equal, KE rel
+   <= 1e-5, no counted loss, every original id held exactly once.  The only
+   phase in which live halo rows reach the kernels on the card;
+14. the slab main paths, launch counters reset just before each:
+   ``run_slab_benchmark`` on the 1M splash at world size 1 (NCCL group of
+   one), exact, capped (K_c 4, 256-row blocks) and capped fused, 3 warmup +
+   20 timed steps: each kernel of a path launched once per step, no counted
+   loss, a finite state; then the single-chip lazy step and the slab step
+   in turns (single, slab, slab, single), exact, printing ms/step each.
 
 It then prints the card's name and power limit, one JSON line of kernel
 records (time, twin time, launches, error, and the bound: the larger of the
@@ -78,6 +102,14 @@ SOURCE_T = f"{PKG}/csrc/sweep_t.cu"
 SOURCE_LANE = f"{PKG}/csrc/sweep_lane.cu"
 TPU_T = "smoothed_particle_hydrodynamics_tpu/ops/pallas_step_t.py"
 TPU_LANE = "smoothed_particle_hydrodynamics_tpu/ops/pallas_step.py"
+TPU_SLABS = "smoothed_particle_hydrodynamics_tpu/parallel/slabs.py"
+# the slab engine's main paths: bench.py's slab_1dev row (1M splash, one
+# rank, window derived, headroom 1.05) and its slab_capped_k4 row, fused too
+SLAB = dict(cell_size_factor=1.25)
+SLAB_CAPPED = dict(cell_size_factor=1.25, capped_candidates=4,
+                   pallas_block_t=256, pallas_window_t=0)
+SLAB_FUSED = dict(SLAB_CAPPED, capped_fused=True)
+SLAB_HEADROOM = 1.05
 
 
 class Kernel(NamedTuple):
@@ -87,6 +119,7 @@ class Kernel(NamedTuple):
     source: str
     replaces: str        # TPU kernel file:line
     flops_per_pair: int  # f32 operations on a pair within h, from the source
+    caller: str = ""     # the JAX caller of a slab kernel, file:line
 
 
 KERNELS = {
@@ -108,6 +141,25 @@ KERNELS = {
                                   SOURCE_LANE, f"{TPU_LANE}:196", 15),
     "force_kernel_lane": Kernel("lane", "force_lane", "force_lane_plain",
                                 SOURCE_LANE, f"{TPU_LANE}:244", 40),
+    # the slab engine's callers of K1/K2/K3 (one Pallas call site)
+    "density_kernel_t[slab]": Kernel(
+        "slab", "density_ext", "density_ext_plain", SOURCE_T,
+        f"{TPU_SLABS}:570", 15, f"{TPU_SLABS}:494"),
+    "force_kernel_t[slab]": Kernel(
+        "slab", "force_ext", "force_ext_plain", SOURCE_T, f"{TPU_SLABS}:570",
+        36, f"{TPU_SLABS}:588"),
+    "density_kernel_t<capped>[slab]": Kernel(
+        "slab", "density_ext_capped", "density_ext_capped_plain", SOURCE_T,
+        f"{TPU_SLABS}:570", 15, f"{TPU_SLABS}:663"),
+    "force_kernel_t<capped>[slab]": Kernel(
+        "slab", "force_ext_capped", "force_ext_capped_plain", SOURCE_T,
+        f"{TPU_SLABS}:570", 36, f"{TPU_SLABS}:704"),
+    "density_kernel_t<prepass>[slab]": Kernel(
+        "slab", "density_sub_pre", "density_sub_pre_plain", SOURCE_T,
+        f"{TPU_SLABS}:570", 15, f"{TPU_SLABS}:750"),
+    "fused_kernel_t[slab]": Kernel(
+        "slab", "fused_ext", "fused_ext_plain", SOURCE_T, f"{TPU_SLABS}:570",
+        48, f"{TPU_SLABS}:792"),
 }
 # which kernels each main path runs (the first path a kernel is in gives its
 # launch count in the kernels line)
@@ -117,13 +169,23 @@ PATHS = {
     "fused": (FUSED, ("density_kernel_t<prepass>", "fused_kernel_t")),
     "lane": (LANE, ("density_kernel_lane", "force_kernel_lane")),
 }
+SLAB_PATHS = {
+    "slab exact": (SLAB, ("density_kernel_t[slab]", "force_kernel_t[slab]")),
+    "slab capped": (SLAB_CAPPED, ("density_kernel_t<capped>[slab]",
+                                  "force_kernel_t<capped>[slab]")),
+    "slab fused": (SLAB_FUSED, ("density_kernel_t<prepass>[slab]",
+                                "fused_kernel_t[slab]")),
+}
 
 
 def _module(name: str):
     from smoothed_particle_hydrodynamics_tpu_torch.ops import (sweeps_lane,
                                                                sweeps_t)
+    from smoothed_particle_hydrodynamics_tpu_torch.parallel import (
+        slab_sweeps)
 
-    return {"t": sweeps_t, "lane": sweeps_lane}[KERNELS[name].module]
+    return {"t": sweeps_t, "lane": sweeps_lane,
+            "slab": slab_sweeps}[KERNELS[name].module]
 
 
 def wrapper(name: str):
@@ -133,8 +195,10 @@ def wrapper(name: str):
 def reset_launches() -> None:
     from smoothed_particle_hydrodynamics_tpu_torch.ops import (sweeps_lane,
                                                                sweeps_t)
+    from smoothed_particle_hydrodynamics_tpu_torch.parallel import (
+        slab_sweeps)
 
-    for w in sweeps_t.WRAPPERS + sweeps_lane.WRAPPERS:
+    for w in sweeps_t.WRAPPERS + sweeps_lane.WRAPPERS + slab_sweeps.WRAPPERS:
         w.launches = 0
 
 
@@ -309,6 +373,102 @@ def lane_vs_twins(cfg, st, label: str):
             {"density_kernel_lane": pairs, "force_kernel_lane": pairs})
 
 
+def finite(label: str, name: str, *outs) -> None:
+    for t in outs:
+        check(bool(torch.isfinite(t.float()).all()),
+              f"{label}: {name} output finite on every row")
+
+
+def slab_vs_twins(cfg, group, frame, caps, label: str):
+    """The slab callers' kernels against their twins on one rank's frame
+    (``slabs.prepare_frame``): the exact pair, or the four capped kernels
+    (the frame built with ``capped_fused`` holds both table sets).  Every
+    output row, dead ones included, must be finite.  Returns the max abs
+    errors, the arguments used (for timing) and the pairs within h each
+    kernel sums (for its bound)."""
+    from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
+    from smoothed_particle_hydrodynamics_tpu_torch.parallel import (
+        slab_sweeps as ss, slabs)
+
+    p_cap, h_cap, _ = caps
+    ext, cid, f = frame.ext, frame.cid_ext, frame
+    print(f"[{label}] p_cap={p_cap} h_cap={h_cap} count={f.count} "
+          f"window={cfg.pallas_window_t} block={sw._blane(cfg)} "
+          f"max_wc={f.tabs[1].max().item()}")
+    if not cfg.capped_candidates:
+        ws, wc = f.tabs
+        n_d, n_f = "density_kernel_t[slab]", "force_kernel_t[slab]"
+        args = {n_d: ss.density_local_args(cfg, ext, cid, ws, wc, h_cap,
+                                           p_cap)}
+        rho_k, nc_k = ss.density_ext(*args[n_d])
+        rho_p, nc_p = ss.density_ext_plain(*args[n_d])
+        rho_e = slabs.exchange_rho(group, rho_k, f.count, h_cap)
+        args[n_f] = ss.force_local_args(cfg, ext, cid, rho_e, rho_k, ws, wc,
+                                        h_cap, p_cap)
+        acc_k, acc_p = ss.force_ext(*args[n_f]), ss.force_ext_plain(*args[n_f])
+        torch.cuda.synchronize()
+        finite(label, n_d, rho_k, nc_k)
+        finite(label, n_f, acc_k)
+        errs = {n_d: agree(label, n_d, rho_k, rho_p, (nc_k, nc_p)),
+                n_f: agree(label, n_f, acc_k, acc_p, bar=ACC_BAR)}
+        pairs = int(nc_k.sum())
+        return errs, args, {n_d: pairs, n_f: pairs}
+    ws, wc, sub_src, cand_cid, w_sub, sub_dropped, ws_s, wc_s = f.tabs
+    n_kept = int((cand_cid >= 0).sum())
+    print(f"[{label}] S={sub_src.shape[0]} kept={n_kept} "
+          f"sub_dropped={int(sub_dropped)} max_wc_sub={wc_s.max().item()}")
+    g8 = ext[sub_src.long()]
+    names = ("density_kernel_t<capped>[slab]", "force_kernel_t<capped>[slab]",
+             "density_kernel_t<prepass>[slab]", "fused_kernel_t[slab]")
+    args = {names[0]: ss.density_local_capped_args(
+        cfg, ext, g8, cid, ws, wc, sub_src, cand_cid, w_sub, h_cap, p_cap)}
+    rho_k, nc_k = ss.density_ext_capped(*args[names[0]])
+    rho_p, nc_p = ss.density_ext_capped_plain(*args[names[0]])
+    rho_e = slabs.exchange_rho(group, rho_k, f.count, h_cap)
+    args[names[1]] = ss.force_local_capped_args(
+        cfg, ext, g8, cid, rho_e, rho_k, ws, wc, sub_src, cand_cid, w_sub,
+        h_cap, p_cap)
+    acc_k = ss.force_ext_capped(*args[names[1]])
+    acc_p = ss.force_ext_capped_plain(*args[names[1]])
+    args[names[2]] = ss.density_sub_local_args(cfg, g8, sub_src, cand_cid,
+                                               w_sub, ws_s, wc_s)
+    sub_k = ss.density_sub_pre(*args[names[2]])
+    _, pos_sub, mass_sub, wm_sub, cid_sub, src_sub, ws_sub, wc_sub = \
+        args[names[2]]
+    # density_sub_pre_plain's own call, keeping the counts
+    sub_p, sub_nc = sw.density_t_plain(cfg, pos_sub, mass_sub, cid_sub,
+                                       ws_sub, wc_sub, pos_sub, wm_sub,
+                                       cid_sub, src_sub, src_sub)
+    rho_cand, w_cand = slabs.fused_candidates(slabs.exchange_rho(
+        group, slabs.scatter_sub_rho(sub_k, sub_src, cand_cid, h_cap, p_cap),
+        f.count, h_cap), sub_src, w_sub)
+    args[names[3]] = ss.fused_local_capped_args(
+        cfg, ext, g8, cid, rho_cand, ws, wc, sub_src, cand_cid, w_cand, h_cap,
+        p_cap)
+    facc_k, frho_k, fnc_k = ss.fused_ext(*args[names[3]])
+    facc_p, frho_p, fnc_p = ss.fused_ext_plain(*args[names[3]])
+    torch.cuda.synchronize()
+    finite(label, names[0], rho_k, nc_k)
+    finite(label, names[1], acc_k)
+    finite(label, names[2], sub_k[:n_kept])
+    finite(label, names[3], facc_k, frho_k, fnc_k)
+    errs = {
+        names[0]: agree(label, names[0], rho_k, rho_p, (nc_k, nc_p)),
+        names[1]: agree(label, names[1], acc_k, acc_p, bar=ACC_BAR),
+        # the tail rows' pre-pass values feed no pair: kept rows only
+        names[2]: agree(label, f"{names[2]} (kept rows)", sub_k[:n_kept],
+                        sub_p[:n_kept]),
+        names[3]: max(agree(label, f"{names[3]} rho", frho_k, frho_p,
+                            (fnc_k, fnc_p)),
+                      agree(label, f"{names[3]} acc", facc_k, facc_p,
+                            bar=ACC_BAR)),
+    }
+    capped = int(nc_k.sum())
+    return errs, args, {names[0]: capped, names[1]: capped,
+                        names[2]: int(sub_nc[:n_kept].sum()),
+                        names[3]: int(fnc_k.sum())}
+
+
 def io_bytes(args: tuple, out) -> int:
     """Bytes a call must move: each input tensor read once (a tensor passed
     twice counts once), each output written once."""
@@ -368,8 +528,13 @@ def main() -> int:
     from smoothed_particle_hydrodynamics_tpu_torch.ops.step import (
         compute_forces)
     from smoothed_particle_hydrodynamics_tpu_torch.utils import build
+    from smoothed_particle_hydrodynamics_tpu_torch.parallel import slabs
+    from smoothed_particle_hydrodynamics_tpu_torch.parallel.comm import (
+        local_group, spawn_ranks)
+    from smoothed_particle_hydrodynamics_tpu_torch.state import state_to_numpy
     from smoothed_particle_hydrodynamics_tpu_torch.utils.benchmark import (
-        resolve_sweep_settings, run_benchmark, run_parity_check)
+        resolve_sweep_settings, run_benchmark, run_parity_check,
+        run_slab_benchmark, slab_setup)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -555,6 +720,162 @@ def main() -> int:
     check(int(d.truncated_ranges.max()) == 0, "disk: no candidates dropped")
     check(finite, "disk: positions, velocities and KE finite")
 
+    # 11. the slab callers' kernels vs their twins at the 1M slab shapes
+    #     (world size 1: both halos are inert chain ends here)
+    for label, ov in (("slab exact 1M", SLAB), ("slab capped 1M", SLAB_FUSED)):
+        cfg, st, zsplit, caps, sub_len = slab_setup(
+            1_000_000, ov, SLAB_HEADROOM, dev)
+        sub_len = slabs.frame_sub_len(cfg, "pallas", caps[0], caps[1],
+                                      sub_len)
+        with local_group(dev) as grp:
+            carry = slabs.init_lazy_slab(
+                cfg, grp, slabs.distribute(cfg, st, grp, caps[0], zsplit),
+                caps[0], "pallas", sub_len)
+            frame = slabs.prepare_frame(cfg, grp, *caps, "pallas", zsplit,
+                                        True, sub_len, carry)
+            slab_errs, args, slab_pairs = slab_vs_twins(cfg, grp, frame, caps,
+                                                        label)
+            errs.update(slab_errs)
+            pairs.update(slab_pairs)
+            times.update(timed(args, slab_pairs))
+        del carry, frame, args, st
+    for name in (n for n in KERNELS if n.endswith("[slab]")):
+        t = times[name]
+        print(f"[slab 1M] {name}: kernel {t['ms']:.4f} ms, plain twin "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms'] * 1e3:.3f} us "
+              f"({t['bound_by']}: {t['bytes']} bytes, {t['flops']} flops on "
+              f"{pairs[name]} pairs)")
+
+    # 12. the slab engine at world size 1 vs the single-chip lazy step: one
+    #     step from the same 1M splash state
+    for label, ov in (("exact", SLAB), ("capped", SLAB_CAPPED)):
+        cfg, st, zsplit, caps, sub_len = slab_setup(
+            1_000_000, ov, SLAB_HEADROOM, dev)
+        one, d1 = drive_loop_lazy(resolve_sweep_settings(cfg, st, ov), st, 1)
+        with local_group(dev) as grp:
+            r = slabs.run_slab_steps(grp, cfg, st, caps, zsplit, 1,
+                                     sweeps="pallas", sub_len=sub_len)
+        nc = one.neighbor_count
+        n = st.n
+        mean_1 = torch.tensor(float(nc.long().sum()), dtype=torch.float32) \
+            / torch.tensor(float(n), dtype=torch.float32)
+        sd = {k: v[0] for k, v in r["diags"].items()}
+        stats = ((float(sd["neighbor_mean"]), int(sd["neighbor_max"]),
+                  int(sd["neighbor_min"])),
+                 (mean_1.item(), int(nc.max()), int(nc.min())))
+        ke = (float(sd["kinetic_energy"]), d1.kinetic_energy[-1].item())
+        pe = (float(sd["potential_energy"]), d1.potential_energy[-1].item())
+        r_pos = rel_l2(torch.from_numpy(r["position"]), one.position.cpu())
+        print(f"[slab vs single 1M {label}] neighbor (mean, max, min) slab "
+              f"{stats[0]} single {stats[1]} (single-chip diag mean "
+              f"{d1.neighbor_mean[-1].item()}); KE {ke}; PE {pe}; position "
+              f"rel_l2={r_pos:.3e}; truncated {int(sd['truncated_ranges'])} "
+              f"vs {int(d1.truncated_ranges[-1])}")
+        check(stats[0] == stats[1], f"slab vs single {label}: neighbor stats")
+        for what, (a, b) in (("KE", ke), ("PE", pe)):
+            check(abs(a - b) <= 1e-5 * max(abs(b), 1e-30),
+                  f"slab vs single {label}: {what} {a} vs {b}")
+        check(r_pos <= 1e-6, f"slab vs single {label}: positions {r_pos}")
+        check(int(sd["truncated_ranges"]) == 0 and r["ids_once"],
+              f"slab vs single {label}: no loss")
+        del one, st, r
+
+    # 13. two ranks on the one card (gloo: NCCL refuses two ranks on one
+    #     device) vs the same engine at world size 1, 32k splash on 32^3
+    kw = dict(num_particles=32768, grid_nx=32, grid_ny=32, grid_nz=32,
+              cell_size_factor=1.25)
+    for label, ov in (("exact", dict(pallas_window_t=64)),
+                      ("capped", dict(capped_candidates=4, pallas_block_t=256,
+                                      pallas_window_t=32)),
+                      ("fused", dict(capped_candidates=4, pallas_block_t=256,
+                                     pallas_window_t=32, capped_fused=True))):
+        cfg, st = make_scene("splash", device=dev, **kw, **ov)
+        runs = {}
+        for world in (1, 2):
+            zsplit = slabs.derive_zsplit(cfg, st, world)
+            caps = slabs.derive_slab_caps(cfg, st, world, zsplit=zsplit)
+            job = dict(cfg=cfg, state=state_to_numpy(st), caps=caps,
+                       zsplit=zsplit, steps=2, sweeps="pallas",
+                       sub_len=slabs.derive_sub_len_slab(cfg, st, world,
+                                                         zsplit) or None)
+            t0 = time.perf_counter()
+            if world == 1:
+                with local_group(dev) as grp:
+                    runs[1] = slabs.run_slab_steps(grp, **job)
+            else:
+                outs = spawn_ranks(2, slabs.run_slab_jobs, [job],
+                                   backend="gloo", devices=["cuda:0"] * 2,
+                                   timeout_s=300.0)
+                runs[2] = outs[0][0]
+            wall = time.perf_counter() - t0
+            d = runs[world]["diags"]
+            print(f"[ranks {label} 32k] world {world}: zsplit {zsplit} caps "
+                  f"{caps} counts {runs[world]['counts']} rebins "
+                  f"{runs[world]['rebins']}; neighbor mean "
+                  f"{d['neighbor_mean'].tolist()} max "
+                  f"{d['neighbor_max'].tolist()} min "
+                  f"{d['neighbor_min'].tolist()}; KE "
+                  f"{d['kinetic_energy'].tolist()}; losses "
+                  f"{int(d['truncated_ranges'].sum())} "
+                  f"{int(d['halo_dropped'].sum())} "
+                  f"{int(d['migration_dropped'].sum())}; wall {wall:.2f} s")
+        a, b = runs[2], runs[1]
+        for k in ("neighbor_mean", "neighbor_max", "neighbor_min"):
+            check(bool((a["diags"][k] == b["diags"][k]).all()),
+                  f"ranks {label}: {k} world 2 == world 1")
+        ke_a, ke_b = a["diags"]["kinetic_energy"], b["diags"]["kinetic_energy"]
+        check(bool((abs(ke_a - ke_b) <= 1e-5 * abs(ke_b)).all()),
+              f"ranks {label}: KE {ke_a} vs {ke_b}")
+        for k in ("truncated_ranges", "halo_dropped", "migration_dropped"):
+            check(not a["diags"][k].any(), f"ranks {label}: {k} 0")
+        check(a["ids_once"] and a["rebins"] == 1,
+              f"ranks {label}: every id once, one rebuild")
+        check(sum(a["counts"][0]) == st.n and min(a["counts"][0]) > 0,
+              f"ranks {label}: both ranks populated")
+        del st, runs
+
+    # 14. the slab main paths, counted; then single-chip and slab in turns
+    for path, (ov, names) in SLAB_PATHS.items():
+        reset_launches()
+        r = run_slab_benchmark(n=1_000_000, steps=STEPS, warmup=WARMUP,
+                               headroom=SLAB_HEADROOM, overrides=ov,
+                               device="cuda")
+        counts = {name: wrapper(name).launches for name in KERNELS}
+        total_steps = r["warmup_steps"] + r["steps"]
+        print(f"[main {path}] 1M splash, one rank ({r['device']}): "
+              f"{r['ms_per_step']:.4f} ms/step, {r['value']:.6e} "
+              f"particle-steps/s over {r['steps']} steps (warmup "
+              f"{r['warmup_steps']} steps, {r['warmup_s']:.2f} s); window_t "
+              f"{r['window_t']} block_t {r['block_t']} sub_len {r['sub_len']} "
+              f"p_cap {r['p_cap']} h_cap {r['h_cap']}; rebins in timed steps "
+              f"{r['rebins']}; launches "
+              f"{ {k: v for k, v in counts.items() if v} } for {total_steps} "
+              f"steps; max truncated {max(r['truncated_ranges'])}, halo "
+              f"{max(r['halo_dropped_steps'])}, migration "
+              f"{max(r['migration_dropped_steps'])}; neighbor mean "
+              f"{r['neighbor_mean'][-1]:.4f}; KE {r['kinetic_energy'][0]:.6e} "
+              f"-> {r['kinetic_energy'][-1]:.6e}; finite={r['finite']}")
+        for name in names:
+            check(counts[name] == total_steps, f"{path}: {name} launched "
+                  f"{counts[name]} times in {total_steps} steps")
+            launches[name] = counts[name]
+        for k in ("truncated_ranges", "halo_dropped_steps",
+                  "migration_dropped_steps"):
+            check(len(r[k]) == total_steps and max(r[k]) == 0,
+                  f"{path}: {k} {r[k]}")
+        check(r["finite"], f"{path}: store and KE finite")
+    turns = []
+    for kind in ("single", "slab", "slab", "single"):
+        if kind == "single":
+            r = run_benchmark(scene="splash", lazy=True, steps=STEPS,
+                              warmup=WARMUP, overrides=MAIN, device="cuda")
+        else:
+            r = run_slab_benchmark(n=1_000_000, steps=STEPS, warmup=WARMUP,
+                                   headroom=SLAB_HEADROOM, overrides=SLAB,
+                                   device="cuda")
+        turns.append((kind, r["ms_per_step"], r["window_t"]))
+    print(f"[turns exact 1M] (engine, ms/step, window_t): {turns}")
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
@@ -565,7 +886,8 @@ def main() -> int:
          "max_abs_err": errs[name], "ms": times[name]["ms"],
          "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"],
-         "bound_by": times[name]["bound_by"], "library_ms": None}
+         "bound_by": times[name]["bound_by"], "library_ms": None,
+         **({"caller": k.caller} if k.caller else {})}
         for name, k in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

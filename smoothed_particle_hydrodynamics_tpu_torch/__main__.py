@@ -4,7 +4,11 @@
     bench --scene S -n N --steps K [--warmup W]  one JSON line
 
 ``--scene`` is one of disk, dam_break, splash (default), honey,
-dam_break_10m.  ``--backend`` is ``auto`` (default: pallas on cuda,
+dam_break_10m.  ``bench --partition slab`` times the distributed slab
+engine instead (``parallel/slabs.py``) on a one-rank group of the device,
+with the splash scene (bench.py's ``slab_1dev`` row; ``--set
+capped_candidates=4 --set pallas_block_t=256 --set pallas_window_t=0`` is
+its ``slab_capped_k4`` row).  ``--backend`` is ``auto`` (default: pallas on cuda,
 celllist on cpu), ``pallas``, ``celllist`` or ``pairwise``.  As in the JAX
 CLI, the lazy-rebinning loop drives the pallas backend in the sublane
 layout (unless ``second_kick=full`` or ``bench --eager``); every other
@@ -116,9 +120,18 @@ def cmd_run(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    from .utils.benchmark import run_benchmark
+    from .utils.benchmark import run_benchmark, run_slab_benchmark
 
     dev = _device(args.device)
+    if args.partition == "slab":
+        ov = _overrides(args)
+        del ov["num_particles"]
+        r = run_slab_benchmark(n=args.num_particles, steps=args.steps,
+                               warmup=args.warmup, sweeps=args.slab_sweeps,
+                               overrides=ov, scan_block=args.scan_block,
+                               device=str(dev), seed=args.seed)
+        print(json.dumps(r))
+        return 0
     r = run_benchmark(scene=args.scene, lazy=False if args.eager else None,
                       steps=args.steps, warmup=args.warmup,
                       overrides=_overrides(args), device=str(dev),
@@ -145,6 +158,14 @@ def main(argv: list[str] | None = None) -> int:
     sub.choices["bench"].add_argument("--warmup", type=int, default=3)
     sub.choices["bench"].add_argument("--eager", action="store_true",
                                       help="rebin every step (ops.step)")
+    sub.choices["bench"].add_argument(
+        "--partition", default="single", choices=["single", "slab"],
+        help="slab = the distributed slab engine on a one-rank group "
+             "(the splash scene)")
+    sub.choices["bench"].add_argument("--slab-sweeps", default="pallas",
+                                      choices=["pallas", "celllist"])
+    sub.choices["bench"].add_argument("--scan-block", type=int, default=0,
+                                      help="slab steps per call (0 = 1)")
     args = ap.parse_args(argv)
     return {"run": cmd_run, "bench": cmd_bench}[args.cmd](args)
 

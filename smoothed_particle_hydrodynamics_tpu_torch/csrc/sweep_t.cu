@@ -44,6 +44,12 @@
 // Cell ids and source rows are int32 (the TPU kernels carry them as f32,
 // exact only below 2^24).
 //
+// Self rows and candidates may be two frames.  A self row's own id is
+// self_base + i: 0 on the single-chip path, where self row i is candidate
+// row i; h_cap in the distributed slab engine, whose candidates are the
+// extended frame [left halo | own slab | right halo] and whose self rows are
+// the own slab (the TPU kernels' block_base, parallel/slabs.py:571).
+//
 // What bounds it.  The instruction rate of the pair tests: every thread
 // tests 9 windows of about (block extent + 2 cells) rows, of which a few
 // percent are neighbors, so most of the instruction stream is the d^2 and cid
@@ -112,6 +118,7 @@ struct DensityArgs {
   float* rho;          // [n] out
   int* ncount;         // [n] out
   int n, m, s_t, nx, ny, include_self;
+  int self_base;       // own id of self row i: self_base + i (not kExclSrcSrc)
   float h2, h_scaled2, scale2, poly6;
 };
 
@@ -132,7 +139,7 @@ __global__ void density_kernel_t(DensityArgs a) {
   const bool live = i < a.n;
   float xi = 0.f, yi = 0.f, zi = 0.f;
   int ci = 0;
-  int own = i;
+  int own = a.self_base + i;
   if (live) {
     xi = a.pos[3 * i];
     yi = a.pos[3 * i + 1];
@@ -195,6 +202,7 @@ struct ForceArgs {
   const int* wc;      // [nblocks * 9]
   float* acc;         // [n, 3] out: hydro acceleration
   int n, m, s_t, nx, ny;
+  int self_base;      // own id of self row i: self_base + i
   float h2, h, scale, eps, stiffness, rho0, viscosity, visc_norm;
 };
 
@@ -223,6 +231,7 @@ __global__ void force_kernel_t(ForceArgs a) {
     rhoi = a.rho[i];
     ci = a.cid[i];
   }
+  const int own = a.self_base + i;
   const float rhoi_inv = 1.f / (rhoi > 0.f ? rhoi : 1.f);
   const float pw_i = (rhoi - a.rho0) * a.stiffness * rhoi_inv * rhoi_inv;
 
@@ -248,7 +257,7 @@ __global__ void force_kernel_t(ForceArgs a) {
           const float dz = sf[2 * b + k] - zi;
           const float d2 = dist2(dx, dy, dz);
           const int id = kExcl == kExclRow ? t0 + k : ss[k];
-          if (in_band(sc[k], ci, delta) && id != i && d2 < a.h2) {
+          if (in_band(sc[k], ci, delta) && id != own && d2 < a.h2) {
             const float d = sqrtf(d2) * a.scale;
             const float hd = a.h - d;
             const float num = (hd * hd) * (sf[7 * b + k] * pw_i + sf[8 * b + k]);
@@ -288,6 +297,7 @@ struct FusedArgs {
   float* rho;         // [n] out
   int* ncount;        // [n] out
   int n, m, s_t, nx, ny, include_self;
+  int self_base;      // own id of self row i: self_base + i
   float h2, h_scaled2, scale2, poly6;
   float h, scale, eps, stiffness, rho0, viscosity, visc_norm;
 };
@@ -303,6 +313,7 @@ __global__ void fused_kernel_t(FusedArgs a) {
   const int blk = blockIdx.x;
   const int i = blk * b + tid;
   const bool live = i < a.n;
+  const int own = a.self_base + i;
   float xi = 0.f, yi = 0.f, zi = 0.f, vxi = 0.f, vyi = 0.f, vzi = 0.f;
   int ci = 0;
   if (live) {
@@ -338,7 +349,7 @@ __global__ void fused_kernel_t(FusedArgs a) {
           const float dy = sf[b + k] - yi;
           const float dz = sf[2 * b + k] - zi;
           const float d2 = dist2(dx, dy, dz);
-          if (in_band(sc[k], ci, delta) && ss[k] != i && d2 < a.h2) {
+          if (in_band(sc[k], ci, delta) && ss[k] != own && d2 < a.h2) {
             // density part: K1's op sequence, so rho and count equal its bits
             const float mj = sf[7 * b + k];
             const float t = __fsub_rn(a.h_scaled2, __fmul_rn(d2, a.scale2));
@@ -396,8 +407,8 @@ int sph_density_t(const float* pos, const float* mass, const int* cid,
                   const int* ccid, const int* csrc, const int* ws,
                   const int* wc, float* rho, int* ncount, int n, int m,
                   int block, int s_t, int nx, int ny, int include_self,
-                  int excl, float h2, float h_scaled2, float scale2,
-                  float poly6, void* stream) {
+                  int excl, int self_base, float h2, float h_scaled2,
+                  float scale2, float poly6, void* stream) {
   DensityArgs a;
   a.pos = pos;
   a.mass = mass;
@@ -417,6 +428,7 @@ int sph_density_t(const float* pos, const float* mass, const int* cid,
   a.nx = nx;
   a.ny = ny;
   a.include_self = include_self;
+  a.self_base = self_base;
   a.h2 = h2;
   a.h_scaled2 = h_scaled2;
   a.scale2 = scale2;
@@ -444,8 +456,9 @@ int sph_force_t(const float* pos, const float* vel, const float* rho,
                 const int* cid, const float* cand, const int* ccid,
                 const int* csrc, const int* ws, const int* wc, float* acc,
                 int n, int m, int block, int s_t, int nx, int ny, int excl,
-                float h2, float h, float scale, float eps, float stiffness,
-                float rho0, float viscosity, float visc_norm, void* stream) {
+                int self_base, float h2, float h, float scale, float eps,
+                float stiffness, float rho0, float viscosity, float visc_norm,
+                void* stream) {
   ForceArgs a;
   a.pos = pos;
   a.vel = vel;
@@ -462,6 +475,7 @@ int sph_force_t(const float* pos, const float* vel, const float* rho,
   a.s_t = s_t;
   a.nx = nx;
   a.ny = ny;
+  a.self_base = self_base;
   a.h2 = h2;
   a.h = h;
   a.scale = scale;
@@ -491,10 +505,10 @@ int sph_fused_t(const float* pos, const float* vel, const float* mass,
                 const int* cid, const float* cand, const int* ccid,
                 const int* csrc, const int* ws, const int* wc, float* acc,
                 float* rho, int* ncount, int n, int m, int block, int s_t,
-                int nx, int ny, int include_self, float h2, float h_scaled2,
-                float scale2, float poly6, float h, float scale, float eps,
-                float stiffness, float rho0, float viscosity, float visc_norm,
-                void* stream) {
+                int nx, int ny, int include_self, int self_base, float h2,
+                float h_scaled2, float scale2, float poly6, float h,
+                float scale, float eps, float stiffness, float rho0,
+                float viscosity, float visc_norm, void* stream) {
   FusedArgs a;
   a.pos = pos;
   a.vel = vel;
@@ -514,6 +528,7 @@ int sph_fused_t(const float* pos, const float* vel, const float* mass,
   a.nx = nx;
   a.ny = ny;
   a.include_self = include_self;
+  a.self_base = self_base;
   a.h2 = h2;
   a.h_scaled2 = h_scaled2;
   a.scale2 = scale2;

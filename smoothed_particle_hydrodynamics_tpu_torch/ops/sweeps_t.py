@@ -30,6 +30,12 @@ A wrapper given CPU tensors computes with the twin; given CUDA tensors it
 launches the kernel (built from source on first use) or raises; any other
 device raises.  ``<wrapper>.launches`` counts kernel launches.
 
+The twins and launch helpers also take ``self_base``: self row i's own id
+(the one self-exclusion compares) is ``self_base + i``.  The wrappers here
+pass 0; the distributed slab engine (``parallel/slab_sweeps.py``) passes
+the left-halo width, its self rows sitting at that offset in the extended
+candidate frame.
+
 Differences from the JAX package: cell ids and source rows are int32 (the
 TPU kernels carry f32, exact below 2^24 cells and, in capped mode, 2^24
 particles), window walks stop at the candidate count instead of reading
@@ -382,18 +388,19 @@ def _self_rows(x: torch.Tensor, nblocks: int, b: int) -> torch.Tensor:
 
 
 def _pair_chunks(cfg: SphConfig, pos_s, cid, ws, wc, cand_pos, cand_cid,
-                 cand_src=None, self_src=None):
+                 cand_src=None, self_src=None, self_base: int = 0):
     """Yield ``(blocks, rows, dxyz, d2, mask)`` for every chunk visit: the
     [nb, b, s_t] candidate-minus-self offsets, d^2 and pair mask
     |cid_j - cid_i - delta| <= 1, id_j != own_i, d^2 < h^2.  The ids are
-    the candidate row vs the self row (``cand_src`` None), the candidate's
-    src vs the self row, or src vs ``self_src``."""
+    the candidate row vs ``self_base`` + the self row (``cand_src`` None),
+    the candidate's src vs the same, or src vs ``self_src``."""
     n, m = pos_s.shape[0], cand_pos.shape[0]
     b = _blane(cfg)
     nblocks = -(-n // b)
     xyz = [_self_rows(pos_s[:, c], nblocks, b) for c in range(3)]
     ci = _self_rows(cid, nblocks, b)
-    own = (torch.arange(nblocks * b, device=pos_s.device).view(nblocks, b, 1)
+    own = (torch.arange(self_base, self_base + nblocks * b,
+                        device=pos_s.device).view(nblocks, b, 1)
            if self_src is None else _self_rows(self_src, nblocks, b))
     deltas = rod_deltas(cfg)
     for blocks, r, rows, valid in _window_chunks(cfg, n, m, ws, wc):
@@ -421,7 +428,7 @@ def _density_terms(cfg: SphConfig, d2, mask, m_j):
 def density_t_plain(cfg: SphConfig, pos_s: torch.Tensor, mass_s: torch.Tensor,
                     cid: torch.Tensor, ws: torch.Tensor, wc: torch.Tensor,
                     cand_pos=None, cand_mass=None, cand_cid=None,
-                    cand_src=None, self_src=None
+                    cand_src=None, self_src=None, self_base: int = 0
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Twin of the density kernel: (rho [N] f32, ncount [N] i32).  The
     candidates default to the self rows (exact mode)."""
@@ -433,7 +440,8 @@ def density_t_plain(cfg: SphConfig, pos_s: torch.Tensor, mass_s: torch.Tensor,
     rho = torch.zeros(nblocks, b, dtype=torch.float32, device=pos_s.device)
     count = torch.zeros(nblocks, b, dtype=torch.int32, device=pos_s.device)
     for blocks, rows, _, d2, mask in _pair_chunks(
-            cfg, pos_s, cid, ws, wc, cand_pos, cand_cid, cand_src, self_src):
+            cfg, pos_s, cid, ws, wc, cand_pos, cand_cid, cand_src, self_src,
+            self_base):
         r_add, c_add = _density_terms(cfg, d2, mask, cand_mass[rows][:, None, :])
         rho[blocks] += r_add
         count[blocks] += c_add
@@ -460,7 +468,7 @@ def _force_setup(vel_s: torch.Tensor, nblocks: int, b: int):
 def force_t_plain(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
                   rho_s: torch.Tensor, cand: torch.Tensor, cid: torch.Tensor,
                   ws: torch.Tensor, wc: torch.Tensor, cand_cid=None,
-                  cand_src=None) -> torch.Tensor:
+                  cand_src=None, self_base: int = 0) -> torch.Tensor:
     """Twin of the force kernel: hydro acceleration [N, 3] f32.  ``cand``
     is ``fused_cand_cols`` of the candidates (default: the self rows)."""
     if cand_cid is None:
@@ -477,7 +485,8 @@ def force_t_plain(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
     # sums[0:3]: pressure sums (x, y, z); sums[3:6]: viscosity sums
     vi, sums = _force_setup(vel_s, nblocks, b)
     for blocks, rows, dxyz, d2, mask in _pair_chunks(
-            cfg, pos_s, cid, ws, wc, cand[:, 0:3], cand_cid, cand_src):
+            cfg, pos_s, cid, ws, wc, cand[:, 0:3], cand_cid, cand_src,
+            self_base=self_base):
         cj = cand[rows]                                    # [nb, s_t, 9]
         col = [cj[:, None, :, c] for c in range(9)]
         zero = torch.zeros_like(d2)
@@ -499,7 +508,7 @@ def force_t_plain(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
 def fused_t_plain(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
                   mass_s: torch.Tensor, cid: torch.Tensor, ws: torch.Tensor,
                   wc: torch.Tensor, cand: torch.Tensor, cand_cid: torch.Tensor,
-                  cand_src: torch.Tensor
+                  cand_src: torch.Tensor, self_base: int = 0
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Twin of the fused kernel: (acc [N, 3], rho [N], ncount [N]) in one
     walk over the sub-frame candidates ``cand`` (``fused_cand_cols`` with
@@ -518,7 +527,8 @@ def fused_t_plain(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
     vi, sums = _force_setup(vel_s, nblocks, b)
     p2 = torch.zeros(3, nblocks, b, dtype=torch.float32, device=dev)
     for blocks, rows, dxyz, d2, mask in _pair_chunks(
-            cfg, pos_s, cid, ws, wc, cand[:, 0:3], cand_cid, cand_src):
+            cfg, pos_s, cid, ws, wc, cand[:, 0:3], cand_cid, cand_src,
+            self_base=self_base):
         cj = cand[rows]
         col = [cj[:, None, :, c] for c in range(9)]
         r_add, c_add = _density_terms(cfg, d2, mask, col[7])
@@ -555,11 +565,11 @@ def _kernels() -> ctypes.CDLL:
     """Build (first use) and bind ``csrc/sweep_t.cu``."""
     lib = build.load_library("sweep_t")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sph_density_t.argtypes = [p] * 12 + [i] * 8 + [f] * 4 + [p]
+    lib.sph_density_t.argtypes = [p] * 12 + [i] * 9 + [f] * 4 + [p]
     lib.sph_density_t.restype = i
-    lib.sph_force_t.argtypes = [p] * 10 + [i] * 7 + [f] * 8 + [p]
+    lib.sph_force_t.argtypes = [p] * 10 + [i] * 8 + [f] * 8 + [p]
     lib.sph_force_t.restype = i
-    lib.sph_fused_t.argtypes = [p] * 12 + [i] * 7 + [f] * 11 + [p]
+    lib.sph_fused_t.argtypes = [p] * 12 + [i] * 8 + [f] * 11 + [p]
     lib.sph_fused_t.restype = i
     lib.sph_error_string.argtypes = [i]
     lib.sph_error_string.restype = ctypes.c_char_p
@@ -588,7 +598,7 @@ def _cand_specs(m: int, cand_cid, cand_src) -> dict:
 
 def _launch_density(cfg: SphConfig, excl: int, pos_s, mass_s, cid, ws, wc,
                     cand_pos, cand_mass, cand_cid, cand_src, self_src,
-                    kernel: str):
+                    kernel: str, self_base: int = 0):
     n, m, dev = pos_s.shape[0], cand_pos.shape[0], pos_s.device
     specs = dict(mass_s=(mass_s, torch.float32, (n,)),
                  cand_pos=(cand_pos, torch.float32, (m, 3)),
@@ -607,7 +617,7 @@ def _launch_density(cfg: SphConfig, excl: int, pos_s, mass_s, cid, ws, wc,
         _ptr(cand_src), ws.data_ptr(), wc.data_ptr(), rho.data_ptr(),
         ncount.data_ptr(), n, m, _blane(cfg), cfg.pallas_window_t,
         cfg.grid_nx, cfg.grid_ny, int(cfg.include_self_density), excl,
-        cfg.h2, cfg.h_scaled2, _f32(cfg.sim_scale * cfg.sim_scale),
+        self_base, cfg.h2, cfg.h_scaled2, _f32(cfg.sim_scale * cfg.sim_scale),
         cfg.poly6_norm, _stream(dev))
     _raise_on(lib, err, kernel)
     return rho, ncount
@@ -663,7 +673,8 @@ def density_pre_t(cfg: SphConfig, pos_sub: torch.Tensor,
 
 
 def _launch_force(cfg: SphConfig, excl: int, pos_s, vel_s, rho_s, cand, cid,
-                  ws, wc, cand_cid, cand_src, kernel: str) -> torch.Tensor:
+                  ws, wc, cand_cid, cand_src, kernel: str,
+                  self_base: int = 0) -> torch.Tensor:
     n, m, dev = pos_s.shape[0], cand.shape[0], pos_s.device
     _check(dev, vel_s=(vel_s, torch.float32, (n, 3)),
            rho_s=(rho_s, torch.float32, (n,)),
@@ -676,7 +687,7 @@ def _launch_force(cfg: SphConfig, excl: int, pos_s, vel_s, rho_s, cand, cid,
         pos_s.data_ptr(), vel_s.data_ptr(), rho_s.data_ptr(), cid.data_ptr(),
         cand.data_ptr(), cand_cid.data_ptr(), _ptr(cand_src), ws.data_ptr(),
         wc.data_ptr(), acc.data_ptr(), n, m, _blane(cfg),
-        cfg.pallas_window_t, cfg.grid_nx, cfg.grid_ny, excl,
+        cfg.pallas_window_t, cfg.grid_nx, cfg.grid_ny, excl, self_base,
         cfg.h2, cfg.h_scaled, _f32(cfg.sim_scale),
         _f32(cfg.pressure_softening), _f32(cfg.stiffness), _f32(cfg.rho0),
         _f32(cfg.viscosity), cfg.visc_lap_norm, _stream(dev))
@@ -712,16 +723,9 @@ def force_capped_t(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
     return acc
 
 
-def fused_t(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
-            mass_s: torch.Tensor, cid: torch.Tensor, ws: torch.Tensor,
-            wc: torch.Tensor, cand: torch.Tensor, cand_cid: torch.Tensor,
-            cand_src: torch.Tensor
-            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Fused capped sweep: (acc [N, 3], rho [N], ncount [N]) in one pass
-    over the sub frame's candidates."""
-    if _use_plain(pos_s):
-        return fused_t_plain(cfg, pos_s, vel_s, mass_s, cid, ws, wc, cand,
-                             cand_cid, cand_src)
+def _launch_fused(cfg: SphConfig, pos_s, vel_s, mass_s, cid, ws, wc, cand,
+                  cand_cid, cand_src, kernel: str, self_base: int = 0
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     n, m, dev = pos_s.shape[0], cand.shape[0], pos_s.device
     _check(dev, vel_s=(vel_s, torch.float32, (n, 3)),
            mass_s=(mass_s, torch.float32, (n,)),
@@ -737,14 +741,29 @@ def fused_t(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
         cand.data_ptr(), cand_cid.data_ptr(), cand_src.data_ptr(),
         ws.data_ptr(), wc.data_ptr(), acc.data_ptr(), rho.data_ptr(),
         ncount.data_ptr(), n, m, _blane(cfg), cfg.pallas_window_t,
-        cfg.grid_nx, cfg.grid_ny, int(cfg.include_self_density),
+        cfg.grid_nx, cfg.grid_ny, int(cfg.include_self_density), self_base,
         cfg.h2, cfg.h_scaled2, _f32(cfg.sim_scale * cfg.sim_scale),
         cfg.poly6_norm, cfg.h_scaled, _f32(cfg.sim_scale),
         _f32(cfg.pressure_softening), _f32(cfg.stiffness), _f32(cfg.rho0),
         _f32(cfg.viscosity), cfg.visc_lap_norm, _stream(dev))
-    _raise_on(lib, err, "fused_kernel_t")
-    fused_t.launches += 1
+    _raise_on(lib, err, kernel)
     return acc, rho, ncount
+
+
+def fused_t(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
+            mass_s: torch.Tensor, cid: torch.Tensor, ws: torch.Tensor,
+            wc: torch.Tensor, cand: torch.Tensor, cand_cid: torch.Tensor,
+            cand_src: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused capped sweep: (acc [N, 3], rho [N], ncount [N]) in one pass
+    over the sub frame's candidates."""
+    if _use_plain(pos_s):
+        return fused_t_plain(cfg, pos_s, vel_s, mass_s, cid, ws, wc, cand,
+                             cand_cid, cand_src)
+    out = _launch_fused(cfg, pos_s, vel_s, mass_s, cid, ws, wc, cand,
+                        cand_cid, cand_src, "fused_kernel_t")
+    fused_t.launches += 1
+    return out
 
 
 WRAPPERS = (density_t, density_capped_t, density_pre_t, force_t,

@@ -1,0 +1,293 @@
+"""The slab engine's neighbor sweeps: K1, K2 and K3 of ``csrc/sweep_t.cu``
+run over a rank's extended frame.
+
+Counterpart of the six callers of ``_slab_chunked_call`` in the JAX
+package's ``parallel/slabs.py`` (its Pallas call at line 570):
+``_pallas_density_local`` (:494), ``_pallas_force_local`` (:588),
+``_pallas_density_local_capped`` (:663), ``_pallas_force_local_capped``
+(:704), ``_pallas_density_sub_local`` (:750) and
+``_pallas_fused_local_capped`` (:792).
+
+The candidates are the extended frame ``ext`` = [left halo | own slab |
+right halo] (``h_cap + p_cap + h_cap`` rows, the halos from the ring
+neighbours) or, in capped mode, its sub frame (the kept rows ``ext[sub_src]``).
+The self rows are the own slab, rows ``[h_cap, h_cap + p_cap)`` of ``ext``,
+so every sweep but the sub-frame pre-pass passes ``self_base = h_cap``: self
+row i's own id is its extended-frame row, the one self-exclusion compares
+with a candidate's row (exact mode) or its ``sub_src`` (capped modes).  This
+is the Pallas kernels' ``block_base = h_cap // b + chunk``.  The TPU path
+splits each call into SMEM-sized chunks of blocks, each with a reference
+point; here each caller launches its kernel once per step.
+
+Dead rows (``[count, p_cap)`` of the slab) and the inert chain-end halos
+sit at position 1e30 with mass 0: a pair with one of them has d^2 = inf,
+which the kernels' ``d^2 < h^2`` test and the twins' ``torch.where`` reject
+(a twin that multiplied by a mask would turn 0 * inf into NaN).
+
+Each caller is ``<wrapper>(*<caller>_args(...))``: the ``*_args`` builders
+assemble the candidate columns exactly as the JAX callers do (its pad rows
+of cid -10 are not needed: the walks stop at the frame's end), and each
+wrapper launches its kernel on CUDA tensors (counting the launch in
+``<wrapper>.launches``) or runs its plain twin ``<wrapper>_plain`` on CPU
+tensors.  Gravity and the CFL clamp follow the sweep, as in the JAX callers.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import SphConfig
+from ..ops import physics
+from ..ops import sweeps_t as sw
+from ..ops.launch import use_plain as _use_plain
+
+_MASS = 6   # slab store column of the mass (``slabs._MASS``)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers and their twins (same arguments)
+# ---------------------------------------------------------------------------
+
+def density_ext_plain(cfg, pos_l, mass_l, cid_l, ws, wc, cand_pos, cand_mass,
+                      cand_cid, self_base):
+    return sw.density_t_plain(cfg, pos_l, mass_l, cid_l, ws, wc, cand_pos,
+                              cand_mass, cand_cid, self_base=self_base)
+
+
+def density_ext(cfg: SphConfig, pos_l, mass_l, cid_l, ws, wc, cand_pos,
+                cand_mass, cand_cid, self_base: int):
+    """Exact K1 over the extended frame: (rho [p_cap], ncount [p_cap])."""
+    if _use_plain(pos_l):
+        return density_ext_plain(cfg, pos_l, mass_l, cid_l, ws, wc, cand_pos,
+                                 cand_mass, cand_cid, self_base)
+    out = sw._launch_density(cfg, sw.EXCL_ROW, pos_l, mass_l, cid_l, ws, wc,
+                             cand_pos, cand_mass, cand_cid, None, None,
+                             "density_kernel_t[slab]", self_base)
+    density_ext.launches += 1
+    return out
+
+
+def force_ext_plain(cfg, pos_l, vel_l, rho_l, cand, cid_l, ws, wc, cand_cid,
+                    self_base):
+    return sw.force_t_plain(cfg, pos_l, vel_l, rho_l, cand, cid_l, ws, wc,
+                            cand_cid, self_base=self_base)
+
+
+def force_ext(cfg: SphConfig, pos_l, vel_l, rho_l, cand, cid_l, ws, wc,
+              cand_cid, self_base: int):
+    """Exact K2 over the extended frame: hydro acc [p_cap, 3]."""
+    if _use_plain(pos_l):
+        return force_ext_plain(cfg, pos_l, vel_l, rho_l, cand, cid_l, ws, wc,
+                               cand_cid, self_base)
+    acc = sw._launch_force(cfg, sw.EXCL_ROW, pos_l, vel_l, rho_l, cand, cid_l,
+                           ws, wc, cand_cid, None, "force_kernel_t[slab]",
+                           self_base)
+    force_ext.launches += 1
+    return acc
+
+
+def density_ext_capped_plain(cfg, pos_l, mass_l, cid_l, ws, wc, cand_pos,
+                             cand_mass, cand_cid, cand_src, self_base):
+    return sw.density_t_plain(cfg, pos_l, mass_l, cid_l, ws, wc, cand_pos,
+                              cand_mass, cand_cid, cand_src,
+                              self_base=self_base)
+
+
+def density_ext_capped(cfg: SphConfig, pos_l, mass_l, cid_l, ws, wc,
+                       cand_pos, cand_mass, cand_cid, cand_src,
+                       self_base: int):
+    """Capped K1 over the extended frame's sub frame: (rho, ncount)."""
+    if _use_plain(pos_l):
+        return density_ext_capped_plain(cfg, pos_l, mass_l, cid_l, ws, wc,
+                                        cand_pos, cand_mass, cand_cid,
+                                        cand_src, self_base)
+    out = sw._launch_density(cfg, sw.EXCL_SRC, pos_l, mass_l, cid_l, ws, wc,
+                             cand_pos, cand_mass, cand_cid, cand_src, None,
+                             "density_kernel_t<capped>[slab]", self_base)
+    density_ext_capped.launches += 1
+    return out
+
+
+def force_ext_capped_plain(cfg, pos_l, vel_l, rho_l, cand, cid_l, ws, wc,
+                           cand_cid, cand_src, self_base):
+    return sw.force_t_plain(cfg, pos_l, vel_l, rho_l, cand, cid_l, ws, wc,
+                            cand_cid, cand_src, self_base=self_base)
+
+
+def force_ext_capped(cfg: SphConfig, pos_l, vel_l, rho_l, cand, cid_l, ws, wc,
+                     cand_cid, cand_src, self_base: int):
+    """Capped K2 over the extended frame's sub frame: acc [p_cap, 3]."""
+    if _use_plain(pos_l):
+        return force_ext_capped_plain(cfg, pos_l, vel_l, rho_l, cand, cid_l,
+                                      ws, wc, cand_cid, cand_src, self_base)
+    acc = sw._launch_force(cfg, sw.EXCL_SRC, pos_l, vel_l, rho_l, cand, cid_l,
+                           ws, wc, cand_cid, cand_src,
+                           "force_kernel_t<capped>[slab]", self_base)
+    force_ext_capped.launches += 1
+    return acc
+
+
+def density_sub_pre_plain(cfg, pos_sub, mass_sub, wm_sub, cid_sub, src_sub,
+                          ws_sub, wc_sub):
+    return sw.density_pre_t_plain(cfg, pos_sub, mass_sub, wm_sub, cid_sub,
+                                  src_sub, ws_sub, wc_sub)
+
+
+def density_sub_pre(cfg: SphConfig, pos_sub, mass_sub, wm_sub, cid_sub,
+                    src_sub, ws_sub, wc_sub):
+    """Fused path's pre-pass over the sub frame itself: rho [S] (the
+    src-vs-src exclusion needs no offset)."""
+    if _use_plain(pos_sub):
+        return density_sub_pre_plain(cfg, pos_sub, mass_sub, wm_sub, cid_sub,
+                                     src_sub, ws_sub, wc_sub)
+    rho, _ = sw._launch_density(cfg, sw.EXCL_SRC_SRC, pos_sub, mass_sub,
+                                cid_sub, ws_sub, wc_sub, pos_sub, wm_sub,
+                                cid_sub, src_sub, src_sub,
+                                "density_kernel_t<prepass>[slab]")
+    density_sub_pre.launches += 1
+    return rho
+
+
+def fused_ext_plain(cfg, pos_l, vel_l, mass_l, cid_l, ws, wc, cand, cand_cid,
+                    cand_src, self_base):
+    return sw.fused_t_plain(cfg, pos_l, vel_l, mass_l, cid_l, ws, wc, cand,
+                            cand_cid, cand_src, self_base=self_base)
+
+
+def fused_ext(cfg: SphConfig, pos_l, vel_l, mass_l, cid_l, ws, wc, cand,
+              cand_cid, cand_src, self_base: int):
+    """Fused capped K3 over the extended frame's sub frame: (acc, rho,
+    ncount) of the own slab."""
+    if _use_plain(pos_l):
+        return fused_ext_plain(cfg, pos_l, vel_l, mass_l, cid_l, ws, wc, cand,
+                               cand_cid, cand_src, self_base)
+    out = sw._launch_fused(cfg, pos_l, vel_l, mass_l, cid_l, ws, wc, cand,
+                           cand_cid, cand_src, "fused_kernel_t[slab]",
+                           self_base)
+    fused_ext.launches += 1
+    return out
+
+
+WRAPPERS = (density_ext, force_ext, density_ext_capped, force_ext_capped,
+            density_sub_pre, fused_ext)
+for _w in WRAPPERS:
+    _w.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The callers: frame assembly around the wrappers
+# ---------------------------------------------------------------------------
+
+def _own(ext: torch.Tensor, cid_ext: torch.Tensor, h_cap: int, p_cap: int):
+    """(pos, vel, mass, cid) of the own slab's rows, contiguous."""
+    loc = ext[h_cap:h_cap + p_cap]
+    return (loc[:, 0:3].contiguous(), loc[:, 3:6].contiguous(),
+            loc[:, _MASS].contiguous(), cid_ext[h_cap:h_cap + p_cap])
+
+
+def _finish(cfg: SphConfig, acc: torch.Tensor, pos: torch.Tensor
+            ) -> torch.Tensor:
+    """Hydro acc + central and uniform gravity, CFL-clamped."""
+    acc = acc + physics.central_gravity(cfg, pos)
+    acc = acc + torch.tensor(cfg.gravity, dtype=torch.float32,
+                             device=acc.device)
+    return physics.cfl_clamp(cfg, acc)
+
+
+def density_local_args(cfg: SphConfig, ext, cid_ext, ws, wc, h_cap: int,
+                       p_cap: int) -> tuple:
+    pos, _, mass, cid = _own(ext, cid_ext, h_cap, p_cap)
+    return (cfg, pos, mass, cid, ws, wc, ext[:, 0:3].contiguous(),
+            ext[:, _MASS].contiguous(), cid_ext, h_cap)
+
+
+def density_local(cfg: SphConfig, ext, cid_ext, ws, wc, h_cap: int,
+                  p_cap: int):
+    """Exact density of the own slab: (rho [p_cap], ncount [p_cap])."""
+    return density_ext(*density_local_args(cfg, ext, cid_ext, ws, wc, h_cap,
+                                           p_cap))
+
+
+def force_local_args(cfg: SphConfig, ext, cid_ext, rho_e, rho_l, ws, wc,
+                     h_cap: int, p_cap: int) -> tuple:
+    pos, vel, _, cid = _own(ext, cid_ext, h_cap, p_cap)
+    cand = sw.fused_cand_cols(cfg, ext[:, 0:3], ext[:, 3:6], rho_e,
+                              ext[:, _MASS])
+    return (cfg, pos, vel, rho_l, cand, cid, ws, wc, cid_ext, h_cap)
+
+
+def force_local(cfg: SphConfig, ext, cid_ext, rho_e, rho_l, ws, wc,
+                h_cap: int, p_cap: int) -> torch.Tensor:
+    """Exact acceleration of the own slab [p_cap, 3]; ``rho_e`` holds the
+    extended frame's densities (halo rows from the neighbours)."""
+    args = force_local_args(cfg, ext, cid_ext, rho_e, rho_l, ws, wc, h_cap,
+                            p_cap)
+    return _finish(cfg, force_ext(*args), args[1])
+
+
+def density_local_capped_args(cfg: SphConfig, ext, g8, cid_ext, ws, wc,
+                              sub_src, cand_cid, w_sub, h_cap: int,
+                              p_cap: int) -> tuple:
+    pos, _, mass, cid = _own(ext, cid_ext, h_cap, p_cap)
+    return (cfg, pos, mass, cid, ws, wc, g8[:, 0:3].contiguous(),
+            g8[:, _MASS] * w_sub, cand_cid, sub_src, h_cap)
+
+
+def density_local_capped(cfg: SphConfig, ext, g8, cid_ext, ws, wc, sub_src,
+                         cand_cid, w_sub, h_cap: int, p_cap: int):
+    """Capped density of the own slab over the sub frame; ``g8 =
+    ext[sub_src]`` is gathered once per step and shared with the force."""
+    return density_ext_capped(*density_local_capped_args(
+        cfg, ext, g8, cid_ext, ws, wc, sub_src, cand_cid, w_sub, h_cap, p_cap))
+
+
+def force_local_capped_args(cfg: SphConfig, ext, g8, cid_ext, rho_e, rho_l,
+                            ws, wc, sub_src, cand_cid, w_sub, h_cap: int,
+                            p_cap: int) -> tuple:
+    pos, vel, _, cid = _own(ext, cid_ext, h_cap, p_cap)
+    cand = sw.fused_cand_cols(cfg, g8[:, 0:3], g8[:, 3:6],
+                              rho_e[sub_src.long()], g8[:, _MASS] * w_sub)
+    return (cfg, pos, vel, rho_l, cand, cid, ws, wc, cand_cid, sub_src, h_cap)
+
+
+def force_local_capped(cfg: SphConfig, ext, g8, cid_ext, rho_e, rho_l, ws, wc,
+                       sub_src, cand_cid, w_sub, h_cap: int, p_cap: int
+                       ) -> torch.Tensor:
+    args = force_local_capped_args(cfg, ext, g8, cid_ext, rho_e, rho_l, ws,
+                                   wc, sub_src, cand_cid, w_sub, h_cap, p_cap)
+    return _finish(cfg, force_ext_capped(*args), args[1])
+
+
+def density_sub_local_args(cfg: SphConfig, g8, sub_src, cand_cid, w_sub,
+                           ws_s, wc_s) -> tuple:
+    mass = g8[:, _MASS].contiguous()
+    return (cfg, g8[:, 0:3].contiguous(), mass, mass * w_sub, cand_cid,
+            sub_src, ws_s, wc_s)
+
+
+def density_sub_local(cfg: SphConfig, g8, sub_src, cand_cid, w_sub, ws_s,
+                      wc_s) -> torch.Tensor:
+    """Fused path's pre-pass: capped density [S] of the sub-frame rows
+    (self rows carry the true mass, candidates the reweighted one)."""
+    return density_sub_pre(*density_sub_local_args(cfg, g8, sub_src, cand_cid,
+                                                   w_sub, ws_s, wc_s))
+
+
+def fused_local_capped_args(cfg: SphConfig, ext, g8, cid_ext, rho_cand, ws,
+                            wc, sub_src, cand_cid, w_sub, h_cap: int,
+                            p_cap: int) -> tuple:
+    pos, vel, mass, cid = _own(ext, cid_ext, h_cap, p_cap)
+    cand = sw.fused_cand_cols(cfg, g8[:, 0:3], g8[:, 3:6], rho_cand,
+                              g8[:, _MASS] * w_sub)
+    return (cfg, pos, vel, mass, cid, ws, wc, cand, cand_cid, sub_src, h_cap)
+
+
+def fused_local_capped(cfg: SphConfig, ext, g8, cid_ext, rho_cand, ws, wc,
+                       sub_src, cand_cid, w_sub, h_cap: int, p_cap: int):
+    """One fused pass: (acc, rho, ncount) of the own slab; ``rho_cand``
+    holds each sub-frame row's pre-pass density (halo rows' from their
+    owner)."""
+    args = fused_local_capped_args(cfg, ext, g8, cid_ext, rho_cand, ws, wc,
+                                   sub_src, cand_cid, w_sub, h_cap, p_cap)
+    acc, rho, ncount = fused_ext(*args)
+    return _finish(cfg, acc, args[1]), rho, ncount

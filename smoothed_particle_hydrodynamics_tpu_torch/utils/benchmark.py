@@ -2,7 +2,8 @@
 ``smoothed_particle_hydrodynamics_tpu/utils/benchmark.py``).
 
 ``run_benchmark``: steady-state particle-steps/s of a step loop after
-warmup.  The fence is ``torch.cuda.synchronize()``: the host clock runs
+warmup; ``run_slab_benchmark`` the same for the distributed slab engine on
+a one-rank group.  The fence is ``torch.cuda.synchronize()``: the host clock runs
 around work that ends in a device sync.  ``run_parity_check``: the
 ``pallas`` sweeps against the ``celllist`` sweeps on one state.  A CUDA run
 reports the card it ran on; a CPU run (tests, small n) says ``cpu`` and is
@@ -152,6 +153,101 @@ def run_benchmark(scene: str = "splash", lazy: bool | None = True,
         "finite": bool(torch.isfinite(final.position).all()
                        and torch.isfinite(final.velocity).all()
                        and torch.isfinite(diags.kinetic_energy).all()),
+        "device": _device_name(dev),
+    }
+
+
+def slab_setup(n: int, overrides: dict | None, headroom: float,
+               device: torch.device, seed: int | None = None):
+    """The slab benchmark's one-rank run: the splash scene on 1.25h cells
+    (``overrides`` win), its sublane window derived unless set, the split,
+    caps at ``headroom`` and the capped sub-frame bound.  Returns (cfg,
+    state, zsplit, caps, sub_len)."""
+    from ..ops.sweeps_t import derive_window_t
+    from ..parallel import slabs
+
+    ov = dict(num_particles=n, cell_size_factor=1.25)
+    ov.update(overrides or {})
+    if seed is not None:
+        ov["seed"] = seed
+    cfg, state = make_scene("splash", device=device, **ov)
+    if cfg.pallas_window_t == 0 or "pallas_window_t" not in ov:
+        cfg = cfg.replace(pallas_window_t=derive_window_t(cfg, state))
+    zsplit = slabs.derive_zsplit(cfg, state, 1)
+    caps = slabs.derive_slab_caps(cfg, state, 1, zsplit=zsplit,
+                                  headroom=headroom)
+    sub_len = (slabs.derive_sub_len_slab(cfg, state, 1, zsplit)
+               if cfg.capped_candidates else None)
+    return cfg, state, zsplit, caps, sub_len
+
+
+def run_slab_benchmark(n: int = 1_000_000, steps: int = 15, warmup: int = 3,
+                       sweeps: str = "pallas", headroom: float = 1.05,
+                       overrides: dict | None = None, scan_block: int = 0,
+                       device: str = "cuda", seed: int | None = None) -> dict:
+    """The distributed slab engine on a one-rank group of this device (the
+    JAX package's ``run_slab_benchmark``, ``utils/benchmark.py:94``): the
+    1M splash on 1.25h cells, sublane window derived from the state unless
+    ``overrides`` set one, split and caps derived at ``headroom``.  On the
+    card the group is an NCCL group of one rank, so the step's collectives
+    run through NCCL; on the CPU it is gloo.  ``scan_block=K`` advances K
+    steps per call.  Returns the JAX package's keys plus per-step counters
+    (warmup steps first) and a finiteness flag."""
+    from ..parallel import comm, slabs
+
+    dev = _device(device)
+    cfg, state, zsplit, (p_cap, h_cap, m_cap), sub_len = slab_setup(
+        n, overrides, headroom, dev, seed)
+    k = max(scan_block, 1)
+    with comm.local_group(dev) as group:
+        carry = slabs.distribute(cfg, state, group, p_cap, zsplit=zsplit)
+        step = slabs.make_slab_step(cfg, group, p_cap, h_cap, m_cap,
+                                    sweeps=sweeps, zsplit=zsplit,
+                                    sub_len=sub_len, scan_block=scan_block)
+        diags = []
+        t0 = time.perf_counter()
+        for _ in range(max(-(-warmup // k), 1)):
+            carry, d = step(carry)
+            diags.append(d)
+        _sync(dev)
+        warmup_s = time.perf_counter() - t0
+        warm_steps = len(diags) * k
+        rebins_before = carry.rebin_count
+        calls = max(steps // k, 1)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            carry, d = step(carry)
+            diags.append(d)
+        _sync(dev)
+        elapsed = time.perf_counter() - t0
+    steps_run = calls * k
+    per_step = {name: torch.stack([v.reshape(-1) for v in vals]).reshape(-1)
+                for name, vals in zip(diags[0]._fields, zip(*diags))}
+    return {
+        "metric": "slab-engine particle-steps/s (one-rank group)",
+        "value": n * steps_run / elapsed,
+        "ms_per_step": elapsed * 1000.0 / steps_run,
+        "num_particles": n,
+        "steps": steps_run,
+        "warmup_steps": warm_steps,
+        "sweeps": sweeps,
+        "scan_block": scan_block,
+        "p_cap": p_cap, "h_cap": h_cap, "m_cap": m_cap,
+        "window_t": cfg.pallas_window_t,
+        "block_t": cfg.pallas_block_t,
+        "sub_len": sub_len,
+        "rebins": carry.rebin_count - rebins_before,
+        "migration_dropped": int(per_step["migration_dropped"][-1]),
+        "halo_dropped": int(per_step["halo_dropped"][-1]),
+        "warmup_s": warmup_s,
+        # per step, warmup steps first
+        "truncated_ranges": per_step["truncated_ranges"].tolist(),
+        "halo_dropped_steps": per_step["halo_dropped"].tolist(),
+        "migration_dropped_steps": per_step["migration_dropped"].tolist(),
+        "neighbor_mean": per_step["neighbor_mean"].tolist(),
+        "kinetic_energy": per_step["kinetic_energy"].tolist(),
+        "finite": bool(torch.isfinite(carry.fields[:, 0:6]).all()
+                       and torch.isfinite(per_step["kinetic_energy"]).all()),
         "device": _device_name(dev),
     }
 

@@ -10,7 +10,10 @@ one JSON line: the untraced ms/step of every run, the traced ms/step, the
 device's busy ms per step (the sum of its kernels' times) and busy share,
 the top kernels' device ms per step, and the host-side aten ops per step.
 The loop is the one ``run`` and ``bench`` pick (``uses_lazy``) unless
-``--eager``.  Needs a CUDA device.
+``--eager``; ``--partition slab`` profiles the distributed slab step on a
+one-rank NCCL group instead (``run_slab_benchmark``'s splash run).  The
+host ops are also listed by name (the most frequent, per step).  Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from torch.autograd import DeviceType
 
 def profile(scene: str, overrides: dict, backend: str, lazy: bool,
             steps: int, warmup: int, top: int = 8) -> dict:
+    """Trace ``steps`` steps of the single-device loop after ``warmup``."""
     from ..models import make_scene
     from ..ops.lazy import drive_loop_lazy
     from ..ops.step import drive_loop
@@ -44,6 +48,34 @@ def profile(scene: str, overrides: dict, backend: str, lazy: bool,
 
         def run():
             return drive_loop(cfg, state, steps, backend=backend)
+    return _trace(run, steps, top)
+
+
+def profile_slab(overrides: dict, steps: int, warmup: int,
+                 top: int = 8) -> dict:
+    """Trace ``steps`` slab steps on a one-rank NCCL group after
+    ``warmup`` (the splash run of ``run_slab_benchmark``)."""
+    from ..parallel import comm, slabs
+    from .benchmark import slab_setup
+
+    ov = dict(overrides)
+    n = ov.pop("num_particles")
+    cfg, state, zsplit, caps, sub_len = slab_setup(n, ov, 1.05,
+                                                   torch.device("cuda"))
+    with comm.local_group("cuda") as group:
+        step = slabs.make_slab_step(cfg, group, *caps, sweeps="pallas",
+                                    zsplit=zsplit, sub_len=sub_len)
+        carry = [slabs.distribute(cfg, state, group, caps[0], zsplit)]
+        for _ in range(warmup):
+            carry[0], _ = step(carry[0])
+
+        def run():
+            for _ in range(steps):
+                carry[0], _ = step(carry[0])
+        return _trace(run, steps, top)
+
+
+def _trace(run, steps: int, top: int) -> dict:
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -60,9 +92,13 @@ def profile(scene: str, overrides: dict, backend: str, lazy: bool,
             calls[e.key[:80]] = calls.get(e.key[:80], 0) + e.count
     busy_us = sum(us.values())
     names = sorted(us, key=us.get, reverse=True)[:top]
-    host_ops = sum(1 for e in prof.events()
-                   if e.device_type == DeviceType.CPU and e.cpu_parent is None
-                   and e.name.startswith("aten::"))
+    host = {}
+    for e in prof.events():
+        if (e.device_type == DeviceType.CPU and e.cpu_parent is None
+                and e.name.startswith("aten::")):
+            host[e.name] = host.get(e.name, 0) + 1
+    host_ops = sum(host.values())
+    host_top = sorted(host, key=host.get, reverse=True)[:top]
     return {
         "traced_ms_per_step": wall * 1e3 / steps,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
@@ -70,12 +106,13 @@ def profile(scene: str, overrides: dict, backend: str, lazy: bool,
         "top_kernels_ms_per_step": {k: us[k] / 1e3 / steps for k in names},
         "top_kernel_calls_per_step": {k: calls[k] / steps for k in names},
         "host_aten_ops_per_step": host_ops / steps,
+        "top_host_ops_per_step": {k: host[k] / steps for k in host_top},
     }
 
 
 def main(argv: list[str] | None = None) -> int:
     from ..__main__ import _overrides
-    from .benchmark import run_benchmark
+    from .benchmark import run_benchmark, run_slab_benchmark
 
     ap = argparse.ArgumentParser(
         prog="python -m smoothed_particle_hydrodynamics_tpu_torch.utils."
@@ -89,21 +126,32 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--set", action="append", metavar="KEY=VALUE")
+    ap.add_argument("--partition", default="single", choices=["single", "slab"],
+                    help="slab = the slab step on a one-rank group (splash)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
     ov = _overrides(args)
-    runs = [run_benchmark(scene=args.scene, lazy=False if args.eager else None,
-                          steps=args.steps, warmup=args.warmup, overrides=ov,
-                          backend=args.backend)
-            for _ in range(args.repeats)]
-    lazy = runs[0]["lazy"]
-    rec = {"scene": args.scene, "overrides": ov, "backend": args.backend,
-           "lazy": lazy, "steps": args.steps,
+    if args.partition == "slab":
+        slab_ov = {k: v for k, v in ov.items() if k != "num_particles"}
+        runs = [run_slab_benchmark(n=args.num_particles, steps=args.steps,
+                                   warmup=args.warmup, overrides=slab_ov)
+                for _ in range(args.repeats)]
+        traced = profile_slab(ov, args.steps, args.warmup)
+        lazy = True
+    else:
+        runs = [run_benchmark(scene=args.scene,
+                              lazy=False if args.eager else None,
+                              steps=args.steps, warmup=args.warmup,
+                              overrides=ov, backend=args.backend)
+                for _ in range(args.repeats)]
+        lazy = runs[0]["lazy"]
+        traced = profile(args.scene, ov, args.backend, lazy, args.steps,
+                         args.warmup)
+    rec = {"scene": args.scene, "partition": args.partition, "overrides": ov,
+           "backend": args.backend, "lazy": lazy, "steps": args.steps,
            "untraced_ms_per_step": [r["ms_per_step"] for r in runs],
-           **profile(args.scene, ov, args.backend, lazy, args.steps,
-                     args.warmup),
-           "device": torch.cuda.get_device_name(0)}
+           **traced, "device": torch.cuda.get_device_name(0)}
     print(json.dumps(rec))
     return 0
 
