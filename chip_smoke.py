@@ -5,9 +5,9 @@
 
 Phases (every failed check raises, and the script exits nonzero):
 
-1. build the kernels (``csrc/sweep_t.cu``, ``csrc/sweep_lane.cu``) with
-   nvcc, one process per source, started together; print the build time and
-   ptxas's register/spill report;
+1. build the kernels (``csrc/sweep_t.cu``, ``csrc/sweep_lane.cu``,
+   ``csrc/probes.cu``) with nvcc, one process per source, started together;
+   print the build time and ptxas's register/spill report;
 2. exact mode, 32k splash: K1 and K2 against their plain PyTorch twins on
    the card (neighbor counts equal, rho rel-L2 <= 1e-6, acc rel-L2 <= 1e-4);
 3. exact mode, 4096-particle splash: the kernel-backed step quantities
@@ -62,14 +62,27 @@ Phases (every failed check raises, and the script exits nonzero):
    one), exact, capped (K_c 4, 256-row blocks) and capped fused, 3 warmup +
    20 timed steps: each kernel of a path launched once per step, no counted
    loss, a finite state; then the single-chip lazy step and the slab step
-   in turns (single, slab, slab, single), exact, printing ms/step each.
+   in turns (single, slab, slab, single), exact, printing ms/step each;
+15. the hardware probes (``tools/probe_{vpu_ops,gather,mxu}.py``, no step
+   path runs them) at the JAX probes' shapes: every chain op over
+   [131072, 128] at K = 1 and 4 (and the IEEE ops at the probe's K = 64)
+   and the reciprocal table against the plain chain (bit-equal where both
+   round in IEEE f32, rel <= 1e-5 where the kernel approximates); every
+   gather mode at each S, bit-equal; each d^2 mode at one tile and over
+   4096 tiles, <= 1e-4 max abs against its plain version (FMA and 3xTF32
+   against the f32 one too); then, launch counters reset, the three probes'
+   main runs, whose every line and finding is printed, and the SASS of the
+   chain kernels (sqrtf and '/' IEEE sequences, no chain folded: each MUFU
+   op issues a full unrolled body of its MUFU instructions).
 
 It then prints the card's name and power limit, one JSON line of kernel
 records (time, twin time, launches, error, and the bound: the larger of the
 bytes each call must move over 3.35 TB/s and the flops on the pairs within
-h over 67 TFLOP/s f32, the H100 SXM's published peaks), and last
-``{"ok": true, "device": {...}}``.  With no CUDA device it exits 1 before
-printing any result.
+h over 67 TFLOP/s f32, the H100 SXM's published peaks; for a probe, at the
+case its record names, its instructions over the card's issue rate or its
+tensor-core flops over 495 TFLOP/s TF32, and the PyTorch call that computes
+the same function as ``library_ms``), and last ``{"ok": true, "device":
+{...}}``.  With no CUDA device it exits 1 before printing any result.
 """
 
 from __future__ import annotations
@@ -81,6 +94,11 @@ import time
 from typing import NamedTuple
 
 import torch
+
+# the H100 SXM's published peaks (HBM bytes/s, f32 FLOP/s outside the tensor
+# cores), the CUDA-event timer and the error measure, shared with the probes
+from smoothed_particle_hydrodynamics_tpu_torch.tools import (
+    F32_FLOPS, HBM_BYTES_PER_S, max_abs, time_ms)
 
 # the main paths: bench.py's headline row (1M splash, lazy rebinning, 1.25h
 # cells) and its capped_k4 row, two-pass and fused; the lane layout's eager
@@ -94,12 +112,10 @@ LANE = dict(num_particles=1_000_000, pallas_layout="lane")
 WARMUP, STEPS = 3, 20
 DISK_STEPS = 100
 RHO_BAR, ACC_BAR = 1e-6, 1e-4
-# H100 SXM published peaks: HBM bytes/s, f32
-# FLOP/s outside the tensor cores
-HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
 PKG = "smoothed_particle_hydrodynamics_tpu_torch"
 SOURCE_T = f"{PKG}/csrc/sweep_t.cu"
 SOURCE_LANE = f"{PKG}/csrc/sweep_lane.cu"
+SOURCE_PROBES = f"{PKG}/csrc/probes.cu"
 TPU_T = "smoothed_particle_hydrodynamics_tpu/ops/pallas_step_t.py"
 TPU_LANE = "smoothed_particle_hydrodynamics_tpu/ops/pallas_step.py"
 TPU_SLABS = "smoothed_particle_hydrodynamics_tpu/parallel/slabs.py"
@@ -113,7 +129,9 @@ SLAB_HEADROOM = 1.05
 
 
 class Kernel(NamedTuple):
-    module: str          # "t" (ops/sweeps_t.py) or "lane" (ops/sweeps_lane.py)
+    module: str          # "t" (ops/sweeps_t.py), "lane" (ops/sweeps_lane.py),
+    #                      "slab" (parallel/slab_sweeps.py) or a probe
+    #                      ("vpu", "gather", "mxu": tools/probe_*.py)
     wrapper: str
     twin: str
     source: str
@@ -160,7 +178,15 @@ KERNELS = {
     "fused_kernel_t[slab]": Kernel(
         "slab", "fused_ext", "fused_ext_plain", SOURCE_T, f"{TPU_SLABS}:570",
         48, f"{TPU_SLABS}:792"),
+    # the hardware probes: no step path runs them (no flops per pair)
+    "chain_kernel": Kernel("vpu", "chain", "chain_plain", SOURCE_PROBES,
+                           "tools/probe_vpu_ops.py:36", 0),
+    "gather_tile_kernel": Kernel("gather", "gather_tile", "gather_tile_plain",
+                                 SOURCE_PROBES, "tools/probe_gather.py:40", 0),
+    "d2_tile_kernel": Kernel("mxu", "d2_tile", "d2_tile_plain", SOURCE_PROBES,
+                             "tools/probe_mxu.py:27", 0),
 }
+PROBE_KERNELS = ("chain_kernel", "gather_tile_kernel", "d2_tile_kernel")
 # which kernels each main path runs (the first path a kernel is in gives its
 # launch count in the kernels line)
 PATHS = {
@@ -178,14 +204,20 @@ SLAB_PATHS = {
 }
 
 
-def _module(name: str):
+def _modules() -> dict:
     from smoothed_particle_hydrodynamics_tpu_torch.ops import (sweeps_lane,
                                                                sweeps_t)
     from smoothed_particle_hydrodynamics_tpu_torch.parallel import (
         slab_sweeps)
+    from smoothed_particle_hydrodynamics_tpu_torch.tools import (
+        probe_gather, probe_mxu, probe_vpu_ops)
 
-    return {"t": sweeps_t, "lane": sweeps_lane,
-            "slab": slab_sweeps}[KERNELS[name].module]
+    return {"t": sweeps_t, "lane": sweeps_lane, "slab": slab_sweeps,
+            "vpu": probe_vpu_ops, "gather": probe_gather, "mxu": probe_mxu}
+
+
+def _module(name: str):
+    return _modules()[KERNELS[name].module]
 
 
 def wrapper(name: str):
@@ -193,13 +225,9 @@ def wrapper(name: str):
 
 
 def reset_launches() -> None:
-    from smoothed_particle_hydrodynamics_tpu_torch.ops import (sweeps_lane,
-                                                               sweeps_t)
-    from smoothed_particle_hydrodynamics_tpu_torch.parallel import (
-        slab_sweeps)
-
-    for w in sweeps_t.WRAPPERS + sweeps_lane.WRAPPERS + slab_sweeps.WRAPPERS:
-        w.launches = 0
+    for mod in _modules().values():
+        for w in mod.WRAPPERS:
+            w.launches = 0
 
 
 def check(ok: bool, what: str) -> None:
@@ -209,24 +237,6 @@ def check(ok: bool, what: str) -> None:
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
-
-
-def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
-    return (a - b).abs().max().item()
-
-
-def time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` runs after one warm run."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def agree(label: str, name: str, kernel, twin, counts=None, bar=RHO_BAR
@@ -488,8 +498,9 @@ def timed(args: dict, pairs: dict) -> dict:
         nbytes = io_bytes(a, kern(*a))
         flops = pairs[name] * KERNELS[name].flops_per_pair
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
-        out[name] = dict(ms=time_ms(lambda: kern(*a), 10),
-                         plain_ms=time_ms(lambda: twin(*a), 3),
+        out[name] = dict(ms=time_ms(lambda: kern(*a), iters=10, warmup=1),
+                         plain_ms=time_ms(lambda: twin(*a), iters=3,
+                                          warmup=1),
                          bound_ms=max(t_bytes, t_ops) * 1e3,
                          bound_by="bytes" if t_bytes >= t_ops else "operations",
                          bytes=nbytes, flops=flops)
@@ -510,6 +521,152 @@ def compare(label: str, a, b, names: str) -> None:
     check(r_rho <= RHO_BAR, f"{label}: {names} rho rel-L2 {r_rho}")
     check(r_acc <= ACC_BAR, f"{label}: {names} acc rel-L2 {r_acc}")
     check(cut == (0, 0), f"{label}: {names} truncated ranges {cut}")
+
+
+def vpu_vs_plain(dev) -> float:
+    """Every chain op over the probe's [131072, 128] input at K = 1 and
+    K = 4, and the reciprocal table (K = 1 over 8192 values), against the
+    plain chain at the op's bar; the ops both sides round in IEEE f32 also
+    at the probe's K = 64 (the kernel's unrolled body), bit-equal.  A deep
+    rsqrt or center chain reaches its fixed point and an even-deep
+    reciprocal chain its start, so the approximate ops are held only at
+    the shallow depths.  Returns the max abs error."""
+    from smoothed_particle_hydrodynamics_tpu_torch.tools import (
+        probe_vpu_ops as pv)
+
+    x = pv.make_input(pv.BLOCKS, dev)
+    cases = [(op, x, k) for k in (1, 4) for op in pv.OPS]
+    cases += [(op, x, pv.K) for op in pv.OPS if pv.BARS[op] == 0]
+    cases.append(("recip_approx", pv.recip_table(dev), 1))
+    worst = 0.0
+    for op, inp, k in cases:
+        a, b = pv.chain(inp, op, k), pv.chain_plain(inp, op, k)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(a, b))
+        rel = ((a.double() - b.double()).abs() / b.double().abs()).max().item()
+        bar = pv.BARS[op]
+        print(f"[probe vpu] chain_kernel<{op}> K={k} over {tuple(inp.shape)} "
+              f"vs plain: bit-equal={equal} max rel={rel:.3e} (bar: "
+              + ("bit-equal" if bar == 0 else f"rel <= {bar:g}") + ")")
+        check(equal if bar == 0 else rel <= bar,
+              f"chain_kernel<{op}> K={k} vs plain: rel {rel}")
+        worst = max(worst, max_abs(a, b))
+    return worst
+
+
+def gather_vs_plain(dev) -> float:
+    """Every gather-probe mode, the gathers with lane-varying and
+    lane-uniform indices, at each S of the JAX probe, bit-equal to the
+    plain version.  Returns the max abs error."""
+    from smoothed_particle_hydrodynamics_tpu_torch.tools import (
+        probe_gather as pg)
+
+    worst = 0.0
+    for S in pg.SIZES:
+        src, idx_v, idx_u = pg.make_inputs(S, pg.ELEMENTS, dev)
+        cases = [(m, idx_v) for m in pg.MODES] + [
+            (m, idx_u) for m in pg.MODES if m.startswith("gather")]
+        for mode, idx in cases:
+            a = pg.gather_tile(src, idx, S, mode)
+            b = pg.gather_tile_plain(src, idx, S, mode)
+            torch.cuda.synchronize()
+            check(bool(torch.equal(a, b)),
+                  f"gather_tile_kernel<{mode}> S={S} bit-equal to plain")
+            worst = max(worst, max_abs(a, b))
+        print(f"[probe gather] S={S} nb={src.shape[0] // S} "
+              f"w={pg.strip_width(S)}: {len(cases)} cases ({', '.join(pg.MODES)}"
+              f"; gathers lane-varying and lane-uniform) bit-equal to plain")
+    return worst
+
+
+def mxu_vs_plain(dev) -> float:
+    """Each d^2 mode at the JAX probe's shapes (one tile, off 40) and over
+    4096 tiles, against its plain version (<= 1e-4 max abs), FMA and 3xTF32
+    also against the f32 plain version.  Returns the max abs error against
+    each mode's own plain version."""
+    from smoothed_particle_hydrodynamics_tpu_torch.tools import probe_mxu as pm
+
+    worst = 0.0
+    for tiles, off in ((1, 40), (pm.TILES, None)):
+        g, selfv, offs = pm.make_tiles(tiles, dev, off=off)
+        f32 = pm.d2_tile_plain(g, selfv, offs, "fma")
+        for mode in pm.MODES:
+            a = pm.d2_tile(g, selfv, offs, mode)
+            own = max_abs(a, pm.d2_tile_plain(g, selfv, offs, mode))
+            vs_f32 = max_abs(a, f32)
+            print(f"[probe mxu] d2_tile_kernel<{mode}> {tiles} tile(s): max "
+                  f"abs vs its plain {own:.3e}, vs f32 plain {vs_f32:.3e} "
+                  f"(bar {pm.BAR:g}" + (" vs f32 too)" if mode != "tf32"
+                                        else ")"))
+            check(own <= pm.BAR, f"d2_tile_kernel<{mode}> vs plain {own}")
+            check(mode == "tf32" or vs_f32 <= pm.BAR,
+                  f"d2_tile_kernel<{mode}> vs f32 plain {vs_f32}")
+            worst = max(worst, own)
+    return worst
+
+
+def sass_checks(mix: dict) -> None:
+    """The chain kernels compiled as the probe assumes: sqrtf and '/' as
+    IEEE sequences (a MUFU seed refined by FFMAs; the divide's FCHK range
+    check), not as one MUFU approximation; the mul chain not folded (16
+    multiplies in its unrolled body at least); every op that issues on the
+    MUFU at least one unrolled body's worth of its MUFU instructions."""
+    from smoothed_particle_hydrodynamics_tpu_torch.tools import (
+        probe_vpu_ops as pv)
+
+    if not mix:
+        print("[probe vpu] cuobjdump not found: SASS not checked")
+        return
+    check("MUFU.SQRT" not in mix["sqrt"] and mix["sqrt"]["FFMA"] > 0,
+          f"sqrtf is an IEEE sequence: {dict(mix['sqrt'])}")
+    check(mix["div"]["FCHK"] > 0 and mix["div"]["FFMA"] > 0,
+          f"'/' is an IEEE divide: {dict(mix['div'])}")
+    check(mix["mul"]["FMUL"] >= 16, f"mul chain unfolded: {dict(mix['mul'])}")
+    folded = pv.sass_folded(mix)
+    check(not folded, f"MUFU chains unfolded: {folded}")
+
+
+def probe_records(dev, vpu: dict, gat: dict, mxu: dict) -> dict:
+    """Each probe kernel's record for the kernels line, at one case of its
+    probe's main run (its time, bound and case from there): the plain
+    version's time and, where one PyTorch call computes the same function,
+    that call's time, on the same inputs."""
+    from smoothed_particle_hydrodynamics_tpu_torch.tools import (
+        probe_gather as pg, probe_mxu as pm, probe_vpu_ops as pv)
+
+    out = {}
+    x = pv.make_input(pv.BLOCKS, dev)
+    row = vpu["ops"]["center_now"]
+    out["chain_kernel"] = dict(
+        case=f"center_now (K2's sqrtf + divide), K={pv.K}, {tuple(x.shape)}",
+        ms=row["ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+        plain_ms=time_ms(lambda: pv.chain_plain(x, "center_now", pv.K),
+                         iters=3, warmup=1),
+        library_ms=None)
+    S = 1024
+    src, idx_v, _ = pg.make_inputs(S, pg.ELEMENTS, dev)
+    row = next(r for r in gat["tiles"] if r["S"] == S)
+    src3 = src.view(-1, S, pg.LANES)
+    idx3 = idx_v.view(-1, S, pg.LANES).long()
+    out["gather_tile_kernel"] = dict(
+        case=f"gather_smem, lane-varying indices, S={S}, {tuple(src.shape)}",
+        ms=row["gather_smem"], bound_ms=row["gather_bound_ms"],
+        bound_by="bytes",
+        plain_ms=time_ms(
+            lambda: pg.gather_tile_plain(src, idx_v, S, "gather_smem"),
+            iters=10, warmup=1),
+        library_ms=time_ms(lambda: torch.gather(src3, 1, idx3), iters=10,
+                           warmup=1))
+    g, selfv, offs = pm.make_tiles(mxu["tiles"], dev)
+    row = mxu["timed"]["tf32x3"]
+    out["d2_tile_kernel"] = dict(
+        case=f"tf32x3 (the analog of HIGHEST), {mxu['tiles']} tiles",
+        ms=row["ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+        plain_ms=time_ms(
+            lambda: pm.d2_tile_plain(g, selfv, offs, "tf32x3"), iters=10,
+            warmup=1),
+        library_ms=mxu["library_ms"])
+    return out
 
 
 def main() -> int:
@@ -544,10 +701,10 @@ def main() -> int:
 
     # 1. build from the checkout's sources, one nvcc per source in parallel
     t0 = time.perf_counter()
-    build.build_libraries(["sweep_t", "sweep_lane"])
-    print(f"[build] sweep_t.cu + sweep_lane.cu built in "
+    build.build_libraries(["sweep_t", "sweep_lane", "probes"])
+    print(f"[build] sweep_t.cu + sweep_lane.cu + probes.cu built in "
           f"{time.perf_counter() - t0:.2f} s")
-    for name in ("sweep_t", "sweep_lane"):
+    for name in ("sweep_t", "sweep_lane", "probes"):
         build.load_library(name)
         print(build.build_log(name).strip())
 
@@ -876,6 +1033,34 @@ def main() -> int:
         turns.append((kind, r["ms_per_step"], r["window_t"]))
     print(f"[turns exact 1M] (engine, ms/step, window_t): {turns}")
 
+    # 15. the hardware probes (tools/probe_*.py): every op and mode of the
+    #     three probe kernels against its plain version at the JAX probes'
+    #     shapes, then the three probes' main runs, counted
+    from smoothed_particle_hydrodynamics_tpu_torch.tools import (
+        probe_gather, probe_mxu, probe_vpu_ops)
+
+    t0 = time.perf_counter()
+    errs["chain_kernel"] = vpu_vs_plain(dev)
+    errs["gather_tile_kernel"] = gather_vs_plain(dev)
+    errs["d2_tile_kernel"] = mxu_vs_plain(dev)
+    reset_launches()
+    vpu, gat, mxu = probe_vpu_ops.main(), probe_gather.main(), probe_mxu.main()
+    for name in PROBE_KERNELS:
+        launches[name] = wrapper(name).launches
+        check(launches[name] > 0, f"probe run: {name} launched")
+    check(mxu["ok"], "d^2 probe: every mode within 1e-4 at the JAX shapes")
+    sass_checks(vpu["sass"])
+    times.update(probe_records(dev, vpu, gat, mxu))
+    for name in PROBE_KERNELS:
+        t = times[name]
+        print(f"[probe] {name} ({t['case']}): kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, library "
+              + ("none" if t["library_ms"] is None
+                 else f"{t['library_ms']:.4f} ms")
+              + f", bound {t['bound_ms'] * 1e3:.1f} us ({t['bound_by']}); "
+              f"{launches[name]} launches in the probe run")
+    print(f"[probe] phase 15 took {time.perf_counter() - t0:.1f} s")
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
@@ -886,8 +1071,10 @@ def main() -> int:
          "max_abs_err": errs[name], "ms": times[name]["ms"],
          "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"],
-         "bound_by": times[name]["bound_by"], "library_ms": None,
-         **({"caller": k.caller} if k.caller else {})}
+         "bound_by": times[name]["bound_by"],
+         "library_ms": times[name].get("library_ms"),
+         **({"caller": k.caller} if k.caller else {}),
+         **({"case": times[name]["case"]} if "case" in times[name] else {})}
         for name, k in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """Host-side helpers shared by the kernel wrappers (``sweeps_t``,
-``sweeps_lane``): which path a tensor takes, argument checks, launch errors.
+``sweeps_lane``, ``parallel/slab_sweeps``, the probes in ``tools/``): which
+path a tensor takes, argument checks, launch errors.
 
 A wrapper given CPU tensors computes with its plain PyTorch twin; given
 CUDA tensors it launches its kernel or raises; any other device raises.
@@ -18,7 +19,7 @@ def use_plain(x: torch.Tensor) -> bool:
         return True
     if x.device.type == "cuda":
         return False
-    raise ValueError(f"sweep kernels run on cuda (twin on cpu), got a "
+    raise ValueError(f"the kernels run on cuda (twin on cpu), got a "
                      f"tensor on {x.device}")
 
 
