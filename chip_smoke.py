@@ -8,12 +8,18 @@ Phases (every failed check raises, and the script exits nonzero):
 1. build the kernels (``csrc/sweep_t.cu``, ``csrc/sweep_lane.cu``,
    ``csrc/probes.cu``) with nvcc, one process per source, started together;
    print the build time and ptxas's register/spill report;
-2. exact mode, 32k splash: K1 and K2 against their plain PyTorch twins on
-   the card (neighbor counts equal, rho rel-L2 <= 1e-6, acc rel-L2 <= 1e-4);
+2. exact mode, 32k splash: K1 and K2, the per-lane band walks
+   (``density_band_t``, ``force_band_t``), against their plain PyTorch twins
+   on the card (neighbor counts equal, rho rel-L2 <= 1e-6, acc rel-L2 <=
+   1e-4) and against the block-walk kernels (``density_kernel_t`` and
+   ``force_kernel_t`` with ``EXCL_ROW``) on the same tensors: counts, rho
+   and acc bit-equal;
 3. exact mode, 4096-particle splash: the kernel-backed step quantities
    against the O(N^2) pairwise oracle, with the same bars;
-4. exact mode, 1M splash shapes: kernel and twin times (CUDA events) and
-   their agreement at the main path's shapes;
+4. exact mode, 1M splash shapes: the same checks at the main path's
+   shapes, the rows tested per lane (band mean and max over a warp) beside
+   the block window's rows per thread, and the kernel, block-walk and twin
+   times (CUDA events);
 5. capped mode (K_c = 4), 32k splash: capped K1, capped K2, the pre-pass K1
    and the fused K3 against their twins, and K3's rho and counts against
    capped K1's on the same tensors;
@@ -141,10 +147,10 @@ class Kernel(NamedTuple):
 
 
 KERNELS = {
-    "density_kernel_t": Kernel("t", "density_t", "density_t_plain", SOURCE_T,
-                               f"{TPU_T}:293", 15),
-    "force_kernel_t": Kernel("t", "force_t", "force_t_plain", SOURCE_T,
-                             f"{TPU_T}:360", 36),
+    "density_band_t": Kernel("t", "density_t", "density_t_plain", SOURCE_T,
+                             f"{TPU_T}:293", 15),
+    "force_band_t": Kernel("t", "force_t", "force_t_plain", SOURCE_T,
+                           f"{TPU_T}:360", 36),
     "density_kernel_t<capped>": Kernel("t", "density_capped_t",
                                        "density_t_plain", SOURCE_T,
                                        f"{TPU_T}:321", 15),
@@ -190,7 +196,7 @@ PROBE_KERNELS = ("chain_kernel", "gather_tile_kernel", "d2_tile_kernel")
 # which kernels each main path runs (the first path a kernel is in gives its
 # launch count in the kernels line)
 PATHS = {
-    "exact": (MAIN, ("density_kernel_t", "force_kernel_t")),
+    "exact": (MAIN, ("density_band_t", "force_band_t")),
     "capped": (CAPPED, ("density_kernel_t<capped>", "force_kernel_t<capped>")),
     "fused": (FUSED, ("density_kernel_t<prepass>", "fused_kernel_t")),
     "lane": (LANE, ("density_kernel_lane", "force_kernel_lane")),
@@ -257,29 +263,56 @@ def agree(label: str, name: str, kernel, twin, counts=None, bar=RHO_BAR
 
 
 def exact_vs_twins(cfg, p, label: str):
-    """Exact K1 and K2 against their twins on the same card tensors.
-    Returns the max abs errors, the arguments used (for timing) and the
-    pairs within h each kernel sums (for its bound)."""
+    """Exact K1 and K2, the band walks, against their twins and against the
+    block-walk kernels on the same card tensors, which must give counts, rho
+    and acc bit-equal to the band kernels'.  Returns the max abs errors, the
+    kernel and twin arguments and the tensors each kernel reads (for timing
+    and its bound), the pairs within h each kernel sums, and the block
+    walk's (density, force) launches."""
     from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
     from smoothed_particle_hydrodynamics_tpu_torch.utils.walk_stats import (
-        sublane_rows_per_thread)
+        band_rows_per_lane, sublane_rows_per_thread)
 
-    args_d = (cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc)
+    args_d = (cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc, p.cell_start)
     rho_k, nc_k = sw.density_t(*args_d)
-    rho_p, nc_p = sw.density_t_plain(*args_d)
+    rho_p, nc_p = sw.density_t_plain(*args_d[:-1])
     cand = sw.fused_cand_cols(cfg, p.pos_s, p.vel_s, rho_k, p.mass_s)
-    args_f = (cfg, p.pos_s, p.vel_s, rho_k, cand, p.cid, p.ws, p.wc)
-    acc_k, acc_p = sw.force_t(*args_f), sw.force_t_plain(*args_f)
+    args_f = (cfg, p.pos_s, p.vel_s, rho_k, cand, p.cid, p.ws, p.wc,
+              p.cell_start)
+    acc_k, acc_p = sw.force_t(*args_f), sw.force_t_plain(*args_f[:-1])
+    block = (
+        lambda: sw._launch_density(
+            cfg, sw.EXCL_ROW, p.pos_s, p.mass_s, p.cid, p.ws, p.wc, p.pos_s,
+            p.mass_s, p.cid, None, None, "density_kernel_t"),
+        lambda: sw._launch_force(
+            cfg, sw.EXCL_ROW, p.pos_s, p.vel_s, rho_k, cand, p.cid, p.ws,
+            p.wc, p.cid, None, "force_kernel_t"))
+    (rho_b, nc_b), acc_b = block[0](), block[1]()
     torch.cuda.synchronize()
-    print(f"[{label}] max_wc={p.wc.max().item()} rows tested per thread="
-          f"{sublane_rows_per_thread(cfg, p, p.pos_s.shape[0]):.1f}")
-    errs = {"density_kernel_t": agree(label, "density_kernel_t", rho_k, rho_p,
-                                      (nc_k, nc_p)),
-            "force_kernel_t": agree(label, "force_kernel_t", acc_k, acc_p,
-                                    bar=ACC_BAR)}
+    band = band_rows_per_lane(cfg, p)
+    window = sublane_rows_per_thread(cfg, p, p.pos_s.shape[0])
+    print(f"[{label}] max_wc={p.wc.max().item()} rows tested per thread: "
+          f"block window {window:.1f}, band mean {band['mean']:.1f}, band "
+          f"max over a warp {band['warp_max']:.1f}, warp union "
+          f"{band['warp_union']:.1f}")
+    bits = (bool(torch.equal(nc_b, nc_k)), bool(torch.equal(rho_b, rho_k)),
+            bool(torch.equal(acc_b, acc_k)))
+    print(f"[{label}] band kernels vs block-walk kernels on the same tensors:"
+          f" counts, rho, acc bit-equal={bits}")
+    check(all(bits), f"{label}: band walk vs block walk bit-equal {bits}")
+    errs = {"density_band_t": agree(label, "density_band_t", rho_k, rho_p,
+                                    (nc_k, nc_p)),
+            "force_band_t": agree(label, "force_band_t", acc_k, acc_p,
+                                  bar=ACC_BAR)}
     pairs = int(nc_k.sum())
-    return (errs, {"density_kernel_t": args_d, "force_kernel_t": args_f},
-            {"density_kernel_t": pairs, "force_kernel_t": pairs})
+    args = {"density_band_t": args_d, "force_band_t": args_f}
+    twin_args = {name: a[:-1] for name, a in args.items()}
+    # the sums need the rows and cids only: cell_start is the kernels' own
+    # index, of which they read just the entries next to occupied cells
+    reads = {"density_band_t": (p.pos_s, p.mass_s, p.cid),
+             "force_band_t": (p.pos_s, p.vel_s, rho_k, cand, p.cid)}
+    return (errs, (args, twin_args, reads),
+            {"density_band_t": pairs, "force_band_t": pairs}, block)
 
 
 def capped_vs_twins(cfg, p, label: str):
@@ -479,6 +512,20 @@ def slab_vs_twins(cfg, group, frame, caps, label: str):
                         names[3]: int(fnc_k.sum())}
 
 
+def walks_in_turns(args: dict, block: tuple, label: str) -> None:
+    """Time each exact kernel (the band walk) and its block walk in turns
+    (band, block, block, band) by CUDA events at the given arguments."""
+    for i, name in enumerate(("density_band_t", "force_band_t")):
+        fns = {"band walk": lambda: wrapper(name)(*args[name]),
+               "block walk": block[i]}
+        ms = {w: [] for w in fns}
+        for w in [*fns, *reversed(fns)]:
+            ms[w].append(time_ms(fns[w], iters=10, warmup=1))
+        print(f"[{label}] {name} in turns (CUDA events, ms per launch): "
+              + "; ".join(f"{w} {' '.join(f'{t:.4f}' for t in ts)}"
+                          for w, ts in ms.items()))
+
+
 def io_bytes(args: tuple, out) -> int:
     """Bytes a call must move: each input tensor read once (a tensor passed
     twice counts once), each output written once."""
@@ -487,19 +534,23 @@ def io_bytes(args: tuple, out) -> int:
     return sum(b for _, b in ins) + sum(o.nbytes for o in outs)
 
 
-def timed(args: dict, pairs: dict) -> dict:
+def timed(args: dict, pairs: dict, twin_args: dict | None = None,
+          reads: dict | None = None) -> dict:
     """Per kernel at the given arguments: kernel and twin ms (CUDA events)
     and the bound, the larger of its bytes over the HBM rate and its flops
-    on the pairs within h over the f32 rate."""
+    on the pairs within h over the f32 rate.  ``twin_args`` are the twin's
+    arguments where they differ from the kernel's, ``reads`` the tensors
+    the kernel reads where not all of its arguments (for the bytes)."""
     out = {}
     for name, a in args.items():
         kern = wrapper(name)
         twin = getattr(_module(name), KERNELS[name].twin)
-        nbytes = io_bytes(a, kern(*a))
+        t_a = (twin_args or {}).get(name, a)
+        nbytes = io_bytes((reads or {}).get(name, a), kern(*a))
         flops = pairs[name] * KERNELS[name].flops_per_pair
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
         out[name] = dict(ms=time_ms(lambda: kern(*a), iters=10, warmup=1),
-                         plain_ms=time_ms(lambda: twin(*a), iters=3,
+                         plain_ms=time_ms(lambda: twin(*t_a), iters=3,
                                           warmup=1),
                          bound_ms=max(t_bytes, t_ops) * 1e3,
                          bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -730,8 +781,9 @@ def main() -> int:
                      pallas_window_t=64, grid_nx=16, grid_ny=16, grid_nz=16,
                      gravity=(0.0, 0.0, 0.0))
 
-    # 2. exact kernels vs twins, 32k splash (packed pool: 32^3 grid of 1.25h
-    #    cells; 64-row windows so multi-chunk walks are exercised)
+    # 2. exact kernels vs twins and vs the block walk, 32k splash (packed
+    #    pool: 32^3 grid of 1.25h cells; 64-row windows so multi-chunk block
+    #    walks are exercised)
     cfg, st = make_scene("splash", device=dev, num_particles=32768, **small)
     exact_vs_twins(cfg, sw.prepare_t(cfg, st), "exact 32k")
 
@@ -739,11 +791,14 @@ def main() -> int:
     cfg, st = make_scene("splash", device=dev, **oracle_kw)
     oracle("exact 4096", cfg, st)
 
-    # 4. the exact main path's shapes: agreement and times, kernel vs twin
+    # 4. the exact main path's shapes: agreement and times, the band kernels
+    #    vs the block walk (in turns) and vs their twins
     cfg, st = make_scene("splash", device=dev, **MAIN)
-    errs, args, pairs = exact_vs_twins(cfg, sw.prepare_t(cfg, st), "exact 1M")
-    times = timed(args, pairs)
-    del args
+    errs, (args, twin_args, reads), pairs, block = exact_vs_twins(
+        cfg, sw.prepare_t(cfg, st), "exact 1M")
+    times = timed(args, pairs, twin_args, reads)
+    walks_in_turns(args, block, "exact 1M")
+    del args, twin_args, reads, block
 
     # 5. capped kernels vs twins, 32k splash (derived sub frame, with tail)
     ov = dict(small, num_particles=32768, capped_candidates=4,
@@ -859,7 +914,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - w0
     counts = {name: wrapper(name).launches
-              for name in ("density_kernel_t", "force_kernel_t")}
+              for name in ("density_band_t", "force_band_t")}
     finite = bool(torch.isfinite(final.position).all()
                   and torch.isfinite(final.velocity).all()
                   and torch.isfinite(d.kinetic_energy).all())

@@ -1,21 +1,27 @@
 """Command line: ``python -m smoothed_particle_hydrodynamics_tpu_torch``.
 
-    run   --scene S -n N --steps K [--block B]   one JSON line per block
-    bench --scene S -n N --steps K [--warmup W]  one JSON line
+    run   --scene S [-n N] --steps K [--block B]   one JSON line per block
+    bench --scene S [-n N] --steps K [--warmup W]  one JSON line
 
 ``--scene`` is one of disk, dam_break, splash (default), honey,
-dam_break_10m.  ``bench --partition slab`` times the distributed slab
-engine instead (``parallel/slabs.py``) on a one-rank group of the device,
-with the splash scene (bench.py's ``slab_1dev`` row; ``--set
-capped_candidates=4 --set pallas_block_t=256 --set pallas_window_t=0`` is
-its ``slab_capped_k4`` row).  ``--backend`` is ``auto`` (default: pallas on cuda,
-celllist on cpu), ``pallas``, ``celllist`` or ``pairwise``.  As in the JAX
+dam_break_10m.  As in the JAX CLI, ``-n`` and ``--seed`` default to the
+scene's own size and seed (disk 32,768 and 42, dam_break 100k and 7,
+splash 1M and 11), and ``run`` and ``bench`` validate the resolved config
+(``SphConfig.validate``) before any step.  ``bench --partition slab`` times
+the distributed slab engine instead (``parallel/slabs.py``) on a one-rank
+group of the device, with the splash scene (1M particles unless ``-n``;
+bench.py's ``slab_1dev`` row; ``--set capped_candidates=4 --set
+pallas_block_t=256 --set pallas_window_t=0`` is its ``slab_capped_k4``
+row).  ``--backend`` is ``auto`` (default: pallas on cuda, celllist on
+cpu), ``pallas``, ``celllist`` or ``pairwise``.  As in the JAX
 CLI, the lazy-rebinning loop drives the pallas backend in the sublane
 layout (unless ``second_kick=full`` or ``bench --eager``); every other
 choice runs the eager loop, which rebins every step.  ``--device`` defaults
 to cuda, and a run without a CUDA device stops with an error; ``--device
 cpu`` runs the kernels' plain twins on the CPU.  ``--set key=value``
-overrides a config field (e.g. ``--set cell_size_factor=1.25``,
+overrides a config field, the value parsed as JSON (a list becomes a
+tuple; a value that is not JSON stays a string) and an unknown field
+refused (e.g. ``--set cell_size_factor=1.25``,
 ``--set pallas_layout=lane``); capped mode is ``--set capped_candidates=4``
 (``--set capped_fused=true`` for the fused sweep); ``pallas_window_t=0``
 derives the sublane window and ``range_slice=0`` the cell-list slice from
@@ -25,6 +31,7 @@ the scene.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -33,18 +40,27 @@ import torch
 
 
 def _value(v: str):
-    for cast in (int, float):
-        try:
-            return cast(v)
-        except ValueError:
-            pass
-    return {"true": True, "false": False}.get(v.lower(), v)
+    """A ``--set`` value: JSON (numbers, true/false, null, lists as tuples),
+    else the raw string (the JAX CLI's ``_apply_overrides``)."""
+    try:
+        x = json.loads(v)
+    except json.JSONDecodeError:
+        return v
+    return tuple(x) if isinstance(x, list) else x
 
 
 def _overrides(args) -> dict:
-    ov = {"num_particles": args.num_particles}
+    """Config overrides: ``num_particles`` only when ``-n`` is given, and
+    every ``--set``; a key that is not a config field stops the CLI."""
+    from .config import SphConfig
+
+    fields = {f.name for f in dataclasses.fields(SphConfig)}
+    ov = ({} if args.num_particles is None
+          else {"num_particles": args.num_particles})
     for kv in args.set or []:
         k, _, v = kv.partition("=")
+        if k not in fields:
+            raise SystemExit(f"unknown config field: {k}")
         ov[k] = _value(v)
     return ov
 
@@ -71,16 +87,13 @@ def _backend(name: str, dev: torch.device) -> str:
 
 
 def cmd_run(args) -> int:
-    from .models import make_scene
     from .ops.lazy import drive_loop_lazy
     from .ops.step import drive_loop
-    from .utils.benchmark import resolve_sweep_settings, uses_lazy
+    from .utils.benchmark import resolve_scene, uses_lazy
 
     dev = _device(args.device)
     backend = _backend(args.backend, dev)
-    ov = _overrides(args)
-    cfg, state = make_scene(args.scene, device=dev, seed=args.seed, **ov)
-    cfg = resolve_sweep_settings(cfg, state, ov)
+    cfg, state = resolve_scene(args.scene, dev, _overrides(args), args.seed)
     lazy = uses_lazy(cfg, backend)
     carry, done, rebins = None, 0, args.steps
     while done < args.steps:
@@ -125,8 +138,8 @@ def cmd_bench(args) -> int:
     dev = _device(args.device)
     if args.partition == "slab":
         ov = _overrides(args)
-        del ov["num_particles"]
-        r = run_slab_benchmark(n=args.num_particles, steps=args.steps,
+        n = ov.pop("num_particles", 1_000_000)
+        r = run_slab_benchmark(n=n, steps=args.steps,
                                warmup=args.warmup, sweeps=args.slab_sweeps,
                                overrides=ov, scan_block=args.scan_block,
                                device=str(dev), seed=args.seed)
@@ -146,9 +159,11 @@ def main(argv: list[str] | None = None) -> int:
     for name in ("run", "bench"):
         p = sub.add_parser(name)
         p.add_argument("--scene", default="splash")
-        p.add_argument("-n", "--num-particles", type=int, default=1_000_000)
+        p.add_argument("-n", "--num-particles", type=int, default=None,
+                       help="default: the scene's own size")
         p.add_argument("--steps", type=int, default=20)
-        p.add_argument("--seed", type=int, default=11)
+        p.add_argument("--seed", type=int, default=None,
+                       help="default: the scene's own seed")
         p.add_argument("--device", default="cuda")
         p.add_argument("--backend", default="auto",
                        choices=["auto", "pallas", "celllist", "pairwise"],

@@ -5,11 +5,13 @@
 // the same sums.
 //
 // Replaces, in smoothed_particle_hydrodynamics_tpu/ops/pallas_step_t.py:
-//   K1 density_kernel_t<Excl>  <- _density_kernel_t: exact (kExclRow),
-//      capped (kExclSrc) and the fused path's sub-frame pre-pass
-//      (kExclSrcSrc, self_src_row=5);
-//   K2 force_kernel_t<Excl>    <- _force_kernel_t: exact and capped;
-//   K3 fused_kernel_t          <- _fused_kernel_t (capped only).
+//   K1 density_kernel_t<Excl>  <- _density_kernel_t: capped (kExclSrc), the
+//      fused path's sub-frame pre-pass (kExclSrcSrc, self_src_row=5) and,
+//      in the slab engine, exact (kExclRow);
+//   K2 force_kernel_t<Excl>    <- _force_kernel_t: capped, and slab exact;
+//   K3 fused_kernel_t          <- _fused_kernel_t (capped only);
+//   K1 density_band_t, K2 force_band_t <- the same two, exact mode on one
+//      device (the main path): per-lane band walks, see their section.
 //
 // What they compute.  Particles are sorted by linear cell id
 // (z*ny + y)*nx + x, so each of the 9 (dy, dz) stencil rods of a block of b
@@ -57,8 +59,8 @@
 // row is read once per block and reused by b threads from shared memory).
 // Capped mode cuts the rows tested per particle by the window shrink; K3 also
 // saves K1's whole pass over the full frame for the price of a pre-pass over
-// the sub frame only.  Tighter windows, warp-level tiling and tensor-core
-// reductions are later work.
+// the sub frame only.  The exact band kernels below cut them by walking each
+// row's own bands.
 //
 // Rounding.  d^2 and t = h_scaled^2 - d^2 * scale^2 are formed with
 // explicitly rounded intrinsics (no FMA contraction), so the mask sees the
@@ -66,7 +68,10 @@
 // neighbor counts agree exactly; the build also passes --fmad=false so the
 // rest of the arithmetic rounds op by op as well.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <climits>
 
 namespace {
 
@@ -395,6 +400,289 @@ __global__ void fused_kernel_t(FusedArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Exact mode as per-lane band walks: density_band_t (K1) and force_band_t
+// (K2), the main path's kernels.
+//
+// Replace _density_kernel_t (pallas_step_t.py:293) and _force_kernel_t
+// (:360), exact branch, in place of density_kernel_t<kExclRow> and
+// force_kernel_t<kExclRow> above (which the capped, pre-pass and slab
+// callers still run).
+//
+// The frame is sorted by cell id, so the rows of self row i that pass the
+// block walk's cid mask for rod delta, |cid_j - cid_i - delta| <= 1, are
+// one contiguous range: rows [cell_start[ci+delta-1], cell_start[ci+delta+2])
+// of the cell-start table (cell_start[c] = first row of cell c,
+// cell_start[num_cells] = n).  That range lies inside the block's rod window,
+// so walking it in increasing row order sums the same pairs in the same order
+// as the block walk: rho, the counts and acc equal density_kernel_t's and
+// force_kernel_t's bit for bit (same op sequence, --fmad=false).  The pair
+// test is left with j != i and d^2 < h^2; the cid load and mask are gone.
+//
+// What bounds them.  Still the instructions of rejected-pair tests (a few
+// percent of the tested rows are pairs within h), but each lane now tests
+// only its own band: ~350 rows per particle at the 1M splash against ~2100
+// for the block walk.  A warp walks rod by rod; the union of its lanes'
+// bands is staged into a warp-private shared-memory buffer with cp.async
+// (coalesced, one word per lane per copy), the next piece landing while the
+// current one is tested (the TPU kernels' DMA double buffer), and each lane
+// tests the rows of its own band in the piece.  A rod whose union fits a
+// piece costs the warp the longest band of its lanes, not the union.  No
+// __syncthreads: the 4 warps of a block never wait on each other.  Tensor cores cannot decide the d^2 mask
+// (a TF32 or split-float d^2 flips decisions the direct f32 form gets
+// right), and the ~28 pairs of ~350 rows leave no dense product for them;
+// rows are 16-36 B at per-warp starts, which fits cp.async, not TMA.  On an
+// H100 at the 1M splash the staged walk took 0.36 ms (K1) and 0.66 ms (K2)
+// against the block walk's 1.87 and 2.60, and against 0.38 and 0.72 for
+// lanes reading their band rows straight from global memory with __ldg
+// (rows shared by a warp broadcast from L1), so the staged walk is kept.
+
+constexpr int kBandBlock = 128;   // threads (self rows) per block: 4 warps
+constexpr int kPieceRows = 96;    // rows per staged piece of a warp's walk
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Rows [a, e) of self row i's band for rod delta; the cell range is clamped
+// to [0, num_cells], so a band wholly outside the grid is empty.
+__device__ __forceinline__ void band_rows(const int* cell_start, int ci,
+                                          int delta, int num_cells, int& a,
+                                          int& e) {
+  a = __ldg(cell_start + min(max(ci + delta - 1, 0), num_cells));
+  e = __ldg(cell_start + min(max(ci + delta + 2, 0), num_cells));
+}
+
+// One staged piece of a warp's walk: rows [lo, hi) of rod r's union
+// [.., u_hi), and this lane's band [a, e) in rod r.  r == kRods: done.
+struct Piece {
+  int r, lo, hi, u_hi, a, e;
+};
+
+// Advance p to the warp's next piece: the rest of rod r's union, else the
+// union of the next rod in which some live lane has a non-empty band.  Every
+// lane calls it with the same p.r, p.hi, p.u_hi (warp-uniform).
+__device__ __forceinline__ void next_piece(Piece& p, const int* cell_start,
+                                           int ci, bool live, int nx, int ny,
+                                           int num_cells) {
+  if (p.hi < p.u_hi) {
+    p.lo = p.hi;
+    p.hi = min(p.lo + kPieceRows, p.u_hi);
+    return;
+  }
+  while (++p.r < kRods) {
+    int a = 0, e = 0;
+    if (live)
+      band_rows(cell_start, ci, rod_delta(p.r, nx, ny), num_cells, a, e);
+    const bool some = a < e;
+    const int lo = __reduce_min_sync(kFullMask, some ? a : INT_MAX);
+    const int hi = __reduce_max_sync(kFullMask, some ? e : 0);
+    if (lo < hi) {
+      p.lo = lo;
+      p.hi = min(lo + kPieceRows, hi);
+      p.u_hi = hi;
+      p.a = a;
+      p.e = e;
+      return;
+    }
+  }
+}
+
+__device__ __forceinline__ Piece first_piece(const int* cell_start, int ci,
+                                             bool live, int nx, int ny,
+                                             int num_cells) {
+  Piece p{-1, 0, 0, 0, 0, 0};
+  next_piece(p, cell_start, ci, live, nx, ny, num_cells);
+  return p;
+}
+
+// Copy rows [lo, hi) of a row-major [m, W] array to dst[(j - lo) * W + c]:
+// the lanes take consecutive words (coalesced), asynchronously.
+template <int W>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           int lo, int hi, int lane) {
+  const float* s = src + static_cast<long long>(lo) * W;
+  const int words = (hi - lo) * W;
+  for (int w = lane; w < words; w += 32)
+    __pipeline_memcpy_async(dst + w, s + w, sizeof(float));
+}
+
+struct DensityBandArgs {
+  const float* pos;       // [n, 3] sorted positions (self rows = candidates)
+  const float* mass;      // [n]
+  const int* cid;         // [n] cell ids (frozen between rebins)
+  const int* cell_start;  // [num_cells + 1] first row of each cell
+  float* rho;             // [n] out
+  int* ncount;            // [n] out
+  int n, num_cells, nx, ny, include_self;
+  float h2, h_scaled2, scale2, poly6;
+};
+
+// Density sum of a pair within h, density_kernel_t's op sequence.
+__device__ __forceinline__ void density_add(const DensityBandArgs& a,
+                                            float d2, float mj, float& rho,
+                                            int& count) {
+  const float t = __fsub_rn(a.h_scaled2, __fmul_rn(d2, a.scale2));
+  const float w3 = a.poly6 * t * t * t;
+  rho += mj * w3;
+  ++count;
+}
+
+__global__ void __launch_bounds__(kBandBlock)
+    density_band_t(DensityBandArgs a) {
+  // per warp, two pieces of kPieceRows rows: x y z (row-major), then m
+  extern __shared__ float smem[];
+  constexpr int kSlot = kPieceRows * 4;
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kBandBlock + threadIdx.x;
+  const bool live = i < a.n;
+  float xi = 0.f, yi = 0.f, zi = 0.f;
+  int ci = 0;
+  if (live) {
+    xi = a.pos[3 * i];
+    yi = a.pos[3 * i + 1];
+    zi = a.pos[3 * i + 2];
+    ci = a.cid[i];
+  }
+  float rho = 0.f;
+  int count = 0;
+  float* buf = smem + (threadIdx.x >> 5) * 2 * kSlot;
+  Piece cur = first_piece(a.cell_start, ci, live, a.nx, a.ny, a.num_cells);
+  if (cur.r < kRods) {
+    stage_rows<3>(buf, a.pos, cur.lo, cur.hi, lane);
+    stage_rows<1>(buf + 3 * kPieceRows, a.mass, cur.lo, cur.hi, lane);
+  }
+  __pipeline_commit();
+  int slot = 0;
+  while (cur.r < kRods) {
+    Piece nxt = cur;
+    next_piece(nxt, a.cell_start, ci, live, a.nx, a.ny, a.num_cells);
+    if (nxt.r < kRods) {
+      float* dst = buf + (slot ^ 1) * kSlot;
+      stage_rows<3>(dst, a.pos, nxt.lo, nxt.hi, lane);
+      stage_rows<1>(dst + 3 * kPieceRows, a.mass, nxt.lo, nxt.hi, lane);
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(1);  // cur's rows have landed
+    __syncwarp();
+    const float* sp = buf + slot * kSlot;
+    const int j1 = min(cur.e, cur.hi);
+    for (int j = max(cur.a, cur.lo); j < j1; ++j) {
+      const int k = j - cur.lo;
+      const float d2 =
+          dist2(sp[3 * k] - xi, sp[3 * k + 1] - yi, sp[3 * k + 2] - zi);
+      if (j != i && d2 < a.h2)
+        density_add(a, d2, sp[3 * kPieceRows + k], rho, count);
+    }
+    __syncwarp();  // every lane is done with this slot before its restage
+    cur = nxt;
+    slot ^= 1;
+  }
+  if (live) {
+    if (a.include_self) {
+      const float h2s = a.h_scaled2;
+      rho += a.mass[i] * a.poly6 * h2s * h2s * h2s;
+    }
+    a.rho[i] = rho;
+    a.ncount[i] = count;
+  }
+}
+
+struct ForceBandArgs {
+  const float* pos;       // [n, 3] sorted positions
+  const float* vel;       // [n, 3]
+  const float* rho;       // [n] densities from K1
+  const int* cid;         // [n] cell ids
+  const float* cand;      // [n, kForceCols] candidate columns (the same rows)
+  const int* cell_start;  // [num_cells + 1]
+  float* acc;             // [n, 3] out: hydro acceleration
+  int n, num_cells, nx, ny;
+  float h2, h, scale, eps, stiffness, rho0, viscosity, visc_norm;
+};
+
+struct ForceSums {
+  float ax, ay, az, vx, vy, vz;
+};
+
+// Force pair term on candidate row c (its kForceCols columns),
+// force_kernel_t's op sequence; d2 and dx dy dz already formed.
+__device__ __forceinline__ void force_pair(const ForceBandArgs& a,
+                                           const float* c, float dx, float dy,
+                                           float dz, float d2, float pw_i,
+                                           float vxi, float vyi, float vzi,
+                                           ForceSums& s) {
+  const float d = sqrtf(d2) * a.scale;
+  const float hd = a.h - d;
+  const float num = (hd * hd) * (c[7] * pw_i + c[8]);
+  const float center = num / (d + a.eps) * a.scale;
+  s.ax -= dx * center;
+  s.ay -= dy * center;
+  s.az -= dz * center;
+  const float rim = c[6];
+  s.vx += (c[3] - vxi * rim) * hd;
+  s.vy += (c[4] - vyi * rim) * hd;
+  s.vz += (c[5] - vzi * rim) * hd;
+}
+
+__global__ void __launch_bounds__(kBandBlock)
+    force_band_t(ForceBandArgs a) {
+  // per warp, two pieces of kPieceRows rows of the kForceCols columns
+  extern __shared__ float smem[];
+  constexpr int kSlot = kPieceRows * kForceCols;
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kBandBlock + threadIdx.x;
+  const bool live = i < a.n;
+  float xi = 0.f, yi = 0.f, zi = 0.f, vxi = 0.f, vyi = 0.f, vzi = 0.f;
+  float rhoi = 1.f;
+  int ci = 0;
+  if (live) {
+    xi = a.pos[3 * i];
+    yi = a.pos[3 * i + 1];
+    zi = a.pos[3 * i + 2];
+    vxi = a.vel[3 * i];
+    vyi = a.vel[3 * i + 1];
+    vzi = a.vel[3 * i + 2];
+    rhoi = a.rho[i];
+    ci = a.cid[i];
+  }
+  const float rhoi_inv = 1.f / (rhoi > 0.f ? rhoi : 1.f);
+  const float pw_i = (rhoi - a.rho0) * a.stiffness * rhoi_inv * rhoi_inv;
+  ForceSums s{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float* buf = smem + (threadIdx.x >> 5) * 2 * kSlot;
+  Piece cur = first_piece(a.cell_start, ci, live, a.nx, a.ny, a.num_cells);
+  if (cur.r < kRods)
+    stage_rows<kForceCols>(buf, a.cand, cur.lo, cur.hi, lane);
+  __pipeline_commit();
+  int slot = 0;
+  while (cur.r < kRods) {
+    Piece nxt = cur;
+    next_piece(nxt, a.cell_start, ci, live, a.nx, a.ny, a.num_cells);
+    if (nxt.r < kRods)
+      stage_rows<kForceCols>(buf + (slot ^ 1) * kSlot, a.cand, nxt.lo,
+                             nxt.hi, lane);
+    __pipeline_commit();
+    __pipeline_wait_prior(1);  // cur's rows have landed
+    __syncwarp();
+    const float* sp = buf + slot * kSlot;
+    const int j1 = min(cur.e, cur.hi);
+    for (int j = max(cur.a, cur.lo); j < j1; ++j) {
+      const float* c = sp + (j - cur.lo) * kForceCols;
+      const float dx = c[0] - xi;
+      const float dy = c[1] - yi;
+      const float dz = c[2] - zi;
+      const float d2 = dist2(dx, dy, dz);
+      if (j != i && d2 < a.h2)
+        force_pair(a, c, dx, dy, dz, d2, pw_i, vxi, vyi, vzi, s);
+    }
+    __syncwarp();  // every lane is done with this slot before its restage
+    cur = nxt;
+    slot ^= 1;
+  }
+  if (live) {
+    const float mu_rhoi = a.viscosity * rhoi_inv;
+    a.acc[3 * i] = mu_rhoi * s.vx * a.visc_norm + s.ax * a.visc_norm;
+    a.acc[3 * i + 1] = mu_rhoi * s.vy * a.visc_norm + s.ay * a.visc_norm;
+    a.acc[3 * i + 2] = mu_rhoi * s.vz * a.visc_norm + s.az * a.visc_norm;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -545,6 +833,70 @@ int sph_fused_t(const float* pos, const float* vel, const float* mass,
       static_cast<size_t>(block) * (kForceCols + 2) * sizeof(float);
   fused_kernel_t<<<nblocks, block, smem, static_cast<cudaStream_t>(stream)>>>(
       a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The exact-mode band walks: self rows and candidates are one sorted frame of
+// n rows, and cell_start its [num_cells + 1] cell-start table.
+int sph_density_band_t(const float* pos, const float* mass, const int* cid,
+                       const int* cell_start, float* rho, int* ncount, int n,
+                       int num_cells, int nx, int ny, int include_self,
+                       float h2, float h_scaled2, float scale2, float poly6,
+                       void* stream) {
+  DensityBandArgs a;
+  a.pos = pos;
+  a.mass = mass;
+  a.cid = cid;
+  a.cell_start = cell_start;
+  a.rho = rho;
+  a.ncount = ncount;
+  a.n = n;
+  a.num_cells = num_cells;
+  a.nx = nx;
+  a.ny = ny;
+  a.include_self = include_self;
+  a.h2 = h2;
+  a.h_scaled2 = h_scaled2;
+  a.scale2 = scale2;
+  a.poly6 = poly6;
+  const int nblocks = (n + kBandBlock - 1) / kBandBlock;
+  const size_t smem = (kBandBlock / 32) * 2 * kPieceRows * 4 * sizeof(float);
+  density_band_t<<<nblocks, kBandBlock, smem,
+                   static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int sph_force_band_t(const float* pos, const float* vel, const float* rho,
+                     const int* cid, const float* cand, const int* cell_start,
+                     float* acc, int n, int num_cells, int nx, int ny,
+                     float h2, float h, float scale, float eps,
+                     float stiffness, float rho0, float viscosity,
+                     float visc_norm, void* stream) {
+  ForceBandArgs a;
+  a.pos = pos;
+  a.vel = vel;
+  a.rho = rho;
+  a.cid = cid;
+  a.cand = cand;
+  a.cell_start = cell_start;
+  a.acc = acc;
+  a.n = n;
+  a.num_cells = num_cells;
+  a.nx = nx;
+  a.ny = ny;
+  a.h2 = h2;
+  a.h = h;
+  a.scale = scale;
+  a.eps = eps;
+  a.stiffness = stiffness;
+  a.rho0 = rho0;
+  a.viscosity = viscosity;
+  a.visc_norm = visc_norm;
+  const int nblocks = (n + kBandBlock - 1) / kBandBlock;
+  const size_t smem =
+      (kBandBlock / 32) * 2 * kPieceRows * kForceCols * sizeof(float);
+  force_band_t<<<nblocks, kBandBlock, smem,
+                 static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

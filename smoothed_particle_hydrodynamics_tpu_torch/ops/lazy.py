@@ -2,11 +2,11 @@
 
 Counterpart of ``smoothed_particle_hydrodynamics_tpu/ops/lazy.py``; its
 module docstring derives the bound.  In short: the state lives in the
-sorted frame, and the window tables and cell ids stay frozen between
-rebins.  The kernels' pair mask tests current distances, so frozen bins
-change only which candidates are considered, and they still cover every
-true pair while the per-axis displacement spread since binning stays within
-``cell_size - h``.  ``lazy_step`` checks that bound against the positions
+sorted frame, and the window tables, the cell-start table (exact mode) and
+the cell ids stay frozen between rebins.  The kernels' pair mask tests
+current distances, so frozen bins change only which candidates are
+considered, and they still cover every true pair while the per-axis
+displacement spread since binning stays within ``cell_size - h``.  ``lazy_step`` checks that bound against the positions
 the sweeps are about to use and rebuilds first when it would be broken.
 In capped mode the sub frame (kept set, reweighted masses, its window
 tables) is frozen and rebuilt with the bins; its positions and velocities
@@ -49,6 +49,8 @@ class LazyCarry(NamedTuple):
     sub_dropped: torch.Tensor | None = None  # i32 kept rows beyond S
     ws_sub: torch.Tensor | None = None       # fused: sub-block windows
     wc_sub: torch.Tensor | None = None       # fused: sub-block chunk counts
+    # exact mode only, frozen with the bins: [num_cells + 1] i32 cell starts
+    cell_start: torch.Tensor | None = None
 
 
 def skin_half(cfg: SphConfig) -> float:
@@ -86,6 +88,7 @@ def _bin(cfg: SphConfig, state: ParticleState, order: torch.Tensor | None,
         neighbor_count=torch.zeros_like(p.cid))
     return LazyCarry(sorted_state, p.order if order is None else order[p.order],
                      p.pos_s, p.cid, p.ws, p.wc, steps_since, rebin_count,
+                     cell_start=p.cell_start,
                      **{k: getattr(p, k) for k in SUB_FIELDS})
 
 
@@ -111,6 +114,7 @@ def lazy_step(cfg: SphConfig, carry: LazyCarry
     st = carry.state
     p = PreparedT(order=carry.order, pos_s=st.position, vel_s=st.velocity,
                   mass_s=st.mass, cid=carry.cid, ws=carry.ws, wc=carry.wc,
+                  cell_start=carry.cell_start,
                   **{k: getattr(carry, k) for k in SUB_FIELDS})
     acc_s, rho_s, ncount_s = sweeps_sorted(cfg, p)
     st = st._replace(density=rho_s, neighbor_count=ncount_s)

@@ -2,7 +2,8 @@
 
 Counterpart of ``smoothed_particle_hydrodynamics_tpu/ops/pallas_step_t.py``.
 ``prepare_t`` bins and sorts the particles and builds the per-(block, rod)
-window tables; ``sweeps_sorted`` runs the sweeps over them.
+window tables (and, in exact mode, the cell-start table); ``sweeps_sorted``
+runs the sweeps over them.
 
 Capped ("Subsets") mode, ``cfg.capped_candidates = K_c``: the candidates of
 every pair sum come from a SUB FRAME holding at most K_c particles of each
@@ -16,15 +17,25 @@ over the sub frame (the candidates' pressures) and one fused pass.
 
 Each kernel has a wrapper and a plain PyTorch twin here:
 
-* ``density_t`` (exact), ``density_capped_t`` (capped) and
-  ``density_pre_t`` (the fused path's sub-frame pre-pass) -> CUDA kernel
-  ``density_kernel_t<Excl>`` (``csrc/sweep_t.cu``), replacing
-  ``_density_kernel_t``; twins ``density_t_plain`` and
-  ``density_pre_t_plain``;
-* ``force_t`` (exact) and ``force_capped_t`` -> ``force_kernel_t<Excl>``,
-  replacing ``_force_kernel_t``; twin ``force_t_plain``;
+* ``density_t`` (exact) -> CUDA kernel ``density_band_t``
+  (``csrc/sweep_t.cu``), ``density_capped_t`` (capped) and
+  ``density_pre_t`` (the fused path's sub-frame pre-pass) ->
+  ``density_kernel_t<Excl>``, replacing ``_density_kernel_t``; twins
+  ``density_t_plain`` and ``density_pre_t_plain``;
+* ``force_t`` (exact) -> ``force_band_t``, ``force_capped_t`` ->
+  ``force_kernel_t<Excl>``, replacing ``_force_kernel_t``; twin
+  ``force_t_plain``;
 * ``fused_t`` -> ``fused_kernel_t``, replacing ``_fused_kernel_t``; twin
   ``fused_t_plain``.
+
+The exact kernels walk per-lane cell bands: self row i tests, for each
+rod, only the rows of the cells its own cid mask accepts, one contiguous
+range of the cell-start table (``band_ranges``), instead of its block's
+whole rod window.  The range holds exactly the window rows that pass the
+mask, so the band kernels sum the same pairs in the same order as the
+block-walk kernels (``density_kernel_t``/``force_kernel_t`` with
+``EXCL_ROW``, still run by the slab engine) and equal them bit for bit;
+their twins are the block-walk twins.
 
 A wrapper given CPU tensors computes with the twin; given CUDA tensors it
 launches the kernel (built from source on first use) or raises; any other
@@ -120,8 +131,8 @@ class PreparedT(NamedTuple):
     """Sorted fields + window tables shared by the sweeps.
 
     The optional fields exist only in capped mode (``sub_*`` and the sub
-    frame's reweighted masses) and, for ``ws_sub``/``wc_sub``, only with
-    ``capped_fused``.
+    frame's reweighted masses), for ``ws_sub``/``wc_sub`` only with
+    ``capped_fused``, and for ``cell_start`` only in exact mode.
     """
 
     order: torch.Tensor    # [N] i64: sorted row -> original index
@@ -137,6 +148,8 @@ class PreparedT(NamedTuple):
     sub_dropped: torch.Tensor | None = None  # i32: kept rows beyond S
     ws_sub: torch.Tensor | None = None       # fused: sub-block window starts
     wc_sub: torch.Tensor | None = None       # fused: sub-block chunk counts
+    # exact: [num_cells + 1] i32, first sorted row of each cell (n at the end)
+    cell_start: torch.Tensor | None = None
 
 
 SUB_FIELDS = ("sub_perm", "cand_cid", "wm_sub", "sub_dropped", "ws_sub",
@@ -146,9 +159,11 @@ SUB_FIELDS = ("sub_perm", "cand_cid", "wm_sub", "sub_dropped", "ws_sub",
 def _block_windows_t(cfg: SphConfig, cid_sorted: torch.Tensor, nblocks: int,
                      window: int, n: int, n_pad: int,
                      cid_search: torch.Tensor | None = None
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per (block, rod): 8-aligned window start + chunk count of ``window``
-    rows, flattened in (block, rod) order.
+    rows, flattened in (block, rod) order, and the cell-start table of
+    ``cid_search`` ([num_cells + 2] i64: its first row of each cell, its
+    row count below ``num_cells`` and then its whole count at the end).
 
     A block's rod window spans the cells from (first cid + delta - 1) to
     (last cid + delta + 1) of ``cid_sorted`` (the self rows), looked up in
@@ -178,7 +193,22 @@ def _block_windows_t(cfg: SphConfig, cid_sorted: torch.Tensor, nblocks: int,
     w_chunks = torch.where(w_len > 0, -(-w_len // window),
                            torch.zeros_like(w_len))
     return (w_start.to(torch.int32).reshape(-1),
-            w_chunks.to(torch.int32).reshape(-1))
+            w_chunks.to(torch.int32).reshape(-1), cum)
+
+
+def band_ranges(cfg: SphConfig, cid: torch.Tensor, cell_start: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """([n, 9], [n, 9]) i64: rows [a, e) of each self row's band per rod,
+    the rows j of the sorted frame with |cid_j - cid_i - delta| <= 1, as the
+    band kernels walk them.  The cell range [cid_i + delta - 1,
+    cid_i + delta + 2) is clamped to [0, num_cells], so a band wholly
+    outside the grid is empty."""
+    deltas = torch.tensor(rod_deltas(cfg), dtype=torch.int64,
+                          device=cid.device)
+    c = cid.long()[:, None] + deltas
+    cs = cell_start.long()
+    return (cs[(c - 1).clamp(0, cfg.num_cells)],
+            cs[(c + 2).clamp(0, cfg.num_cells)])
 
 
 # ---------------------------------------------------------------------------
@@ -308,7 +338,8 @@ def derive_window_t(cfg: SphConfig, state: ParticleState,
 
 
 def prepare_t(cfg: SphConfig, state: ParticleState) -> PreparedT:
-    """Binning + stable sort + per-block window tables (+ the sub frame).
+    """Binning + stable sort + per-block window tables (+ the sub frame in
+    capped mode, the cell-start table in exact mode).
 
     The sorts are stable, as the JAX package's pair sorts are, so ``order``,
     the sorted frame and (capped) the kept set match it exactly.
@@ -329,16 +360,21 @@ def prepare_t(cfg: SphConfig, state: ParticleState) -> PreparedT:
     if cfg.capped_candidates:
         sub, cid_search = _sub_frame(cfg, cid_sorted, mass_s)
         n_cand = sub_len(cfg, n)
-    ws, wc = _block_windows_t(cfg, cid_sorted, nblocks, cfg.pallas_window_t,
-                              n, _n_pad(cfg, n_cand), cid_search)
+    ws, wc, cum = _block_windows_t(
+        cfg, cid_sorted, nblocks, cfg.pallas_window_t, n,
+        _n_pad(cfg, n_cand), cid_search)
+    # the capped kernels walk block windows: no cell-start table
+    cell_start = (None if cfg.capped_candidates
+                  else cum[:cfg.num_cells + 1].to(torch.int32))
     if cfg.capped_candidates and cfg.capped_fused:
         # the pre-pass sweeps the sub frame FROM the sub frame
-        sub["ws_sub"], sub["wc_sub"] = _block_windows_t(
+        sub["ws_sub"], sub["wc_sub"], _ = _block_windows_t(
             cfg, cid_search, -(-n_cand // b), cfg.pallas_window_t, n_cand,
             _n_pad(cfg, n_cand), cid_search)
     return PreparedT(order=order, pos_s=stacked[:, 0:3].contiguous(),
                      vel_s=stacked[:, 3:6].contiguous(), mass_s=mass_s,
-                     cid=cid_sorted.contiguous(), ws=ws, wc=wc, **sub)
+                     cid=cid_sorted.contiguous(), ws=ws, wc=wc,
+                     cell_start=cell_start, **sub)
 
 
 def fused_cand_cols(cfg: SphConfig, pos_c: torch.Tensor, vel_c: torch.Tensor,
@@ -571,6 +607,10 @@ def _kernels() -> ctypes.CDLL:
     lib.sph_force_t.restype = i
     lib.sph_fused_t.argtypes = [p] * 12 + [i] * 8 + [f] * 11 + [p]
     lib.sph_fused_t.restype = i
+    lib.sph_density_band_t.argtypes = [p] * 6 + [i] * 5 + [f] * 4 + [p]
+    lib.sph_density_band_t.restype = i
+    lib.sph_force_band_t.argtypes = [p] * 7 + [i] * 4 + [f] * 8 + [p]
+    lib.sph_force_band_t.restype = i
     lib.sph_error_string.argtypes = [i]
     lib.sph_error_string.restype = ctypes.c_char_p
     return lib
@@ -623,15 +663,43 @@ def _launch_density(cfg: SphConfig, excl: int, pos_s, mass_s, cid, ws, wc,
     return rho, ncount
 
 
+def _band_specs(cfg: SphConfig, n: int, pos_s, cid, cell_start) -> dict:
+    if cell_start is None:
+        raise ValueError("the exact-mode band kernels need the cell-start "
+                         "table (prepare_t in exact mode)")
+    return dict(pos_s=(pos_s, torch.float32, (n, 3)),
+                cid=(cid, torch.int32, (n,)),
+                cell_start=(cell_start, torch.int32, (cfg.num_cells + 1,)))
+
+
+def _launch_density_band(cfg: SphConfig, pos_s, mass_s, cid, cell_start):
+    n, dev = pos_s.shape[0], pos_s.device
+    _check(dev, mass_s=(mass_s, torch.float32, (n,)),
+           **_band_specs(cfg, n, pos_s, cid, cell_start))
+    rho = torch.empty(n, dtype=torch.float32, device=dev)
+    ncount = torch.empty(n, dtype=torch.int32, device=dev)
+    lib = _kernels()
+    err = lib.sph_density_band_t(
+        pos_s.data_ptr(), mass_s.data_ptr(), cid.data_ptr(),
+        cell_start.data_ptr(), rho.data_ptr(), ncount.data_ptr(), n,
+        cfg.num_cells, cfg.grid_nx, cfg.grid_ny,
+        int(cfg.include_self_density), cfg.h2, cfg.h_scaled2,
+        _f32(cfg.sim_scale * cfg.sim_scale), cfg.poly6_norm, _stream(dev))
+    _raise_on(lib, err, "density_band_t")
+    return rho, ncount
+
+
 def density_t(cfg: SphConfig, pos_s: torch.Tensor, mass_s: torch.Tensor,
-              cid: torch.Tensor, ws: torch.Tensor, wc: torch.Tensor
+              cid: torch.Tensor, ws: torch.Tensor, wc: torch.Tensor,
+              cell_start: torch.Tensor | None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact mode: (rho [N] f32, ncount [N] i32) of the sorted particles,
-    their candidates the same sorted frame."""
+    their candidates the same sorted frame.  The kernel walks each row's
+    cell bands (``cell_start``), the twin its block's windows (``ws``,
+    ``wc``)."""
     if _use_plain(pos_s):
         return density_t_plain(cfg, pos_s, mass_s, cid, ws, wc)
-    out = _launch_density(cfg, EXCL_ROW, pos_s, mass_s, cid, ws, wc, pos_s,
-                          mass_s, cid, None, None, "density_kernel_t")
+    out = _launch_density_band(cfg, pos_s, mass_s, cid, cell_start)
     density_t.launches += 1
     return out
 
@@ -695,15 +763,36 @@ def _launch_force(cfg: SphConfig, excl: int, pos_s, vel_s, rho_s, cand, cid,
     return acc
 
 
+def _launch_force_band(cfg: SphConfig, pos_s, vel_s, rho_s, cand, cid,
+                       cell_start) -> torch.Tensor:
+    n, dev = pos_s.shape[0], pos_s.device
+    _check(dev, vel_s=(vel_s, torch.float32, (n, 3)),
+           rho_s=(rho_s, torch.float32, (n,)),
+           cand=(cand, torch.float32, (n, 9)),
+           **_band_specs(cfg, n, pos_s, cid, cell_start))
+    acc = torch.empty(n, 3, dtype=torch.float32, device=dev)
+    lib = _kernels()
+    err = lib.sph_force_band_t(
+        pos_s.data_ptr(), vel_s.data_ptr(), rho_s.data_ptr(), cid.data_ptr(),
+        cand.data_ptr(), cell_start.data_ptr(), acc.data_ptr(), n,
+        cfg.num_cells, cfg.grid_nx, cfg.grid_ny, cfg.h2,
+        cfg.h_scaled, _f32(cfg.sim_scale), _f32(cfg.pressure_softening),
+        _f32(cfg.stiffness), _f32(cfg.rho0), _f32(cfg.viscosity),
+        cfg.visc_lap_norm, _stream(dev))
+    _raise_on(lib, err, "force_band_t")
+    return acc
+
+
 def force_t(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
             rho_s: torch.Tensor, cand: torch.Tensor, cid: torch.Tensor,
-            ws: torch.Tensor, wc: torch.Tensor) -> torch.Tensor:
+            ws: torch.Tensor, wc: torch.Tensor,
+            cell_start: torch.Tensor | None) -> torch.Tensor:
     """Exact mode: hydro acceleration [N, 3] f32 of the sorted particles;
-    ``cand`` is ``fused_cand_cols`` of the same sorted frame."""
+    ``cand`` is ``fused_cand_cols`` of the same sorted frame.  The kernel
+    walks cell bands (``cell_start``), the twin block windows."""
     if _use_plain(pos_s):
         return force_t_plain(cfg, pos_s, vel_s, rho_s, cand, cid, ws, wc)
-    acc = _launch_force(cfg, EXCL_ROW, pos_s, vel_s, rho_s, cand, cid, ws,
-                        wc, cid, None, "force_kernel_t")
+    acc = _launch_force_band(cfg, pos_s, vel_s, rho_s, cand, cid, cell_start)
     force_t.launches += 1
     return acc
 
@@ -787,7 +876,8 @@ def density_sweep_t(cfg: SphConfig, p: PreparedT, pv_sub=None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """(rho_s, ncount_s) in sorted order."""
     if not cfg.capped_candidates:
-        return density_t(cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc)
+        return density_t(cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc,
+                         p.cell_start)
     pos_c, _ = gather_sub_pv(p) if pv_sub is None else pv_sub
     return density_capped_t(cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc,
                             pos_c, p.wm_sub, p.cand_cid, p.sub_perm)
@@ -800,7 +890,8 @@ def force_sweep_t(cfg: SphConfig, p: PreparedT, rho_s: torch.Tensor,
     their masses the reweighted ``wm_sub``."""
     if not cfg.capped_candidates:
         cand = fused_cand_cols(cfg, p.pos_s, p.vel_s, rho_s, p.mass_s)
-        return force_t(cfg, p.pos_s, p.vel_s, rho_s, cand, p.cid, p.ws, p.wc)
+        return force_t(cfg, p.pos_s, p.vel_s, rho_s, cand, p.cid, p.ws, p.wc,
+                       p.cell_start)
     pos_c, vel_c = gather_sub_pv(p) if pv_sub is None else pv_sub
     cand = fused_cand_cols(cfg, pos_c, vel_c, rho_s[p.sub_perm], p.wm_sub)
     return force_capped_t(cfg, p.pos_s, p.vel_s, rho_s, cand, p.cid, p.ws,

@@ -61,6 +61,23 @@ def resolve_sweep_settings(cfg: SphConfig, state: ParticleState,
     return cfg
 
 
+def resolve_scene(scene: str, device: torch.device, overrides: dict,
+                  seed: int | None = None
+                  ) -> tuple[SphConfig, ParticleState]:
+    """The scene a run or a benchmark steps (the CLI's ``run`` and
+    ``bench``, ``run_benchmark``): ``make_scene`` with ``overrides`` (the
+    scene's own size unless they set ``num_particles``) and ``seed`` (the
+    scene's own when None), the sweep settings resolved, and the config
+    validated (``SphConfig.validate`` raises ValueError) before any step."""
+    kw = dict(overrides)
+    if seed is not None:
+        kw["seed"] = seed
+    cfg, state = make_scene(scene, device=device, **kw)
+    cfg = resolve_sweep_settings(cfg, state, overrides)
+    cfg.validate()
+    return cfg, state
+
+
 def uses_lazy(cfg: SphConfig, backend: str) -> bool:
     """The JAX CLI's rule for driving the lazy loop (``cli.py:242-246``):
     the pallas backend in the sublane layout, default mode, and a closing
@@ -89,11 +106,7 @@ def run_benchmark(scene: str = "splash", lazy: bool | None = True,
         raise ValueError(f"lazy=True benchmarks the pallas backend; got "
                          f"backend={backend!r}")
     dev = _device(device)
-    kw = dict(overrides or {})
-    if seed is not None:
-        kw["seed"] = seed
-    cfg, state = make_scene(scene, device=dev, **kw)
-    cfg = resolve_sweep_settings(cfg, state, kw)
+    cfg, state = resolve_scene(scene, dev, overrides or {}, seed)
     if lazy is None:
         lazy = uses_lazy(cfg, backend)
 
@@ -160,8 +173,9 @@ def run_benchmark(scene: str = "splash", lazy: bool | None = True,
 def slab_setup(n: int, overrides: dict | None, headroom: float,
                device: torch.device, seed: int | None = None):
     """The slab benchmark's one-rank run: the splash scene on 1.25h cells
-    (``overrides`` win), its sublane window derived unless set, the split,
-    caps at ``headroom`` and the capped sub-frame bound.  Returns (cfg,
+    (``overrides`` win), its sublane window derived unless set, the config
+    validated, the split, caps at ``headroom`` and the capped sub-frame
+    bound.  Returns (cfg,
     state, zsplit, caps, sub_len)."""
     from ..ops.sweeps_t import derive_window_t
     from ..parallel import slabs
@@ -173,6 +187,7 @@ def slab_setup(n: int, overrides: dict | None, headroom: float,
     cfg, state = make_scene("splash", device=device, **ov)
     if cfg.pallas_window_t == 0 or "pallas_window_t" not in ov:
         cfg = cfg.replace(pallas_window_t=derive_window_t(cfg, state))
+    cfg.validate()
     zsplit = slabs.derive_zsplit(cfg, state, 1)
     caps = slabs.derive_slab_caps(cfg, state, 1, zsplit=zsplit,
                                   headroom=headroom)
