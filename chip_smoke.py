@@ -20,14 +20,20 @@ Phases (every failed check raises, and the script exits nonzero):
    shapes, the rows tested per lane (band mean and max over a warp) beside
    the block window's rows per thread, and the kernel, block-walk and twin
    times (CUDA events);
-5. capped mode (K_c = 4), 32k splash: capped K1, capped K2, the pre-pass K1
-   and the fused K3 against their twins, and K3's rho and counts against
-   capped K1's on the same tensors;
+5. capped mode (K_c = 4), 32k splash: capped K1 and K2, the per-lane band
+   walks over the sub frame (``density_band_t<capped>``,
+   ``force_band_t<capped>``), the pre-pass K1 and the fused K3 against their
+   twins, capped K1 and K2 against the block-walk kernels
+   (``density_kernel_t``/``force_kernel_t`` with ``EXCL_SRC``) on the same
+   tensors (counts, rho and acc bit-equal), and K3's rho and counts against
+   capped K1's;
 6. capped mode, 4096-particle splash with a keep-all cap (K_c = the largest
    cell occupancy), two-pass and fused, against the pairwise oracle;
-7. capped mode, 1M splash shapes: the same kernel-vs-twin checks and times,
-   and the capped density mean over the exact one on the same state in
-   (0.99, 1.01) (the sampling is unbiased);
+7. capped mode, 1M splash shapes: the same checks, the rows tested per
+   lane beside the block window's rows per thread, the kernel and twin
+   times, capped K1 and K2 and their block walks timed in turns, and the
+   capped density mean over the exact one on the same state in (0.99, 1.01)
+   (the sampling is unbiased);
 8. lane layout, 32k packed splash with 128-row windows (multi-chunk) and the
    1M lane splash shapes (window 512): ``density_kernel_lane`` and
    ``force_kernel_lane`` against their twins, with times at 1M;
@@ -41,7 +47,9 @@ Phases (every failed check raises, and the script exits nonzero):
    block 256, window and sub-frame length derived), then the 1M lane splash
    eager (rebinned every step) for 3 + 20 steps.  Each kernel of a path
    must have launched once per step, no step may drop candidates
-   (``truncated_ranges`` 0) and the final state must be finite.  Last, the
+   (``truncated_ranges`` 0) and the final state must be finite; after the
+   capped run, one lazy step from the same state, capped and exact, must
+   give densities whose means agree within 1 %.  Last, the
    32k disk runs 100 steps under the lazy sublane driver (central gravity,
    ``second_kick="gravity"``), printing KE, PE and |L| at the start and
    the end, with a finite state;
@@ -151,11 +159,11 @@ KERNELS = {
                              f"{TPU_T}:293", 15),
     "force_band_t": Kernel("t", "force_t", "force_t_plain", SOURCE_T,
                            f"{TPU_T}:360", 36),
-    "density_kernel_t<capped>": Kernel("t", "density_capped_t",
-                                       "density_t_plain", SOURCE_T,
-                                       f"{TPU_T}:321", 15),
-    "force_kernel_t<capped>": Kernel("t", "force_capped_t", "force_t_plain",
-                                     SOURCE_T, f"{TPU_T}:403", 36),
+    "density_band_t<capped>": Kernel("t", "density_capped_t",
+                                     "density_t_plain", SOURCE_T,
+                                     f"{TPU_T}:321", 15),
+    "force_band_t<capped>": Kernel("t", "force_capped_t", "force_t_plain",
+                                   SOURCE_T, f"{TPU_T}:403", 36),
     "density_kernel_t<prepass>": Kernel("t", "density_pre_t",
                                         "density_pre_t_plain", SOURCE_T,
                                         f"{TPU_T}:318", 15),
@@ -197,7 +205,7 @@ PROBE_KERNELS = ("chain_kernel", "gather_tile_kernel", "d2_tile_kernel")
 # launch count in the kernels line)
 PATHS = {
     "exact": (MAIN, ("density_band_t", "force_band_t")),
-    "capped": (CAPPED, ("density_kernel_t<capped>", "force_kernel_t<capped>")),
+    "capped": (CAPPED, ("density_band_t<capped>", "force_band_t<capped>")),
     "fused": (FUSED, ("density_kernel_t<prepass>", "fused_kernel_t")),
     "lane": (LANE, ("density_kernel_lane", "force_kernel_lane")),
 }
@@ -262,16 +270,39 @@ def agree(label: str, name: str, kernel, twin, counts=None, bar=RHO_BAR
     return max_abs(kernel, twin)
 
 
+def band_vs_block(cfg, p, m: int, block: dict, band_out: tuple,
+                  label: str) -> None:
+    """Print the rows each walk tests (block window per thread; band per
+    lane: mean, max over a warp, warp union) over the m candidate rows, and
+    check the band kernels' (counts, rho, acc) bit-equal to the block-walk
+    kernels' on the same tensors (``block``: kernel name -> launch)."""
+    from smoothed_particle_hydrodynamics_tpu_torch.utils.walk_stats import (
+        band_rows_per_lane, sublane_rows_per_thread)
+
+    (rho_b, nc_b), acc_b = (f() for f in block.values())
+    torch.cuda.synchronize()
+    band = band_rows_per_lane(cfg, p.cid, p.cell_start, m)
+    window = sublane_rows_per_thread(cfg, p, m)
+    print(f"[{label}] max_wc={p.wc.max().item()} rows tested per thread: "
+          f"block window {window:.1f}, band mean {band['mean']:.1f}, band "
+          f"max over a warp {band['warp_max']:.1f}, warp union "
+          f"{band['warp_union']:.1f}")
+    nc_k, rho_k, acc_k = band_out
+    bits = (bool(torch.equal(nc_b, nc_k)), bool(torch.equal(rho_b, rho_k)),
+            bool(torch.equal(acc_b, acc_k)))
+    print(f"[{label}] band kernels vs block-walk kernels on the same tensors:"
+          f" counts, rho, acc bit-equal={bits}")
+    check(all(bits), f"{label}: band walk vs block walk bit-equal {bits}")
+
+
 def exact_vs_twins(cfg, p, label: str):
     """Exact K1 and K2, the band walks, against their twins and against the
     block-walk kernels on the same card tensors, which must give counts, rho
     and acc bit-equal to the band kernels'.  Returns the max abs errors, the
     kernel and twin arguments and the tensors each kernel reads (for timing
     and its bound), the pairs within h each kernel sums, and the block
-    walk's (density, force) launches."""
+    walk's launches by kernel name."""
     from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
-    from smoothed_particle_hydrodynamics_tpu_torch.utils.walk_stats import (
-        band_rows_per_lane, sublane_rows_per_thread)
 
     args_d = (cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc, p.cell_start)
     rho_k, nc_k = sw.density_t(*args_d)
@@ -280,26 +311,15 @@ def exact_vs_twins(cfg, p, label: str):
     args_f = (cfg, p.pos_s, p.vel_s, rho_k, cand, p.cid, p.ws, p.wc,
               p.cell_start)
     acc_k, acc_p = sw.force_t(*args_f), sw.force_t_plain(*args_f[:-1])
-    block = (
-        lambda: sw._launch_density(
+    block = {
+        "density_band_t": lambda: sw._launch_density(
             cfg, sw.EXCL_ROW, p.pos_s, p.mass_s, p.cid, p.ws, p.wc, p.pos_s,
             p.mass_s, p.cid, None, None, "density_kernel_t"),
-        lambda: sw._launch_force(
+        "force_band_t": lambda: sw._launch_force(
             cfg, sw.EXCL_ROW, p.pos_s, p.vel_s, rho_k, cand, p.cid, p.ws,
-            p.wc, p.cid, None, "force_kernel_t"))
-    (rho_b, nc_b), acc_b = block[0](), block[1]()
-    torch.cuda.synchronize()
-    band = band_rows_per_lane(cfg, p)
-    window = sublane_rows_per_thread(cfg, p, p.pos_s.shape[0])
-    print(f"[{label}] max_wc={p.wc.max().item()} rows tested per thread: "
-          f"block window {window:.1f}, band mean {band['mean']:.1f}, band "
-          f"max over a warp {band['warp_max']:.1f}, warp union "
-          f"{band['warp_union']:.1f}")
-    bits = (bool(torch.equal(nc_b, nc_k)), bool(torch.equal(rho_b, rho_k)),
-            bool(torch.equal(acc_b, acc_k)))
-    print(f"[{label}] band kernels vs block-walk kernels on the same tensors:"
-          f" counts, rho, acc bit-equal={bits}")
-    check(all(bits), f"{label}: band walk vs block walk bit-equal {bits}")
+            p.wc, p.cid, None, "force_kernel_t")}
+    band_vs_block(cfg, p, p.pos_s.shape[0], block, (nc_k, rho_k, acc_k),
+                  label)
     errs = {"density_band_t": agree(label, "density_band_t", rho_k, rho_p,
                                     (nc_k, nc_p)),
             "force_band_t": agree(label, "force_band_t", acc_k, acc_p,
@@ -317,9 +337,11 @@ def exact_vs_twins(cfg, p, label: str):
 
 def capped_vs_twins(cfg, p, label: str):
     """The four capped kernels against their twins on the same card
-    tensors, and K3's rho/counts against capped K1's.  Returns the max abs
-    errors, the arguments used (for timing) and the pairs within h each
-    kernel sums (for its bound)."""
+    tensors, capped K1/K2 (band walks over the sub frame) against the
+    block-walk kernels (bit-equal), and K3's rho/counts against capped K1's.
+    Returns the max abs errors, the kernel and twin arguments and the
+    tensors each kernel reads (for timing and its bound), the pairs within
+    h each kernel sums, and the block walk's launches by kernel name."""
     from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
 
     pos_c, vel_c = sw.gather_sub_pv(p)
@@ -329,15 +351,15 @@ def capped_vs_twins(cfg, p, label: str):
           f"sub_dropped={int(p.sub_dropped)} max_wc={p.wc.max().item()} "
           f"max_wc_sub={p.wc_sub.max().item()}")
     args = {
-        "density_kernel_t<capped>": (cfg, p.pos_s, p.mass_s, p.cid, p.ws,
-                                     p.wc, pos_c, p.wm_sub, p.cand_cid,
-                                     p.sub_perm),
+        "density_band_t<capped>": (cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc,
+                                   pos_c, p.wm_sub, p.cand_cid, p.sub_perm,
+                                   p.cell_start),
         "density_kernel_t<prepass>": (cfg, pos_c, p.mass_s[p.sub_perm],
                                       p.wm_sub, p.cand_cid, p.sub_perm,
                                       p.ws_sub, p.wc_sub),
     }
-    rho_k, nc_k = sw.density_capped_t(*args["density_kernel_t<capped>"])
-    rho_p, nc_p = sw.density_t_plain(*args["density_kernel_t<capped>"])
+    rho_k, nc_k = sw.density_capped_t(*args["density_band_t<capped>"])
+    rho_p, nc_p = sw.density_t_plain(*args["density_band_t<capped>"][:-1])
     sub_k = sw.density_pre_t(*args["density_kernel_t<prepass>"])
     # density_pre_t_plain's own call, keeping the counts
     sub_p, sub_nc = sw.density_t_plain(
@@ -347,21 +369,31 @@ def capped_vs_twins(cfg, p, label: str):
     # or the pre-pass output (fused)
     cand_2 = sw.fused_cand_cols(cfg, pos_c, vel_c, rho_k[p.sub_perm], p.wm_sub)
     cand_f = sw.fused_cand_cols(cfg, pos_c, vel_c, sub_k, p.wm_sub)
-    args["force_kernel_t<capped>"] = (cfg, p.pos_s, p.vel_s, rho_k, cand_2,
-                                      p.cid, p.ws, p.wc, p.cand_cid,
-                                      p.sub_perm)
+    args["force_band_t<capped>"] = (cfg, p.pos_s, p.vel_s, rho_k, cand_2,
+                                    p.cid, p.ws, p.wc, p.cand_cid,
+                                    p.sub_perm, p.cell_start)
     args["fused_kernel_t"] = (cfg, p.pos_s, p.vel_s, p.mass_s, p.cid, p.ws,
                               p.wc, cand_f, p.cand_cid, p.sub_perm)
-    acc_k = sw.force_capped_t(*args["force_kernel_t<capped>"])
-    acc_p = sw.force_t_plain(*args["force_kernel_t<capped>"])
+    acc_k = sw.force_capped_t(*args["force_band_t<capped>"])
+    acc_p = sw.force_t_plain(*args["force_band_t<capped>"][:-1])
     facc_k, frho_k, fnc_k = sw.fused_t(*args["fused_kernel_t"])
     facc_p, frho_p, fnc_p = sw.fused_t_plain(*args["fused_kernel_t"])
     torch.cuda.synchronize()
+    block = {
+        "density_band_t<capped>": lambda: sw._launch_density(
+            cfg, sw.EXCL_SRC, p.pos_s, p.mass_s, p.cid, p.ws, p.wc, pos_c,
+            p.wm_sub, p.cand_cid, p.sub_perm, None,
+            "density_kernel_t<capped>"),
+        "force_band_t<capped>": lambda: sw._launch_force(
+            cfg, sw.EXCL_SRC, p.pos_s, p.vel_s, rho_k, cand_2, p.cid, p.ws,
+            p.wc, p.cand_cid, p.sub_perm, "force_kernel_t<capped>")}
+    band_vs_block(cfg, p, p.sub_perm.shape[0], block, (nc_k, rho_k, acc_k),
+                  label)
     errs = {
-        "density_kernel_t<capped>": agree(label, "density_kernel_t<capped>",
-                                          rho_k, rho_p, (nc_k, nc_p)),
-        "force_kernel_t<capped>": agree(label, "force_kernel_t<capped>",
-                                        acc_k, acc_p, bar=ACC_BAR),
+        "density_band_t<capped>": agree(label, "density_band_t<capped>",
+                                        rho_k, rho_p, (nc_k, nc_p)),
+        "force_band_t<capped>": agree(label, "force_band_t<capped>",
+                                      acc_k, acc_p, bar=ACC_BAR),
         # the tail rows' pre-pass values feed no pair: kept rows only
         "density_kernel_t<prepass>": agree(
             label, "density_kernel_t<prepass> (kept rows)", sub_k[:n_kept],
@@ -379,11 +411,19 @@ def capped_vs_twins(cfg, p, label: str):
     check(rel_l2(frho_k, rho_k) <= RHO_BAR,
           f"{label}: fused rho vs two-pass capped rho")
     capped = int(nc_k.sum())
-    pairs = {"density_kernel_t<capped>": capped,
-             "force_kernel_t<capped>": capped,
+    pairs = {"density_band_t<capped>": capped,
+             "force_band_t<capped>": capped,
              "density_kernel_t<prepass>": int(sub_nc.sum()),
              "fused_kernel_t": int(fnc_k.sum())}
-    return errs, args, pairs
+    twin_args = {name: args[name][:-1] for name in block}
+    # the band sums need the rows, the self cids and the candidates' src
+    # rows: cell_start is the kernels' own index (as for the exact walks)
+    # and the candidates' cids are not read
+    reads = {"density_band_t<capped>": (p.pos_s, p.mass_s, p.cid, pos_c,
+                                        p.wm_sub, p.sub_perm),
+             "force_band_t<capped>": (p.pos_s, p.vel_s, rho_k, p.cid, cand_2,
+                                      p.sub_perm)}
+    return errs, (args, twin_args, reads), pairs, block
 
 
 def lane_vs_twins(cfg, st, label: str):
@@ -512,12 +552,13 @@ def slab_vs_twins(cfg, group, frame, caps, label: str):
                         names[3]: int(fnc_k.sum())}
 
 
-def walks_in_turns(args: dict, block: tuple, label: str) -> None:
-    """Time each exact kernel (the band walk) and its block walk in turns
-    (band, block, block, band) by CUDA events at the given arguments."""
-    for i, name in enumerate(("density_band_t", "force_band_t")):
+def walks_in_turns(args: dict, block: dict, label: str) -> None:
+    """Time each band kernel and its block walk (``block``: kernel name ->
+    launch) in turns (band, block, block, band) by CUDA events at the given
+    arguments."""
+    for name, launch in block.items():
         fns = {"band walk": lambda: wrapper(name)(*args[name]),
-               "block walk": block[i]}
+               "block walk": launch}
         ms = {w: [] for w in fns}
         for w in [*fns, *reversed(fns)]:
             ms[w].append(time_ms(fns[w], iters=10, warmup=1))
@@ -741,8 +782,8 @@ def main() -> int:
         local_group, spawn_ranks)
     from smoothed_particle_hydrodynamics_tpu_torch.state import state_to_numpy
     from smoothed_particle_hydrodynamics_tpu_torch.utils.benchmark import (
-        resolve_sweep_settings, run_benchmark, run_parity_check,
-        run_slab_benchmark, slab_setup)
+        resolve_scene, resolve_sweep_settings, run_benchmark,
+        run_parity_check, run_slab_benchmark, slab_setup)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -820,10 +861,12 @@ def main() -> int:
     cfg, st = make_scene("splash", device=dev, **FUSED)
     cfg = resolve_sweep_settings(cfg, st, FUSED)
     p = sw.prepare_t(cfg, st)
-    capped_errs, args, capped_pairs = capped_vs_twins(cfg, p, "capped 1M")
+    capped_errs, (args, twin_args, reads), capped_pairs, block = \
+        capped_vs_twins(cfg, p, "capped 1M")
     errs.update(capped_errs)
     pairs.update(capped_pairs)
-    times.update(timed(args, capped_pairs))
+    times.update(timed(args, capped_pairs, twin_args, reads))
+    walks_in_turns(args, block, "capped 1M")
     exact = cfg.replace(capped_candidates=0)
     rho_e = sw.density_sweep_t(exact, sw.prepare_t(exact, st))[0]
     rho_c = sw.density_sweep_t(cfg.replace(capped_fused=False), p)[0]
@@ -831,7 +874,7 @@ def main() -> int:
     print(f"[capped 1M] capped rho mean / exact rho mean on the same state: "
           f"{ratio:.6f}")
     check(0.99 < ratio < 1.01, f"capped density unbiased: ratio {ratio}")
-    del p, args, st, rho_e, rho_c
+    del p, args, twin_args, reads, block, st, rho_e, rho_c
 
     # 8. lane kernels vs twins: a 32k packed splash with 128-row windows
     #    (multi-chunk walks), then the lane main path's 1M shapes, timed
@@ -902,6 +945,17 @@ def main() -> int:
               and max(r["truncated_ranges"]) == 0,
               f"{path}: truncated_ranges {r['truncated_ranges']}")
         check(r["finite"], f"{path}: positions, velocities and KE finite")
+        if path == "capped":
+            # the capped path's densities stay unbiased: one lazy step from
+            # the benchmark's state, capped and exact
+            cfg, st = resolve_scene("splash", dev, ov)
+            means = [drive_loop_lazy(c, st, 1)[0].density.double().mean()
+                     .item() for c in (cfg, cfg.replace(capped_candidates=0))]
+            ratio = means[0] / means[1]
+            print(f"[main capped] one lazy step, capped rho mean / exact rho "
+                  f"mean: {ratio:.6f}")
+            check(0.99 < ratio < 1.01, f"capped path unbiased: {ratio}")
+            del st
 
     # the 32k disk under the lazy sublane driver: central gravity and the
     # gravity-only closing kick

@@ -10,8 +10,9 @@
 //      in the slab engine, exact (kExclRow);
 //   K2 force_kernel_t<Excl>    <- _force_kernel_t: capped, and slab exact;
 //   K3 fused_kernel_t          <- _fused_kernel_t (capped only);
-//   K1 density_band_t, K2 force_band_t <- the same two, exact mode on one
-//      device (the main path): per-lane band walks, see their section.
+//   K1 density_band_t, K2 force_band_t <- the same two, exact and capped,
+//      on one device (the lazy paths): per-lane band walks, see their
+//      section.
 //
 // What they compute.  Particles are sorted by linear cell id
 // (z*ny + y)*nx + x, so each of the 9 (dy, dz) stencil rods of a block of b
@@ -59,8 +60,8 @@
 // row is read once per block and reused by b threads from shared memory).
 // Capped mode cuts the rows tested per particle by the window shrink; K3 also
 // saves K1's whole pass over the full frame for the price of a pre-pass over
-// the sub frame only.  The exact band kernels below cut them by walking each
-// row's own bands.
+// the sub frame only.  The band kernels below cut them by walking each row's
+// own bands.
 //
 // Rounding.  d^2 and t = h_scaled^2 - d^2 * scale^2 are formed with
 // explicitly rounded intrinsics (no FMA contraction), so the mask sees the
@@ -401,53 +402,70 @@ __global__ void fused_kernel_t(FusedArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// Exact mode as per-lane band walks: density_band_t (K1) and force_band_t
-// (K2), the main path's kernels.
+// K1 and K2 as per-lane band walks: density_band_t and force_band_t, exact
+// (kExclRow) and capped (kExclSrc), the single-device lazy paths' kernels.
 //
-// Replace _density_kernel_t (pallas_step_t.py:293) and _force_kernel_t
-// (:360), exact branch, in place of density_kernel_t<kExclRow> and
-// force_kernel_t<kExclRow> above (which the capped, pre-pass and slab
-// callers still run).
+// Replace _density_kernel_t (pallas_step_t.py:293, capped :321) and
+// _force_kernel_t (:360, capped :403) in place of density_kernel_t and
+// force_kernel_t above (which the pre-pass and slab callers still run).
 //
-// The frame is sorted by cell id, so the rows of self row i that pass the
-// block walk's cid mask for rod delta, |cid_j - cid_i - delta| <= 1, are
-// one contiguous range: rows [cell_start[ci+delta-1], cell_start[ci+delta+2])
-// of the cell-start table (cell_start[c] = first row of cell c,
-// cell_start[num_cells] = n).  That range lies inside the block's rod window,
-// so walking it in increasing row order sums the same pairs in the same order
-// as the block walk: rho, the counts and acc equal density_kernel_t's and
-// force_kernel_t's bit for bit (same op sequence, --fmad=false).  The pair
-// test is left with j != i and d^2 < h^2; the cid load and mask are gone.
+// The candidate frame is sorted by cell id (exact: the sorted particles;
+// capped: the sub frame, whose kept rows come first in cid order), so the
+// candidates of self row i that pass the block walk's cid mask for rod
+// delta, |cid_j - cid_i - delta| <= 1, are one contiguous range: rows
+// [cell_start[ci+delta-1], cell_start[ci+delta+2]) of the candidates'
+// cell-start table (cell_start[c] = first candidate row of cell c,
+// cell_start[num_cells] = the candidates in cells: n exact, the kept rows
+// within the sub frame capped, so its tail rows are in no band).  That
+// range lies inside the block's rod window, so walking it in increasing row
+// order sums the same pairs in the same order as the block walk: rho, the
+// counts and acc equal density_kernel_t's and force_kernel_t's bit for bit
+// (same op sequence, --fmad=false).  The pair test is left with the
+// self-exclusion (j != i exact, csrc[j] != i capped) and d^2 < h^2; the cid
+// load and mask are gone.
 //
 // What bounds them.  Still the instructions of rejected-pair tests (a few
 // percent of the tested rows are pairs within h), but each lane now tests
-// only its own band: ~350 rows per particle at the 1M splash against ~2100
-// for the block walk.  A warp walks rod by rod; the union of its lanes'
-// bands is staged into a warp-private shared-memory buffer with cp.async
-// (coalesced, one word per lane per copy), the next piece landing while the
-// current one is tested (the TPU kernels' DMA double buffer), and each lane
-// tests the rows of its own band in the piece.  A rod whose union fits a
-// piece costs the warp the longest band of its lanes, not the union.  No
-// __syncthreads: the 4 warps of a block never wait on each other.  Tensor cores cannot decide the d^2 mask
-// (a TF32 or split-float d^2 flips decisions the direct f32 form gets
+// only its own band: at the 1M splash ~350 rows per particle exact against
+// ~2100 for the block walk, and at most 9 x 3 cells x K_c rows capped.  A
+// warp walks rod by rod; the union of its lanes' bands is staged into a
+// warp-private shared-memory buffer with cp.async (coalesced, one word per
+// lane per copy), the next piece landing while the current one is tested
+// (the TPU kernels' DMA double buffer), and each lane tests the rows of its
+// own band in the piece.  A rod whose union fits a piece costs the warp the
+// longest band of its lanes, not the union.  No __syncthreads: the 4 warps
+// of a block never wait on each other.  Tensor cores cannot decide the d^2
+// mask (a TF32 or split-float d^2 flips decisions the direct f32 form gets
 // right), and the ~28 pairs of ~350 rows leave no dense product for them;
-// rows are 16-36 B at per-warp starts, which fits cp.async, not TMA.  On an
-// H100 at the 1M splash the staged walk took 0.36 ms (K1) and 0.66 ms (K2)
-// against the block walk's 1.87 and 2.60, and against 0.38 and 0.72 for
-// lanes reading their band rows straight from global memory with __ldg
+// rows are 16-40 B at per-warp starts, which fits cp.async, not TMA.  On an
+// H100 at the 1M splash the exact staged walk took 0.36 ms (K1) and 0.66 ms
+// (K2) against the block walk's 1.87 and 2.60, and against 0.38 and 0.72
+// for lanes reading their band rows straight from global memory with __ldg
 // (rows shared by a warp broadcast from L1), so the staged walk is kept.
+// Capped, the walk took 0.147 ms (K1) and 0.241 ms (K2) against the block
+// walk's 1.03 and 1.33, testing ~95 rows per lane against ~1030.
 
 constexpr int kBandBlock = 128;   // threads (self rows) per block: 4 warps
-constexpr int kPieceRows = 96;    // rows per staged piece of a warp's walk
 constexpr unsigned kFullMask = 0xffffffffu;
 
+// Rows per staged piece.  A rod's warp union is ~64 rows exact and ~18
+// capped.  In turns on an H100 at the 1M splash, 32-row pieces ran capped
+// K2 (40-byte rows: 10.2 KB of shared memory per block against 30.7) 4 %
+// faster than 96-row ones, but capped K1 1 % slower and exact K1/K2 60 %
+// and 40 % slower (a rod then takes several pieces, each costing the warp
+// its longest overlap), so only capped K2 stages 32.
+constexpr int kDensityPiece = 96;
+template <int kExcl>
+constexpr int kForcePiece = kExcl == kExclSrc ? 32 : 96;
+
 // Rows [a, e) of self row i's band for rod delta; the cell range is clamped
-// to [0, num_cells], so a band wholly outside the grid is empty.
+// to [0, num_cells], so a band wholly outside the grid is empty, and the
+// rows to the m candidates.
 __device__ __forceinline__ void band_rows(const int* cell_start, int ci,
-                                          int delta, int num_cells, int& a,
-                                          int& e) {
-  a = __ldg(cell_start + min(max(ci + delta - 1, 0), num_cells));
-  e = __ldg(cell_start + min(max(ci + delta + 2, 0), num_cells));
+                                          int delta, int num_cells, int m,
+                                          int& a, int& e) {
+  a = min(__ldg(cell_start + min(max(ci + delta - 1, 0), num_cells)), m);
+  e = min(__ldg(cell_start + min(max(ci + delta + 2, 0), num_cells)), m);
 }
 
 // One staged piece of a warp's walk: rows [lo, hi) of rod r's union
@@ -456,27 +474,29 @@ struct Piece {
   int r, lo, hi, u_hi, a, e;
 };
 
-// Advance p to the warp's next piece: the rest of rod r's union, else the
-// union of the next rod in which some live lane has a non-empty band.  Every
-// lane calls it with the same p.r, p.hi, p.u_hi (warp-uniform).
+// Advance p to the warp's next piece of at most kPiece rows: the rest of
+// rod r's union, else the union of the next rod in which some live lane has
+// a non-empty band.  Every lane calls it with the same p.r, p.hi, p.u_hi
+// (warp-uniform).
+template <int kPiece>
 __device__ __forceinline__ void next_piece(Piece& p, const int* cell_start,
                                            int ci, bool live, int nx, int ny,
-                                           int num_cells) {
+                                           int num_cells, int m) {
   if (p.hi < p.u_hi) {
     p.lo = p.hi;
-    p.hi = min(p.lo + kPieceRows, p.u_hi);
+    p.hi = min(p.lo + kPiece, p.u_hi);
     return;
   }
   while (++p.r < kRods) {
     int a = 0, e = 0;
     if (live)
-      band_rows(cell_start, ci, rod_delta(p.r, nx, ny), num_cells, a, e);
+      band_rows(cell_start, ci, rod_delta(p.r, nx, ny), num_cells, m, a, e);
     const bool some = a < e;
     const int lo = __reduce_min_sync(kFullMask, some ? a : INT_MAX);
     const int hi = __reduce_max_sync(kFullMask, some ? e : 0);
     if (lo < hi) {
       p.lo = lo;
-      p.hi = min(lo + kPieceRows, hi);
+      p.hi = min(lo + kPiece, hi);
       p.u_hi = hi;
       p.a = a;
       p.e = e;
@@ -485,33 +505,66 @@ __device__ __forceinline__ void next_piece(Piece& p, const int* cell_start,
   }
 }
 
-__device__ __forceinline__ Piece first_piece(const int* cell_start, int ci,
-                                             bool live, int nx, int ny,
-                                             int num_cells) {
-  Piece p{-1, 0, 0, 0, 0, 0};
-  next_piece(p, cell_start, ci, live, nx, ny, num_cells);
-  return p;
-}
-
 // Copy rows [lo, hi) of a row-major [m, W] array to dst[(j - lo) * W + c]:
 // the lanes take consecutive words (coalesced), asynchronously.
-template <int W>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           int lo, int hi, int lane) {
-  const float* s = src + static_cast<long long>(lo) * W;
+template <int W, typename T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, int lo,
+                                           int hi, int lane) {
+  const T* s = src + static_cast<long long>(lo) * W;
   const int words = (hi - lo) * W;
   for (int w = lane; w < words; w += 32)
-    __pipeline_memcpy_async(dst + w, s + w, sizeof(float));
+    __pipeline_memcpy_async(dst + w, s + w, sizeof(T));
 }
 
+// The staged walk both band kernels share.  Per warp, two slots of kPiece
+// rows of kWords words each (double-buffered); stage(dst, piece) issues a
+// piece's copies into a slot, and test(slot, piece) tests this lane's band
+// rows in it once they have landed.
+template <int kPiece, int kWords, typename Stage, typename Test>
+__device__ __forceinline__ void band_walk(const int* cell_start, int ci,
+                                          bool live, int nx, int ny,
+                                          int num_cells, int m, Stage stage,
+                                          Test test) {
+  extern __shared__ float smem[];
+  constexpr int kSlot = kPiece * kWords;
+  float* buf = smem + (threadIdx.x >> 5) * 2 * kSlot;
+  Piece cur{-1, 0, 0, 0, 0, 0};
+  next_piece<kPiece>(cur, cell_start, ci, live, nx, ny, num_cells, m);
+  if (cur.r < kRods) stage(buf, cur);
+  __pipeline_commit();
+  int slot = 0;
+  while (cur.r < kRods) {
+    Piece nxt = cur;
+    next_piece<kPiece>(nxt, cell_start, ci, live, nx, ny, num_cells, m);
+    if (nxt.r < kRods) stage(buf + (slot ^ 1) * kSlot, nxt);
+    __pipeline_commit();
+    __pipeline_wait_prior(1);  // cur's rows have landed
+    __syncwarp();
+    test(buf + slot * kSlot, cur);
+    __syncwarp();  // every lane is done with this slot before its restage
+    cur = nxt;
+    slot ^= 1;
+  }
+}
+
+// Staged words per candidate row: K1 x y z m, K2 the kForceCols columns,
+// each + the candidate's src row in capped mode.
+template <int kExcl>
+constexpr int kDensityWords = kExcl == kExclSrc ? 5 : 4;
+template <int kExcl>
+constexpr int kForceWords = kExcl == kExclSrc ? kForceCols + 1 : kForceCols;
+
 struct DensityBandArgs {
-  const float* pos;       // [n, 3] sorted positions (self rows = candidates)
-  const float* mass;      // [n]
-  const int* cid;         // [n] cell ids (frozen between rebins)
-  const int* cell_start;  // [num_cells + 1] first row of each cell
+  const float* pos;       // [n, 3] self positions (sorted)
+  const float* mass;      // [n] self masses (the self term)
+  const int* cid;         // [n] self cell ids (frozen between rebins)
+  const float* cpos;      // [m, 3] candidate positions (exact: pos)
+  const float* cmass;     // [m] candidate masses (capped: reweighted)
+  const int* csrc;        // [m] candidate sorted rows (kExclSrc only)
+  const int* cell_start;  // [num_cells + 1] first candidate row of each cell
   float* rho;             // [n] out
   int* ncount;            // [n] out
-  int n, num_cells, nx, ny, include_self;
+  int n, m, num_cells, nx, ny, include_self;
   float h2, h_scaled2, scale2, poly6;
 };
 
@@ -525,11 +578,11 @@ __device__ __forceinline__ void density_add(const DensityBandArgs& a,
   ++count;
 }
 
+template <int kExcl>
 __global__ void __launch_bounds__(kBandBlock)
     density_band_t(DensityBandArgs a) {
-  // per warp, two pieces of kPieceRows rows: x y z (row-major), then m
-  extern __shared__ float smem[];
-  constexpr int kSlot = kPieceRows * 4;
+  // a slot: x y z (row-major), then m, then (capped) the src rows
+  constexpr int kPiece = kDensityPiece;
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * kBandBlock + threadIdx.x;
   const bool live = i < a.n;
@@ -543,38 +596,27 @@ __global__ void __launch_bounds__(kBandBlock)
   }
   float rho = 0.f;
   int count = 0;
-  float* buf = smem + (threadIdx.x >> 5) * 2 * kSlot;
-  Piece cur = first_piece(a.cell_start, ci, live, a.nx, a.ny, a.num_cells);
-  if (cur.r < kRods) {
-    stage_rows<3>(buf, a.pos, cur.lo, cur.hi, lane);
-    stage_rows<1>(buf + 3 * kPieceRows, a.mass, cur.lo, cur.hi, lane);
-  }
-  __pipeline_commit();
-  int slot = 0;
-  while (cur.r < kRods) {
-    Piece nxt = cur;
-    next_piece(nxt, a.cell_start, ci, live, a.nx, a.ny, a.num_cells);
-    if (nxt.r < kRods) {
-      float* dst = buf + (slot ^ 1) * kSlot;
-      stage_rows<3>(dst, a.pos, nxt.lo, nxt.hi, lane);
-      stage_rows<1>(dst + 3 * kPieceRows, a.mass, nxt.lo, nxt.hi, lane);
-    }
-    __pipeline_commit();
-    __pipeline_wait_prior(1);  // cur's rows have landed
-    __syncwarp();
-    const float* sp = buf + slot * kSlot;
-    const int j1 = min(cur.e, cur.hi);
-    for (int j = max(cur.a, cur.lo); j < j1; ++j) {
-      const int k = j - cur.lo;
+  auto stage = [&](float* dst, const Piece& p) {
+    stage_rows<3>(dst, a.cpos, p.lo, p.hi, lane);
+    stage_rows<1>(dst + 3 * kPiece, a.cmass, p.lo, p.hi, lane);
+    if constexpr (kExcl == kExclSrc)
+      stage_rows<1>(reinterpret_cast<int*>(dst + 4 * kPiece), a.csrc, p.lo,
+                    p.hi, lane);
+  };
+  auto test = [&](const float* sp, const Piece& p) {
+    const int* ss = reinterpret_cast<const int*>(sp + 4 * kPiece);
+    const int j1 = min(p.e, p.hi);
+    for (int j = max(p.a, p.lo); j < j1; ++j) {
+      const int k = j - p.lo;
       const float d2 =
           dist2(sp[3 * k] - xi, sp[3 * k + 1] - yi, sp[3 * k + 2] - zi);
-      if (j != i && d2 < a.h2)
-        density_add(a, d2, sp[3 * kPieceRows + k], rho, count);
+      const int id = kExcl == kExclRow ? j : ss[k];
+      if (id != i && d2 < a.h2)
+        density_add(a, d2, sp[3 * kPiece + k], rho, count);
     }
-    __syncwarp();  // every lane is done with this slot before its restage
-    cur = nxt;
-    slot ^= 1;
-  }
+  };
+  band_walk<kPiece, kDensityWords<kExcl>>(a.cell_start, ci, live, a.nx, a.ny,
+                                          a.num_cells, a.m, stage, test);
   if (live) {
     if (a.include_self) {
       const float h2s = a.h_scaled2;
@@ -586,14 +628,15 @@ __global__ void __launch_bounds__(kBandBlock)
 }
 
 struct ForceBandArgs {
-  const float* pos;       // [n, 3] sorted positions
+  const float* pos;       // [n, 3] self positions (sorted)
   const float* vel;       // [n, 3]
   const float* rho;       // [n] densities from K1
   const int* cid;         // [n] cell ids
-  const float* cand;      // [n, kForceCols] candidate columns (the same rows)
-  const int* cell_start;  // [num_cells + 1]
+  const float* cand;      // [m, kForceCols] candidate columns
+  const int* csrc;        // [m] candidate sorted rows (kExclSrc only)
+  const int* cell_start;  // [num_cells + 1] first candidate row of each cell
   float* acc;             // [n, 3] out: hydro acceleration
-  int n, num_cells, nx, ny;
+  int n, m, num_cells, nx, ny;
   float h2, h, scale, eps, stiffness, rho0, viscosity, visc_norm;
 };
 
@@ -621,11 +664,11 @@ __device__ __forceinline__ void force_pair(const ForceBandArgs& a,
   s.vz += (c[5] - vzi * rim) * hd;
 }
 
+template <int kExcl>
 __global__ void __launch_bounds__(kBandBlock)
     force_band_t(ForceBandArgs a) {
-  // per warp, two pieces of kPieceRows rows of the kForceCols columns
-  extern __shared__ float smem[];
-  constexpr int kSlot = kPieceRows * kForceCols;
+  // a slot: the kForceCols columns (row-major), then (capped) the src rows
+  constexpr int kPiece = kForcePiece<kExcl>;
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * kBandBlock + threadIdx.x;
   const bool live = i < a.n;
@@ -645,42 +688,58 @@ __global__ void __launch_bounds__(kBandBlock)
   const float rhoi_inv = 1.f / (rhoi > 0.f ? rhoi : 1.f);
   const float pw_i = (rhoi - a.rho0) * a.stiffness * rhoi_inv * rhoi_inv;
   ForceSums s{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float* buf = smem + (threadIdx.x >> 5) * 2 * kSlot;
-  Piece cur = first_piece(a.cell_start, ci, live, a.nx, a.ny, a.num_cells);
-  if (cur.r < kRods)
-    stage_rows<kForceCols>(buf, a.cand, cur.lo, cur.hi, lane);
-  __pipeline_commit();
-  int slot = 0;
-  while (cur.r < kRods) {
-    Piece nxt = cur;
-    next_piece(nxt, a.cell_start, ci, live, a.nx, a.ny, a.num_cells);
-    if (nxt.r < kRods)
-      stage_rows<kForceCols>(buf + (slot ^ 1) * kSlot, a.cand, nxt.lo,
-                             nxt.hi, lane);
-    __pipeline_commit();
-    __pipeline_wait_prior(1);  // cur's rows have landed
-    __syncwarp();
-    const float* sp = buf + slot * kSlot;
-    const int j1 = min(cur.e, cur.hi);
-    for (int j = max(cur.a, cur.lo); j < j1; ++j) {
-      const float* c = sp + (j - cur.lo) * kForceCols;
+  auto stage = [&](float* dst, const Piece& p) {
+    stage_rows<kForceCols>(dst, a.cand, p.lo, p.hi, lane);
+    if constexpr (kExcl == kExclSrc)
+      stage_rows<1>(reinterpret_cast<int*>(dst + kForceCols * kPiece),
+                    a.csrc, p.lo, p.hi, lane);
+  };
+  auto test = [&](const float* sp, const Piece& p) {
+    const int* ss = reinterpret_cast<const int*>(sp + kForceCols * kPiece);
+    const int j1 = min(p.e, p.hi);
+    for (int j = max(p.a, p.lo); j < j1; ++j) {
+      const int k = j - p.lo;
+      const float* c = sp + k * kForceCols;
       const float dx = c[0] - xi;
       const float dy = c[1] - yi;
       const float dz = c[2] - zi;
       const float d2 = dist2(dx, dy, dz);
-      if (j != i && d2 < a.h2)
+      const int id = kExcl == kExclRow ? j : ss[k];
+      if (id != i && d2 < a.h2)
         force_pair(a, c, dx, dy, dz, d2, pw_i, vxi, vyi, vzi, s);
     }
-    __syncwarp();  // every lane is done with this slot before its restage
-    cur = nxt;
-    slot ^= 1;
-  }
+  };
+  band_walk<kPiece, kForceWords<kExcl>>(a.cell_start, ci, live, a.nx, a.ny,
+                                        a.num_cells, a.m, stage, test);
   if (live) {
     const float mu_rhoi = a.viscosity * rhoi_inv;
     a.acc[3 * i] = mu_rhoi * s.vx * a.visc_norm + s.ax * a.visc_norm;
     a.acc[3 * i + 1] = mu_rhoi * s.vy * a.visc_norm + s.ay * a.visc_norm;
     a.acc[3 * i + 2] = mu_rhoi * s.vz * a.visc_norm + s.az * a.visc_norm;
   }
+}
+
+// One band kernel launch: ceil(n / kBandBlock) blocks, per warp two slots of
+// kPiece rows of kWords words.
+template <int kPiece, int kWords, typename Args>
+int launch_band(void (*kernel)(Args), const Args& a, void* stream) {
+  const int nblocks = (a.n + kBandBlock - 1) / kBandBlock;
+  const size_t smem = static_cast<size_t>(kBandBlock / 32) * 2 * kPiece *
+                      kWords * sizeof(float);
+  kernel<<<nblocks, kBandBlock, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kExcl>
+int launch_density_band(const DensityBandArgs& a, void* stream) {
+  return launch_band<kDensityPiece, kDensityWords<kExcl>>(
+      density_band_t<kExcl>, a, stream);
+}
+
+template <int kExcl>
+int launch_force_band(const ForceBandArgs& a, void* stream) {
+  return launch_band<kForcePiece<kExcl>, kForceWords<kExcl>>(
+      force_band_t<kExcl>, a, stream);
 }
 
 }  // namespace
@@ -836,21 +895,28 @@ int sph_fused_t(const float* pos, const float* vel, const float* mass,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The exact-mode band walks: self rows and candidates are one sorted frame of
-// n rows, and cell_start its [num_cells + 1] cell-start table.
+// The band walks: self rows [n] over m candidates sorted by cell id, with
+// cell_start the candidates' [num_cells + 1] cell-start table.  excl
+// kExclRow: the candidates are the self rows (cpos = pos, cmass = mass,
+// csrc null); kExclSrc: the capped sub frame, csrc its sorted rows.
 int sph_density_band_t(const float* pos, const float* mass, const int* cid,
+                       const float* cpos, const float* cmass, const int* csrc,
                        const int* cell_start, float* rho, int* ncount, int n,
-                       int num_cells, int nx, int ny, int include_self,
-                       float h2, float h_scaled2, float scale2, float poly6,
-                       void* stream) {
+                       int m, int num_cells, int nx, int ny, int include_self,
+                       int excl, float h2, float h_scaled2, float scale2,
+                       float poly6, void* stream) {
   DensityBandArgs a;
   a.pos = pos;
   a.mass = mass;
   a.cid = cid;
+  a.cpos = cpos;
+  a.cmass = cmass;
+  a.csrc = csrc;
   a.cell_start = cell_start;
   a.rho = rho;
   a.ncount = ncount;
   a.n = n;
+  a.m = m;
   a.num_cells = num_cells;
   a.nx = nx;
   a.ny = ny;
@@ -859,17 +925,21 @@ int sph_density_band_t(const float* pos, const float* mass, const int* cid,
   a.h_scaled2 = h_scaled2;
   a.scale2 = scale2;
   a.poly6 = poly6;
-  const int nblocks = (n + kBandBlock - 1) / kBandBlock;
-  const size_t smem = (kBandBlock / 32) * 2 * kPieceRows * 4 * sizeof(float);
-  density_band_t<<<nblocks, kBandBlock, smem,
-                   static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  switch (excl) {
+    case kExclRow:
+      return launch_density_band<kExclRow>(a, stream);
+    case kExclSrc:
+      return launch_density_band<kExclSrc>(a, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 int sph_force_band_t(const float* pos, const float* vel, const float* rho,
-                     const int* cid, const float* cand, const int* cell_start,
-                     float* acc, int n, int num_cells, int nx, int ny,
-                     float h2, float h, float scale, float eps,
+                     const int* cid, const float* cand, const int* csrc,
+                     const int* cell_start, float* acc, int n, int m,
+                     int num_cells, int nx, int ny, int excl, float h2,
+                     float h, float scale, float eps,
                      float stiffness, float rho0, float viscosity,
                      float visc_norm, void* stream) {
   ForceBandArgs a;
@@ -878,9 +948,11 @@ int sph_force_band_t(const float* pos, const float* vel, const float* rho,
   a.rho = rho;
   a.cid = cid;
   a.cand = cand;
+  a.csrc = csrc;
   a.cell_start = cell_start;
   a.acc = acc;
   a.n = n;
+  a.m = m;
   a.num_cells = num_cells;
   a.nx = nx;
   a.ny = ny;
@@ -892,12 +964,14 @@ int sph_force_band_t(const float* pos, const float* vel, const float* rho,
   a.rho0 = rho0;
   a.viscosity = viscosity;
   a.visc_norm = visc_norm;
-  const int nblocks = (n + kBandBlock - 1) / kBandBlock;
-  const size_t smem =
-      (kBandBlock / 32) * 2 * kPieceRows * kForceCols * sizeof(float);
-  force_band_t<<<nblocks, kBandBlock, smem,
-                 static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  switch (excl) {
+    case kExclRow:
+      return launch_force_band<kExclRow>(a, stream);
+    case kExclSrc:
+      return launch_force_band<kExclSrc>(a, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* sph_error_string(int code) {

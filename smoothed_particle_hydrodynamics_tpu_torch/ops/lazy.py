@@ -2,14 +2,14 @@
 
 Counterpart of ``smoothed_particle_hydrodynamics_tpu/ops/lazy.py``; its
 module docstring derives the bound.  In short: the state lives in the
-sorted frame, and the window tables, the cell-start table (exact mode) and
+sorted frame, and the window tables, the candidates' cell-start table and
 the cell ids stay frozen between rebins.  The kernels' pair mask tests
 current distances, so frozen bins change only which candidates are
 considered, and they still cover every true pair while the per-axis
 displacement spread since binning stays within ``cell_size - h``.  ``lazy_step`` checks that bound against the positions
 the sweeps are about to use and rebuilds first when it would be broken.
 In capped mode the sub frame (kept set, reweighted masses, its window
-tables) is frozen and rebuilt with the bins; its positions and velocities
+and cell-start tables) is frozen and rebuilt with the bins; its positions and velocities
 are gathered fresh every step.
 
 The JAX package decides inside the compiled step with ``lax.cond``; here
@@ -49,7 +49,8 @@ class LazyCarry(NamedTuple):
     sub_dropped: torch.Tensor | None = None  # i32 kept rows beyond S
     ws_sub: torch.Tensor | None = None       # fused: sub-block windows
     wc_sub: torch.Tensor | None = None       # fused: sub-block chunk counts
-    # exact mode only, frozen with the bins: [num_cells + 1] i32 cell starts
+    # frozen with the bins: [num_cells + 1] i32 cell starts of the
+    # candidates (exact: the sorted frame; capped: the sub frame)
     cell_start: torch.Tensor | None = None
 
 

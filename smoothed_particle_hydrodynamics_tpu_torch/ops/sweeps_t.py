@@ -2,8 +2,8 @@
 
 Counterpart of ``smoothed_particle_hydrodynamics_tpu/ops/pallas_step_t.py``.
 ``prepare_t`` bins and sorts the particles and builds the per-(block, rod)
-window tables (and, in exact mode, the cell-start table); ``sweeps_sorted``
-runs the sweeps over them.
+window tables and the candidates' cell-start table; ``sweeps_sorted`` runs
+the sweeps over them.
 
 Capped ("Subsets") mode, ``cfg.capped_candidates = K_c``: the candidates of
 every pair sum come from a SUB FRAME holding at most K_c particles of each
@@ -17,24 +17,24 @@ over the sub frame (the candidates' pressures) and one fused pass.
 
 Each kernel has a wrapper and a plain PyTorch twin here:
 
-* ``density_t`` (exact) -> CUDA kernel ``density_band_t``
-  (``csrc/sweep_t.cu``), ``density_capped_t`` (capped) and
-  ``density_pre_t`` (the fused path's sub-frame pre-pass) ->
-  ``density_kernel_t<Excl>``, replacing ``_density_kernel_t``; twins
-  ``density_t_plain`` and ``density_pre_t_plain``;
-* ``force_t`` (exact) -> ``force_band_t``, ``force_capped_t`` ->
-  ``force_kernel_t<Excl>``, replacing ``_force_kernel_t``; twin
-  ``force_t_plain``;
+* ``density_t`` (exact) and ``density_capped_t`` (capped) -> CUDA kernel
+  ``density_band_t<Excl>`` (``csrc/sweep_t.cu``), ``density_pre_t`` (the
+  fused path's sub-frame pre-pass) -> ``density_kernel_t<Excl>``, replacing
+  ``_density_kernel_t``; twins ``density_t_plain`` and
+  ``density_pre_t_plain``;
+* ``force_t`` (exact) and ``force_capped_t`` -> ``force_band_t<Excl>``,
+  replacing ``_force_kernel_t``; twin ``force_t_plain``;
 * ``fused_t`` -> ``fused_kernel_t``, replacing ``_fused_kernel_t``; twin
   ``fused_t_plain``.
 
-The exact kernels walk per-lane cell bands: self row i tests, for each
-rod, only the rows of the cells its own cid mask accepts, one contiguous
-range of the cell-start table (``band_ranges``), instead of its block's
-whole rod window.  The range holds exactly the window rows that pass the
-mask, so the band kernels sum the same pairs in the same order as the
-block-walk kernels (``density_kernel_t``/``force_kernel_t`` with
-``EXCL_ROW``, still run by the slab engine) and equal them bit for bit;
+The exact and capped K1/K2 walk per-lane cell bands: self row i tests, for
+each rod, only the candidate rows of the cells its own cid mask accepts, one
+contiguous range of the candidates' cell-start table (``band_ranges``: the
+sorted frame's exact, the sub frame's capped), instead of its block's whole
+rod window.  The range holds exactly the window rows that pass the mask, so
+the band kernels sum the same pairs in the same order as the block-walk
+kernels (``density_kernel_t``/``force_kernel_t`` with ``EXCL_ROW`` or
+``EXCL_SRC``, still run by the slab engine) and equal them bit for bit;
 their twins are the block-walk twins.
 
 A wrapper given CPU tensors computes with the twin; given CUDA tensors it
@@ -131,8 +131,8 @@ class PreparedT(NamedTuple):
     """Sorted fields + window tables shared by the sweeps.
 
     The optional fields exist only in capped mode (``sub_*`` and the sub
-    frame's reweighted masses), for ``ws_sub``/``wc_sub`` only with
-    ``capped_fused``, and for ``cell_start`` only in exact mode.
+    frame's reweighted masses), and for ``ws_sub``/``wc_sub`` only with
+    ``capped_fused``.  ``prepare_t`` always sets ``cell_start``.
     """
 
     order: torch.Tensor    # [N] i64: sorted row -> original index
@@ -148,7 +148,9 @@ class PreparedT(NamedTuple):
     sub_dropped: torch.Tensor | None = None  # i32: kept rows beyond S
     ws_sub: torch.Tensor | None = None       # fused: sub-block window starts
     wc_sub: torch.Tensor | None = None       # fused: sub-block chunk counts
-    # exact: [num_cells + 1] i32, first sorted row of each cell (n at the end)
+    # [num_cells + 1] i32, first candidate row of each cell: exact, of the
+    # sorted frame (n at the end); capped, of the sub frame (its kept rows
+    # within S at the end, so no band reaches the tail)
     cell_start: torch.Tensor | None = None
 
 
@@ -199,10 +201,11 @@ def _block_windows_t(cfg: SphConfig, cid_sorted: torch.Tensor, nblocks: int,
 def band_ranges(cfg: SphConfig, cid: torch.Tensor, cell_start: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """([n, 9], [n, 9]) i64: rows [a, e) of each self row's band per rod,
-    the rows j of the sorted frame with |cid_j - cid_i - delta| <= 1, as the
-    band kernels walk them.  The cell range [cid_i + delta - 1,
-    cid_i + delta + 2) is clamped to [0, num_cells], so a band wholly
-    outside the grid is empty."""
+    the candidate rows j with |cid_j - cid_i - delta| <= 1, as the band
+    kernels walk them.  ``cell_start`` is the candidates' table, so the rows
+    index the sorted frame in exact mode and the sub frame in capped mode.
+    The cell range [cid_i + delta - 1, cid_i + delta + 2) is clamped to
+    [0, num_cells], so a band wholly outside the grid is empty."""
     deltas = torch.tensor(rod_deltas(cfg), dtype=torch.int64,
                           device=cid.device)
     c = cid.long()[:, None] + deltas
@@ -338,8 +341,8 @@ def derive_window_t(cfg: SphConfig, state: ParticleState,
 
 
 def prepare_t(cfg: SphConfig, state: ParticleState) -> PreparedT:
-    """Binning + stable sort + per-block window tables (+ the sub frame in
-    capped mode, the cell-start table in exact mode).
+    """Binning + stable sort + per-block window tables + the candidates'
+    cell-start table (+ the sub frame in capped mode).
 
     The sorts are stable, as the JAX package's pair sorts are, so ``order``,
     the sorted frame and (capped) the kept set match it exactly.
@@ -363,9 +366,9 @@ def prepare_t(cfg: SphConfig, state: ParticleState) -> PreparedT:
     ws, wc, cum = _block_windows_t(
         cfg, cid_sorted, nblocks, cfg.pallas_window_t, n,
         _n_pad(cfg, n_cand), cid_search)
-    # the capped kernels walk block windows: no cell-start table
-    cell_start = (None if cfg.capped_candidates
-                  else cum[:cfg.num_cells + 1].to(torch.int32))
+    # the candidates' cell starts: the sorted frame's, or the sub frame's
+    # (its tail rows counted at num_cells, past the table's last entry)
+    cell_start = cum[:cfg.num_cells + 1].to(torch.int32)
     if cfg.capped_candidates and cfg.capped_fused:
         # the pre-pass sweeps the sub frame FROM the sub frame
         sub["ws_sub"], sub["wc_sub"], _ = _block_windows_t(
@@ -607,9 +610,9 @@ def _kernels() -> ctypes.CDLL:
     lib.sph_force_t.restype = i
     lib.sph_fused_t.argtypes = [p] * 12 + [i] * 8 + [f] * 11 + [p]
     lib.sph_fused_t.restype = i
-    lib.sph_density_band_t.argtypes = [p] * 6 + [i] * 5 + [f] * 4 + [p]
+    lib.sph_density_band_t.argtypes = [p] * 9 + [i] * 7 + [f] * 4 + [p]
     lib.sph_density_band_t.restype = i
-    lib.sph_force_band_t.argtypes = [p] * 7 + [i] * 4 + [f] * 8 + [p]
+    lib.sph_force_band_t.argtypes = [p] * 8 + [i] * 6 + [f] * 8 + [p]
     lib.sph_force_band_t.restype = i
     lib.sph_error_string.argtypes = [i]
     lib.sph_error_string.restype = ctypes.c_char_p
@@ -663,29 +666,41 @@ def _launch_density(cfg: SphConfig, excl: int, pos_s, mass_s, cid, ws, wc,
     return rho, ncount
 
 
-def _band_specs(cfg: SphConfig, n: int, pos_s, cid, cell_start) -> dict:
+def _band_specs(cfg: SphConfig, n: int, m: int, pos_s, cid, cell_start,
+                cand_src) -> dict:
     if cell_start is None:
-        raise ValueError("the exact-mode band kernels need the cell-start "
-                         "table (prepare_t in exact mode)")
-    return dict(pos_s=(pos_s, torch.float32, (n, 3)),
-                cid=(cid, torch.int32, (n,)),
-                cell_start=(cell_start, torch.int32, (cfg.num_cells + 1,)))
+        raise ValueError("the band kernels need their candidates' cell-start "
+                         "table (PreparedT.cell_start)")
+    specs = dict(pos_s=(pos_s, torch.float32, (n, 3)),
+                 cid=(cid, torch.int32, (n,)),
+                 cell_start=(cell_start, torch.int32, (cfg.num_cells + 1,)))
+    if cand_src is not None:
+        specs["cand_src"] = (cand_src, torch.int32, (m,))
+    return specs
 
 
-def _launch_density_band(cfg: SphConfig, pos_s, mass_s, cid, cell_start):
-    n, dev = pos_s.shape[0], pos_s.device
+def _launch_density_band(cfg: SphConfig, pos_s, mass_s, cid, cell_start,
+                         cand_pos, cand_mass, cand_src, kernel: str):
+    """K1 band walk of the sorted self rows over candidates sorted by cell:
+    the self rows themselves (``cand_src`` None, exact) or the capped sub
+    frame (``cand_src`` its sorted rows)."""
+    n, m, dev = pos_s.shape[0], cand_pos.shape[0], pos_s.device
     _check(dev, mass_s=(mass_s, torch.float32, (n,)),
-           **_band_specs(cfg, n, pos_s, cid, cell_start))
+           cand_pos=(cand_pos, torch.float32, (m, 3)),
+           cand_mass=(cand_mass, torch.float32, (m,)),
+           **_band_specs(cfg, n, m, pos_s, cid, cell_start, cand_src))
+    excl = EXCL_ROW if cand_src is None else EXCL_SRC
     rho = torch.empty(n, dtype=torch.float32, device=dev)
     ncount = torch.empty(n, dtype=torch.int32, device=dev)
     lib = _kernels()
     err = lib.sph_density_band_t(
         pos_s.data_ptr(), mass_s.data_ptr(), cid.data_ptr(),
-        cell_start.data_ptr(), rho.data_ptr(), ncount.data_ptr(), n,
+        cand_pos.data_ptr(), cand_mass.data_ptr(), _ptr(cand_src),
+        cell_start.data_ptr(), rho.data_ptr(), ncount.data_ptr(), n, m,
         cfg.num_cells, cfg.grid_nx, cfg.grid_ny,
-        int(cfg.include_self_density), cfg.h2, cfg.h_scaled2,
+        int(cfg.include_self_density), excl, cfg.h2, cfg.h_scaled2,
         _f32(cfg.sim_scale * cfg.sim_scale), cfg.poly6_norm, _stream(dev))
-    _raise_on(lib, err, "density_band_t")
+    _raise_on(lib, err, kernel)
     return rho, ncount
 
 
@@ -699,7 +714,8 @@ def density_t(cfg: SphConfig, pos_s: torch.Tensor, mass_s: torch.Tensor,
     ``wc``)."""
     if _use_plain(pos_s):
         return density_t_plain(cfg, pos_s, mass_s, cid, ws, wc)
-    out = _launch_density_band(cfg, pos_s, mass_s, cid, cell_start)
+    out = _launch_density_band(cfg, pos_s, mass_s, cid, cell_start, pos_s,
+                               mass_s, None, "density_band_t")
     density_t.launches += 1
     return out
 
@@ -708,17 +724,19 @@ def density_capped_t(cfg: SphConfig, pos_s: torch.Tensor,
                      mass_s: torch.Tensor, cid: torch.Tensor,
                      ws: torch.Tensor, wc: torch.Tensor,
                      cand_pos: torch.Tensor, cand_mass: torch.Tensor,
-                     cand_cid: torch.Tensor, cand_src: torch.Tensor
+                     cand_cid: torch.Tensor, cand_src: torch.Tensor,
+                     cell_start: torch.Tensor | None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Capped mode: (rho, ncount) of the sorted particles over the sub
     frame's candidates; ``cand_src`` (the sub frame's sorted rows) excludes
-    each particle itself."""
+    each particle itself.  The kernel walks each row's cell bands of the sub
+    frame (``cell_start``), the twin its block's windows (``ws``, ``wc``)
+    with the sub frame's cids."""
     if _use_plain(pos_s):
         return density_t_plain(cfg, pos_s, mass_s, cid, ws, wc, cand_pos,
                                cand_mass, cand_cid, cand_src)
-    out = _launch_density(cfg, EXCL_SRC, pos_s, mass_s, cid, ws, wc,
-                          cand_pos, cand_mass, cand_cid, cand_src, None,
-                          "density_kernel_t<capped>")
+    out = _launch_density_band(cfg, pos_s, mass_s, cid, cell_start, cand_pos,
+                               cand_mass, cand_src, "density_band_t<capped>")
     density_capped_t.launches += 1
     return out
 
@@ -764,22 +782,26 @@ def _launch_force(cfg: SphConfig, excl: int, pos_s, vel_s, rho_s, cand, cid,
 
 
 def _launch_force_band(cfg: SphConfig, pos_s, vel_s, rho_s, cand, cid,
-                       cell_start) -> torch.Tensor:
-    n, dev = pos_s.shape[0], pos_s.device
+                       cell_start, cand_src, kernel: str) -> torch.Tensor:
+    """K2 band walk over candidates sorted by cell (``cand`` their
+    ``fused_cand_cols``): the self rows (``cand_src`` None) or the sub
+    frame."""
+    n, m, dev = pos_s.shape[0], cand.shape[0], pos_s.device
     _check(dev, vel_s=(vel_s, torch.float32, (n, 3)),
            rho_s=(rho_s, torch.float32, (n,)),
-           cand=(cand, torch.float32, (n, 9)),
-           **_band_specs(cfg, n, pos_s, cid, cell_start))
+           cand=(cand, torch.float32, (m, 9)),
+           **_band_specs(cfg, n, m, pos_s, cid, cell_start, cand_src))
+    excl = EXCL_ROW if cand_src is None else EXCL_SRC
     acc = torch.empty(n, 3, dtype=torch.float32, device=dev)
     lib = _kernels()
     err = lib.sph_force_band_t(
         pos_s.data_ptr(), vel_s.data_ptr(), rho_s.data_ptr(), cid.data_ptr(),
-        cand.data_ptr(), cell_start.data_ptr(), acc.data_ptr(), n,
-        cfg.num_cells, cfg.grid_nx, cfg.grid_ny, cfg.h2,
-        cfg.h_scaled, _f32(cfg.sim_scale), _f32(cfg.pressure_softening),
-        _f32(cfg.stiffness), _f32(cfg.rho0), _f32(cfg.viscosity),
-        cfg.visc_lap_norm, _stream(dev))
-    _raise_on(lib, err, "force_band_t")
+        cand.data_ptr(), _ptr(cand_src), cell_start.data_ptr(),
+        acc.data_ptr(), n, m, cfg.num_cells, cfg.grid_nx, cfg.grid_ny, excl,
+        cfg.h2, cfg.h_scaled, _f32(cfg.sim_scale),
+        _f32(cfg.pressure_softening), _f32(cfg.stiffness), _f32(cfg.rho0),
+        _f32(cfg.viscosity), cfg.visc_lap_norm, _stream(dev))
+    _raise_on(lib, err, kernel)
     return acc
 
 
@@ -792,7 +814,8 @@ def force_t(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
     walks cell bands (``cell_start``), the twin block windows."""
     if _use_plain(pos_s):
         return force_t_plain(cfg, pos_s, vel_s, rho_s, cand, cid, ws, wc)
-    acc = _launch_force_band(cfg, pos_s, vel_s, rho_s, cand, cid, cell_start)
+    acc = _launch_force_band(cfg, pos_s, vel_s, rho_s, cand, cid, cell_start,
+                             None, "force_band_t")
     force_t.launches += 1
     return acc
 
@@ -800,14 +823,17 @@ def force_t(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
 def force_capped_t(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
                    rho_s: torch.Tensor, cand: torch.Tensor, cid: torch.Tensor,
                    ws: torch.Tensor, wc: torch.Tensor, cand_cid: torch.Tensor,
-                   cand_src: torch.Tensor) -> torch.Tensor:
+                   cand_src: torch.Tensor, cell_start: torch.Tensor | None
+                   ) -> torch.Tensor:
     """Capped mode: hydro acceleration [N, 3] over the sub frame's
-    candidates (``fused_cand_cols`` of the sub frame, reweighted masses)."""
+    candidates (``fused_cand_cols`` of the sub frame, reweighted masses).
+    The kernel walks the sub frame's cell bands (``cell_start``), the twin
+    block windows."""
     if _use_plain(pos_s):
         return force_t_plain(cfg, pos_s, vel_s, rho_s, cand, cid, ws, wc,
                              cand_cid, cand_src)
-    acc = _launch_force(cfg, EXCL_SRC, pos_s, vel_s, rho_s, cand, cid, ws,
-                        wc, cand_cid, cand_src, "force_kernel_t<capped>")
+    acc = _launch_force_band(cfg, pos_s, vel_s, rho_s, cand, cid, cell_start,
+                             cand_src, "force_band_t<capped>")
     force_capped_t.launches += 1
     return acc
 
@@ -880,7 +906,8 @@ def density_sweep_t(cfg: SphConfig, p: PreparedT, pv_sub=None
                          p.cell_start)
     pos_c, _ = gather_sub_pv(p) if pv_sub is None else pv_sub
     return density_capped_t(cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc,
-                            pos_c, p.wm_sub, p.cand_cid, p.sub_perm)
+                            pos_c, p.wm_sub, p.cand_cid, p.sub_perm,
+                            p.cell_start)
 
 
 def force_sweep_t(cfg: SphConfig, p: PreparedT, rho_s: torch.Tensor,
@@ -895,7 +922,7 @@ def force_sweep_t(cfg: SphConfig, p: PreparedT, rho_s: torch.Tensor,
     pos_c, vel_c = gather_sub_pv(p) if pv_sub is None else pv_sub
     cand = fused_cand_cols(cfg, pos_c, vel_c, rho_s[p.sub_perm], p.wm_sub)
     return force_capped_t(cfg, p.pos_s, p.vel_s, rho_s, cand, p.cid, p.ws,
-                          p.wc, p.cand_cid, p.sub_perm)
+                          p.wc, p.cand_cid, p.sub_perm, p.cell_start)
 
 
 def density_sub_t(cfg: SphConfig, p: PreparedT, pv_sub) -> torch.Tensor:

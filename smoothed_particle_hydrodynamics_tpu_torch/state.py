@@ -56,9 +56,11 @@ _DTYPES = {"position": torch.float32, "velocity": torch.float32,
 
 
 def state_from_numpy(d: dict[str, np.ndarray],
-                     device: torch.device | str = "cpu") -> ParticleState:
+                     device: torch.device | str = "cuda") -> ParticleState:
     """A ``ParticleState.to_numpy()`` dict (either package) -> tensors on
-    ``device``; float32/int32 values are carried over unchanged."""
+    ``device`` (the card unless the caller asks for the CPU, as every entry
+    point of the package); float32/int32 values are carried over
+    unchanged."""
     return ParticleState(**{
         k: torch.tensor(np.asarray(d[k]), dtype=dt, device=device)
         for k, dt in _DTYPES.items()})

@@ -5,9 +5,11 @@ quantity the sweep kernels' time follows (most tested rows are rejected).
 
 prints it on the CPU for a thin analog of the 1M splash: a 128x128x16 grid
 keeps the 1M scene's 128-cell x-rows and its pool height at ~124k
-particles, for the lane layout (1.0h cells, window 512) and for the sublane
-headline shapes (1.25h cells, window 208): the block walk's rows and the
-exact band kernels' (``band_rows_per_lane``), with the mean neighbor count.
+particles, for the lane layout (1.0h cells, window 512), for the sublane
+headline shapes (1.25h cells, window 208) and for capped mode on them
+(``capped_candidates`` 4; block, window and sub frame derived as the CLI
+derives them): the block walk's rows and the band kernels'
+(``band_rows_per_lane``), with the mean neighbor count.
 """
 
 from __future__ import annotations
@@ -34,23 +36,25 @@ def sublane_rows_per_thread(cfg, p, m: int) -> float:
                  / (p.wc.numel() // 9))
 
 
-def band_rows_per_lane(cfg, p) -> dict:
-    """Rows the exact band kernels test per self row (``sweeps_t.
-    band_ranges`` of the cell-start table), summed over the 9 rods:
-    ``mean`` over the rows; ``warp_max``, the mean over warps (32
-    consecutive rows) of the sum over rods of their longest lane band (the
-    rows a warp steps through); ``warp_union``, the same mean of the rows of
-    the union [min a, max e) of the warp's non-empty bands, per rod."""
+def band_rows_per_lane(cfg, cid, cell_start, m: int) -> dict:
+    """Rows the band kernels test per self row (``sweeps_t.band_ranges`` of
+    the self cids ``cid`` in the candidates' cell-start table
+    ``cell_start``, over ``m`` candidate rows: the sorted frame in exact
+    mode, the sub frame in capped mode), summed over the 9 rods: ``mean``
+    over the rows; ``warp_max``, the mean over warps (32 consecutive rows)
+    of the sum over rods of their longest lane band (the rows a warp steps
+    through); ``warp_union``, the same mean of the rows of the union
+    [min a, max e) of the warp's non-empty bands, per rod."""
     from ..ops.sweeps_t import band_ranges
 
-    a, e = band_ranges(cfg, p.cid, p.cell_start)
+    a, e = band_ranges(cfg, cid, cell_start)
     n = a.shape[0]
     pad = (0, 0, 0, -(-n // WARP) * WARP - n)
 
     def per_warp(x, value=0):
         return F.pad(x, pad, value=value).view(-1, WARP, x.shape[1])
 
-    big = n + 1   # above every row: a, e <= n
+    big = m + 1   # above every candidate row: a, e <= m
     some = e > a
     lo = per_warp(torch.where(some, a, big), big).amin(1)
     hi = per_warp(torch.where(some, e, 0)).amax(1)
@@ -60,9 +64,15 @@ def band_rows_per_lane(cfg, p) -> dict:
             "warp_union": (hi - lo).clamp(min=0).sum(1).double().mean().item()}
 
 
+def _print_band(label: str, band: dict) -> None:
+    print(f"band    ({label}): {band['mean']:.1f} rows/lane, max over a "
+          f"warp {band['warp_max']:.1f}, warp union {band['warp_union']:.1f}")
+
+
 def main() -> None:
     from ..models import make_scene
     from ..ops import sweeps_lane, sweeps_t
+    from .benchmark import resolve_sweep_settings
 
     thin = dict(device="cpu", grid_nx=128, grid_ny=128, grid_nz=16)
     # pool heights of the 1M scenes: 13.6 lattice layers on 1.0h cells,
@@ -82,10 +92,21 @@ def main() -> None:
     print(f"sublane (1.25h cells, window {cfg.pallas_window_t}): "
           f"{sublane_rows_per_thread(cfg, p, st.n):.1f} rows/thread, "
           f"mean neighbors {nc.double().mean().item():.2f}")
-    band = band_rows_per_lane(cfg, p)
-    print(f"band    (1.25h cells, exact): {band['mean']:.1f} rows/lane, "
-          f"max over a warp {band['warp_max']:.1f}, warp union "
-          f"{band['warp_union']:.1f}")
+    _print_band("1.25h cells, exact",
+                band_rows_per_lane(cfg, p.cid, p.cell_start, st.n))
+    capped = dict(num_particles=124_603, cell_size_factor=1.25,
+                  capped_candidates=4, pallas_window_t=0)
+    cfg, st = make_scene("splash", **capped, **thin)
+    cfg = resolve_sweep_settings(cfg, st, capped)
+    p = sweeps_t.prepare_t(cfg, st)
+    s_len = p.sub_perm.shape[0]
+    _, nc = sweeps_t.density_sweep_t(cfg, p)
+    print(f"capped  (1.25h cells, K_c {cfg.capped_candidates}, block "
+          f"{cfg.pallas_block_t}, window {cfg.pallas_window_t}, S {s_len}): "
+          f"{sublane_rows_per_thread(cfg, p, s_len):.1f} rows/thread, "
+          f"mean neighbors {nc.double().mean().item():.2f}")
+    _print_band("1.25h cells, capped",
+                band_rows_per_lane(cfg, p.cid, p.cell_start, s_len))
 
 
 if __name__ == "__main__":

@@ -47,7 +47,8 @@ def _rel(a, b):
 
 def _scenes(**kw):
     jc, js = jscene("splash", **{**SCENE, **kw})
-    return jc, js, TCfg.from_json(jc.to_json()), state_from_numpy(js.to_numpy())
+    return (jc, js, TCfg.from_json(jc.to_json()),
+            state_from_numpy(js.to_numpy(), device="cpu"))
 
 
 def _eq(t: torch.Tensor, j) -> None:

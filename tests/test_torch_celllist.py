@@ -49,7 +49,8 @@ def _eq(t, j):
 
 def _scenes(scene, **kw):
     jc, js = jscene(scene, **dict(CASES[scene], **kw))
-    return jc, js, TCfg.from_json(jc.to_json()), state_from_numpy(js.to_numpy())
+    return (jc, js, TCfg.from_json(jc.to_json()),
+            state_from_numpy(js.to_numpy(), device="cpu"))
 
 
 @pytest.mark.parametrize("scene", sorted(CASES))

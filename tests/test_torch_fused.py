@@ -52,7 +52,8 @@ def fused():
     the JAX pre-pass and fused sweep's outputs."""
     jc, js = jscene("splash", **SCENE)
     jc = jc.replace(capped_sub_len=jpt.derive_sub_len(jc, js))
-    tc, ts = TCfg.from_json(jc.to_json()), state_from_numpy(js.to_numpy())
+    tc = TCfg.from_json(jc.to_json())
+    ts = state_from_numpy(js.to_numpy(), device="cpu")
     p_j = jax.jit(partial(jpt.prepare_t, jc))(js)
 
     @jax.jit

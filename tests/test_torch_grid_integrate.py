@@ -1,6 +1,8 @@
 """Torch package against the JAX package: initial conditions, binning and
 window tables, KDK integration with reflection, energy tallies."""
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,10 +38,17 @@ def _rel(a, b):
 def test_state_round_trip_bit_exact():
     _, js = jscene("splash", **SPLASH)
     d = js.to_numpy()
-    back = state_to_numpy(state_from_numpy(d))
+    back = state_to_numpy(state_from_numpy(d, device="cpu"))
     for k, v in d.items():
         assert back[k].dtype == v.dtype
         np.testing.assert_array_equal(back[k], v)
+
+
+def test_state_from_numpy_defaults_to_the_card():
+    """Like every entry point of the port, a carried state lands on the card
+    unless the caller asks for the CPU (as the tests here do)."""
+    default = inspect.signature(state_from_numpy).parameters["device"].default
+    assert torch.device(default).type == "cuda"
 
 
 def test_lattice_layout_matches_jax():
@@ -97,7 +106,8 @@ def test_prepare_t_tables_equal_jax(block):
     jc, js = jscene("splash", pallas_block_t=block, **SPLASH)
     tc = _tcfg(jc)
     p_j = jpt.prepare_t(jc, js)
-    p_t = sweeps_t.prepare_t(tc, state_from_numpy(js.to_numpy()))
+    p_t = sweeps_t.prepare_t(
+        tc, state_from_numpy(js.to_numpy(), device="cpu"))
     np.testing.assert_array_equal(p_t.order.numpy(), np.asarray(p_j.order))
     np.testing.assert_array_equal(p_t.cid.numpy(),
                                   np.asarray(p_j.cid_f).astype(np.int32))
@@ -111,7 +121,8 @@ def test_prepare_t_tables_equal_jax(block):
 
 def test_derive_window_t_matches_jax():
     jc, js = jscene("splash", **SPLASH)
-    assert (sweeps_t.derive_window_t(_tcfg(jc), state_from_numpy(js.to_numpy()))
+    ts = state_from_numpy(js.to_numpy(), device="cpu")
+    assert (sweeps_t.derive_window_t(_tcfg(jc), ts)
             == jpt.derive_window_t(jc, js))
 
 

@@ -49,7 +49,8 @@ def _rel(a, b):
 def _scenes(scene, **kw):
     jc, js = jscene(scene, pallas_interpret=True, pallas_layout="lane",
                     **dict(CASES[scene], **kw))
-    return jc, js, TCfg.from_json(jc.to_json()), state_from_numpy(js.to_numpy())
+    return (jc, js, TCfg.from_json(jc.to_json()),
+            state_from_numpy(js.to_numpy(), device="cpu"))
 
 
 def _jax_windows(jc, js):

@@ -55,7 +55,8 @@ def _rel(a, b):
 def _scenes(**kw):
     jc, jst = jscene("dam_break", **{**SCENE, **kw})
     return (jc.replace(pallas_interpret=True), jst,
-            TCfg.from_json(jc.to_json()), state_from_numpy(jst.to_numpy()))
+            TCfg.from_json(jc.to_json()),
+            state_from_numpy(jst.to_numpy(), device="cpu"))
 
 
 def _eq(t, j) -> None:
@@ -484,7 +485,7 @@ def single_chip():
               cell_size_factor=1.25, pallas_window_t=64)
     jc, jst = jscene("splash", **kw)
     tc = TCfg.from_json(jc.to_json())
-    tst = state_from_numpy(jst.to_numpy())
+    tst = state_from_numpy(jst.to_numpy(), device="cpu")
     cc = tc.replace(capped_candidates=4, capped_fused=True, pallas_block_t=256)
     return tc, sw.prepare_t(tc, tst), cc, sw.prepare_t(cc, tst)
 

@@ -48,7 +48,8 @@ def _spawn(world: int, jobs: list[dict]) -> list[dict]:
 
 def _parity_jobs(world: int):
     jc, jst = jscene("dam_break", **SCENE)
-    tc, tst = TCfg.from_json(jc.to_json()), state_from_numpy(jst.to_numpy())
+    tc = TCfg.from_json(jc.to_json())
+    tst = state_from_numpy(jst.to_numpy(), device="cpu")
     zs = ts.derive_zsplit(tc, tst, world)
     caps = ts.derive_slab_caps(tc, tst, world, zsplit=zs)
     jobs, refs = [], []
@@ -85,7 +86,8 @@ def _case(name: str):
         jst = jst._replace(velocity=jst.velocity * 0.0)
     if vz is not None:
         jst = jst._replace(velocity=jst.velocity.at[:, 2].set(vz))
-    tc, tst = TCfg.from_json(jc.to_json()), state_from_numpy(jst.to_numpy())
+    tc = TCfg.from_json(jc.to_json())
+    tst = state_from_numpy(jst.to_numpy(), device="cpu")
     zs = (ts.derive_zsplit(tc, tst, 4) if name in ("small_p", "rebalance")
           else ts.uniform_zsplit(tc, 4))
     headroom = {"multi_hop": 4.0, "small_h": 1.5}.get(name, 2.0)

@@ -38,7 +38,8 @@ def _scenes(**kw):
                 pallas_interpret=True)
     base.update(kw)
     jc, js = jscene("splash", **base)
-    return jc, js, TCfg.from_json(jc.to_json()), state_from_numpy(js.to_numpy())
+    return (jc, js, TCfg.from_json(jc.to_json()),
+            state_from_numpy(js.to_numpy(), device="cpu"))
 
 
 @pytest.mark.parametrize("block", [128, 256])
