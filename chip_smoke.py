@@ -35,8 +35,15 @@ Phases (every failed check raises, and the script exits nonzero):
    capped density mean over the exact one on the same state in (0.99, 1.01)
    (the sampling is unbiased);
 8. lane layout, 32k packed splash with 128-row windows (multi-chunk) and the
-   1M lane splash shapes (window 512): ``density_kernel_lane`` and
-   ``force_kernel_lane`` against their twins, with times at 1M;
+   1M lane splash shapes (window 512): the per-lane band walks
+   ``density_band_lane`` and ``force_band_lane`` against their twins and,
+   on the same tensors, bit-equal to the block walks ``density_kernel_lane``
+   and ``force_kernel_lane`` (counts, rho, acc); then a clamped case (a few
+   16^3-grid cells each holding more than 127 windows of rows, so
+   ``truncated_ranges`` > 0), bit-equal to the block walks; the rows tested
+   per lane at 1M (band mean, max over a warp, warp union) beside the block
+   walk's rows per thread, kernel and twin times, and the band and block
+   walks timed in turns;
 9. backend parity: ``run_parity_check`` on the 32k disk (sublane kernels
    against the cell-list sweeps), then lane against cell-list and lane
    against sublane on the same states of the 32k disk and the 100k dam
@@ -169,10 +176,10 @@ KERNELS = {
                                         f"{TPU_T}:318", 15),
     "fused_kernel_t": Kernel("t", "fused_t", "fused_t_plain", SOURCE_T,
                              f"{TPU_T}:497", 48),
-    "density_kernel_lane": Kernel("lane", "density_lane", "density_lane_plain",
-                                  SOURCE_LANE, f"{TPU_LANE}:196", 15),
-    "force_kernel_lane": Kernel("lane", "force_lane", "force_lane_plain",
-                                SOURCE_LANE, f"{TPU_LANE}:244", 40),
+    "density_band_lane": Kernel("lane", "density_lane", "density_lane_plain",
+                                SOURCE_LANE, f"{TPU_LANE}:196", 15),
+    "force_band_lane": Kernel("lane", "force_lane", "force_lane_plain",
+                              SOURCE_LANE, f"{TPU_LANE}:244", 40),
     # the slab engine's callers of K1/K2/K3 (one Pallas call site)
     "density_kernel_t[slab]": Kernel(
         "slab", "density_ext", "density_ext_plain", SOURCE_T,
@@ -207,7 +214,7 @@ PATHS = {
     "exact": (MAIN, ("density_band_t", "force_band_t")),
     "capped": (CAPPED, ("density_band_t<capped>", "force_band_t<capped>")),
     "fused": (FUSED, ("density_kernel_t<prepass>", "fused_kernel_t")),
-    "lane": (LANE, ("density_kernel_lane", "force_kernel_lane")),
+    "lane": (LANE, ("density_band_lane", "force_band_lane")),
 }
 SLAB_PATHS = {
     "slab exact": (SLAB, ("density_kernel_t[slab]", "force_kernel_t[slab]")),
@@ -270,19 +277,15 @@ def agree(label: str, name: str, kernel, twin, counts=None, bar=RHO_BAR
     return max_abs(kernel, twin)
 
 
-def band_vs_block(cfg, p, m: int, block: dict, band_out: tuple,
-                  label: str) -> None:
-    """Print the rows each walk tests (block window per thread; band per
-    lane: mean, max over a warp, warp union) over the m candidate rows, and
-    check the band kernels' (counts, rho, acc) bit-equal to the block-walk
-    kernels' on the same tensors (``block``: kernel name -> launch)."""
-    from smoothed_particle_hydrodynamics_tpu_torch.utils.walk_stats import (
-        band_rows_per_lane, sublane_rows_per_thread)
-
+def band_vs_block(p, window: float, band: dict, block: dict,
+                  band_out: tuple, label: str) -> None:
+    """Print the rows each walk tests (``window``: the block walk's per
+    thread; ``band``: per lane, mean, max over a warp, warp union, from
+    ``utils/walk_stats.py``), and check the band kernels' (counts, rho, acc)
+    bit-equal to the block-walk kernels' on the same tensors (``block``:
+    kernel name -> launch)."""
     (rho_b, nc_b), acc_b = (f() for f in block.values())
     torch.cuda.synchronize()
-    band = band_rows_per_lane(cfg, p.cid, p.cell_start, m)
-    window = sublane_rows_per_thread(cfg, p, m)
     print(f"[{label}] max_wc={p.wc.max().item()} rows tested per thread: "
           f"block window {window:.1f}, band mean {band['mean']:.1f}, band "
           f"max over a warp {band['warp_max']:.1f}, warp union "
@@ -293,6 +296,16 @@ def band_vs_block(cfg, p, m: int, block: dict, band_out: tuple,
     print(f"[{label}] band kernels vs block-walk kernels on the same tensors:"
           f" counts, rho, acc bit-equal={bits}")
     check(all(bits), f"{label}: band walk vs block walk bit-equal {bits}")
+
+
+def sublane_rows(cfg, p, m: int) -> tuple[float, dict]:
+    """The sublane block walk's rows per thread and the band kernels' rows
+    per lane over the m candidate rows."""
+    from smoothed_particle_hydrodynamics_tpu_torch.utils.walk_stats import (
+        band_rows_per_lane, sublane_rows_per_thread)
+
+    return (sublane_rows_per_thread(cfg, p, m),
+            band_rows_per_lane(cfg, p.cid, p.cell_start, m))
 
 
 def exact_vs_twins(cfg, p, label: str):
@@ -318,8 +331,8 @@ def exact_vs_twins(cfg, p, label: str):
         "force_band_t": lambda: sw._launch_force(
             cfg, sw.EXCL_ROW, p.pos_s, p.vel_s, rho_k, cand, p.cid, p.ws,
             p.wc, p.cid, None, "force_kernel_t")}
-    band_vs_block(cfg, p, p.pos_s.shape[0], block, (nc_k, rho_k, acc_k),
-                  label)
+    band_vs_block(p, *sublane_rows(cfg, p, p.pos_s.shape[0]), block,
+                  (nc_k, rho_k, acc_k), label)
     errs = {"density_band_t": agree(label, "density_band_t", rho_k, rho_p,
                                     (nc_k, nc_p)),
             "force_band_t": agree(label, "force_band_t", acc_k, acc_p,
@@ -387,8 +400,8 @@ def capped_vs_twins(cfg, p, label: str):
         "force_band_t<capped>": lambda: sw._launch_force(
             cfg, sw.EXCL_SRC, p.pos_s, p.vel_s, rho_k, cand_2, p.cid, p.ws,
             p.wc, p.cand_cid, p.sub_perm, "force_kernel_t<capped>")}
-    band_vs_block(cfg, p, p.sub_perm.shape[0], block, (nc_k, rho_k, acc_k),
-                  label)
+    band_vs_block(p, *sublane_rows(cfg, p, p.sub_perm.shape[0]), block,
+                  (nc_k, rho_k, acc_k), label)
     errs = {
         "density_band_t<capped>": agree(label, "density_band_t<capped>",
                                         rho_k, rho_p, (nc_k, nc_p)),
@@ -426,34 +439,73 @@ def capped_vs_twins(cfg, p, label: str):
     return errs, (args, twin_args, reads), pairs, block
 
 
-def lane_vs_twins(cfg, st, label: str):
-    """The lane kernels against their twins on the same card tensors.
-    Returns the max abs errors, the arguments used (for timing) and the
-    pairs within h each kernel sums (for its bound)."""
+def lane_vs_twins(cfg, st, label: str, twins: bool = True):
+    """The lane band kernels on the card against the block-walk kernels on
+    the same tensors, which must give counts, rho and acc bit-equal, and
+    (``twins``) against their twins, with no chunk cut by the 127 clamp.
+    Returns the max abs errors, the kernel and twin arguments and the
+    tensors each kernel reads (for timing and its bound), the pairs within
+    h each kernel sums, and the block walk's launches by kernel name; or,
+    without ``twins``, the chunks the clamp cut."""
     from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_lane as sl
     from smoothed_particle_hydrodynamics_tpu_torch.utils.walk_stats import (
-        lane_rows_per_thread)
+        lane_band_rows_per_lane, lane_rows_per_thread)
 
     p = sl.prepare_lane(cfg, st)
     n = st.n
-    args_d = (cfg, sl.density_fields(cfg, p), p.ws, p.wc, n)
+    args_d = (cfg, sl.density_fields(cfg, p), p.ws, p.wc, n, p.cell_start)
     rho_k, nc_k = sl.density_lane(*args_d)
-    rho_p, nc_p = sl.density_lane_plain(*args_d)
-    args_f = (cfg, sl.force_fields(cfg, p, rho_k), p.ws, p.wc, n)
-    acc_k, acc_p = sl.force_lane(*args_f), sl.force_lane_plain(*args_f)
+    args_f = (cfg, sl.force_fields(cfg, p, rho_k), p.ws, p.wc, n,
+              p.cell_start)
+    acc_k = sl.force_lane(*args_f)
     torch.cuda.synchronize()
-    print(f"[{label}] window={cfg.pallas_window} block={cfg.pallas_block_rows}"
-          f" max_wc={p.wc.max().item()} "
-          f"truncated={int(p.truncated_ranges)} rows tested per thread="
-          f"{lane_rows_per_thread(cfg, p):.1f}")
-    check(int(p.truncated_ranges) == 0, f"{label}: no chunk clamped")
-    errs = {"density_kernel_lane": agree(label, "density_kernel_lane", rho_k,
-                                         rho_p, (nc_k, nc_p)),
-            "force_kernel_lane": agree(label, "force_kernel_lane", acc_k,
-                                       acc_p, bar=ACC_BAR)}
+    truncated = int(p.truncated_ranges)
+    print(f"[{label}] n={n} window={cfg.pallas_window} "
+          f"block={cfg.pallas_block_rows} truncated={truncated}")
+    block = {"density_band_lane": lambda: sl.density_lane_block(*args_d[:-1]),
+             "force_band_lane": lambda: sl.force_lane_block(*args_f[:-1])}
+    band_vs_block(p, lane_rows_per_thread(cfg, p),
+                  lane_band_rows_per_lane(cfg, p), block,
+                  (nc_k, rho_k, acc_k), label)
+    if not twins:
+        return truncated
+    check(truncated == 0, f"{label}: no chunk clamped")
+    rho_p, nc_p = sl.density_lane_plain(*args_d[:-1])
+    acc_p = sl.force_lane_plain(*args_f[:-1])
+    errs = {"density_band_lane": agree(label, "density_band_lane", rho_k,
+                                       rho_p, (nc_k, nc_p)),
+            "force_band_lane": agree(label, "force_band_lane", acc_k, acc_p,
+                                     bar=ACC_BAR)}
     pairs = int(nc_k.sum())
-    return (errs, {"density_kernel_lane": args_d, "force_kernel_lane": args_f},
-            {"density_kernel_lane": pairs, "force_kernel_lane": pairs})
+    args = {"density_band_lane": args_d, "force_band_lane": args_f}
+    # the sums need the field table and the window tables; cell_start is
+    # the kernels' own index (as for the sublane band walks)
+    twin_args = {name: a[:-1] for name, a in args.items()}
+    return (errs, (args, twin_args, twin_args),
+            {"density_band_lane": pairs, "force_band_lane": pairs}, block)
+
+
+def clamped_lane_state(dev, cells: int = 3, per_cell: int = 17_000):
+    """A lane frame whose windows the 127-chunk clamp cuts: the 4096-particle
+    splash on a 16^3 grid of h-cells (window 128) plus ``cells`` cells each
+    holding ``per_cell`` > 127 * 128 particles at positions jittered
+    uniformly inside the cell, from a seeded generator."""
+    from smoothed_particle_hydrodynamics_tpu_torch.models import make_scene
+    from smoothed_particle_hydrodynamics_tpu_torch.state import ParticleState
+
+    cfg, st = make_scene("splash", device=dev, num_particles=4096,
+                         grid_nx=16, grid_ny=16, grid_nz=16,
+                         pallas_layout="lane", pallas_window=128)
+    g = torch.Generator(device=dev).manual_seed(8)
+    corner = torch.tensor([[3, 4, 2], [9, 6, 5], [12, 11, 8]],
+                          dtype=torch.float32, device=dev)[:cells]
+    jitter = torch.rand(cells, per_cell, 3, generator=g, device=dev)
+    pos = ((corner[:, None, :] + 0.02 + 0.96 * jitter) * cfg.cell_size
+           ).reshape(-1, 3)
+    vel = 0.01 * torch.randn(pos.shape, generator=g, device=dev)
+    extra = ParticleState.from_arrays(pos, vel, cfg=cfg)
+    st = ParticleState(*(torch.cat([a, b]) for a, b in zip(st, extra)))
+    return cfg.replace(num_particles=st.n), st
 
 
 def finite(label: str, name: str, *outs) -> None:
@@ -876,18 +928,25 @@ def main() -> int:
     check(0.99 < ratio < 1.01, f"capped density unbiased: ratio {ratio}")
     del p, args, twin_args, reads, block, st, rho_e, rho_c
 
-    # 8. lane kernels vs twins: a 32k packed splash with 128-row windows
-    #    (multi-chunk walks), then the lane main path's 1M shapes, timed
+    # 8. lane band kernels vs twins and vs the block walk: a 32k packed
+    #    splash with 128-row windows (multi-chunk walks), a frame whose
+    #    windows the 127-chunk clamp cuts, then the lane main path's 1M
+    #    shapes, timed, and band and block walks in turns
     cfg, st = make_scene("splash", device=dev, num_particles=32768,
                          grid_nx=32, grid_ny=32, grid_nz=32,
                          pallas_layout="lane", pallas_window=128)
     lane_vs_twins(cfg, st, "lane 32k")
+    cfg, st = clamped_lane_state(dev)
+    cut = lane_vs_twins(cfg, st, "lane clamped", twins=False)
+    check(cut > 0, f"lane clamped: the 127 clamp cut chunks ({cut})")
     cfg, st = make_scene("splash", device=dev, **LANE)
-    lane_errs, args, lane_pairs = lane_vs_twins(cfg, st, "lane 1M")
+    lane_errs, (args, twin_args, reads), lane_pairs, block = lane_vs_twins(
+        cfg, st, "lane 1M")
     errs.update(lane_errs)
     pairs.update(lane_pairs)
-    times.update(timed(args, lane_pairs))
-    del args, st
+    times.update(timed(args, lane_pairs, twin_args, reads))
+    walks_in_turns(args, block, "lane 1M")
+    del args, twin_args, reads, block, st
     for name, t in times.items():
         print(f"[1M] {name}: kernel {t['ms']:.4f} ms, plain twin "
               f"{t['plain_ms']:.4f} ms, bound {t['bound_ms'] * 1e3:.3f} us "

@@ -12,15 +12,24 @@ the force pass, run on fields that carry each row's density, forms p_j and
 
 Two kernels, each with a wrapper and a plain PyTorch twin here:
 
-* ``density_lane`` -> CUDA kernel ``density_kernel_lane``
+* ``density_lane`` -> CUDA kernel ``density_band_lane``
   (``csrc/sweep_lane.cu``), replacing ``_density_kernel``; twin
   ``density_lane_plain``;
-* ``force_lane`` -> ``force_kernel_lane``, replacing ``_force_kernel``; twin
+* ``force_lane`` -> ``force_band_lane``, replacing ``_force_kernel``; twin
   ``force_lane_plain``.
 
-A wrapper given CPU tensors computes with the twin; given CUDA tensors it
-launches the kernel (built from source on first use) or raises.
-``<wrapper>.launches`` counts kernel launches: one each per step.
+The kernels walk each row's own cell bands (``band_ranges_lane``): per rod,
+the rows of cells [cid_i + delta - 1, cid_i + delta + 1] from the frame's
+cell-start table ``PreparedLane.cell_start``, intersected with the row's
+block window, so they sum the twins' pairs (those the cid mask admits
+inside the window) in the twins' order.  A wrapper given CPU tensors
+computes with the twin; given CUDA tensors it launches the band kernel
+(built from source on first use) or raises, a missing or misshaped table
+included.  ``<wrapper>.launches`` counts kernel launches: one each per
+step.  ``density_lane_block``/``force_lane_block`` launch the block walks
+the band kernels replaced (``density_kernel_lane``, ``force_kernel_lane``),
+which no step path runs: the band kernels' bit-equality reference on the
+card.
 
 The window table is the JAX package's, value for value, with its limits:
 starts align down to 128 rows and clip to ``n_pad - window``; chunk counts
@@ -32,7 +41,7 @@ the field table's last row as int32 bits; the TPU carried them as f32,
 exact below 2^24 cells, the port goes to 2^30), the pad rows' cell id is
 ``grid.NO_CELL`` (-2^30) instead of -10 (whose rod band reaches cell 0 on
 some grids), fields are plain [F, n_pad] rows instead of
-[n_pad/128, F, 128] tiles, and each kernel launches once over all blocks
+[n_pad/128, F, 128] tiles, and each kernel launches once over all rows
 (the TPU split large grids into several calls to bound its scalar-prefetch
 tables).
 """
@@ -122,8 +131,27 @@ def _block_windows(cfg: SphConfig, cid_sorted: torch.Tensor,
             clamped)
 
 
+def band_ranges_lane(cfg: SphConfig, cid: torch.Tensor,
+                     cell_start: torch.Tensor, ws: torch.Tensor,
+                     wc: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """([n, 9], [n, 9]) i64: rows [a, e) that the band kernels test for each
+    sorted row and rod (empty where e <= a): the cell band
+    ``[cell_start[c - 1], cell_start[c + 2])``, c = cid_i + delta, its cell
+    range clamped to [0, num_cells], intersected with the row's block window
+    ``[ws, ws + wc * pallas_window)``."""
+    deltas = torch.tensor(rod_deltas(cfg), dtype=torch.int64,
+                          device=cid.device)
+    c = cid.long()[:, None] + deltas
+    cs = cell_start.long()
+    blk = torch.arange(cid.shape[0], device=cid.device) // cfg.pallas_block_rows
+    w0 = ws.view(-1, len(RODS)).long()[blk]
+    w1 = w0 + wc.view(-1, len(RODS)).long()[blk] * cfg.pallas_window
+    return (torch.maximum(cs[(c - 1).clamp(0, cfg.num_cells)], w0),
+            torch.minimum(cs[(c + 2).clamp(0, cfg.num_cells)], w1))
+
+
 class PreparedLane(NamedTuple):
-    """Sorted fields + window tables of one step."""
+    """Sorted fields, window tables and cell-start table of one step."""
 
     order: torch.Tensor             # [N] i64: sorted row -> original index
     pos_s: torch.Tensor             # [N, 3] sorted
@@ -132,12 +160,14 @@ class PreparedLane(NamedTuple):
     cid: torch.Tensor               # [N] i32 sorted cell ids
     ws: torch.Tensor                # [nblocks*9] i32 window starts
     wc: torch.Tensor                # [nblocks*9] i32 chunk counts (<= 127)
+    cell_start: torch.Tensor        # [C+1] i32: first row of each cell, N
     truncated_ranges: torch.Tensor  # i32: chunks cut by the 127 clamp
     overflow_cells: torch.Tensor    # i32: cells over cfg.cell_capacity
 
 
 def prepare_lane(cfg: SphConfig, state: ParticleState) -> PreparedLane:
-    """Binning, stable sort (one stacked row gather) and window tables."""
+    """Binning, stable sort (one stacked row gather), window tables and the
+    cell-start table (``cell_end`` with a 0 in front)."""
     _validate(cfg)
     n = state.n
     b = cfg.pallas_block_rows
@@ -150,7 +180,8 @@ def prepare_lane(cfg: SphConfig, state: ParticleState) -> PreparedLane:
     return PreparedLane(
         order=g.order, pos_s=stacked[:, 0:3], vel_s=stacked[:, 3:6],
         mass_s=stacked[:, 6], cid=g.cell_ids, ws=ws, wc=wc,
-        truncated_ranges=clamped, overflow_cells=g.overflow_cells)
+        cell_start=F.pad(g.cell_end, (1, 0)), truncated_ranges=clamped,
+        overflow_cells=g.overflow_cells)
 
 
 def lane_fields(cfg: SphConfig, columns: list[torch.Tensor],
@@ -294,9 +325,9 @@ def _kernels() -> ctypes.CDLL:
     """Build (first use) and bind ``csrc/sweep_lane.cu``."""
     lib = build.load_library("sweep_lane")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sph_density_lane.argtypes = [p] * 5 + [i] * 7 + [f] * 4 + [p]
+    lib.sph_density_lane.argtypes = [p] * 6 + [i] * 9 + [f] * 4 + [p]
     lib.sph_density_lane.restype = i
-    lib.sph_force_lane.argtypes = [p] * 4 + [i] * 6 + [f] * 8 + [p]
+    lib.sph_force_lane.argtypes = [p] * 5 + [i] * 8 + [f] * 8 + [p]
     lib.sph_force_lane.restype = i
     lib.sph_error_string.argtypes = [i]
     lib.sph_error_string.restype = ctypes.c_char_p
@@ -309,47 +340,102 @@ def _specs(cfg: SphConfig, fields, rows: int, ws, wc, n: int) -> dict:
                 ws=(ws, torch.int32, (nt,)), wc=(wc, torch.int32, (nt,)))
 
 
-def density_lane(cfg: SphConfig, fields: torch.Tensor, ws: torch.Tensor,
-                 wc: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(rho [n] f32, ncount [n] i32) of the sorted rows from the density
-    field table (``density_fields``)."""
-    if use_plain(fields):
-        return density_lane_plain(cfg, fields, ws, wc, n)
+def _table_spec(cfg: SphConfig, cell_start) -> dict:
+    if cell_start is None:
+        raise ValueError("the lane band kernels need the frame's cell-start "
+                         "table (PreparedLane.cell_start)")
+    return dict(cell_start=(cell_start, torch.int32, (cfg.num_cells + 1,)))
+
+
+def _launch_density(cfg: SphConfig, fields, ws, wc, n: int, cell_start,
+                    kernel: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """One density launch: the band walk over ``cell_start``, or the block
+    walk when it is None."""
     dev = fields.device
-    check(dev, **_specs(cfg, fields, DENSITY_COLS + 1, ws, wc, n))
+    check(dev, **_specs(cfg, fields, DENSITY_COLS + 1, ws, wc, n),
+          **({} if cell_start is None else _table_spec(cfg, cell_start)))
     rho = torch.empty(n, dtype=torch.float32, device=dev)
     ncount = torch.empty(n, dtype=torch.int32, device=dev)
     lib = _kernels()
     err = lib.sph_density_lane(
-        fields.data_ptr(), ws.data_ptr(), wc.data_ptr(), rho.data_ptr(),
-        ncount.data_ptr(), n, fields.shape[1], cfg.pallas_block_rows,
-        cfg.pallas_window, cfg.grid_nx, cfg.grid_ny,
-        int(cfg.include_self_density), cfg.h2, cfg.h_scaled2,
+        fields.data_ptr(), ws.data_ptr(), wc.data_ptr(),
+        None if cell_start is None else cell_start.data_ptr(),
+        rho.data_ptr(), ncount.data_ptr(), n, fields.shape[1],
+        cfg.pallas_block_rows, cfg.pallas_window, cfg.grid_nx, cfg.grid_ny,
+        cfg.num_cells, int(cfg.include_self_density),
+        int(cell_start is not None), cfg.h2, cfg.h_scaled2,
         _f32(cfg.sim_scale * cfg.sim_scale), cfg.poly6_norm, stream(dev))
-    raise_on(lib, err, "density_kernel_lane")
-    density_lane.launches += 1
+    raise_on(lib, err, kernel)
     return rho, ncount
 
 
-def force_lane(cfg: SphConfig, fields: torch.Tensor, ws: torch.Tensor,
-               wc: torch.Tensor, n: int) -> torch.Tensor:
-    """Hydro acceleration [n, 3] f32 of the sorted rows from the force
-    field table (``force_fields``)."""
-    if use_plain(fields):
-        return force_lane_plain(cfg, fields, ws, wc, n)
+def _launch_force(cfg: SphConfig, fields, ws, wc, n: int, cell_start,
+                  kernel: str) -> torch.Tensor:
+    """One force launch: the band walk over ``cell_start``, or the block
+    walk when it is None."""
     dev = fields.device
-    check(dev, **_specs(cfg, fields, FORCE_COLS + 1, ws, wc, n))
+    check(dev, **_specs(cfg, fields, FORCE_COLS + 1, ws, wc, n),
+          **({} if cell_start is None else _table_spec(cfg, cell_start)))
     acc = torch.empty(n, 3, dtype=torch.float32, device=dev)
     lib = _kernels()
     err = lib.sph_force_lane(
-        fields.data_ptr(), ws.data_ptr(), wc.data_ptr(), acc.data_ptr(), n,
-        fields.shape[1], cfg.pallas_block_rows, cfg.pallas_window,
-        cfg.grid_nx, cfg.grid_ny, cfg.h2, cfg.h_scaled, _f32(cfg.sim_scale),
+        fields.data_ptr(), ws.data_ptr(), wc.data_ptr(),
+        None if cell_start is None else cell_start.data_ptr(),
+        acc.data_ptr(), n, fields.shape[1], cfg.pallas_block_rows,
+        cfg.pallas_window, cfg.grid_nx, cfg.grid_ny, cfg.num_cells,
+        int(cell_start is not None), cfg.h2, cfg.h_scaled, _f32(cfg.sim_scale),
         _f32(cfg.pressure_softening), _f32(cfg.stiffness), _f32(cfg.rho0),
         _f32(cfg.viscosity), cfg.visc_lap_norm, stream(dev))
-    raise_on(lib, err, "force_kernel_lane")
-    force_lane.launches += 1
+    raise_on(lib, err, kernel)
     return acc
+
+
+def density_lane(cfg: SphConfig, fields: torch.Tensor, ws: torch.Tensor,
+                 wc: torch.Tensor, n: int,
+                 cell_start: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rho [n] f32, ncount [n] i32) of the sorted rows from the density
+    field table (``density_fields``).  The kernel walks each row's cell
+    bands (``cell_start``, required on the card) inside its block windows,
+    the twin the block windows (``ws``, ``wc``)."""
+    if use_plain(fields):
+        return density_lane_plain(cfg, fields, ws, wc, n)
+    _table_spec(cfg, cell_start)  # no table raises: never the block walk
+    out = _launch_density(cfg, fields, ws, wc, n, cell_start,
+                          "density_band_lane")
+    density_lane.launches += 1
+    return out
+
+
+def force_lane(cfg: SphConfig, fields: torch.Tensor, ws: torch.Tensor,
+               wc: torch.Tensor, n: int,
+               cell_start: torch.Tensor | None = None) -> torch.Tensor:
+    """Hydro acceleration [n, 3] f32 of the sorted rows from the force
+    field table (``force_fields``); the kernel walks the cell bands
+    (``cell_start``, required on the card), the twin the block windows."""
+    if use_plain(fields):
+        return force_lane_plain(cfg, fields, ws, wc, n)
+    _table_spec(cfg, cell_start)  # no table raises: never the block walk
+    out = _launch_force(cfg, fields, ws, wc, n, cell_start, "force_band_lane")
+    force_lane.launches += 1
+    return out
+
+
+def density_lane_block(cfg: SphConfig, fields: torch.Tensor,
+                       ws: torch.Tensor, wc: torch.Tensor, n: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The block walk ``density_kernel_lane`` on CUDA tensors: the band
+    kernel's bit-equality reference and "before" time (``chip_smoke.py``);
+    no step path launches it and it counts no launches."""
+    return _launch_density(cfg, fields, ws, wc, n, None,
+                           "density_kernel_lane")
+
+
+def force_lane_block(cfg: SphConfig, fields: torch.Tensor, ws: torch.Tensor,
+                     wc: torch.Tensor, n: int) -> torch.Tensor:
+    """The block walk ``force_kernel_lane`` on CUDA tensors (as
+    ``density_lane_block``)."""
+    return _launch_force(cfg, fields, ws, wc, n, None, "force_kernel_lane")
 
 
 WRAPPERS = (density_lane, force_lane)
@@ -366,8 +452,10 @@ def compute_step_quantities(cfg: SphConfig, state: ParticleState
     the 127 clamp cut."""
     p = prepare_lane(cfg, state)
     n = state.n
-    rho_s, ncount_s = density_lane(cfg, density_fields(cfg, p), p.ws, p.wc, n)
-    acc_s = force_lane(cfg, force_fields(cfg, p, rho_s), p.ws, p.wc, n)
+    rho_s, ncount_s = density_lane(cfg, density_fields(cfg, p), p.ws, p.wc, n,
+                                   p.cell_start)
+    acc_s = force_lane(cfg, force_fields(cfg, p, rho_s), p.ws, p.wc, n,
+                       p.cell_start)
     acc_s = acc_s + physics.central_gravity(cfg, p.pos_s)
     acc_s = acc_s + torch.tensor(cfg.gravity, dtype=torch.float32,
                                  device=acc_s.device)

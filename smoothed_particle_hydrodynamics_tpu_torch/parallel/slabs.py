@@ -346,7 +346,13 @@ def _capped_sub_frame(cfg: SphConfig, ext: torch.Tensor,
     shared halo cell; only the cells this rank can query (own slab +- one
     plane) contribute.  The JAX package's sorts become one stable int64
     sort: (cid << hb | top hash bits, oid) when ``hb >= 8``, else (cid,
-    full hash), ties in the extended-frame row.
+    full hash), ties in the extended-frame row.  Invalid rows (dead, or in
+    no queryable cell) sort after every valid row into a run of their own
+    at ``num_cells``.  This diverges from the JAX package, whose sentinel
+    key ``0x7FFFFFFF >> hb`` is the last cell's id on a power-of-two grid:
+    there the last cell's run absorbs the invalid rows (and a valid row
+    whose top hash bits are all ones is taken as invalid), inflating its
+    kept rows' ``occ / min(occ, K_c)`` weights.
 
     Returns (sub_src [S] i32 extended-frame row of each sub row, cand_cid
     [S] i32 (``TAIL_CID`` past the kept rows), cid_search [S] i32
@@ -363,20 +369,21 @@ def _capped_sub_frame(cfg: SphConfig, ext: torch.Tensor,
     hb = sw._hash_bits(cfg)
     cid_c = cid_ext.long().clamp(0, cfg.num_cells - 1)
     if hb >= 8:
-        sent = 0x7FFFFFFF
+        # a valid key reaches 0x7FFFFFFF (the last cell of a power-of-two
+        # grid, all hash bits set), so invalid rows sort past it at 2^31;
+        # (key, oid): oid + 1 in [0, 2^31) fits the low 31 bits
         key = torch.where(valid, (cid_c << hb) | (sw._hash32(oid) >> (31 - hb)),
-                          sent)
-        # (key, oid): oid + 1 >= 0 fits the low 32 bits
-        order = torch.sort((key << 32) | (oid.long() + 1), stable=True).indices
-        key_s = key[order]
-        invalid_s = key_s == sent
-        key_s = key_s >> hb           # cid runs (sentinels group at the end)
+                          1 << 31)
+        order = torch.sort((key << 31) | (oid.long() + 1), stable=True).indices
+        key_s = key[order] >> hb      # cid runs
     else:
-        big = cfg.num_cells
-        key = torch.where(valid, cid_c, big)
+        key = torch.where(valid, cid_c, cfg.num_cells)
         order = torch.sort((key << 32) | sw._hash32(oid), stable=True).indices
         key_s = key[order]
-        invalid_s = key_s == big
+    # invalid rows (sorted last) form one run of their own at num_cells, so
+    # they never join the last cell's run and its occupancy
+    invalid_s = ~valid[order]
+    key_s = torch.where(invalid_s, cfg.num_cells, key_s)
     pos_s = pos[order]
     rank, occ = sw._run_rank_occ(key_s)
     k_c = cfg.capped_candidates

@@ -9,7 +9,8 @@ particles, for the lane layout (1.0h cells, window 512), for the sublane
 headline shapes (1.25h cells, window 208) and for capped mode on them
 (``capped_candidates`` 4; block, window and sub frame derived as the CLI
 derives them): the block walk's rows and the band kernels'
-(``band_rows_per_lane``), with the mean neighbor count.
+(``band_rows_per_lane``; the lane band kernels' ``lane_band_rows_per_lane``),
+with the mean neighbor count.
 """
 
 from __future__ import annotations
@@ -36,18 +37,13 @@ def sublane_rows_per_thread(cfg, p, m: int) -> float:
                  / (p.wc.numel() // 9))
 
 
-def band_rows_per_lane(cfg, cid, cell_start, m: int) -> dict:
-    """Rows the band kernels test per self row (``sweeps_t.band_ranges`` of
-    the self cids ``cid`` in the candidates' cell-start table
-    ``cell_start``, over ``m`` candidate rows: the sorted frame in exact
-    mode, the sub frame in capped mode), summed over the 9 rods: ``mean``
-    over the rows; ``warp_max``, the mean over warps (32 consecutive rows)
-    of the sum over rods of their longest lane band (the rows a warp steps
-    through); ``warp_union``, the same mean of the rows of the union
-    [min a, max e) of the warp's non-empty bands, per rod."""
-    from ..ops.sweeps_t import band_ranges
-
-    a, e = band_ranges(cfg, cid, cell_start)
+def band_stats(a: torch.Tensor, e: torch.Tensor, m: int) -> dict:
+    """Rows a band kernel tests per self row, from its bands [a, e) ([n, 9],
+    empty where e <= a, all rows below ``m``), summed over the 9 rods:
+    ``mean`` over the rows; ``warp_max``, the mean over warps (32
+    consecutive rows) of the sum over rods of their longest lane band (the
+    rows a warp steps through); ``warp_union``, the same mean of the rows of
+    the union [min a, max e) of the warp's non-empty bands, per rod."""
     n = a.shape[0]
     pad = (0, 0, 0, -(-n // WARP) * WARP - n)
 
@@ -62,6 +58,25 @@ def band_rows_per_lane(cfg, cid, cell_start, m: int) -> dict:
     return {"mean": (e - a).clamp(min=0).sum(1).double().mean().item(),
             "warp_max": longest.sum(1).double().mean().item(),
             "warp_union": (hi - lo).clamp(min=0).sum(1).double().mean().item()}
+
+
+def band_rows_per_lane(cfg, cid, cell_start, m: int) -> dict:
+    """``band_stats`` of the sublane band kernels (``sweeps_t.band_ranges``
+    of the self cids ``cid`` in the candidates' cell-start table
+    ``cell_start``, over ``m`` candidate rows: the sorted frame in exact
+    mode, the sub frame in capped mode)."""
+    from ..ops.sweeps_t import band_ranges
+
+    return band_stats(*band_ranges(cfg, cid, cell_start), m)
+
+
+def lane_band_rows_per_lane(cfg, p) -> dict:
+    """``band_stats`` of the lane band kernels over a ``PreparedLane``
+    (``sweeps_lane.band_ranges_lane``: cell bands inside block windows)."""
+    from ..ops.sweeps_lane import band_ranges_lane
+
+    return band_stats(*band_ranges_lane(cfg, p.cid, p.cell_start, p.ws, p.wc),
+                      p.cid.shape[0])
 
 
 def _print_band(label: str, band: dict) -> None:
@@ -81,10 +96,11 @@ def main() -> None:
                          pallas_layout="lane", **thin)
     p = sweeps_lane.prepare_lane(cfg, st)
     _, nc = sweeps_lane.density_lane(cfg, sweeps_lane.density_fields(cfg, p),
-                                     p.ws, p.wc, st.n)
+                                     p.ws, p.wc, st.n, p.cell_start)
     print(f"lane    (1.0h cells, window {cfg.pallas_window}): "
           f"{lane_rows_per_thread(cfg, p):.1f} rows/thread, "
           f"mean neighbors {nc.double().mean().item():.2f}")
+    _print_band("1.0h cells, lane", lane_band_rows_per_lane(cfg, p))
     cfg, st = make_scene("splash", num_particles=124_603, cell_size_factor=1.25,
                          pallas_window_t=208, **thin)
     p = sweeps_t.prepare_t(cfg, st)

@@ -333,6 +333,65 @@ def test_capped_sub_frame_ties_match_jax(grid):
         _check_sub_frame(got, ref, tc.num_cells)
 
 
+@pytest.mark.parametrize("members", [3, 9])
+def test_capped_sub_frame_last_cell_is_its_own_run(scene, members):
+    """On the 32^3 grid (16 spare key bits) the JAX package's sentinel key
+    ``0x7FFFFFFF >> 16`` is the last cell's id, so its last-cell run takes
+    in the invalid rows.  The port's invalid rows (dead, and valid ids in
+    no queryable cell) form a run of their own: the last cell's kept rows
+    and weights equal a brute force over the valid rows, and every valid
+    row stays valid, the one whose top hash bits are all ones (id 23184)
+    included.  ``members`` rows sit in the last cell (K_c = 4)."""
+    _, _, tc, _ = scene
+    tc = tc.replace(**CAPPED)
+    nc, nxny, k_c = tc.num_cells, tc.grid_nx * tc.grid_ny, tc.capped_candidates
+    hb = sw._hash_bits(tc)
+    assert hb == 16 and 0x7FFFFFFF >> hb == nc - 1
+    rng = np.random.default_rng(11)
+    slab_lo, slab_hi = 28 * nxny, nc          # the last slab
+    cid_valid = np.concatenate([rng.integers(slab_lo - nxny, nc - 1, 300),
+                                np.full(members, nc - 1)])
+    oid_valid = rng.permutation(np.setdiff1d(np.arange(20_000), [23184]))
+    oid_valid = oid_valid[:cid_valid.shape[0]]
+    oid_valid[-1] = 23184                     # hash top 16 bits all ones
+    assert (int(sw._hash32(torch.tensor(23184))) >> (31 - hb)) == (1 << hb) - 1
+    # dead rows at the slab's last cell (where the store parks them) and
+    # rows of cells this rank cannot query
+    cid_bad = np.concatenate([np.full(40, nc - 1),
+                              rng.integers(0, slab_lo - nxny, 30)])
+    oid_bad = np.concatenate([np.full(40, -1), 30_000 + np.arange(30)])
+    cid_ext = np.concatenate([cid_valid, cid_bad])
+    oid = np.concatenate([oid_valid, oid_bad])
+    srt = np.argsort(cid_ext, kind="stable")
+    cid_ext, oid = cid_ext[srt].astype(np.int32), oid[srt]
+    ext = np.zeros((cid_ext.shape[0], 8), np.float32)
+    ext[:, ts._OID] = oid
+    sub_src, cand_cid, _, w_sub, dropped = ts._capped_sub_frame(
+        tc, torch.from_numpy(ext), torch.from_numpy(cid_ext), ext.shape[0],
+        slab_lo, slab_hi)
+    # brute force: per cell, the K_c valid rows of lowest (hash top bits,
+    # id), weighted occ / min(occ, K_c)
+    valid = (oid >= 0) & (cid_ext >= slab_lo - nxny) & (cid_ext < slab_hi + nxny)
+    top = sw._hash32(torch.from_numpy(oid)).numpy() >> (31 - hb)
+    want = {}
+    for c in np.unique(cid_ext[valid]):
+        rows = np.flatnonzero(valid & (cid_ext == c))
+        rows = rows[np.lexsort((oid[rows], top[rows]))]
+        occ = rows.shape[0]
+        for r in rows[:k_c]:
+            want[int(r)] = np.float32(occ) / np.float32(min(occ, k_c))
+    n_kept = int((cand_cid >= 0).sum())
+    assert int(dropped) == 0 and n_kept == len(want)
+    got = dict(zip(sub_src[:n_kept].tolist(), w_sub[:n_kept].tolist()))
+    assert got == want
+    last = [r for r in want if cid_ext[r] == nc - 1]
+    assert len(last) == min(members, k_c)
+    assert [w_sub[:n_kept][cand_cid[:n_kept] == nc - 1].unique().item()] == \
+        [members / min(members, k_c)]
+    j = int(np.flatnonzero(oid == 23184)[0])
+    assert (j in want) == (members <= k_c)
+
+
 # ---------------------------------------------------------------------------
 # The six slab sweep callers
 # ---------------------------------------------------------------------------
