@@ -61,13 +61,26 @@ Phases (every failed check raises, and the script exits nonzero):
    ``second_kick="gravity"``), printing KE, PE and |L| at the start and
    the end, with a finite state;
 11. the distributed slab engine's six kernel callers (``parallel/
-   slab_sweeps.py``: exact K1/K2, capped K1/K2, the sub-frame pre-pass K1
-   and K3 over a rank's extended frame, ``self_base = h_cap``) against
-   their twins on the 1M splash at world size 1 (bench.py's ``slab_1dev``
-   and ``slab_capped_k4`` geometry: occupancy split, caps at headroom
-   1.05, window derived, K_c 4 on 256-row blocks): counts equal, rho
-   rel-L2 <= 1e-6, acc rel-L2 <= 1e-4, every row finite; kernel and twin
-   times with their bounds;
+   slab_sweeps.py``: exact K1/K2, the band walks ``density_band_t`` and
+   ``force_band_t`` over the live rows of a rank's extended frame; capped
+   K1/K2, the sub-frame pre-pass K1 and K3, block walks over the frame with
+   ``self_base = h_cap``) against their twins on the 1M splash at world
+   size 1 (bench.py's ``slab_1dev`` and ``slab_capped_k4`` geometry:
+   occupancy split, caps at headroom 1.05, window derived, K_c 4 on
+   256-row blocks): counts equal, rho rel-L2 <= 1e-6, acc rel-L2 <= 1e-4
+   (the exact pair on the live rows), every row finite; kernel and twin
+   times with their bounds.  The exact band walks also against the
+   ``EXCL_ROW`` block walks over the raw frame on the same tensors: counts,
+   rho and acc bit-equal on the live rows, the dead rows 0; rows tested per
+   lane (band mean, max over a warp, warp union) beside the block walk's
+   per thread and equal to the single-chip band walks' on the same state;
+   band and block walks timed in turns (the band kernels launched on the
+   live rows the wrappers gather, so time and bound are the kernels').
+   Then the engine's 4 ranks (``spawn_ranks``, gloo, all on cuda:0, each
+   with its own ``prepare_frame``) on a box whose rank-1 corner cells are
+   populated and whose ranks 0 and 2 hold fewer rows than ``h_cap``
+   (``walk_stats.corner_state``): the same bit-equality on every rank, and
+   the rows a table over the raw frame would test on rank 1;
 12. the slab engine at world size 1 (an NCCL group of one rank) against the
    single-chip lazy step, one step from the same 1M splash state, exact and
    capped: neighbor mean, max and min equal to the single-chip counts', KE
@@ -76,13 +89,15 @@ Phases (every failed check raises, and the script exits nonzero):
    refuses two ranks on one device): the 32k splash on its 32^3 grid, exact,
    capped and fused, a rebuild step and a frozen step, against the same
    engine at world size 1 on the same state: neighbor stats equal, KE rel
-   <= 1e-5, no counted loss, every original id held exactly once.  The only
-   phase in which live halo rows reach the kernels on the card;
+   <= 1e-5, no counted loss, every original id held exactly once.  The
+   exact run's band kernels launch twice on each rank, with live halo rows
+   (``nl``, ``nr``) on the inner sides;
 14. the slab main paths, launch counters reset just before each:
    ``run_slab_benchmark`` on the 1M splash at world size 1 (NCCL group of
    one), exact, capped (K_c 4, 256-row blocks) and capped fused, 3 warmup +
-   20 timed steps: each kernel of a path launched once per step, no counted
-   loss, a finite state; then the single-chip lazy step and the slab step
+   20 timed steps: each kernel of a path launched once per step, no
+   ``EXCL_ROW`` block walk launched, no counted loss, a finite state; then
+   the single-chip lazy step and the slab step
    in turns (single, slab, slab, single), exact, printing ms/step each;
 15. the hardware probes (``tools/probe_{vpu_ops,gather,mxu}.py``, no step
    path runs them) at the JAX probes' shapes: every chain op over
@@ -181,10 +196,10 @@ KERNELS = {
     "force_band_lane": Kernel("lane", "force_lane", "force_lane_plain",
                               SOURCE_LANE, f"{TPU_LANE}:244", 40),
     # the slab engine's callers of K1/K2/K3 (one Pallas call site)
-    "density_kernel_t[slab]": Kernel(
+    "density_band_t[slab]": Kernel(
         "slab", "density_ext", "density_ext_plain", SOURCE_T,
         f"{TPU_SLABS}:570", 15, f"{TPU_SLABS}:494"),
-    "force_kernel_t[slab]": Kernel(
+    "force_band_t[slab]": Kernel(
         "slab", "force_ext", "force_ext_plain", SOURCE_T, f"{TPU_SLABS}:570",
         36, f"{TPU_SLABS}:588"),
     "density_kernel_t<capped>[slab]": Kernel(
@@ -217,7 +232,7 @@ PATHS = {
     "lane": (LANE, ("density_band_lane", "force_band_lane")),
 }
 SLAB_PATHS = {
-    "slab exact": (SLAB, ("density_kernel_t[slab]", "force_kernel_t[slab]")),
+    "slab exact": (SLAB, ("density_band_t[slab]", "force_band_t[slab]")),
     "slab capped": (SLAB_CAPPED, ("density_kernel_t<capped>[slab]",
                                   "force_kernel_t<capped>[slab]")),
     "slab fused": (SLAB_FUSED, ("density_kernel_t<prepass>[slab]",
@@ -514,13 +529,145 @@ def finite(label: str, name: str, *outs) -> None:
               f"{label}: {name} output finite on every row")
 
 
+def slab_exact_vs_block(cfg, group, frame, caps, label: str):
+    """The slab engine's exact K1/K2, the band walks over the live rows of
+    one rank's frame (``slabs.prepare_frame``), against their twins and
+    against the ``EXCL_ROW`` block walks over the raw frame on the same
+    card tensors: on the live own rows counts, rho and acc bit-equal to the
+    block walks' and within the bars of the twins'; the dead rows 0 (the
+    twins and block walks count dead rows within h of each other); every
+    row finite.  The halo rows' densities come from the neighbours
+    (``exchange_rho`` on ``group``).  Prints the rows tested per lane beside
+    the block walk's per thread.  Returns the max abs errors, the wrapper
+    arguments, the pairs within h, the band kernels' launches on the
+    gathered live rows and the tensors each reads (for its time and bound:
+    each live row once), the block walks' launches, both by kernel name, and
+    the band statistics."""
+    from types import SimpleNamespace
+
+    from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
+    from smoothed_particle_hydrodynamics_tpu_torch.parallel import (
+        slab_sweeps as ss, slabs)
+    from smoothed_particle_hydrodynamics_tpu_torch.utils.walk_stats import (
+        slab_band_rows_per_lane, sublane_rows_per_thread)
+
+    p_cap, h_cap, _ = caps
+    ext, cid, f = frame.ext, frame.cid_ext, frame
+    cnt = f.count
+    ws, wc, band = f.tabs
+    print(f"[{label}] p_cap={p_cap} h_cap={h_cap} count={cnt} "
+          f"window={cfg.pallas_window_t} block={sw._blane(cfg)} "
+          f"max_wc={wc.max().item()} live rows {band.rows.shape[0]} "
+          f"(left halo {band.nl}, right halo {band.nr})")
+    n_d, n_f = "density_band_t[slab]", "force_band_t[slab]"
+    args = {n_d: ss.density_local_args(cfg, ext, cid, ws, wc, h_cap, p_cap,
+                                       band)}
+    rho_k, nc_k = ss.density_ext(*args[n_d])
+    rho_p, nc_p = ss.density_ext_plain(*args[n_d])
+    rho_e = slabs.exchange_rho(group, rho_k, cnt, h_cap)
+    args[n_f] = ss.force_local_args(cfg, ext, cid, rho_e, rho_k, ws, wc,
+                                    h_cap, p_cap, band)
+    acc_k, acc_p = ss.force_ext(*args[n_f]), ss.force_ext_plain(*args[n_f])
+    _, pos_l, mass_l, cid_l = args[n_d][:4]
+    _, _, vel_l, _, cand = args[n_f][:5]
+    cpos, cmass = ext[:, 0:3].contiguous(), ext[:, 6].contiguous()
+    block = {
+        n_d: lambda: sw._launch_density(
+            cfg, sw.EXCL_ROW, pos_l, mass_l, cid_l, ws, wc, cpos, cmass, cid,
+            None, None, "density_kernel_t[slab]", h_cap),
+        n_f: lambda: sw._launch_force(
+            cfg, sw.EXCL_ROW, pos_l, vel_l, rho_k, cand, cid_l, ws, wc, cid,
+            None, "force_kernel_t[slab]", h_cap)}
+    (rho_b, nc_b), acc_b = (fn() for fn in block.values())
+    torch.cuda.synchronize()
+    finite(label, n_d, rho_k, nc_k)
+    finite(label, n_f, acc_k)
+    live = slice(0, cnt)
+    nlive = -(-cnt // sw._blane(cfg)) * 9
+    window = sublane_rows_per_thread(
+        cfg, SimpleNamespace(ws=ws[:nlive], wc=wc[:nlive]), ext.shape[0])
+    stats = slab_band_rows_per_lane(cfg, band, cnt)
+    print(f"[{label}] rows tested per thread (live blocks): block window "
+          f"{window:.1f}, band mean {stats['mean']:.1f}, band max over a "
+          f"warp {stats['warp_max']:.1f}, warp union "
+          f"{stats['warp_union']:.1f}")
+    bits = (bool(torch.equal(nc_b[live], nc_k[live])),
+            bool(torch.equal(rho_b[live], rho_k[live])),
+            bool(torch.equal(acc_b[live], acc_k[live])))
+    dead = not (nc_k[cnt:].any() or rho_k[cnt:].any() or acc_k[cnt:].any())
+    print(f"[{label}] band kernels vs EXCL_ROW block walks over the raw "
+          f"frame on the same tensors: live rows counts, rho, acc bit-equal="
+          f"{bits}; dead rows 0={dead}")
+    check(all(bits), f"{label}: band walk vs block walk bit-equal {bits}")
+    check(dead, f"{label}: dead rows write 0")
+    errs = {n_d: agree(label, f"{n_d} (live rows)", rho_k[live], rho_p[live],
+                       (nc_k[live], nc_p[live])),
+            n_f: agree(label, f"{n_f} (live rows)", acc_k[live], acc_p[live],
+                       bar=ACC_BAR)}
+    pairs = int(nc_k.sum())
+    # the wrappers' launches on the live rows they gather: the own rows are
+    # live rows [nl, nl + count), so the bound reads each live row once (the
+    # self velocities too: the candidate columns hold m/rho * v) and, as on
+    # one device, not cell_start, the kernels' own index
+    pos_c, mass_c = ext[band.rows, 0:3], ext[band.rows, 6]
+    cand_c = cand[band.rows]
+    bands = {
+        n_d: lambda: sw._launch_density_band(
+            cfg, pos_l, mass_l, band.cid, band.cell_start, pos_c, mass_c,
+            None, n_d, band.nl),
+        n_f: lambda: sw._launch_force_band(
+            cfg, pos_l, vel_l, rho_k, cand_c, band.cid, band.cell_start, None,
+            n_f, band.nl)}
+    reads = {n_d: (band.cid, pos_c, mass_c),
+             n_f: (vel_l, rho_k, band.cid, cand_c)}
+    return (errs, args, {n_d: pairs, n_f: pairs}, (bands, reads), block,
+            stats)
+
+
+def corner_rank(group, job: dict) -> dict:
+    """On one rank of ``spawn_ranks``: its frame of ``job``'s state at the
+    first step, built by the engine (``slabs.prepare_frame``), its exact
+    band walks held against the twins and the block walks
+    (``slab_exact_vs_block``), and, on rank 1, the rows a table over the
+    raw frame would test.  Returns the rank's count, live halo rows, band
+    statistics and (rank 1) its last cell's rows and the raw table's
+    statistics."""
+    from smoothed_particle_hydrodynamics_tpu_torch.parallel import slabs
+    from smoothed_particle_hydrodynamics_tpu_torch.state import (
+        state_from_numpy)
+    from smoothed_particle_hydrodynamics_tpu_torch.utils.walk_stats import (
+        band_rows_per_lane)
+
+    cfg, caps, zs = job["cfg"], job["caps"], job["zsplit"]
+    st = state_from_numpy(job["state"], group.device)
+    carry = slabs.init_lazy_slab(
+        cfg, group, slabs.distribute(cfg, st, group, caps[0], zs), caps[0],
+        "pallas")
+    frame = slabs.prepare_frame(cfg, group, *caps, "pallas", zs, True, 0,
+                                carry)
+    d = group.rank
+    stats = slab_exact_vs_block(cfg, group, frame, caps,
+                                f"slab corner rank {d}")[-1]
+    band = frame.tabs[2]
+    out = dict(count=frame.count, nl=band.nl, nr=band.nr, stats=stats)
+    if d == 1:
+        nxny = cfg.grid_nx * cfg.grid_ny
+        out["top"] = int((frame.cid_s[:frame.count]
+                          == zs[2] * nxny - 1).sum())
+        raw = torch.searchsorted(frame.cid_ext, torch.arange(
+            cfg.num_cells + 1, dtype=torch.int32, device=group.device),
+            out_int32=True)
+        out["raw"] = band_rows_per_lane(cfg, frame.cid_s[:frame.count], raw,
+                                        frame.ext.shape[0])
+    return out
+
+
 def slab_vs_twins(cfg, group, frame, caps, label: str):
-    """The slab callers' kernels against their twins on one rank's frame
-    (``slabs.prepare_frame``): the exact pair, or the four capped kernels
-    (the frame built with ``capped_fused`` holds both table sets).  Every
-    output row, dead ones included, must be finite.  Returns the max abs
-    errors, the arguments used (for timing) and the pairs within h each
-    kernel sums (for its bound)."""
+    """The slab engine's four capped kernels against their twins on one
+    rank's frame (``slabs.prepare_frame`` with ``capped_fused``, which holds
+    both table sets).  Every output row, dead ones included, must be
+    finite.  Returns the max abs errors, the arguments used (for timing)
+    and the pairs within h each kernel sums (for its bound)."""
     from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
     from smoothed_particle_hydrodynamics_tpu_torch.parallel import (
         slab_sweeps as ss, slabs)
@@ -530,24 +677,6 @@ def slab_vs_twins(cfg, group, frame, caps, label: str):
     print(f"[{label}] p_cap={p_cap} h_cap={h_cap} count={f.count} "
           f"window={cfg.pallas_window_t} block={sw._blane(cfg)} "
           f"max_wc={f.tabs[1].max().item()}")
-    if not cfg.capped_candidates:
-        ws, wc = f.tabs
-        n_d, n_f = "density_kernel_t[slab]", "force_kernel_t[slab]"
-        args = {n_d: ss.density_local_args(cfg, ext, cid, ws, wc, h_cap,
-                                           p_cap)}
-        rho_k, nc_k = ss.density_ext(*args[n_d])
-        rho_p, nc_p = ss.density_ext_plain(*args[n_d])
-        rho_e = slabs.exchange_rho(group, rho_k, f.count, h_cap)
-        args[n_f] = ss.force_local_args(cfg, ext, cid, rho_e, rho_k, ws, wc,
-                                        h_cap, p_cap)
-        acc_k, acc_p = ss.force_ext(*args[n_f]), ss.force_ext_plain(*args[n_f])
-        torch.cuda.synchronize()
-        finite(label, n_d, rho_k, nc_k)
-        finite(label, n_f, acc_k)
-        errs = {n_d: agree(label, n_d, rho_k, rho_p, (nc_k, nc_p)),
-                n_f: agree(label, n_f, acc_k, acc_p, bar=ACC_BAR)}
-        pairs = int(nc_k.sum())
-        return errs, args, {n_d: pairs, n_f: pairs}
     ws, wc, sub_src, cand_cid, w_sub, sub_dropped, ws_s, wc_s = f.tabs
     n_kept = int((cand_cid >= 0).sum())
     print(f"[{label}] S={sub_src.shape[0]} kept={n_kept} "
@@ -604,12 +733,14 @@ def slab_vs_twins(cfg, group, frame, caps, label: str):
                         names[3]: int(fnc_k.sum())}
 
 
-def walks_in_turns(args: dict, block: dict, label: str) -> None:
+def walks_in_turns(args: dict, block: dict, label: str,
+                   bands: dict | None = None) -> None:
     """Time each band kernel and its block walk (``block``: kernel name ->
     launch) in turns (band, block, block, band) by CUDA events at the given
-    arguments."""
+    arguments (or, where ``bands`` names its launch, by that launch)."""
     for name, launch in block.items():
-        fns = {"band walk": lambda: wrapper(name)(*args[name]),
+        fns = {"band walk": (bands or {}).get(
+                   name, lambda name=name: wrapper(name)(*args[name])),
                "block walk": launch}
         ms = {w: [] for w in fns}
         for w in [*fns, *reversed(fns)]:
@@ -628,21 +759,23 @@ def io_bytes(args: tuple, out) -> int:
 
 
 def timed(args: dict, pairs: dict, twin_args: dict | None = None,
-          reads: dict | None = None) -> dict:
+          reads: dict | None = None, launch: dict | None = None) -> dict:
     """Per kernel at the given arguments: kernel and twin ms (CUDA events)
     and the bound, the larger of its bytes over the HBM rate and its flops
     on the pairs within h over the f32 rate.  ``twin_args`` are the twin's
     arguments where they differ from the kernel's, ``reads`` the tensors
-    the kernel reads where not all of its arguments (for the bytes)."""
+    the kernel reads where not all of its arguments (for the bytes),
+    ``launch`` the kernel's launch where it is timed apart from its
+    wrapper."""
     out = {}
     for name, a in args.items():
-        kern = wrapper(name)
+        kern = (launch or {}).get(name, lambda a=a, w=wrapper(name): w(*a))
         twin = getattr(_module(name), KERNELS[name].twin)
         t_a = (twin_args or {}).get(name, a)
-        nbytes = io_bytes((reads or {}).get(name, a), kern(*a))
+        nbytes = io_bytes((reads or {}).get(name, a), kern())
         flops = pairs[name] * KERNELS[name].flops_per_pair
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
-        out[name] = dict(ms=time_ms(lambda: kern(*a), iters=10, warmup=1),
+        out[name] = dict(ms=time_ms(kern, iters=10, warmup=1),
                          plain_ms=time_ms(lambda: twin(*t_a), iters=3,
                                           warmup=1),
                          bound_ms=max(t_bytes, t_ops) * 1e3,
@@ -836,6 +969,8 @@ def main() -> int:
     from smoothed_particle_hydrodynamics_tpu_torch.utils.benchmark import (
         resolve_scene, resolve_sweep_settings, run_benchmark,
         run_parity_check, run_slab_benchmark, slab_setup)
+    from smoothed_particle_hydrodynamics_tpu_torch.utils.walk_stats import (
+        band_rows_per_lane, corner_state)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1046,7 +1181,10 @@ def main() -> int:
     check(finite, "disk: positions, velocities and KE finite")
 
     # 11. the slab callers' kernels vs their twins at the 1M slab shapes
-    #     (world size 1: both halos are inert chain ends here)
+    #     (world size 1: both halos are inert chain ends here); the exact
+    #     band walks also vs the EXCL_ROW block walks over the raw frame,
+    #     bit-equal on the live rows and timed in turns, with rows per lane
+    #     equal to the single-chip band walks' on the same state
     for label, ov in (("slab exact 1M", SLAB), ("slab capped 1M", SLAB_FUSED)):
         cfg, st, zsplit, caps, sub_len = slab_setup(
             1_000_000, ov, SLAB_HEADROOM, dev)
@@ -1058,12 +1196,55 @@ def main() -> int:
                 caps[0], "pallas", sub_len)
             frame = slabs.prepare_frame(cfg, grp, *caps, "pallas", zsplit,
                                         True, sub_len, carry)
-            slab_errs, args, slab_pairs = slab_vs_twins(cfg, grp, frame, caps,
-                                                        label)
+            if cfg.capped_candidates:
+                slab_errs, args, slab_pairs = slab_vs_twins(cfg, grp, frame,
+                                                            caps, label)
+                times.update(timed(args, slab_pairs))
+            else:
+                slab_errs, args, slab_pairs, bands, block, stats = \
+                    slab_exact_vs_block(cfg, grp, frame, caps, label)
+                p1 = sw.prepare_t(cfg, st)
+                single = band_rows_per_lane(cfg, p1.cid, p1.cell_start, st.n)
+                print(f"[{label}] single-chip band walks on the same state: "
+                      f"mean {single['mean']:.1f}, max over a warp "
+                      f"{single['warp_max']:.1f}, warp union "
+                      f"{single['warp_union']:.1f}; slab equal="
+                      f"{stats == single}")
+                check(stats == single, f"{label}: rows per lane {stats} == "
+                      f"single-chip {single}")
+                times.update(timed(args, slab_pairs, reads=bands[1],
+                                   launch=bands[0]))
+                walks_in_turns(args, block, label, bands[0])
+                del p1, block, bands
             errs.update(slab_errs)
             pairs.update(slab_pairs)
-            times.update(timed(args, slab_pairs))
         del carry, frame, args, st
+    # a frame where the trap of a table over the raw frame shows: the 4
+    # ranks of the engine (gloo, all on this card) on a box whose rank-1
+    # corner cells are populated and whose ranks 0 and 2 hold fewer rows
+    # than h_cap; every rank held bit-equal
+    cfg, _ = make_scene("dam_break", device="cpu", num_particles=4096,
+                        grid_nx=32, grid_ny=32, grid_nz=32,
+                        pallas_window_t=128)
+    st = corner_state(cfg, (1_500, 2_500, 30_000), short=300)
+    cfg = cfg.replace(num_particles=st.n)
+    zsplit = slabs.uniform_zsplit(cfg, 4)
+    job = dict(cfg=cfg, state=state_to_numpy(st), caps=slabs.derive_slab_caps(
+        cfg, st, 4, zsplit=zsplit), zsplit=zsplit)
+    ranks = spawn_ranks(4, corner_rank, job, backend="gloo",
+                        devices=["cuda:0"] * 4, timeout_s=300.0)
+    r1, h_cap = ranks[1], job["caps"][1]
+    print(f"[slab corner rank 1] {r1['top']} rows in the slab's last cell; "
+          f"live halo rows ({r1['nl']}, {r1['nr']}) of h_cap {h_cap}; a "
+          f"table over the raw frame would test: band mean "
+          f"{r1['raw']['mean']:.1f}, max over a warp "
+          f"{r1['raw']['warp_max']:.1f}, warp union "
+          f"{r1['raw']['warp_union']:.1f} rows per lane (live table: "
+          f"{r1['stats']['warp_max']:.1f} max over a warp)")
+    check(r1["top"] > 0 and 0 < r1["nl"] < h_cap and 0 < r1["nr"] < h_cap,
+          f"slab corner rank 1: populated last cell ({r1['top']}), short "
+          f"neighbours (nl {r1['nl']}, nr {r1['nr']}, h_cap {h_cap})")
+    del st
     for name in (n for n in KERNELS if n.endswith("[slab]")):
         t = times[name]
         print(f"[slab 1M] {name}: kernel {t['ms']:.4f} ms, plain twin "
@@ -1132,6 +1313,19 @@ def main() -> int:
                                    backend="gloo", devices=["cuda:0"] * 2,
                                    timeout_s=300.0)
                 runs[2] = outs[0][0]
+                halos = [o[0]["band_halo"] for o in outs]
+                ran = [{k: v for k, v in o[0]["launches"].items() if v}
+                       for o in outs]
+                print(f"[ranks {label} 32k] world 2: live halo rows (left, "
+                      f"right) of the exact band tables per rank {halos}; "
+                      f"slab launches per rank {ran}")
+                if label == "exact":
+                    # the live halos reach the band kernels on both ranks
+                    check(halos[0][1] > 0 and halos[1][0] > 0
+                          and all(r == {"density_ext": 2, "force_ext": 2}
+                                  for r in ran),
+                          f"ranks exact: band kernels with live halos "
+                          f"{halos} {ran}")
             wall = time.perf_counter() - t0
             d = runs[world]["diags"]
             print(f"[ranks {label} 32k] world {world}: zsplit {zsplit} caps "
@@ -1159,9 +1353,21 @@ def main() -> int:
               f"ranks {label}: both ranks populated")
         del st, runs
 
-    # 14. the slab main paths, counted; then single-chip and slab in turns
+    # 14. the slab main paths, counted (the EXCL_ROW block walks too: no
+    #     slab path may run them); then single-chip and slab in turns
+    block_walks = {"n": 0}
+
+    def count_row_walks(launch):
+        def counted(cfg, excl, *a, **kw):
+            block_walks["n"] += excl == sw.EXCL_ROW
+            return launch(cfg, excl, *a, **kw)
+        return counted
+
+    launchers = sw._launch_density, sw._launch_force
+    sw._launch_density, sw._launch_force = map(count_row_walks, launchers)
     for path, (ov, names) in SLAB_PATHS.items():
         reset_launches()
+        block_walks["n"] = 0
         r = run_slab_benchmark(n=1_000_000, steps=STEPS, warmup=WARMUP,
                                headroom=SLAB_HEADROOM, overrides=ov,
                                device="cuda")
@@ -1184,11 +1390,15 @@ def main() -> int:
             check(counts[name] == total_steps, f"{path}: {name} launched "
                   f"{counts[name]} times in {total_steps} steps")
             launches[name] = counts[name]
+        print(f"[main {path}] EXCL_ROW block-walk launches: "
+              f"{block_walks['n']}")
+        check(block_walks["n"] == 0, f"{path}: no EXCL_ROW block walk")
         for k in ("truncated_ranges", "halo_dropped_steps",
                   "migration_dropped_steps"):
             check(len(r[k]) == total_steps and max(r[k]) == 0,
                   f"{path}: {k} {r[k]}")
         check(r["finite"], f"{path}: store and KE finite")
+    sw._launch_density, sw._launch_force = launchers
     turns = []
     for kind in ("single", "slab", "slab", "single"):
         if kind == "single":

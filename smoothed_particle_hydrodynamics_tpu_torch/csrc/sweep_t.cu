@@ -5,14 +5,15 @@
 // the same sums.
 //
 // Replaces, in smoothed_particle_hydrodynamics_tpu/ops/pallas_step_t.py:
-//   K1 density_kernel_t<Excl>  <- _density_kernel_t: capped (kExclSrc), the
-//      fused path's sub-frame pre-pass (kExclSrcSrc, self_src_row=5) and,
-//      in the slab engine, exact (kExclRow);
-//   K2 force_kernel_t<Excl>    <- _force_kernel_t: capped, and slab exact;
+//   K1 density_kernel_t<Excl>  <- _density_kernel_t: in the slab engine,
+//      capped (kExclSrc), and the fused path's sub-frame pre-pass
+//      (kExclSrcSrc, self_src_row=5);
+//   K2 force_kernel_t<Excl>    <- _force_kernel_t: in the slab engine, capped;
 //   K3 fused_kernel_t          <- _fused_kernel_t (capped only);
 //   K1 density_band_t, K2 force_band_t <- the same two, exact and capped,
-//      on one device (the lazy paths): per-lane band walks, see their
-//      section.
+//      on one device (the lazy paths), and exact in the slab engine: per-lane
+//      band walks, see their section.  The kExclRow block walks stay as
+//      their bit-equality reference.
 //
 // What they compute.  Particles are sorted by linear cell id
 // (z*ny + y)*nx + x, so each of the 9 (dy, dz) stencil rods of a block of b
@@ -403,11 +404,24 @@ __global__ void fused_kernel_t(FusedArgs a) {
 
 // ---------------------------------------------------------------------------
 // K1 and K2 as per-lane band walks: density_band_t and force_band_t, exact
-// (kExclRow) and capped (kExclSrc), the single-device lazy paths' kernels.
+// (kExclRow) and capped (kExclSrc), the single-device lazy paths' kernels,
+// and exact (kExclRow) in the slab engine.
 //
 // Replace _density_kernel_t (pallas_step_t.py:293, capped :321) and
 // _force_kernel_t (:360, capped :403) in place of density_kernel_t and
-// force_kernel_t above (which the pre-pass and slab callers still run).
+// force_kernel_t above (which the pre-pass and the capped slab callers still
+// run); in the slab engine, the exact callers of _slab_chunked_call
+// (parallel/slabs.py:494, :588).
+//
+// The slab engine's candidates are the LIVE rows of a rank's extended frame
+// [left halo | own slab | right halo], compacted in order (the chain ends'
+// inert rows, the own slab's dead run and a short neighbour's dead rows sit
+// at 1e30 and add nothing, but the dead ones carry real cell ids: the own
+// dead run that of the slab's last cell, so a table over the raw frame
+// would hand every band that reaches that cell the whole run).  Its self
+// rows are the own slab: self row i is compacted row self_base + i
+// (self_base = the live left-halo rows), and its dead rows carry a self cid
+// of NO_CELL, so their bands are empty and they write 0.
 //
 // The candidate frame is sorted by cell id (exact: the sorted particles;
 // capped: the sub frame, whose kept rows come first in cid order), so the
@@ -421,8 +435,8 @@ __global__ void fused_kernel_t(FusedArgs a) {
 // order sums the same pairs in the same order as the block walk: rho, the
 // counts and acc equal density_kernel_t's and force_kernel_t's bit for bit
 // (same op sequence, --fmad=false).  The pair test is left with the
-// self-exclusion (j != i exact, csrc[j] != i capped) and d^2 < h^2; the cid
-// load and mask are gone.
+// self-exclusion (j != self_base + i exact, csrc[j] != self_base + i capped)
+// and d^2 < h^2; the cid load and mask are gone.
 //
 // What bounds them.  Still the instructions of rejected-pair tests (a few
 // percent of the tested rows are pairs within h), but each lane now tests
@@ -565,6 +579,7 @@ struct DensityBandArgs {
   float* rho;             // [n] out
   int* ncount;            // [n] out
   int n, m, num_cells, nx, ny, include_self;
+  int self_base;          // own id of self row i: self_base + i
   float h2, h_scaled2, scale2, poly6;
 };
 
@@ -586,6 +601,7 @@ __global__ void __launch_bounds__(kBandBlock)
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * kBandBlock + threadIdx.x;
   const bool live = i < a.n;
+  const int own = a.self_base + i;
   float xi = 0.f, yi = 0.f, zi = 0.f;
   int ci = 0;
   if (live) {
@@ -611,7 +627,7 @@ __global__ void __launch_bounds__(kBandBlock)
       const float d2 =
           dist2(sp[3 * k] - xi, sp[3 * k + 1] - yi, sp[3 * k + 2] - zi);
       const int id = kExcl == kExclRow ? j : ss[k];
-      if (id != i && d2 < a.h2)
+      if (id != own && d2 < a.h2)
         density_add(a, d2, sp[3 * kPiece + k], rho, count);
     }
   };
@@ -637,6 +653,7 @@ struct ForceBandArgs {
   const int* cell_start;  // [num_cells + 1] first candidate row of each cell
   float* acc;             // [n, 3] out: hydro acceleration
   int n, m, num_cells, nx, ny;
+  int self_base;          // own id of self row i: self_base + i
   float h2, h, scale, eps, stiffness, rho0, viscosity, visc_norm;
 };
 
@@ -672,6 +689,7 @@ __global__ void __launch_bounds__(kBandBlock)
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * kBandBlock + threadIdx.x;
   const bool live = i < a.n;
+  const int own = a.self_base + i;
   float xi = 0.f, yi = 0.f, zi = 0.f, vxi = 0.f, vyi = 0.f, vzi = 0.f;
   float rhoi = 1.f;
   int ci = 0;
@@ -705,7 +723,7 @@ __global__ void __launch_bounds__(kBandBlock)
       const float dz = c[2] - zi;
       const float d2 = dist2(dx, dy, dz);
       const int id = kExcl == kExclRow ? j : ss[k];
-      if (id != i && d2 < a.h2)
+      if (id != own && d2 < a.h2)
         force_pair(a, c, dx, dy, dz, d2, pw_i, vxi, vyi, vzi, s);
     }
   };
@@ -898,13 +916,15 @@ int sph_fused_t(const float* pos, const float* vel, const float* mass,
 // The band walks: self rows [n] over m candidates sorted by cell id, with
 // cell_start the candidates' [num_cells + 1] cell-start table.  excl
 // kExclRow: the candidates are the self rows (cpos = pos, cmass = mass,
-// csrc null); kExclSrc: the capped sub frame, csrc its sorted rows.
+// csrc null, self_base 0) or, in the slab engine, the live rows of the
+// extended frame (self_base: the compacted row of self row 0); kExclSrc:
+// the capped sub frame, csrc its sorted rows.
 int sph_density_band_t(const float* pos, const float* mass, const int* cid,
                        const float* cpos, const float* cmass, const int* csrc,
                        const int* cell_start, float* rho, int* ncount, int n,
                        int m, int num_cells, int nx, int ny, int include_self,
-                       int excl, float h2, float h_scaled2, float scale2,
-                       float poly6, void* stream) {
+                       int excl, int self_base, float h2, float h_scaled2,
+                       float scale2, float poly6, void* stream) {
   DensityBandArgs a;
   a.pos = pos;
   a.mass = mass;
@@ -921,6 +941,7 @@ int sph_density_band_t(const float* pos, const float* mass, const int* cid,
   a.nx = nx;
   a.ny = ny;
   a.include_self = include_self;
+  a.self_base = self_base;
   a.h2 = h2;
   a.h_scaled2 = h_scaled2;
   a.scale2 = scale2;
@@ -938,8 +959,8 @@ int sph_density_band_t(const float* pos, const float* mass, const int* cid,
 int sph_force_band_t(const float* pos, const float* vel, const float* rho,
                      const int* cid, const float* cand, const int* csrc,
                      const int* cell_start, float* acc, int n, int m,
-                     int num_cells, int nx, int ny, int excl, float h2,
-                     float h, float scale, float eps,
+                     int num_cells, int nx, int ny, int excl, int self_base,
+                     float h2, float h, float scale, float eps,
                      float stiffness, float rho0, float viscosity,
                      float visc_norm, void* stream) {
   ForceBandArgs a;
@@ -956,6 +977,7 @@ int sph_force_band_t(const float* pos, const float* vel, const float* rho,
   a.num_cells = num_cells;
   a.nx = nx;
   a.ny = ny;
+  a.self_base = self_base;
   a.h2 = h2;
   a.h = h;
   a.scale = scale;

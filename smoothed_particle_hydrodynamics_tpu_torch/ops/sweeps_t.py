@@ -34,8 +34,8 @@ sorted frame's exact, the sub frame's capped), instead of its block's whole
 rod window.  The range holds exactly the window rows that pass the mask, so
 the band kernels sum the same pairs in the same order as the block-walk
 kernels (``density_kernel_t``/``force_kernel_t`` with ``EXCL_ROW`` or
-``EXCL_SRC``, still run by the slab engine) and equal them bit for bit;
-their twins are the block-walk twins.
+``EXCL_SRC``; the slab engine's capped callers still run the latter) and
+equal them bit for bit; their twins are the block-walk twins.
 
 A wrapper given CPU tensors computes with the twin; given CUDA tensors it
 launches the kernel (built from source on first use) or raises; any other
@@ -44,8 +44,9 @@ device raises.  ``<wrapper>.launches`` counts kernel launches.
 The twins and launch helpers also take ``self_base``: self row i's own id
 (the one self-exclusion compares) is ``self_base + i``.  The wrappers here
 pass 0; the distributed slab engine (``parallel/slab_sweeps.py``) passes
-the left-halo width, its self rows sitting at that offset in the extended
-candidate frame.
+the left-halo width to the block walks and the twins (its self rows sit at
+that offset in the extended candidate frame) and the live left-halo rows
+to the band walks (which sweep the frame's live rows only).
 
 Differences from the JAX package: cell ids and source rows are int32 (the
 TPU kernels carry f32, exact below 2^24 cells and, in capped mode, 2^24
@@ -610,9 +611,9 @@ def _kernels() -> ctypes.CDLL:
     lib.sph_force_t.restype = i
     lib.sph_fused_t.argtypes = [p] * 12 + [i] * 8 + [f] * 11 + [p]
     lib.sph_fused_t.restype = i
-    lib.sph_density_band_t.argtypes = [p] * 9 + [i] * 7 + [f] * 4 + [p]
+    lib.sph_density_band_t.argtypes = [p] * 9 + [i] * 8 + [f] * 4 + [p]
     lib.sph_density_band_t.restype = i
-    lib.sph_force_band_t.argtypes = [p] * 8 + [i] * 6 + [f] * 8 + [p]
+    lib.sph_force_band_t.argtypes = [p] * 8 + [i] * 7 + [f] * 8 + [p]
     lib.sph_force_band_t.restype = i
     lib.sph_error_string.argtypes = [i]
     lib.sph_error_string.restype = ctypes.c_char_p
@@ -670,7 +671,8 @@ def _band_specs(cfg: SphConfig, n: int, m: int, pos_s, cid, cell_start,
                 cand_src) -> dict:
     if cell_start is None:
         raise ValueError("the band kernels need their candidates' cell-start "
-                         "table (PreparedT.cell_start)")
+                         "table (PreparedT.cell_start, or the slab frame's "
+                         "SlabBand.cell_start)")
     specs = dict(pos_s=(pos_s, torch.float32, (n, 3)),
                  cid=(cid, torch.int32, (n,)),
                  cell_start=(cell_start, torch.int32, (cfg.num_cells + 1,)))
@@ -680,10 +682,12 @@ def _band_specs(cfg: SphConfig, n: int, m: int, pos_s, cid, cell_start,
 
 
 def _launch_density_band(cfg: SphConfig, pos_s, mass_s, cid, cell_start,
-                         cand_pos, cand_mass, cand_src, kernel: str):
+                         cand_pos, cand_mass, cand_src, kernel: str,
+                         self_base: int = 0):
     """K1 band walk of the sorted self rows over candidates sorted by cell:
-    the self rows themselves (``cand_src`` None, exact) or the capped sub
-    frame (``cand_src`` its sorted rows)."""
+    the self rows themselves (``cand_src`` None, exact), the live rows of a
+    slab's extended frame (exact, self row i at ``self_base + i``) or the
+    capped sub frame (``cand_src`` its sorted rows)."""
     n, m, dev = pos_s.shape[0], cand_pos.shape[0], pos_s.device
     _check(dev, mass_s=(mass_s, torch.float32, (n,)),
            cand_pos=(cand_pos, torch.float32, (m, 3)),
@@ -698,7 +702,7 @@ def _launch_density_band(cfg: SphConfig, pos_s, mass_s, cid, cell_start,
         cand_pos.data_ptr(), cand_mass.data_ptr(), _ptr(cand_src),
         cell_start.data_ptr(), rho.data_ptr(), ncount.data_ptr(), n, m,
         cfg.num_cells, cfg.grid_nx, cfg.grid_ny,
-        int(cfg.include_self_density), excl, cfg.h2, cfg.h_scaled2,
+        int(cfg.include_self_density), excl, self_base, cfg.h2, cfg.h_scaled2,
         _f32(cfg.sim_scale * cfg.sim_scale), cfg.poly6_norm, _stream(dev))
     _raise_on(lib, err, kernel)
     return rho, ncount
@@ -782,10 +786,11 @@ def _launch_force(cfg: SphConfig, excl: int, pos_s, vel_s, rho_s, cand, cid,
 
 
 def _launch_force_band(cfg: SphConfig, pos_s, vel_s, rho_s, cand, cid,
-                       cell_start, cand_src, kernel: str) -> torch.Tensor:
+                       cell_start, cand_src, kernel: str,
+                       self_base: int = 0) -> torch.Tensor:
     """K2 band walk over candidates sorted by cell (``cand`` their
-    ``fused_cand_cols``): the self rows (``cand_src`` None) or the sub
-    frame."""
+    ``fused_cand_cols``): the self rows (``cand_src`` None), a slab's live
+    extended-frame rows (``self_base`` as for K1) or the sub frame."""
     n, m, dev = pos_s.shape[0], cand.shape[0], pos_s.device
     _check(dev, vel_s=(vel_s, torch.float32, (n, 3)),
            rho_s=(rho_s, torch.float32, (n,)),
@@ -798,7 +803,7 @@ def _launch_force_band(cfg: SphConfig, pos_s, vel_s, rho_s, cand, cid,
         pos_s.data_ptr(), vel_s.data_ptr(), rho_s.data_ptr(), cid.data_ptr(),
         cand.data_ptr(), _ptr(cand_src), cell_start.data_ptr(),
         acc.data_ptr(), n, m, cfg.num_cells, cfg.grid_nx, cfg.grid_ny, excl,
-        cfg.h2, cfg.h_scaled, _f32(cfg.sim_scale),
+        self_base, cfg.h2, cfg.h_scaled, _f32(cfg.sim_scale),
         _f32(cfg.pressure_softening), _f32(cfg.stiffness), _f32(cfg.rho0),
         _f32(cfg.viscosity), cfg.visc_lap_norm, _stream(dev))
     _raise_on(lib, err, kernel)

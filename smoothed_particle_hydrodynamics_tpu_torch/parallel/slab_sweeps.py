@@ -12,12 +12,29 @@ The candidates are the extended frame ``ext`` = [left halo | own slab |
 right halo] (``h_cap + p_cap + h_cap`` rows, the halos from the ring
 neighbours) or, in capped mode, its sub frame (the kept rows ``ext[sub_src]``).
 The self rows are the own slab, rows ``[h_cap, h_cap + p_cap)`` of ``ext``,
-so every sweep but the sub-frame pre-pass passes ``self_base = h_cap``: self
-row i's own id is its extended-frame row, the one self-exclusion compares
-with a candidate's row (exact mode) or its ``sub_src`` (capped modes).  This
-is the Pallas kernels' ``block_base = h_cap // b + chunk``.  The TPU path
-splits each call into SMEM-sized chunks of blocks, each with a reference
-point; here each caller launches its kernel once per step.
+so every block walk but the sub-frame pre-pass passes ``self_base =
+h_cap``: self row i's own id is its extended-frame row, the one
+self-exclusion compares with a candidate's row (exact mode) or its
+``sub_src`` (capped modes).  This is the Pallas kernels' ``block_base =
+h_cap // b + chunk``.  The TPU path splits each call into SMEM-sized chunks
+of blocks, each with a reference point; here each caller launches its kernel
+once per step.
+
+Exact K1 and K2 are the band walks ``density_band_t``/``force_band_t`` of
+``csrc/sweep_t.cu``.  Their candidates are the extended frame's LIVE rows,
+compacted in order (``SlabBand.rows``; the wrappers gather their columns
+from the raw frame's each step): a cell-start table over the raw frame
+would hold its dead rows in real cells (the own dead run sits in the
+slab's last cell, a short neighbour's in its own), and every band reaching
+such a cell would walk them.  Own row i is live row ``nl + i`` (``self_base = nl``, the live
+left-halo rows), and the own dead rows carry self cid ``NO_CELL``, so they
+walk nothing and write rho 0, count 0, acc 0 (the twins and block walks
+give them rho and acc 0 too, but count the dead rows within h of each
+other; every reader masks dead rows).  On live rows the band walks equal
+the ``EXCL_ROW`` block walks over the raw frame bit for bit: a removed row
+sits at 1e30, and its d^2 is inf.  Their twins stay the block-walk twins
+over the raw frame; the block walks remain as ``chip_smoke.py``'s
+reference.
 
 Dead rows (``[count, p_cap)`` of the slab) and the inert chain-end halos
 sit at position 1e30 with mass 0: a pair with one of them has d^2 = inf,
@@ -34,6 +51,8 @@ tensors.  Gravity and the CFL clamp follow the sweep, as in the JAX callers.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..config import SphConfig
@@ -44,44 +63,74 @@ from ..ops.launch import use_plain as _use_plain
 _MASS = 6   # slab store column of the mass (``slabs._MASS``)
 
 
+class SlabBand(NamedTuple):
+    """The exact band kernels' view of a rank's extended frame, built at
+    rebins (``slabs._band_tables``) and frozen with the window tables."""
+
+    cell_start: torch.Tensor  # [num_cells + 1] i32 first live row of each cell
+    cid: torch.Tensor         # [p_cap] i32 own cids, NO_CELL from the count on
+    rows: torch.Tensor        # [M] i64 extended-frame row of each live row
+    nl: int                   # live left-halo rows: own row i is live nl + i
+    nr: int                   # live right-halo rows (M = nl + count + nr)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers and their twins (same arguments)
 # ---------------------------------------------------------------------------
 
+def _band(band: SlabBand | None) -> SlabBand:
+    """On the card the band kernels walk the live rows' table, or raise: no
+    fallback to the block walk."""
+    if band is None:
+        raise ValueError("the slab band kernels need the live rows' "
+                         "cell-start table (SlabBand, from prepare_frame)")
+    return band
+
+
 def density_ext_plain(cfg, pos_l, mass_l, cid_l, ws, wc, cand_pos, cand_mass,
-                      cand_cid, self_base):
+                      cand_cid, self_base, band=None):
+    """The block-walk twin over the raw frame (``band`` is the kernel's)."""
     return sw.density_t_plain(cfg, pos_l, mass_l, cid_l, ws, wc, cand_pos,
                               cand_mass, cand_cid, self_base=self_base)
 
 
 def density_ext(cfg: SphConfig, pos_l, mass_l, cid_l, ws, wc, cand_pos,
-                cand_mass, cand_cid, self_base: int):
-    """Exact K1 over the extended frame: (rho [p_cap], ncount [p_cap])."""
+                cand_mass, cand_cid, self_base: int,
+                band: SlabBand | None = None):
+    """Exact K1 of the own slab: (rho [p_cap], ncount [p_cap]).  The twin
+    walks the raw frame's block windows (``ws``, ``wc``, ``self_base``), the
+    kernel the bands of its live rows (``band``), gathered here."""
     if _use_plain(pos_l):
         return density_ext_plain(cfg, pos_l, mass_l, cid_l, ws, wc, cand_pos,
                                  cand_mass, cand_cid, self_base)
-    out = sw._launch_density(cfg, sw.EXCL_ROW, pos_l, mass_l, cid_l, ws, wc,
-                             cand_pos, cand_mass, cand_cid, None, None,
-                             "density_kernel_t[slab]", self_base)
+    band = _band(band)
+    out = sw._launch_density_band(cfg, pos_l, mass_l, band.cid,
+                                  band.cell_start, cand_pos[band.rows],
+                                  cand_mass[band.rows], None,
+                                  "density_band_t[slab]", band.nl)
     density_ext.launches += 1
     return out
 
 
 def force_ext_plain(cfg, pos_l, vel_l, rho_l, cand, cid_l, ws, wc, cand_cid,
-                    self_base):
+                    self_base, band=None):
+    """The block-walk twin over the raw frame (``band`` is the kernel's)."""
     return sw.force_t_plain(cfg, pos_l, vel_l, rho_l, cand, cid_l, ws, wc,
                             cand_cid, self_base=self_base)
 
 
 def force_ext(cfg: SphConfig, pos_l, vel_l, rho_l, cand, cid_l, ws, wc,
-              cand_cid, self_base: int):
-    """Exact K2 over the extended frame: hydro acc [p_cap, 3]."""
+              cand_cid, self_base: int, band: SlabBand | None = None):
+    """Exact K2 of the own slab: hydro acc [p_cap, 3], the twin over the raw
+    frame's windows, the kernel over the bands of the live rows of
+    ``cand`` (gathered here)."""
     if _use_plain(pos_l):
         return force_ext_plain(cfg, pos_l, vel_l, rho_l, cand, cid_l, ws, wc,
                                cand_cid, self_base)
-    acc = sw._launch_force(cfg, sw.EXCL_ROW, pos_l, vel_l, rho_l, cand, cid_l,
-                           ws, wc, cand_cid, None, "force_kernel_t[slab]",
-                           self_base)
+    band = _band(band)
+    acc = sw._launch_force_band(cfg, pos_l, vel_l, rho_l, cand[band.rows],
+                                band.cid, band.cell_start, None,
+                                "force_band_t[slab]", band.nl)
     force_ext.launches += 1
     return acc
 
@@ -195,33 +244,39 @@ def _finish(cfg: SphConfig, acc: torch.Tensor, pos: torch.Tensor
 
 
 def density_local_args(cfg: SphConfig, ext, cid_ext, ws, wc, h_cap: int,
-                       p_cap: int) -> tuple:
+                       p_cap: int, band: SlabBand | None = None) -> tuple:
+    """The raw frame's columns (views: the twin and the kernel gather their
+    own rows) and the frozen ``band`` of the kernel."""
     pos, _, mass, cid = _own(ext, cid_ext, h_cap, p_cap)
-    return (cfg, pos, mass, cid, ws, wc, ext[:, 0:3].contiguous(),
-            ext[:, _MASS].contiguous(), cid_ext, h_cap)
+    return (cfg, pos, mass, cid, ws, wc, ext[:, 0:3], ext[:, _MASS], cid_ext,
+            h_cap, band)
 
 
 def density_local(cfg: SphConfig, ext, cid_ext, ws, wc, h_cap: int,
-                  p_cap: int):
+                  p_cap: int, band: SlabBand | None = None):
     """Exact density of the own slab: (rho [p_cap], ncount [p_cap])."""
     return density_ext(*density_local_args(cfg, ext, cid_ext, ws, wc, h_cap,
-                                           p_cap))
+                                           p_cap, band))
 
 
 def force_local_args(cfg: SphConfig, ext, cid_ext, rho_e, rho_l, ws, wc,
-                     h_cap: int, p_cap: int) -> tuple:
+                     h_cap: int, p_cap: int, band: SlabBand | None = None
+                     ) -> tuple:
+    """The raw frame's force columns and the frozen ``band`` of the
+    kernel."""
     pos, vel, _, cid = _own(ext, cid_ext, h_cap, p_cap)
     cand = sw.fused_cand_cols(cfg, ext[:, 0:3], ext[:, 3:6], rho_e,
                               ext[:, _MASS])
-    return (cfg, pos, vel, rho_l, cand, cid, ws, wc, cid_ext, h_cap)
+    return (cfg, pos, vel, rho_l, cand, cid, ws, wc, cid_ext, h_cap, band)
 
 
 def force_local(cfg: SphConfig, ext, cid_ext, rho_e, rho_l, ws, wc,
-                h_cap: int, p_cap: int) -> torch.Tensor:
+                h_cap: int, p_cap: int, band: SlabBand | None = None
+                ) -> torch.Tensor:
     """Exact acceleration of the own slab [p_cap, 3]; ``rho_e`` holds the
     extended frame's densities (halo rows from the neighbours)."""
     args = force_local_args(cfg, ext, cid_ext, rho_e, rho_l, ws, wc, h_cap,
-                            p_cap)
+                            p_cap, band)
     return _finish(cfg, force_ext(*args), args[1])
 
 

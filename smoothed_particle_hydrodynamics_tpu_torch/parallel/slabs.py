@@ -30,8 +30,9 @@ frame's unkept tail carries ``sweeps_t.TAIL_CID`` instead of -10.
 
 The sweeps are ``celllist`` (plain PyTorch cell-list ranges, no kernel) or
 ``pallas``: the CUDA kernels of ``csrc/sweep_t.cu`` over the extended frame
-(``slab_sweeps``), exact or, with ``cfg.capped_candidates``, capped
-(two-pass or, with ``cfg.capped_fused``, pre-pass + fused).
+(``slab_sweeps``), exact (band walks over the frame's live rows) or, with
+``cfg.capped_candidates``, capped (two-pass or, with ``cfg.capped_fused``,
+pre-pass + fused).
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ import torch.nn.functional as F
 from ..config import SphConfig, _f32
 from ..ops import celllist
 from ..ops import sweeps_t as sw
-from ..ops.grid import cell_coords, linear_cell_id, rod_deltas
+from ..ops.grid import NO_CELL, cell_coords, linear_cell_id, rod_deltas
 from ..ops.integrate import kdk_integrate
 from ..ops.lazy import skin_half
 from ..state import (ParticleState, StepDiagnostics, stack_diagnostics,
@@ -332,6 +333,30 @@ def _pallas_tables(cfg: SphConfig, cid_loc: torch.Tensor,
                     cnt, nblocks)
 
 
+def _band_tables(cfg: SphConfig, ext: torch.Tensor, cid_ext: torch.Tensor,
+                 cid_s: torch.Tensor, cnt: int, h_cap: int
+                 ) -> ss.SlabBand:
+    """The exact band kernels' frozen tables (rebins only): the extended
+    frame's live rows in order (valid halo rows and the own slab's first
+    ``cnt``), the search of their cids for each cell's first row, and the
+    own cids with ``NO_CELL`` on the dead rows.
+
+    The frame's cids ascend, so its live rows' do too.  The inert chain
+    ends, the own dead run (cid ``slab_hi - 1``) and a short neighbour's
+    dead rows (its last cell) are left out: a table over the raw frame
+    would put the dead runs inside real cells' row ranges.
+    """
+    rows = torch.nonzero(ext[:, _OID] >= 0.0).squeeze(1)
+    nl = int((rows < h_cap).sum())
+    cell_start = torch.searchsorted(
+        cid_ext[rows],
+        torch.arange(cfg.num_cells + 1, dtype=torch.int32, device=ext.device),
+        out_int32=True)
+    own = torch.arange(cid_s.shape[0], device=ext.device)
+    cid = torch.where(own < cnt, cid_s, NO_CELL).to(torch.int32)
+    return ss.SlabBand(cell_start, cid, rows, nl, rows.shape[0] - nl - cnt)
+
+
 def _sub_pad(cfg: SphConfig, sub_len: int) -> int:
     return sw._round_up(sub_len + cfg.pallas_window_t, sw.LANE)
 
@@ -436,8 +461,10 @@ class LazySlabCarry(NamedTuple):
     ``tabs`` are the frozen structure, rebuilt when the global per-axis
     displacement spread exceeds cell - h (the single-chip lazy driver's
     invariant).  ``tabs`` is (rng_s, rng_e) for the celllist sweeps, (ws,
-    wc) for the exact kernels, (ws, wc, sub_src, cand_cid, w_sub,
-    sub_dropped) in capped mode, + (ws_sub, wc_sub) when fused.
+    wc, band) for the exact kernels (``band`` the band walks'
+    ``slab_sweeps.SlabBand``, ``ws``/``wc`` the block windows of the twins),
+    (ws, wc, sub_src, cand_cid, w_sub, sub_dropped) in capped mode, +
+    (ws_sub, wc_sub) when fused.
     """
 
     fields: torch.Tensor   # [p_cap, 8] f32, bin-time sorted order
@@ -622,7 +649,8 @@ def prepare_frame(cfg: SphConfig, group: SlabGroup, p_cap: int, h_cap: int,
                                        tab_cells)
     elif sweeps == "pallas":
         tabs = _pallas_tables(cfg, cid_s, cid_ext, h_cap, p_cap, cnt,
-                              slab_hi, tab_base, tab_cells)
+                              slab_hi, tab_base, tab_cells) + (
+            _band_tables(cfg, ext, cid_ext, cid_s, cnt, h_cap),)
     else:
         tabs = _local_ranges(cfg, cid_ext, cid_s, fields_s[:, _OID] >= 0.0)
     return SlabFrame(fields_s, cid_s, cnt, pos_bin, ext, cid_ext, tabs, need,
@@ -711,9 +739,9 @@ def slab_step_body(cfg: SphConfig, group: SlabGroup, p_cap: int, h_cap: int,
                 cfg, ext, g8, cid_ext, ws, wc, sub_src, cand_cid, w_sub,
                 h_cap, p_cap)
     elif sweeps == "pallas":
-        ws, wc = tabs
+        ws, wc, band = tabs
         rho_l, nc_l = ss.density_local(cfg, ext, cid_ext, ws, wc, h_cap,
-                                       p_cap)
+                                       p_cap, band)
         trunc = torch.zeros((), dtype=torch.int32, device=dev)
     else:
         rng_s, rng_e = tabs
@@ -738,7 +766,7 @@ def slab_step_body(cfg: SphConfig, group: SlabGroup, p_cap: int, h_cap: int,
                                       p_cap)
     elif sweeps == "pallas":
         acc_l = ss.force_local(cfg, ext, cid_ext, rho_e, rho_l, ws, wc, h_cap,
-                               p_cap)
+                               p_cap, band)
     else:
         acc_l = celllist.force_rows(
             cfg, pos_e, vel_e, mass_e, rho_e, rng_s, rng_e, own_idx, pos_i,
@@ -796,13 +824,16 @@ def _table_zeros(cfg: SphConfig, sweeps: str, p_cap: int, sub_len: int = 0,
     b = sw._blane(cfg)
     tsize = (p_cap // b) * sw.NRODS
     tabs = (torch.zeros(tsize, **i32), torch.zeros(tsize, **i32))
-    if cfg.capped_candidates:
-        tabs += (torch.zeros(sub_len, **i32), torch.zeros(sub_len, **i32),
-                 torch.zeros(sub_len, dtype=torch.float32, device=device),
-                 torch.zeros((), **i32))
-        if cfg.capped_fused:
-            ssize = -(-sub_len // b) * sw.NRODS
-            tabs += (torch.zeros(ssize, **i32), torch.zeros(ssize, **i32))
+    if not cfg.capped_candidates:
+        return tabs + (ss.SlabBand(
+            torch.zeros(cfg.num_cells + 1, **i32), torch.zeros(p_cap, **i32),
+            torch.zeros(0, dtype=torch.int64, device=device), 0, 0),)
+    tabs += (torch.zeros(sub_len, **i32), torch.zeros(sub_len, **i32),
+             torch.zeros(sub_len, dtype=torch.float32, device=device),
+             torch.zeros((), **i32))
+    if cfg.capped_fused:
+        ssize = -(-sub_len // b) * sw.NRODS
+        tabs += (torch.zeros(ssize, **i32), torch.zeros(ssize, **i32))
     return tabs
 
 
@@ -985,8 +1016,10 @@ def run_slab_steps(group: SlabGroup, cfg: SphConfig, state, caps, zsplit,
     ``rebalance=(block, threshold)`` calls ``maybe_rebalance`` after every
     ``block`` steps.  Returns plain numpy / Python values (``spawn_ranks``
     pickles them): the per-step diagnostics, the ranks' counts after each
-    step, the rebins, the rebalances, the collected final state and whether
-    every original id is held exactly once.
+    step, the rebins, the rebalances, the collected final state, whether
+    every original id is held exactly once, this rank's live halo rows
+    (nl, nr) of the exact band tables (None in other modes) and the slab
+    kernel wrappers' launch counts in this process.
     """
     if isinstance(state, dict):
         state = state_from_numpy(state, group.device)
@@ -1013,7 +1046,13 @@ def run_slab_steps(group: SlabGroup, cfg: SphConfig, state, caps, zsplit,
     pos, vel, mass = collect_rows(rows, n)
     oid = rows[:, _OID][rows[:, _OID] >= 0].astype(np.int64)
     stacked = stack_diagnostics(diags)
+    # the exact band tables (a rebalance on the last step leaves a fresh
+    # SlabCarry, without tables)
+    band = (carry.tabs[2] if sweeps == "pallas" and not cfg.capped_candidates
+            and isinstance(carry, LazySlabCarry) else None)
     return dict(
+        band_halo=None if band is None else (band.nl, band.nr),
+        launches={w.__name__: w.launches for w in ss.WRAPPERS},
         diags={k: v.cpu().numpy() for k, v in stacked._asdict().items()},
         counts=counts, rebins=rebins, rebalanced=rebalanced,
         caps=caps, zsplit=zsplit, position=pos, velocity=vel, mass=mass,

@@ -9,8 +9,10 @@ particles, for the lane layout (1.0h cells, window 512), for the sublane
 headline shapes (1.25h cells, window 208) and for capped mode on them
 (``capped_candidates`` 4; block, window and sub frame derived as the CLI
 derives them): the block walk's rows and the band kernels'
-(``band_rows_per_lane``; the lane band kernels' ``lane_band_rows_per_lane``),
-with the mean neighbor count.
+(``band_rows_per_lane``; the lane band kernels' ``lane_band_rows_per_lane``;
+the slab engine's exact band kernels' ``slab_band_rows_per_lane``), with
+the mean neighbor count.  ``corner_state`` builds the 4-slab frame on which
+a slab table over the raw extended frame would test dead rows.
 """
 
 from __future__ import annotations
@@ -68,6 +70,55 @@ def band_rows_per_lane(cfg, cid, cell_start, m: int) -> dict:
     from ..ops.sweeps_t import band_ranges
 
     return band_stats(*band_ranges(cfg, cid, cell_start), m)
+
+
+def slab_band_rows_per_lane(cfg, band, count: int) -> dict:
+    """``band_stats`` of the slab engine's exact band kernels over a rank's
+    frozen ``slab_sweeps.SlabBand``: the bands of the ``count`` live own
+    rows (cids ``band.cid[:count]``; the dead rows walk nothing) in the
+    table of the frame's live rows (compacted rows; own row i is live row
+    ``band.nl + i``).  At world size 1 the live rows are the single-chip
+    sorted frame, so this equals ``band_rows_per_lane`` of its table."""
+    return band_rows_per_lane(cfg, band.cid[:count], band.cell_start,
+                              band.rows.shape[0])
+
+
+def corner_state(cfg, counts: tuple = (600, 900, 1200), short: int = 40,
+                 seed: int = 9):
+    """The frame where a table over a slab's raw extended frame walks dead
+    rows: a 4-slab state on a cubic grid of 16s cells a side (s =
+    ``grid_nx / 16``, nz/4 planes per rank) whose rank 1 holds its
+    bottom-corner column end (``counts[0]`` particles from cell (0, 0, 4s)),
+    its top-corner one (``counts[1]``, to cell (16s-1, 16s-1, 8s-1): its last
+    cell, the own dead run's) and a layer between (``counts[2]``), while
+    ranks 0 and 2 hold ``short`` particles each, fewer than ``h_cap``: so
+    rank 1's left halo ends in rank 0's dead rows (in the cell (16s-1,
+    16s-1, 4s-1), next to rank 1's first) and its right halo in rank 2's.
+    Positions uniform in the cells named, velocities 0.01 normal, from
+    numpy's generator at ``seed``; a CPU state."""
+    import numpy as np
+
+    from ..state import ParticleState
+
+    rng = np.random.default_rng(seed)
+    s, c = cfg.grid_nx / 16, cfg.cell_size
+
+    def box(lo, hi, k, dz=(0.0, 0.0)):
+        lo = np.asarray(lo, float) * s + (0.0, 0.0, dz[0])
+        hi = np.asarray(hi, float) * s + (0.0, 0.0, dz[1])
+        return (lo + (hi - lo) * rng.random((k, 3))) * c
+
+    pos = np.concatenate([
+        box((0, 0, 4), (3, 3, 6), counts[0], (0.0, -0.1)),    # rank 1
+        box((12, 12, 6), (16, 16, 8), counts[1], (0.1, 0.0)),  # rank 1
+        box((0, 0, 5), (16, 16, 7), counts[2]),   # rank 1: the layer
+        box((10, 10, 2), (16, 16, 4), short),     # rank 0, below rank 1
+        box((0, 0, 8), (4, 4, 10), short),        # rank 2, above rank 1
+        box((4, 4, 13), (8, 8, 15), short),       # rank 3
+    ]).astype(np.float32)
+    vel = (0.01 * rng.standard_normal(pos.shape)).astype(np.float32)
+    return ParticleState.from_arrays(torch.from_numpy(pos),
+                                     torch.from_numpy(vel), cfg=cfg)
 
 
 def lane_band_rows_per_lane(cfg, p) -> dict:
