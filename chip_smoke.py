@@ -63,24 +63,29 @@ Phases (every failed check raises, and the script exits nonzero):
 11. the distributed slab engine's six kernel callers (``parallel/
    slab_sweeps.py``: exact K1/K2, the band walks ``density_band_t`` and
    ``force_band_t`` over the live rows of a rank's extended frame; capped
-   K1/K2, the sub-frame pre-pass K1 and K3, block walks over the frame with
-   ``self_base = h_cap``) against their twins on the 1M splash at world
-   size 1 (bench.py's ``slab_1dev`` and ``slab_capped_k4`` geometry:
-   occupancy split, caps at headroom 1.05, window derived, K_c 4 on
-   256-row blocks): counts equal, rho rel-L2 <= 1e-6, acc rel-L2 <= 1e-4
-   (the exact pair on the live rows), every row finite; kernel and twin
-   times with their bounds.  The exact band walks also against the
-   ``EXCL_ROW`` block walks over the raw frame on the same tensors: counts,
-   rho and acc bit-equal on the live rows, the dead rows 0; rows tested per
-   lane (band mean, max over a warp, warp union) beside the block walk's
-   per thread and equal to the single-chip band walks' on the same state;
-   band and block walks timed in turns (the band kernels launched on the
-   live rows the wrappers gather, so time and bound are the kernels').
-   Then the engine's 4 ranks (``spawn_ranks``, gloo, all on cuda:0, each
-   with its own ``prepare_frame``) on a box whose rank-1 corner cells are
-   populated and whose ranks 0 and 2 hold fewer rows than ``h_cap``
-   (``walk_stats.corner_state``): the same bit-equality on every rank, and
-   the rows a table over the raw frame would test on rank 1;
+   K1/K2, the same band walks with ``kExclSrc`` over the sub frame's
+   cell-start table (``SubBand``, ``self_base = h_cap``); the sub-frame
+   pre-pass K1 and K3, block walks over the frame) against their twins on
+   the 1M splash at world size 1 (bench.py's ``slab_1dev`` and
+   ``slab_capped_k4`` geometry: occupancy split, caps at headroom 1.05,
+   window derived, K_c 4 on 256-row blocks): counts equal, rho rel-L2 <=
+   1e-6, acc rel-L2 <= 1e-4 (the exact pair on the live rows), every row
+   finite; kernel and twin times with their bounds.  The exact band walks
+   also against the ``EXCL_ROW`` block walks over the raw frame on the
+   same tensors: counts, rho and acc bit-equal on the live rows, the dead
+   rows 0; the capped ones against the ``EXCL_SRC`` block walks over the
+   sub frame: bit-equal on every own row; rows tested per lane (band mean,
+   max over a warp, warp union) beside the block walk's per thread and
+   equal to the single-chip band walks' on the same state (capped: the
+   same cell-start table too); band and block walks timed in turns (the
+   exact band kernels launched on the live rows the wrappers gather, so
+   time and bound are the kernels').  Then the engine's 4 ranks
+   (``spawn_ranks``, gloo, all on cuda:0, each with its own
+   ``prepare_frame``) on a box whose rank-1 corner cells are populated and
+   whose ranks 0 and 2 hold fewer rows than ``h_cap``
+   (``walk_stats.corner_state``): the same bit-equalities on every rank,
+   exact and capped, and the rows a table over the raw frame would test on
+   rank 1;
 12. the slab engine at world size 1 (an NCCL group of one rank) against the
    single-chip lazy step, one step from the same 1M splash state, exact and
    capped: neighbor mean, max and min equal to the single-chip counts', KE
@@ -96,7 +101,8 @@ Phases (every failed check raises, and the script exits nonzero):
    ``run_slab_benchmark`` on the 1M splash at world size 1 (NCCL group of
    one), exact, capped (K_c 4, 256-row blocks) and capped fused, 3 warmup +
    20 timed steps: each kernel of a path launched once per step, no
-   ``EXCL_ROW`` block walk launched, no counted loss, a finite state; then
+   ``EXCL_ROW`` or ``EXCL_SRC`` block walk launched, no counted loss, a
+   finite state; then
    the single-chip lazy step and the slab step
    in turns (single, slab, slab, single), exact, printing ms/step each;
 15. the hardware probes (``tools/probe_{vpu_ops,gather,mxu}.py``, no step
@@ -162,6 +168,10 @@ SLAB_CAPPED = dict(cell_size_factor=1.25, capped_candidates=4,
                    pallas_block_t=256, pallas_window_t=0)
 SLAB_FUSED = dict(SLAB_CAPPED, capped_fused=True)
 SLAB_HEADROOM = 1.05
+# the populated-corner split's capped frames (phase 11): K_c 4 on the
+# capped main path's 256-row blocks
+CORNER_CAPPED = dict(capped_candidates=4, pallas_block_t=256,
+                     pallas_window_t=32)
 
 
 class Kernel(NamedTuple):
@@ -202,10 +212,10 @@ KERNELS = {
     "force_band_t[slab]": Kernel(
         "slab", "force_ext", "force_ext_plain", SOURCE_T, f"{TPU_SLABS}:570",
         36, f"{TPU_SLABS}:588"),
-    "density_kernel_t<capped>[slab]": Kernel(
+    "density_band_t<capped>[slab]": Kernel(
         "slab", "density_ext_capped", "density_ext_capped_plain", SOURCE_T,
         f"{TPU_SLABS}:570", 15, f"{TPU_SLABS}:663"),
-    "force_kernel_t<capped>[slab]": Kernel(
+    "force_band_t<capped>[slab]": Kernel(
         "slab", "force_ext_capped", "force_ext_capped_plain", SOURCE_T,
         f"{TPU_SLABS}:570", 36, f"{TPU_SLABS}:704"),
     "density_kernel_t<prepass>[slab]": Kernel(
@@ -233,8 +243,8 @@ PATHS = {
 }
 SLAB_PATHS = {
     "slab exact": (SLAB, ("density_band_t[slab]", "force_band_t[slab]")),
-    "slab capped": (SLAB_CAPPED, ("density_kernel_t<capped>[slab]",
-                                  "force_kernel_t<capped>[slab]")),
+    "slab capped": (SLAB_CAPPED, ("density_band_t<capped>[slab]",
+                                  "force_band_t<capped>[slab]")),
     "slab fused": (SLAB_FUSED, ("density_kernel_t<prepass>[slab]",
                                 "fused_kernel_t[slab]")),
 }
@@ -629,9 +639,11 @@ def corner_rank(group, job: dict) -> dict:
     first step, built by the engine (``slabs.prepare_frame``), its exact
     band walks held against the twins and the block walks
     (``slab_exact_vs_block``), and, on rank 1, the rows a table over the
-    raw frame would test.  Returns the rank's count, live halo rows, band
-    statistics and (rank 1) its last cell's rows and the raw table's
-    statistics."""
+    raw frame would test; then its capped frame of the same state
+    (``job["capped"]``: config, caps, sub-frame length), its capped band
+    walks held the same way (``slab_capped_vs_block``).  Returns the
+    rank's count, live halo rows, band statistics (exact and capped) and
+    (rank 1) its last cell's rows and the raw table's statistics."""
     from smoothed_particle_hydrodynamics_tpu_torch.parallel import slabs
     from smoothed_particle_hydrodynamics_tpu_torch.state import (
         state_from_numpy)
@@ -659,13 +671,108 @@ def corner_rank(group, job: dict) -> dict:
             out_int32=True)
         out["raw"] = band_rows_per_lane(cfg, frame.cid_s[:frame.count], raw,
                                         frame.ext.shape[0])
+    cap = job["capped"]
+    carry = slabs.init_lazy_slab(
+        cap["cfg"], group, slabs.distribute(cap["cfg"], st, group,
+                                            cap["caps"][0], zs),
+        cap["caps"][0], "pallas", cap["sub_len"])
+    frame = slabs.prepare_frame(cap["cfg"], group, *cap["caps"], "pallas", zs,
+                                True, cap["sub_len"], carry)
+    out["capped_stats"] = slab_capped_vs_block(
+        cap["cfg"], group, frame, cap["caps"],
+        f"slab corner rank {d} capped")[-1]
     return out
 
 
-def slab_vs_twins(cfg, group, frame, caps, label: str):
-    """The slab engine's four capped kernels against their twins on one
-    rank's frame (``slabs.prepare_frame`` with ``capped_fused``, which holds
-    both table sets).  Every output row, dead ones included, must be
+def slab_capped_vs_block(cfg, group, frame, caps, label: str):
+    """The slab engine's capped K1/K2, the band walks over the sub frame's
+    table (``SubBand``) of one rank's frame (``slabs.prepare_frame``),
+    against their twins and against the ``EXCL_SRC`` block walks over the
+    same sub frame on the same card tensors: counts, rho and acc bit-equal
+    on every own row (the dead rows 0 on both) and within the bars of the
+    twins'; every row finite.  The halo rows' densities come from the
+    neighbours (``exchange_rho`` on ``group``).  Prints the rows tested per
+    lane beside the block walk's per thread.  Returns the max abs errors,
+    the wrapper arguments, the pairs within h, the tensors each band kernel
+    reads (for its bound: each row once, not the table), the block walks'
+    launches, all by kernel name, and the band statistics."""
+    from types import SimpleNamespace
+
+    from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
+    from smoothed_particle_hydrodynamics_tpu_torch.parallel import (
+        slab_sweeps as ss, slabs)
+    from smoothed_particle_hydrodynamics_tpu_torch.utils.walk_stats import (
+        slab_sub_band_rows_per_lane, sublane_rows_per_thread)
+
+    p_cap, h_cap, _ = caps
+    ext, cid, cnt = frame.ext, frame.cid_ext, frame.count
+    ws, wc, sub_src, cand_cid, w_sub, sub_dropped, band = frame.tabs[:7]
+    s_len = sub_src.shape[0]
+    n_kept = int(band.cell_start[-1])
+    print(f"[{label}] p_cap={p_cap} h_cap={h_cap} count={cnt} "
+          f"window={cfg.pallas_window_t} block={sw._blane(cfg)} "
+          f"max_wc={wc.max().item()} S={s_len} kept={n_kept} "
+          f"sub_dropped={int(sub_dropped)}")
+    check(n_kept == int((cand_cid >= 0).sum()),
+          f"{label}: the table's kept count is the sub frame's")
+    n_d, n_f = "density_band_t<capped>[slab]", "force_band_t<capped>[slab]"
+    g8 = ext[sub_src.long()]
+    args = {n_d: ss.density_local_capped_args(
+        cfg, ext, g8, cid, ws, wc, sub_src, cand_cid, w_sub, h_cap, p_cap,
+        band)}
+    rho_k, nc_k = ss.density_ext_capped(*args[n_d])
+    rho_p, nc_p = ss.density_ext_capped_plain(*args[n_d])
+    rho_e = slabs.exchange_rho(group, rho_k, cnt, h_cap)
+    args[n_f] = ss.force_local_capped_args(
+        cfg, ext, g8, cid, rho_e, rho_k, ws, wc, sub_src, cand_cid, w_sub,
+        h_cap, p_cap, band)
+    acc_k, acc_p = ss.force_ext_capped(*args[n_f]), ss.force_ext_capped_plain(
+        *args[n_f])
+    _, pos_l, mass_l, cid_l, _, _, cpos, cmass = args[n_d][:8]
+    _, _, vel_l, _, cand = args[n_f][:5]
+    block = {
+        n_d: lambda: sw._launch_density(
+            cfg, sw.EXCL_SRC, pos_l, mass_l, cid_l, ws, wc, cpos, cmass,
+            cand_cid, sub_src, None, "density_kernel_t<capped>[slab]", h_cap),
+        n_f: lambda: sw._launch_force(
+            cfg, sw.EXCL_SRC, pos_l, vel_l, rho_k, cand, cid_l, ws, wc,
+            cand_cid, sub_src, "force_kernel_t<capped>[slab]", h_cap)}
+    (rho_b, nc_b), acc_b = (fn() for fn in block.values())
+    torch.cuda.synchronize()
+    finite(label, n_d, rho_k, nc_k)
+    finite(label, n_f, acc_k)
+    nlive = -(-cnt // sw._blane(cfg)) * 9
+    window = sublane_rows_per_thread(
+        cfg, SimpleNamespace(ws=ws[:nlive], wc=wc[:nlive]), s_len)
+    stats = slab_sub_band_rows_per_lane(cfg, band, cnt)
+    print(f"[{label}] rows tested per thread (live blocks): block window "
+          f"{window:.1f}, band mean {stats['mean']:.1f}, band max over a "
+          f"warp {stats['warp_max']:.1f}, warp union "
+          f"{stats['warp_union']:.1f}")
+    bits = (bool(torch.equal(nc_b, nc_k)), bool(torch.equal(rho_b, rho_k)),
+            bool(torch.equal(acc_b, acc_k)))
+    dead = not (nc_k[cnt:].any() or rho_k[cnt:].any() or acc_k[cnt:].any())
+    print(f"[{label}] band kernels vs EXCL_SRC block walks over the sub "
+          f"frame on the same tensors: every own row counts, rho, acc "
+          f"bit-equal={bits}; dead rows 0={dead}")
+    check(all(bits), f"{label}: band walk vs block walk bit-equal {bits}")
+    check(dead, f"{label}: dead rows write 0")
+    errs = {n_d: agree(label, n_d, rho_k, rho_p, (nc_k, nc_p)),
+            n_f: agree(label, n_f, acc_k, acc_p, bar=ACC_BAR)}
+    pairs = int(nc_k.sum())
+    # the sums read the own rows (positions, masses or velocities and rho,
+    # the table's self cids), the staged sub-frame columns and src rows,
+    # each once, and, as elsewhere, not cell_start, the kernels' own index
+    reads = {n_d: (pos_l, mass_l, band.cid, cpos, cmass, sub_src),
+             n_f: (pos_l, vel_l, rho_k, band.cid, cand, sub_src)}
+    return errs, args, {n_d: pairs, n_f: pairs}, reads, block, stats
+
+
+def slab_fused_vs_twins(cfg, group, frame, caps, label: str):
+    """The slab engine's fused pair, the sub-frame pre-pass K1 and K3 (block
+    walks), against their twins on one rank's frame (``slabs.prepare_frame``
+    with ``capped_fused``, which holds the pre-pass tables).  Every output
+    row of K3, dead ones included, and every kept pre-pass row must be
     finite.  Returns the max abs errors, the arguments used (for timing)
     and the pairs within h each kernel sums (for its bound)."""
     from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
@@ -674,31 +781,16 @@ def slab_vs_twins(cfg, group, frame, caps, label: str):
 
     p_cap, h_cap, _ = caps
     ext, cid, f = frame.ext, frame.cid_ext, frame
-    print(f"[{label}] p_cap={p_cap} h_cap={h_cap} count={f.count} "
-          f"window={cfg.pallas_window_t} block={sw._blane(cfg)} "
-          f"max_wc={f.tabs[1].max().item()}")
-    ws, wc, sub_src, cand_cid, w_sub, sub_dropped, ws_s, wc_s = f.tabs
+    ws, wc, sub_src, cand_cid, w_sub, _, _, ws_s, wc_s = f.tabs
     n_kept = int((cand_cid >= 0).sum())
-    print(f"[{label}] S={sub_src.shape[0]} kept={n_kept} "
-          f"sub_dropped={int(sub_dropped)} max_wc_sub={wc_s.max().item()}")
+    print(f"[{label}] fused: max_wc_sub={wc_s.max().item()}")
     g8 = ext[sub_src.long()]
-    names = ("density_kernel_t<capped>[slab]", "force_kernel_t<capped>[slab]",
-             "density_kernel_t<prepass>[slab]", "fused_kernel_t[slab]")
-    args = {names[0]: ss.density_local_capped_args(
-        cfg, ext, g8, cid, ws, wc, sub_src, cand_cid, w_sub, h_cap, p_cap)}
-    rho_k, nc_k = ss.density_ext_capped(*args[names[0]])
-    rho_p, nc_p = ss.density_ext_capped_plain(*args[names[0]])
-    rho_e = slabs.exchange_rho(group, rho_k, f.count, h_cap)
-    args[names[1]] = ss.force_local_capped_args(
-        cfg, ext, g8, cid, rho_e, rho_k, ws, wc, sub_src, cand_cid, w_sub,
-        h_cap, p_cap)
-    acc_k = ss.force_ext_capped(*args[names[1]])
-    acc_p = ss.force_ext_capped_plain(*args[names[1]])
-    args[names[2]] = ss.density_sub_local_args(cfg, g8, sub_src, cand_cid,
-                                               w_sub, ws_s, wc_s)
-    sub_k = ss.density_sub_pre(*args[names[2]])
+    names = ("density_kernel_t<prepass>[slab]", "fused_kernel_t[slab]")
+    args = {names[0]: ss.density_sub_local_args(cfg, g8, sub_src, cand_cid,
+                                                w_sub, ws_s, wc_s)}
+    sub_k = ss.density_sub_pre(*args[names[0]])
     _, pos_sub, mass_sub, wm_sub, cid_sub, src_sub, ws_sub, wc_sub = \
-        args[names[2]]
+        args[names[0]]
     # density_sub_pre_plain's own call, keeping the counts
     sub_p, sub_nc = sw.density_t_plain(cfg, pos_sub, mass_sub, cid_sub,
                                        ws_sub, wc_sub, pos_sub, wm_sub,
@@ -706,31 +798,25 @@ def slab_vs_twins(cfg, group, frame, caps, label: str):
     rho_cand, w_cand = slabs.fused_candidates(slabs.exchange_rho(
         group, slabs.scatter_sub_rho(sub_k, sub_src, cand_cid, h_cap, p_cap),
         f.count, h_cap), sub_src, w_sub)
-    args[names[3]] = ss.fused_local_capped_args(
+    args[names[1]] = ss.fused_local_capped_args(
         cfg, ext, g8, cid, rho_cand, ws, wc, sub_src, cand_cid, w_cand, h_cap,
         p_cap)
-    facc_k, frho_k, fnc_k = ss.fused_ext(*args[names[3]])
-    facc_p, frho_p, fnc_p = ss.fused_ext_plain(*args[names[3]])
+    facc_k, frho_k, fnc_k = ss.fused_ext(*args[names[1]])
+    facc_p, frho_p, fnc_p = ss.fused_ext_plain(*args[names[1]])
     torch.cuda.synchronize()
-    finite(label, names[0], rho_k, nc_k)
-    finite(label, names[1], acc_k)
-    finite(label, names[2], sub_k[:n_kept])
-    finite(label, names[3], facc_k, frho_k, fnc_k)
+    finite(label, names[0], sub_k[:n_kept])
+    finite(label, names[1], facc_k, frho_k, fnc_k)
     errs = {
-        names[0]: agree(label, names[0], rho_k, rho_p, (nc_k, nc_p)),
-        names[1]: agree(label, names[1], acc_k, acc_p, bar=ACC_BAR),
         # the tail rows' pre-pass values feed no pair: kept rows only
-        names[2]: agree(label, f"{names[2]} (kept rows)", sub_k[:n_kept],
+        names[0]: agree(label, f"{names[0]} (kept rows)", sub_k[:n_kept],
                         sub_p[:n_kept]),
-        names[3]: max(agree(label, f"{names[3]} rho", frho_k, frho_p,
+        names[1]: max(agree(label, f"{names[1]} rho", frho_k, frho_p,
                             (fnc_k, fnc_p)),
-                      agree(label, f"{names[3]} acc", facc_k, facc_p,
+                      agree(label, f"{names[1]} acc", facc_k, facc_p,
                             bar=ACC_BAR)),
     }
-    capped = int(nc_k.sum())
-    return errs, args, {names[0]: capped, names[1]: capped,
-                        names[2]: int(sub_nc[:n_kept].sum()),
-                        names[3]: int(fnc_k.sum())}
+    return errs, args, {names[0]: int(sub_nc[:n_kept].sum()),
+                        names[1]: int(fnc_k.sum())}
 
 
 def walks_in_turns(args: dict, block: dict, label: str,
@@ -1183,8 +1269,10 @@ def main() -> int:
     # 11. the slab callers' kernels vs their twins at the 1M slab shapes
     #     (world size 1: both halos are inert chain ends here); the exact
     #     band walks also vs the EXCL_ROW block walks over the raw frame,
-    #     bit-equal on the live rows and timed in turns, with rows per lane
-    #     equal to the single-chip band walks' on the same state
+    #     bit-equal on the live rows, the capped ones vs the EXCL_SRC block
+    #     walks over the sub frame, bit-equal on every own row, both timed
+    #     in turns, with rows per lane equal to the single-chip band walks'
+    #     on the same state
     for label, ov in (("slab exact 1M", SLAB), ("slab capped 1M", SLAB_FUSED)):
         cfg, st, zsplit, caps, sub_len = slab_setup(
             1_000_000, ov, SLAB_HEADROOM, dev)
@@ -1197,25 +1285,40 @@ def main() -> int:
             frame = slabs.prepare_frame(cfg, grp, *caps, "pallas", zsplit,
                                         True, sub_len, carry)
             if cfg.capped_candidates:
-                slab_errs, args, slab_pairs = slab_vs_twins(cfg, grp, frame,
-                                                            caps, label)
-                times.update(timed(args, slab_pairs))
+                slab_errs, args, slab_pairs, reads, block, stats = \
+                    slab_capped_vs_block(cfg, grp, frame, caps, label)
+                times.update(timed(args, slab_pairs, reads=reads))
+                walks_in_turns(args, block, label)
+                # the sub frame keeps each cell's single-chip count
+                p1 = sw.prepare_t(cfg, st)
+                same_table = bool(torch.equal(frame.tabs[6].cell_start,
+                                              p1.cell_start))
+                del args, reads, block
+                fused_errs, args, fused_pairs = slab_fused_vs_twins(
+                    cfg, grp, frame, caps, label)
+                slab_errs.update(fused_errs)
+                slab_pairs.update(fused_pairs)
+                times.update(timed(args, fused_pairs))
             else:
                 slab_errs, args, slab_pairs, bands, block, stats = \
                     slab_exact_vs_block(cfg, grp, frame, caps, label)
-                p1 = sw.prepare_t(cfg, st)
-                single = band_rows_per_lane(cfg, p1.cid, p1.cell_start, st.n)
-                print(f"[{label}] single-chip band walks on the same state: "
-                      f"mean {single['mean']:.1f}, max over a warp "
-                      f"{single['warp_max']:.1f}, warp union "
-                      f"{single['warp_union']:.1f}; slab equal="
-                      f"{stats == single}")
-                check(stats == single, f"{label}: rows per lane {stats} == "
-                      f"single-chip {single}")
                 times.update(timed(args, slab_pairs, reads=bands[1],
                                    launch=bands[0]))
                 walks_in_turns(args, block, label, bands[0])
-                del p1, block, bands
+                p1 = sw.prepare_t(cfg, st)
+                same_table = True
+                del block, bands
+            single = band_rows_per_lane(cfg, p1.cid, p1.cell_start, st.n)
+            print(f"[{label}] single-chip band walks on the same state: "
+                  f"mean {single['mean']:.1f}, max over a warp "
+                  f"{single['warp_max']:.1f}, warp union "
+                  f"{single['warp_union']:.1f}; slab equal="
+                  f"{stats == single}" + (f", cell_start equal={same_table}"
+                                          if cfg.capped_candidates else ""))
+            check(stats == single and same_table, f"{label}: rows per lane "
+                  f"{stats} == single-chip {single}, table equal "
+                  f"{same_table}")
+            del p1
             errs.update(slab_errs)
             pairs.update(slab_pairs)
         del carry, frame, args, st
@@ -1229,8 +1332,13 @@ def main() -> int:
     st = corner_state(cfg, (1_500, 2_500, 30_000), short=300)
     cfg = cfg.replace(num_particles=st.n)
     zsplit = slabs.uniform_zsplit(cfg, 4)
+    cfg_c = cfg.replace(**CORNER_CAPPED)
+    caps_c = slabs.derive_slab_caps(cfg_c, st, 4, zsplit=zsplit)
     job = dict(cfg=cfg, state=state_to_numpy(st), caps=slabs.derive_slab_caps(
-        cfg, st, 4, zsplit=zsplit), zsplit=zsplit)
+        cfg, st, 4, zsplit=zsplit), zsplit=zsplit, capped=dict(
+            cfg=cfg_c, caps=caps_c, sub_len=slabs.frame_sub_len(
+                cfg_c, "pallas", caps_c[0], caps_c[1],
+                slabs.derive_sub_len_slab(cfg_c, st, 4, zsplit))))
     ranks = spawn_ranks(4, corner_rank, job, backend="gloo",
                         devices=["cuda:0"] * 4, timeout_s=300.0)
     r1, h_cap = ranks[1], job["caps"][1]
@@ -1244,6 +1352,9 @@ def main() -> int:
     check(r1["top"] > 0 and 0 < r1["nl"] < h_cap and 0 < r1["nr"] < h_cap,
           f"slab corner rank 1: populated last cell ({r1['top']}), short "
           f"neighbours (nl {r1['nl']}, nr {r1['nr']}, h_cap {h_cap})")
+    print("[slab corner] capped band walks, rows per lane (max over a warp) "
+          "by rank: " + ", ".join(f"{r['capped_stats']['warp_max']:.1f}"
+                                  for r in ranks))
     del st
     for name in (n for n in KERNELS if n.endswith("[slab]")):
         t = times[name]
@@ -1353,21 +1464,23 @@ def main() -> int:
               f"ranks {label}: both ranks populated")
         del st, runs
 
-    # 14. the slab main paths, counted (the EXCL_ROW block walks too: no
-    #     slab path may run them); then single-chip and slab in turns
-    block_walks = {"n": 0}
+    # 14. the slab main paths, counted (the EXCL_ROW and EXCL_SRC block
+    #     walks too: no slab path may run them); then single-chip and slab
+    #     in turns
+    block_walks = {sw.EXCL_ROW: 0, sw.EXCL_SRC: 0}
 
-    def count_row_walks(launch):
+    def count_block_walks(launch):
         def counted(cfg, excl, *a, **kw):
-            block_walks["n"] += excl == sw.EXCL_ROW
+            if excl in block_walks:
+                block_walks[excl] += 1
             return launch(cfg, excl, *a, **kw)
         return counted
 
     launchers = sw._launch_density, sw._launch_force
-    sw._launch_density, sw._launch_force = map(count_row_walks, launchers)
+    sw._launch_density, sw._launch_force = map(count_block_walks, launchers)
     for path, (ov, names) in SLAB_PATHS.items():
         reset_launches()
-        block_walks["n"] = 0
+        block_walks.update({k: 0 for k in block_walks})
         r = run_slab_benchmark(n=1_000_000, steps=STEPS, warmup=WARMUP,
                                headroom=SLAB_HEADROOM, overrides=ov,
                                device="cuda")
@@ -1390,9 +1503,11 @@ def main() -> int:
             check(counts[name] == total_steps, f"{path}: {name} launched "
                   f"{counts[name]} times in {total_steps} steps")
             launches[name] = counts[name]
-        print(f"[main {path}] EXCL_ROW block-walk launches: "
-              f"{block_walks['n']}")
-        check(block_walks["n"] == 0, f"{path}: no EXCL_ROW block walk")
+        print(f"[main {path}] block-walk launches: EXCL_ROW "
+              f"{block_walks[sw.EXCL_ROW]}, EXCL_SRC "
+              f"{block_walks[sw.EXCL_SRC]}")
+        check(not any(block_walks.values()),
+              f"{path}: no EXCL_ROW or EXCL_SRC block walk {block_walks}")
         for k in ("truncated_ranges", "halo_dropped_steps",
                   "migration_dropped_steps"):
             check(len(r[k]) == total_steps and max(r[k]) == 0,

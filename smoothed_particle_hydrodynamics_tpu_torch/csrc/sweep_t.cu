@@ -5,15 +5,14 @@
 // the same sums.
 //
 // Replaces, in smoothed_particle_hydrodynamics_tpu/ops/pallas_step_t.py:
-//   K1 density_kernel_t<Excl>  <- _density_kernel_t: in the slab engine,
-//      capped (kExclSrc), and the fused path's sub-frame pre-pass
-//      (kExclSrcSrc, self_src_row=5);
-//   K2 force_kernel_t<Excl>    <- _force_kernel_t: in the slab engine, capped;
+//   K1 density_kernel_t<Excl>  <- _density_kernel_t: the fused path's
+//      sub-frame pre-pass (kExclSrcSrc, self_src_row=5);
 //   K3 fused_kernel_t          <- _fused_kernel_t (capped only);
-//   K1 density_band_t, K2 force_band_t <- the same two, exact and capped,
-//      on one device (the lazy paths), and exact in the slab engine: per-lane
-//      band walks, see their section.  The kExclRow block walks stay as
-//      their bit-equality reference.
+//   K1 density_band_t, K2 force_band_t <- _density_kernel_t and
+//      _force_kernel_t, exact and capped, on one device (the lazy paths) and
+//      in the slab engine: per-lane band walks, see their section.  The
+//      kExclRow and kExclSrc block walks density_kernel_t and
+//      force_kernel_t stay as their bit-equality reference.
 //
 // What they compute.  Particles are sorted by linear cell id
 // (z*ny + y)*nx + x, so each of the 9 (dy, dz) stencil rods of a block of b
@@ -404,14 +403,14 @@ __global__ void fused_kernel_t(FusedArgs a) {
 
 // ---------------------------------------------------------------------------
 // K1 and K2 as per-lane band walks: density_band_t and force_band_t, exact
-// (kExclRow) and capped (kExclSrc), the single-device lazy paths' kernels,
-// and exact (kExclRow) in the slab engine.
+// (kExclRow) and capped (kExclSrc), the single-device lazy paths' kernels
+// and the slab engine's.
 //
 // Replace _density_kernel_t (pallas_step_t.py:293, capped :321) and
 // _force_kernel_t (:360, capped :403) in place of density_kernel_t and
-// force_kernel_t above (which the pre-pass and the capped slab callers still
-// run); in the slab engine, the exact callers of _slab_chunked_call
-// (parallel/slabs.py:494, :588).
+// force_kernel_t above (which the pre-pass still runs); in the slab engine,
+// the exact and capped callers of _slab_chunked_call (parallel/slabs.py:494,
+// :588, :663, :704).
 //
 // The slab engine's candidates are the LIVE rows of a rank's extended frame
 // [left halo | own slab | right halo], compacted in order (the chain ends'
@@ -421,7 +420,10 @@ __global__ void fused_kernel_t(FusedArgs a) {
 // would hand every band that reaches that cell the whole run).  Its self
 // rows are the own slab: self row i is compacted row self_base + i
 // (self_base = the live left-halo rows), and its dead rows carry a self cid
-// of NO_CELL, so their bands are empty and they write 0.
+// of NO_CELL, so their bands are empty and they write 0.  In capped mode its
+// candidates are the rank's sub frame, as on one device; self row i's own id
+// is self_base + i = h_cap + i against each candidate's extended-frame row
+// csrc[j], and the dead rows carry NO_CELL as above.
 //
 // The candidate frame is sorted by cell id (exact: the sorted particles;
 // capped: the sub frame, whose kept rows come first in cid order), so the
@@ -918,7 +920,8 @@ int sph_fused_t(const float* pos, const float* vel, const float* mass,
 // kExclRow: the candidates are the self rows (cpos = pos, cmass = mass,
 // csrc null, self_base 0) or, in the slab engine, the live rows of the
 // extended frame (self_base: the compacted row of self row 0); kExclSrc:
-// the capped sub frame, csrc its sorted rows.
+// the capped sub frame, csrc its sorted rows (self_base 0) or, in the slab
+// engine, its extended-frame rows (self_base h_cap).
 int sph_density_band_t(const float* pos, const float* mass, const int* cid,
                        const float* cpos, const float* cmass, const int* csrc,
                        const int* cell_start, float* rho, int* ncount, int n,

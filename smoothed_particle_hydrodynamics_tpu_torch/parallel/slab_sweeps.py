@@ -36,6 +36,17 @@ sits at 1e30, and its d^2 is inf.  Their twins stay the block-walk twins
 over the raw frame; the block walks remain as ``chip_smoke.py``'s
 reference.
 
+Capped K1 and K2 are the same band kernels over the sub frame
+(``SubBand``): its kept rows lead in cid order and its unkept tail sits at
+``num_cells``, so the search of its cids is the cell-start table and no
+band reaches the tail.  Own row i keeps ``self_base = h_cap``, the
+exclusion ``sub_src[j] != h_cap + i`` of the ``EXCL_SRC`` block walks, and
+the own dead rows carry self cid ``NO_CELL`` (they walk nothing: rho 0,
+count 0, acc 0, as the block walks give them, since every sub-frame row is
+valid and a dead row's d^2 is inf).  On every own row the band walks equal
+the block walks bit for bit; the twins stay the block-walk twins over
+``ws``/``wc``.
+
 Dead rows (``[count, p_cap)`` of the slab) and the inert chain-end halos
 sit at position 1e30 with mass 0: a pair with one of them has d^2 = inf,
 which the kernels' ``d^2 < h^2`` test and the twins' ``torch.where`` reject
@@ -74,16 +85,25 @@ class SlabBand(NamedTuple):
     nr: int                   # live right-halo rows (M = nl + count + nr)
 
 
+class SubBand(NamedTuple):
+    """The capped band kernels' view of a rank's sub frame, built at rebins
+    (``slabs._sub_band``) and frozen with the window tables."""
+
+    cell_start: torch.Tensor  # [num_cells + 1] i32 first kept sub row per cell
+    cid: torch.Tensor         # [p_cap] i32 own cids, NO_CELL from the count on
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers and their twins (same arguments)
 # ---------------------------------------------------------------------------
 
-def _band(band: SlabBand | None) -> SlabBand:
-    """On the card the band kernels walk the live rows' table, or raise: no
-    fallback to the block walk."""
+def _band(band: SlabBand | SubBand | None) -> SlabBand | SubBand:
+    """On the card the band kernels walk their candidates' table, or raise:
+    no fallback to the block walk."""
     if band is None:
-        raise ValueError("the slab band kernels need the live rows' "
-                         "cell-start table (SlabBand, from prepare_frame)")
+        raise ValueError("the slab band kernels need their candidates' "
+                         "cell-start table (SlabBand or SubBand, from "
+                         "prepare_frame)")
     return band
 
 
@@ -136,7 +156,9 @@ def force_ext(cfg: SphConfig, pos_l, vel_l, rho_l, cand, cid_l, ws, wc,
 
 
 def density_ext_capped_plain(cfg, pos_l, mass_l, cid_l, ws, wc, cand_pos,
-                             cand_mass, cand_cid, cand_src, self_base):
+                             cand_mass, cand_cid, cand_src, self_base,
+                             band=None):
+    """The block-walk twin over the sub frame (``band`` is the kernel's)."""
     return sw.density_t_plain(cfg, pos_l, mass_l, cid_l, ws, wc, cand_pos,
                               cand_mass, cand_cid, cand_src,
                               self_base=self_base)
@@ -144,34 +166,42 @@ def density_ext_capped_plain(cfg, pos_l, mass_l, cid_l, ws, wc, cand_pos,
 
 def density_ext_capped(cfg: SphConfig, pos_l, mass_l, cid_l, ws, wc,
                        cand_pos, cand_mass, cand_cid, cand_src,
-                       self_base: int):
-    """Capped K1 over the extended frame's sub frame: (rho, ncount)."""
+                       self_base: int, band: SubBand | None = None):
+    """Capped K1 over the extended frame's sub frame: (rho, ncount).  The
+    twin walks the block windows (``ws``, ``wc``), the kernel the bands of
+    the sub frame's table (``band``)."""
     if _use_plain(pos_l):
         return density_ext_capped_plain(cfg, pos_l, mass_l, cid_l, ws, wc,
                                         cand_pos, cand_mass, cand_cid,
                                         cand_src, self_base)
-    out = sw._launch_density(cfg, sw.EXCL_SRC, pos_l, mass_l, cid_l, ws, wc,
-                             cand_pos, cand_mass, cand_cid, cand_src, None,
-                             "density_kernel_t<capped>[slab]", self_base)
+    band = _band(band)
+    out = sw._launch_density_band(cfg, pos_l, mass_l, band.cid,
+                                  band.cell_start, cand_pos, cand_mass,
+                                  cand_src, "density_band_t<capped>[slab]",
+                                  self_base)
     density_ext_capped.launches += 1
     return out
 
 
 def force_ext_capped_plain(cfg, pos_l, vel_l, rho_l, cand, cid_l, ws, wc,
-                           cand_cid, cand_src, self_base):
+                           cand_cid, cand_src, self_base, band=None):
+    """The block-walk twin over the sub frame (``band`` is the kernel's)."""
     return sw.force_t_plain(cfg, pos_l, vel_l, rho_l, cand, cid_l, ws, wc,
                             cand_cid, cand_src, self_base=self_base)
 
 
 def force_ext_capped(cfg: SphConfig, pos_l, vel_l, rho_l, cand, cid_l, ws, wc,
-                     cand_cid, cand_src, self_base: int):
-    """Capped K2 over the extended frame's sub frame: acc [p_cap, 3]."""
+                     cand_cid, cand_src, self_base: int,
+                     band: SubBand | None = None):
+    """Capped K2 over the extended frame's sub frame: acc [p_cap, 3], the
+    twin over the block windows, the kernel over the sub frame's bands."""
     if _use_plain(pos_l):
         return force_ext_capped_plain(cfg, pos_l, vel_l, rho_l, cand, cid_l,
                                       ws, wc, cand_cid, cand_src, self_base)
-    acc = sw._launch_force(cfg, sw.EXCL_SRC, pos_l, vel_l, rho_l, cand, cid_l,
-                           ws, wc, cand_cid, cand_src,
-                           "force_kernel_t<capped>[slab]", self_base)
+    band = _band(band)
+    acc = sw._launch_force_band(cfg, pos_l, vel_l, rho_l, cand, band.cid,
+                                band.cell_start, cand_src,
+                                "force_band_t<capped>[slab]", self_base)
     force_ext_capped.launches += 1
     return acc
 
@@ -282,34 +312,40 @@ def force_local(cfg: SphConfig, ext, cid_ext, rho_e, rho_l, ws, wc,
 
 def density_local_capped_args(cfg: SphConfig, ext, g8, cid_ext, ws, wc,
                               sub_src, cand_cid, w_sub, h_cap: int,
-                              p_cap: int) -> tuple:
+                              p_cap: int, band: SubBand | None = None
+                              ) -> tuple:
     pos, _, mass, cid = _own(ext, cid_ext, h_cap, p_cap)
     return (cfg, pos, mass, cid, ws, wc, g8[:, 0:3].contiguous(),
-            g8[:, _MASS] * w_sub, cand_cid, sub_src, h_cap)
+            g8[:, _MASS] * w_sub, cand_cid, sub_src, h_cap, band)
 
 
 def density_local_capped(cfg: SphConfig, ext, g8, cid_ext, ws, wc, sub_src,
-                         cand_cid, w_sub, h_cap: int, p_cap: int):
+                         cand_cid, w_sub, h_cap: int, p_cap: int,
+                         band: SubBand | None = None):
     """Capped density of the own slab over the sub frame; ``g8 =
-    ext[sub_src]`` is gathered once per step and shared with the force."""
+    ext[sub_src]`` is gathered once per step and shared with the force,
+    ``band`` the sub frame's frozen table (the kernel's)."""
     return density_ext_capped(*density_local_capped_args(
-        cfg, ext, g8, cid_ext, ws, wc, sub_src, cand_cid, w_sub, h_cap, p_cap))
+        cfg, ext, g8, cid_ext, ws, wc, sub_src, cand_cid, w_sub, h_cap, p_cap,
+        band))
 
 
 def force_local_capped_args(cfg: SphConfig, ext, g8, cid_ext, rho_e, rho_l,
                             ws, wc, sub_src, cand_cid, w_sub, h_cap: int,
-                            p_cap: int) -> tuple:
+                            p_cap: int, band: SubBand | None = None) -> tuple:
     pos, vel, _, cid = _own(ext, cid_ext, h_cap, p_cap)
     cand = sw.fused_cand_cols(cfg, g8[:, 0:3], g8[:, 3:6],
                               rho_e[sub_src.long()], g8[:, _MASS] * w_sub)
-    return (cfg, pos, vel, rho_l, cand, cid, ws, wc, cand_cid, sub_src, h_cap)
+    return (cfg, pos, vel, rho_l, cand, cid, ws, wc, cand_cid, sub_src, h_cap,
+            band)
 
 
 def force_local_capped(cfg: SphConfig, ext, g8, cid_ext, rho_e, rho_l, ws, wc,
-                       sub_src, cand_cid, w_sub, h_cap: int, p_cap: int
-                       ) -> torch.Tensor:
+                       sub_src, cand_cid, w_sub, h_cap: int, p_cap: int,
+                       band: SubBand | None = None) -> torch.Tensor:
     args = force_local_capped_args(cfg, ext, g8, cid_ext, rho_e, rho_l, ws,
-                                   wc, sub_src, cand_cid, w_sub, h_cap, p_cap)
+                                   wc, sub_src, cand_cid, w_sub, h_cap, p_cap,
+                                   band)
     return _finish(cfg, force_ext_capped(*args), args[1])
 
 

@@ -31,8 +31,8 @@ frame's unkept tail carries ``sweeps_t.TAIL_CID`` instead of -10.
 The sweeps are ``celllist`` (plain PyTorch cell-list ranges, no kernel) or
 ``pallas``: the CUDA kernels of ``csrc/sweep_t.cu`` over the extended frame
 (``slab_sweeps``), exact (band walks over the frame's live rows) or, with
-``cfg.capped_candidates``, capped (two-pass or, with ``cfg.capped_fused``,
-pre-pass + fused).
+``cfg.capped_candidates``, capped (two-pass, band walks over the sub frame,
+or, with ``cfg.capped_fused``, pre-pass + fused).
 """
 
 from __future__ import annotations
@@ -348,13 +348,34 @@ def _band_tables(cfg: SphConfig, ext: torch.Tensor, cid_ext: torch.Tensor,
     """
     rows = torch.nonzero(ext[:, _OID] >= 0.0).squeeze(1)
     nl = int((rows < h_cap).sum())
-    cell_start = torch.searchsorted(
-        cid_ext[rows],
-        torch.arange(cfg.num_cells + 1, dtype=torch.int32, device=ext.device),
-        out_int32=True)
-    own = torch.arange(cid_s.shape[0], device=ext.device)
-    cid = torch.where(own < cnt, cid_s, NO_CELL).to(torch.int32)
-    return ss.SlabBand(cell_start, cid, rows, nl, rows.shape[0] - nl - cnt)
+    return ss.SlabBand(_cell_start(cfg, cid_ext[rows]), _own_cids(cid_s, cnt),
+                       rows, nl, rows.shape[0] - nl - cnt)
+
+
+def _cell_start(cfg: SphConfig, cid_sorted: torch.Tensor) -> torch.Tensor:
+    """[num_cells + 1] i32: the first row of each cell in ascending cids
+    (a row at ``num_cells`` or above lies past every cell)."""
+    return torch.searchsorted(
+        cid_sorted, torch.arange(cfg.num_cells + 1, dtype=torch.int32,
+                                 device=cid_sorted.device), out_int32=True)
+
+
+def _own_cids(cid_s: torch.Tensor, cnt: int) -> torch.Tensor:
+    """The band kernels' self cids: the own slab's, ``NO_CELL`` on the dead
+    rows ``[cnt, p_cap)`` (which sit in the slab's last cell at 1e30): they
+    walk no band and write rho 0, count 0, acc 0."""
+    own = torch.arange(cid_s.shape[0], device=cid_s.device)
+    return torch.where(own < cnt, cid_s, NO_CELL).to(torch.int32)
+
+
+def _sub_band(cfg: SphConfig, cid_search: torch.Tensor, cid_s: torch.Tensor,
+              cnt: int) -> ss.SubBand:
+    """The capped band kernels' frozen table (rebins only): the search of
+    the sub frame's cids (its kept rows lead in cid order, the unkept tail
+    sits at ``num_cells``, so ``cell_start[num_cells]`` is the kept count
+    and no band reaches the tail) and the own cids with ``NO_CELL`` on the
+    dead rows."""
+    return ss.SubBand(_cell_start(cfg, cid_search), _own_cids(cid_s, cnt))
 
 
 def _sub_pad(cfg: SphConfig, sub_len: int) -> int:
@@ -463,7 +484,8 @@ class LazySlabCarry(NamedTuple):
     invariant).  ``tabs`` is (rng_s, rng_e) for the celllist sweeps, (ws,
     wc, band) for the exact kernels (``band`` the band walks'
     ``slab_sweeps.SlabBand``, ``ws``/``wc`` the block windows of the twins),
-    (ws, wc, sub_src, cand_cid, w_sub, sub_dropped) in capped mode, +
+    (ws, wc, sub_src, cand_cid, w_sub, sub_dropped, sub_band) in capped mode
+    (``sub_band`` the capped band walks' ``slab_sweeps.SubBand``), +
     (ws_sub, wc_sub) when fused.
     """
 
@@ -638,7 +660,8 @@ def prepare_frame(cfg: SphConfig, group: SlabGroup, p_cap: int, h_cap: int,
             cfg, ext, cid_ext, sub_len, slab_lo, slab_hi)
         tabs = _pallas_sub_tables(cfg, cid_s, cid_search, sub_len, cnt,
                                   tab_base, tab_cells) + (
-            sub_src, cand_cid, w_sub, sub_dropped)
+            sub_src, cand_cid, w_sub, sub_dropped,
+            _sub_band(cfg, cid_search, cid_s, cnt))
         if cfg.capped_fused:
             # the pre-pass sweeps the sub frame from the sub frame
             b = sw._blane(cfg)
@@ -726,18 +749,18 @@ def slab_step_body(cfg: SphConfig, group: SlabGroup, p_cap: int, h_cap: int,
     vel_i = fields_s[:, _VEL]
     mass_i = fields_s[:, _MASS]
     if capped:
-        ws, wc, sub_src, cand_cid, w_sub, sub_dropped = tabs[:6]
+        ws, wc, sub_src, cand_cid, w_sub, sub_dropped, sub_band = tabs[:7]
         g8 = ext[sub_src.long()]     # one gather, shared by the step's sweeps
         trunc = sub_dropped
         if fused:
             rho_l = scatter_sub_rho(
                 ss.density_sub_local(cfg, g8, sub_src, cand_cid, w_sub,
-                                     *tabs[6:8]),
+                                     *tabs[7:9]),
                 sub_src, cand_cid, h_cap, p_cap)
         else:
             rho_l, nc_l = ss.density_local_capped(
                 cfg, ext, g8, cid_ext, ws, wc, sub_src, cand_cid, w_sub,
-                h_cap, p_cap)
+                h_cap, p_cap, sub_band)
     elif sweeps == "pallas":
         ws, wc, band = tabs
         rho_l, nc_l = ss.density_local(cfg, ext, cid_ext, ws, wc, h_cap,
@@ -763,7 +786,7 @@ def slab_step_body(cfg: SphConfig, group: SlabGroup, p_cap: int, h_cap: int,
     elif capped:
         acc_l = ss.force_local_capped(cfg, ext, g8, cid_ext, rho_e, rho_l, ws,
                                       wc, sub_src, cand_cid, w_sub, h_cap,
-                                      p_cap)
+                                      p_cap, sub_band)
     elif sweeps == "pallas":
         acc_l = ss.force_local(cfg, ext, cid_ext, rho_e, rho_l, ws, wc, h_cap,
                                p_cap, band)
@@ -830,7 +853,9 @@ def _table_zeros(cfg: SphConfig, sweeps: str, p_cap: int, sub_len: int = 0,
             torch.zeros(0, dtype=torch.int64, device=device), 0, 0),)
     tabs += (torch.zeros(sub_len, **i32), torch.zeros(sub_len, **i32),
              torch.zeros(sub_len, dtype=torch.float32, device=device),
-             torch.zeros((), **i32))
+             torch.zeros((), **i32),
+             ss.SubBand(torch.zeros(cfg.num_cells + 1, **i32),
+                        torch.zeros(p_cap, **i32)))
     if cfg.capped_fused:
         ssize = -(-sub_len // b) * sw.NRODS
         tabs += (torch.zeros(ssize, **i32), torch.zeros(ssize, **i32))

@@ -10,9 +10,10 @@ headline shapes (1.25h cells, window 208) and for capped mode on them
 (``capped_candidates`` 4; block, window and sub frame derived as the CLI
 derives them): the block walk's rows and the band kernels'
 (``band_rows_per_lane``; the lane band kernels' ``lane_band_rows_per_lane``;
-the slab engine's exact band kernels' ``slab_band_rows_per_lane``), with
-the mean neighbor count.  ``corner_state`` builds the 4-slab frame on which
-a slab table over the raw extended frame would test dead rows.
+the slab engine's exact and capped band kernels' ``slab_band_rows_per_lane``
+and ``slab_sub_band_rows_per_lane``), with the mean neighbor count.
+``corner_state`` builds the 4-slab frame on which a slab table over the raw
+extended frame would test dead rows.
 """
 
 from __future__ import annotations
@@ -81,6 +82,17 @@ def slab_band_rows_per_lane(cfg, band, count: int) -> dict:
     sorted frame, so this equals ``band_rows_per_lane`` of its table."""
     return band_rows_per_lane(cfg, band.cid[:count], band.cell_start,
                               band.rows.shape[0])
+
+
+def slab_sub_band_rows_per_lane(cfg, band, count: int) -> dict:
+    """``band_stats`` of the slab engine's capped band kernels over a rank's
+    frozen ``slab_sweeps.SubBand``: the bands of the ``count`` live own rows
+    in the table of the sub frame's kept rows (``cell_start[num_cells]`` of
+    them; the tail and the own dead rows are walked by no lane).  At world
+    size 1 the kept count of each cell is the single-chip sub frame's, so
+    this equals ``band_rows_per_lane`` of ``prepare_t``'s capped table."""
+    return band_rows_per_lane(cfg, band.cid[:count], band.cell_start,
+                              int(band.cell_start[-1]))
 
 
 def corner_state(cfg, counts: tuple = (600, 900, 1200), short: int = 40,

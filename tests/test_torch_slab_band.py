@@ -353,16 +353,31 @@ def test_pairs_within_h_through_the_bands_equal_a_brute_force(frames, name):
 # The kernels' arguments: a PyTorch walk of the bands in place of the launch
 # ---------------------------------------------------------------------------
 
+# the band kernel each slab wrapper launches: exact without candidate src
+# rows, capped (over the sub frame) with them
+WALKED = {("K1", False): "density_band_t[slab]",
+          ("K2", False): "force_band_t[slab]",
+          ("K1", True): "density_band_t<capped>[slab]",
+          ("K2", True): "force_band_t<capped>[slab]"}
+
+
+def _not_own(n, m, cand_src, self_base):
+    """[n, m]: candidate j is not self row i, whose own id is ``self_base +
+    i``; j's id is its row (exact) or ``cand_src[j]`` (capped)."""
+    ids = torch.arange(m) if cand_src is None else cand_src.long()
+    return ids[None] != self_base + torch.arange(n)[:, None]
+
+
 def _walk_density(cfg, pos_s, mass_s, cid, cell_start, cand_pos, cand_mass,
                   cand_src, kernel, self_base=0):
     """The band kernel K1's sums with dense tensors: the pairs of each self
-    row's bands, less its own row ``self_base + i``, within h."""
-    assert cand_src is None and kernel == "density_band_t[slab]"
+    row's bands, less its own id ``self_base + i``, within h."""
+    assert kernel == WALKED["K1", cand_src is not None]
     n, m = pos_s.shape[0], cand_pos.shape[0]
     a, e = sw.band_ranges(cfg, cid, cell_start)
     d2 = _d2(pos_s, cand_pos)
     mask = (_in_band(a, e, m) & (d2 < cfg.h2)
-            & (torch.arange(m)[None] != self_base + torch.arange(n)[:, None]))
+            & _not_own(n, m, cand_src, self_base))
     t = cfg.h_scaled2 - d2 * np.float32(cfg.sim_scale * cfg.sim_scale)
     w = torch.where(mask, cand_mass[None] * (cfg.poly6_norm * t * t * t), 0.0)
     return (physics.self_density(cfg, w.sum(1), mass_s),
@@ -373,13 +388,13 @@ def _walk_force(cfg, pos_s, vel_s, rho_s, cand, cid, cell_start, cand_src,
                 kernel, self_base=0):
     """The band kernel K2's sums with dense tensors (force_t_plain's
     formulas on each self row's band pairs)."""
-    assert cand_src is None and kernel == "force_band_t[slab]"
+    assert kernel == WALKED["K2", cand_src is not None]
     n, m = pos_s.shape[0], cand.shape[0]
     a, e = sw.band_ranges(cfg, cid, cell_start)
     dxyz = [cand[None, :, c] - pos_s[:, None, c] for c in range(3)]
     d2 = dxyz[0] * dxyz[0] + dxyz[1] * dxyz[1] + dxyz[2] * dxyz[2]
     mask = (_in_band(a, e, m) & (d2 < cfg.h2)
-            & (torch.arange(m)[None] != self_base + torch.arange(n)[:, None]))
+            & _not_own(n, m, cand_src, self_base))
     rhoi = rho_s[:, None]
     rhoi_inv = physics.safe_inv(rhoi)
     pw_i = ((rhoi - np.float32(cfg.rho0)) * np.float32(cfg.stiffness)
