@@ -22,18 +22,23 @@ Phases (every failed check raises, and the script exits nonzero):
    times (CUDA events);
 5. capped mode (K_c = 4), 32k splash: capped K1 and K2, the per-lane band
    walks over the sub frame (``density_band_t<capped>``,
-   ``force_band_t<capped>``), the pre-pass K1 and the fused K3 against their
-   twins, capped K1 and K2 against the block-walk kernels
-   (``density_kernel_t``/``force_kernel_t`` with ``EXCL_SRC``) on the same
-   tensors (counts, rho and acc bit-equal), and K3's rho and counts against
-   capped K1's;
+   ``force_band_t<capped>``), the fused path's pre-pass K1 and K3, band
+   walks over the same table (``density_band_t<prepass>``,
+   ``fused_band_t``), against their twins, and against the block-walk
+   kernels on the same tensors: capped K1 and K2 against
+   ``density_kernel_t``/``force_kernel_t`` with ``EXCL_SRC`` and K3 against
+   ``fused_kernel_t`` (counts, rho and acc bit-equal on every row), the
+   pre-pass against ``density_kernel_t`` with ``EXCL_SRC_SRC`` (rho and
+   counts bit-equal on the kept sub rows; the tail rows count 0); K3's rho
+   and counts bit-equal to capped K1's; the pre-pass's rows per thread and
+   lane;
 6. capped mode, 4096-particle splash with a keep-all cap (K_c = the largest
    cell occupancy), two-pass and fused, against the pairwise oracle;
 7. capped mode, 1M splash shapes: the same checks, the rows tested per
    lane beside the block window's rows per thread, the kernel and twin
-   times, capped K1 and K2 and their block walks timed in turns, and the
-   capped density mean over the exact one on the same state in (0.99, 1.01)
-   (the sampling is unbiased);
+   times, the four capped band walks and their block walks timed in turns,
+   and the capped density mean over the exact one on the same state in
+   (0.99, 1.01) (the sampling is unbiased);
 8. lane layout, 32k packed splash with 128-row windows (multi-chunk) and the
    1M lane splash shapes (window 512): the per-lane band walks
    ``density_band_lane`` and ``force_band_lane`` against their twins and,
@@ -53,7 +58,9 @@ Phases (every failed check raises, and the script exits nonzero):
    exact, capped two-pass and capped fused (bench.py's ``capped_k4`` row:
    block 256, window and sub-frame length derived), then the 1M lane splash
    eager (rebinned every step) for 3 + 20 steps.  Each kernel of a path
-   must have launched once per step, no step may drop candidates
+   must have launched once per step, no block walk of ``ops/sweeps_t.py``
+   (``density_kernel_t``, ``force_kernel_t``, ``fused_kernel_t``) on any
+   path, no step may drop candidates
    (``truncated_ranges`` 0) and the final state must be finite; after the
    capped run, one lazy step from the same state, capped and exact, must
    give densities whose means agree within 1 %.  Last, the
@@ -65,7 +72,8 @@ Phases (every failed check raises, and the script exits nonzero):
    ``force_band_t`` over the live rows of a rank's extended frame; capped
    K1/K2, the same band walks with ``kExclSrc`` over the sub frame's
    cell-start table (``SubBand``, ``self_base = h_cap``); the sub-frame
-   pre-pass K1 and K3, block walks over the frame) against their twins on
+   pre-pass K1 and K3, the band walks ``density_band_t<kExclSrcSrc>`` and
+   ``fused_band_t`` over the same table) against their twins on
    the 1M splash at world size 1 (bench.py's ``slab_1dev`` and
    ``slab_capped_k4`` geometry: occupancy split, caps at headroom 1.05,
    window derived, K_c 4 on 256-row blocks): counts equal, rho rel-L2 <=
@@ -74,7 +82,9 @@ Phases (every failed check raises, and the script exits nonzero):
    also against the ``EXCL_ROW`` block walks over the raw frame on the
    same tensors: counts, rho and acc bit-equal on the live rows, the dead
    rows 0; the capped ones against the ``EXCL_SRC`` block walks over the
-   sub frame: bit-equal on every own row; rows tested per lane (band mean,
+   sub frame: bit-equal on every own row; the fused pair against its block
+   walks (``EXCL_SRC_SRC`` and ``fused_kernel_t``): the pre-pass bit-equal
+   on the kept rows, K3 on every own row; rows tested per lane (band mean,
    max over a warp, warp union) beside the block walk's per thread and
    equal to the single-chip band walks' on the same state (capped: the
    same cell-start table too); band and block walks timed in turns (the
@@ -84,8 +94,8 @@ Phases (every failed check raises, and the script exits nonzero):
    ``prepare_frame``) on a box whose rank-1 corner cells are populated and
    whose ranks 0 and 2 hold fewer rows than ``h_cap``
    (``walk_stats.corner_state``): the same bit-equalities on every rank,
-   exact and capped, and the rows a table over the raw frame would test on
-   rank 1;
+   exact, capped and fused, and the rows a table over the raw frame would
+   test on rank 1;
 12. the slab engine at world size 1 (an NCCL group of one rank) against the
    single-chip lazy step, one step from the same 1M splash state, exact and
    capped: neighbor mean, max and min equal to the single-chip counts', KE
@@ -100,9 +110,8 @@ Phases (every failed check raises, and the script exits nonzero):
 14. the slab main paths, launch counters reset just before each:
    ``run_slab_benchmark`` on the 1M splash at world size 1 (NCCL group of
    one), exact, capped (K_c 4, 256-row blocks) and capped fused, 3 warmup +
-   20 timed steps: each kernel of a path launched once per step, no
-   ``EXCL_ROW`` or ``EXCL_SRC`` block walk launched, no counted loss, a
-   finite state; then
+   20 timed steps: each kernel of a path launched once per step, no block
+   walk launched, no counted loss, a finite state; then
    the single-chip lazy step and the slab step
    in turns (single, slab, slab, single), exact, printing ms/step each;
 15. the hardware probes (``tools/probe_{vpu_ops,gather,mxu}.py``, no step
@@ -129,6 +138,7 @@ the same function as ``library_ms``), and last ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -169,9 +179,10 @@ SLAB_CAPPED = dict(cell_size_factor=1.25, capped_candidates=4,
 SLAB_FUSED = dict(SLAB_CAPPED, capped_fused=True)
 SLAB_HEADROOM = 1.05
 # the populated-corner split's capped frames (phase 11): K_c 4 on the
-# capped main path's 256-row blocks
+# capped main path's 256-row blocks, fused (its tables hold the two-pass
+# ones too)
 CORNER_CAPPED = dict(capped_candidates=4, pallas_block_t=256,
-                     pallas_window_t=32)
+                     pallas_window_t=32, capped_fused=True)
 
 
 class Kernel(NamedTuple):
@@ -196,11 +207,11 @@ KERNELS = {
                                      f"{TPU_T}:321", 15),
     "force_band_t<capped>": Kernel("t", "force_capped_t", "force_t_plain",
                                    SOURCE_T, f"{TPU_T}:403", 36),
-    "density_kernel_t<prepass>": Kernel("t", "density_pre_t",
-                                        "density_pre_t_plain", SOURCE_T,
-                                        f"{TPU_T}:318", 15),
-    "fused_kernel_t": Kernel("t", "fused_t", "fused_t_plain", SOURCE_T,
-                             f"{TPU_T}:497", 48),
+    "density_band_t<prepass>": Kernel("t", "density_pre_t",
+                                      "density_pre_t_plain", SOURCE_T,
+                                      f"{TPU_T}:318", 15),
+    "fused_band_t": Kernel("t", "fused_t", "fused_t_plain", SOURCE_T,
+                           f"{TPU_T}:497", 48),
     "density_band_lane": Kernel("lane", "density_lane", "density_lane_plain",
                                 SOURCE_LANE, f"{TPU_LANE}:196", 15),
     "force_band_lane": Kernel("lane", "force_lane", "force_lane_plain",
@@ -218,10 +229,10 @@ KERNELS = {
     "force_band_t<capped>[slab]": Kernel(
         "slab", "force_ext_capped", "force_ext_capped_plain", SOURCE_T,
         f"{TPU_SLABS}:570", 36, f"{TPU_SLABS}:704"),
-    "density_kernel_t<prepass>[slab]": Kernel(
+    "density_band_t<prepass>[slab]": Kernel(
         "slab", "density_sub_pre", "density_sub_pre_plain", SOURCE_T,
         f"{TPU_SLABS}:570", 15, f"{TPU_SLABS}:750"),
-    "fused_kernel_t[slab]": Kernel(
+    "fused_band_t[slab]": Kernel(
         "slab", "fused_ext", "fused_ext_plain", SOURCE_T, f"{TPU_SLABS}:570",
         48, f"{TPU_SLABS}:792"),
     # the hardware probes: no step path runs them (no flops per pair)
@@ -238,15 +249,15 @@ PROBE_KERNELS = ("chain_kernel", "gather_tile_kernel", "d2_tile_kernel")
 PATHS = {
     "exact": (MAIN, ("density_band_t", "force_band_t")),
     "capped": (CAPPED, ("density_band_t<capped>", "force_band_t<capped>")),
-    "fused": (FUSED, ("density_kernel_t<prepass>", "fused_kernel_t")),
+    "fused": (FUSED, ("density_band_t<prepass>", "fused_band_t")),
     "lane": (LANE, ("density_band_lane", "force_band_lane")),
 }
 SLAB_PATHS = {
     "slab exact": (SLAB, ("density_band_t[slab]", "force_band_t[slab]")),
     "slab capped": (SLAB_CAPPED, ("density_band_t<capped>[slab]",
                                   "force_band_t<capped>[slab]")),
-    "slab fused": (SLAB_FUSED, ("density_kernel_t<prepass>[slab]",
-                                "fused_kernel_t[slab]")),
+    "slab fused": (SLAB_FUSED, ("density_band_t<prepass>[slab]",
+                                "fused_band_t[slab]")),
 }
 
 
@@ -373,16 +384,44 @@ def exact_vs_twins(cfg, p, label: str):
             {"density_band_t": pairs, "force_band_t": pairs}, block)
 
 
+def fused_vs_block(label: str, kept: int, pre_band: tuple, pre_block: tuple,
+                   k3_band: tuple, k3_block: tuple, rows: tuple) -> None:
+    """The fused pair's band walks against their block walks on the same
+    card tensors: the pre-pass's (rho, counts) bit-equal on the ``kept``
+    sub rows (the tail rows' bands are empty: they get the self term and
+    count 0, the block walk what their windows hold), K3's (acc, rho,
+    counts) on every row.  ``rows``: the pre-pass block walk's rows per
+    thread and its band's ``band_stats`` (``walk_stats.prepass_rows``)."""
+    window, band = rows
+    print(f"[{label}] pre-pass rows tested per thread: block window "
+          f"{window:.1f}, band mean {band['mean']:.1f}, band max over a warp "
+          f"{band['warp_max']:.1f}, warp union {band['warp_union']:.1f}")
+    k = slice(0, kept)
+    pre = tuple(bool(torch.equal(a[k], b[k]))
+                for a, b in zip(pre_band, pre_block))
+    tail = not pre_band[1][kept:].any()
+    k3 = tuple(bool(torch.equal(a, b)) for a, b in zip(k3_band, k3_block))
+    print(f"[{label}] band walks vs block walks on the same tensors: pre-pass "
+          f"rho, counts bit-equal on the kept rows={pre} (tail rows count 0="
+          f"{tail}); K3 acc, rho, counts bit-equal={k3}")
+    check(all(pre) and tail, f"{label}: pre-pass band vs block walk {pre}")
+    check(all(k3), f"{label}: K3 band vs block walk bit-equal {k3}")
+
+
 def capped_vs_twins(cfg, p, label: str):
-    """The four capped kernels against their twins on the same card
-    tensors, capped K1/K2 (band walks over the sub frame) against the
-    block-walk kernels (bit-equal), and K3's rho/counts against capped K1's.
+    """The four capped kernels, all band walks over the sub frame's table,
+    against their twins on the same card tensors and against the block-walk
+    kernels (capped K1/K2 and K3 bit-equal on every row, the pre-pass on
+    the kept rows), and K3's rho/counts against capped K1's (bit-equal).
     Returns the max abs errors, the kernel and twin arguments and the
     tensors each kernel reads (for timing and its bound), the pairs within
     h each kernel sums, and the block walk's launches by kernel name."""
     from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
+    from smoothed_particle_hydrodynamics_tpu_torch.utils.walk_stats import (
+        prepass_rows)
 
     pos_c, vel_c = sw.gather_sub_pv(p)
+    mass_c = p.mass_s[p.sub_perm]
     n_kept = int((p.cand_cid >= 0).sum())
     print(f"[{label}] window={cfg.pallas_window_t} block={cfg.pallas_block_t} "
           f"S={p.sub_perm.shape[0]} kept={n_kept} "
@@ -392,17 +431,20 @@ def capped_vs_twins(cfg, p, label: str):
         "density_band_t<capped>": (cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc,
                                    pos_c, p.wm_sub, p.cand_cid, p.sub_perm,
                                    p.cell_start),
-        "density_kernel_t<prepass>": (cfg, pos_c, p.mass_s[p.sub_perm],
-                                      p.wm_sub, p.cand_cid, p.sub_perm,
-                                      p.ws_sub, p.wc_sub),
+        "density_band_t<prepass>": (cfg, pos_c, mass_c, p.wm_sub, p.cand_cid,
+                                    p.sub_perm, p.ws_sub, p.wc_sub,
+                                    p.cell_start),
     }
     rho_k, nc_k = sw.density_capped_t(*args["density_band_t<capped>"])
     rho_p, nc_p = sw.density_t_plain(*args["density_band_t<capped>"][:-1])
-    sub_k = sw.density_pre_t(*args["density_kernel_t<prepass>"])
-    # density_pre_t_plain's own call, keeping the counts
+    sub_k = sw.density_pre_t(*args["density_band_t<prepass>"])
+    # the pre-pass band walk's and twin's counts: their launches direct
+    sub_bk, sub_nk = sw._launch_density_band(
+        cfg, pos_c, mass_c, p.cand_cid, p.cell_start, pos_c, p.wm_sub,
+        p.sub_perm, "density_band_t<prepass>", self_src=p.sub_perm)
     sub_p, sub_nc = sw.density_t_plain(
-        cfg, pos_c, p.mass_s[p.sub_perm], p.cand_cid, p.ws_sub, p.wc_sub,
-        pos_c, p.wm_sub, p.cand_cid, p.sub_perm, p.sub_perm)
+        cfg, pos_c, mass_c, p.cand_cid, p.ws_sub, p.wc_sub, pos_c, p.wm_sub,
+        p.cand_cid, p.sub_perm, p.sub_perm)
     # the force candidates' densities: rho at their sorted rows (two-pass)
     # or the pre-pass output (fused)
     cand_2 = sw.fused_cand_cols(cfg, pos_c, vel_c, rho_k[p.sub_perm], p.wm_sub)
@@ -410,12 +452,14 @@ def capped_vs_twins(cfg, p, label: str):
     args["force_band_t<capped>"] = (cfg, p.pos_s, p.vel_s, rho_k, cand_2,
                                     p.cid, p.ws, p.wc, p.cand_cid,
                                     p.sub_perm, p.cell_start)
-    args["fused_kernel_t"] = (cfg, p.pos_s, p.vel_s, p.mass_s, p.cid, p.ws,
-                              p.wc, cand_f, p.cand_cid, p.sub_perm)
+    args["fused_band_t"] = (cfg, p.pos_s, p.vel_s, p.mass_s, p.cid, p.ws,
+                            p.wc, cand_f, p.cand_cid, p.sub_perm,
+                            p.cell_start)
     acc_k = sw.force_capped_t(*args["force_band_t<capped>"])
     acc_p = sw.force_t_plain(*args["force_band_t<capped>"][:-1])
-    facc_k, frho_k, fnc_k = sw.fused_t(*args["fused_kernel_t"])
-    facc_p, frho_p, fnc_p = sw.fused_t_plain(*args["fused_kernel_t"])
+    fused_k = sw.fused_t(*args["fused_band_t"])
+    facc_k, frho_k, fnc_k = fused_k
+    facc_p, frho_p, fnc_p = sw.fused_t_plain(*args["fused_band_t"][:-1])
     torch.cuda.synchronize()
     block = {
         "density_band_t<capped>": lambda: sw._launch_density(
@@ -424,43 +468,65 @@ def capped_vs_twins(cfg, p, label: str):
             "density_kernel_t<capped>"),
         "force_band_t<capped>": lambda: sw._launch_force(
             cfg, sw.EXCL_SRC, p.pos_s, p.vel_s, rho_k, cand_2, p.cid, p.ws,
-            p.wc, p.cand_cid, p.sub_perm, "force_kernel_t<capped>")}
-    band_vs_block(p, *sublane_rows(cfg, p, p.sub_perm.shape[0]), block,
+            p.wc, p.cand_cid, p.sub_perm, "force_kernel_t<capped>"),
+        "density_band_t<prepass>": lambda: sw._launch_density(
+            cfg, sw.EXCL_SRC_SRC, pos_c, mass_c, p.cand_cid, p.ws_sub,
+            p.wc_sub, pos_c, p.wm_sub, p.cand_cid, p.sub_perm, p.sub_perm,
+            "density_kernel_t<prepass>"),
+        "fused_band_t": lambda: sw._launch_fused(
+            cfg, p.pos_s, p.vel_s, p.mass_s, p.cid, p.ws, p.wc, cand_f,
+            p.cand_cid, p.sub_perm, "fused_kernel_t")}
+    pair = ("density_band_t<capped>", "force_band_t<capped>")
+    band_vs_block(p, *sublane_rows(cfg, p, p.sub_perm.shape[0]),
+                  {name: block[name] for name in pair},
                   (nc_k, rho_k, acc_k), label)
+    check(bool(torch.equal(sub_bk, sub_k)),
+          f"{label}: pre-pass wrapper == its launch")
+    fused_vs_block(label, n_kept, (sub_k, sub_nk),
+                   block["density_band_t<prepass>"](), fused_k,
+                   block["fused_band_t"](),
+                   prepass_rows(cfg, p.cand_cid, p.ws_sub, p.wc_sub,
+                                p.cell_start))
     errs = {
         "density_band_t<capped>": agree(label, "density_band_t<capped>",
                                         rho_k, rho_p, (nc_k, nc_p)),
         "force_band_t<capped>": agree(label, "force_band_t<capped>",
                                       acc_k, acc_p, bar=ACC_BAR),
         # the tail rows' pre-pass values feed no pair: kept rows only
-        "density_kernel_t<prepass>": agree(
-            label, "density_kernel_t<prepass> (kept rows)", sub_k[:n_kept],
-            sub_p[:n_kept]),
-        "fused_kernel_t": max(
-            agree(label, "fused_kernel_t rho", frho_k, frho_p, (fnc_k, fnc_p)),
-            agree(label, "fused_kernel_t acc", facc_k, facc_p, bar=ACC_BAR)),
+        "density_band_t<prepass>": agree(
+            label, "density_band_t<prepass> (kept rows)", sub_k[:n_kept],
+            sub_p[:n_kept], (sub_nk[:n_kept], sub_nc[:n_kept])),
+        "fused_band_t": max(
+            agree(label, "fused_band_t rho", frho_k, frho_p, (fnc_k, fnc_p)),
+            agree(label, "fused_band_t acc", facc_k, facc_p, bar=ACC_BAR)),
     }
+    # both band walks sum the same pairs in the same order
     bits = (bool(torch.equal(frho_k, rho_k)), bool(torch.equal(fnc_k, nc_k)))
     print(f"[{label}] fused K3 vs two-pass capped K1 on the same tensors: "
           f"rho bit-equal={bits[0]} counts equal={bits[1]} "
           f"rho rel_l2={rel_l2(frho_k, rho_k):.3e}; K3 acc vs capped K2 acc "
           f"rel_l2={rel_l2(facc_k, acc_k):.3e}")
-    check(bits[1], f"{label}: fused counts == two-pass capped counts")
-    check(rel_l2(frho_k, rho_k) <= RHO_BAR,
-          f"{label}: fused rho vs two-pass capped rho")
+    check(all(bits), f"{label}: fused rho, counts bit-equal to two-pass "
+          f"capped K1's {bits}")
     capped = int(nc_k.sum())
     pairs = {"density_band_t<capped>": capped,
              "force_band_t<capped>": capped,
-             "density_kernel_t<prepass>": int(sub_nc.sum()),
-             "fused_kernel_t": int(fnc_k.sum())}
+             "density_band_t<prepass>": int(sub_nk[:n_kept].sum()),
+             "fused_band_t": int(fnc_k.sum())}
     twin_args = {name: args[name][:-1] for name in block}
     # the band sums need the rows, the self cids and the candidates' src
     # rows: cell_start is the kernels' own index (as for the exact walks)
-    # and the candidates' cids are not read
+    # and the candidates' cids are not read; the pre-pass's self rows are
+    # its candidates (each sub row once: positions, true and reweighted
+    # masses, cids, src rows)
     reads = {"density_band_t<capped>": (p.pos_s, p.mass_s, p.cid, pos_c,
                                         p.wm_sub, p.sub_perm),
              "force_band_t<capped>": (p.pos_s, p.vel_s, rho_k, p.cid, cand_2,
-                                      p.sub_perm)}
+                                      p.sub_perm),
+             "density_band_t<prepass>": (pos_c, mass_c, p.wm_sub, p.cand_cid,
+                                         p.sub_perm),
+             "fused_band_t": (p.pos_s, p.vel_s, p.mass_s, p.cid, cand_f,
+                              p.sub_perm)}
     return errs, (args, twin_args, reads), pairs, block
 
 
@@ -640,10 +706,12 @@ def corner_rank(group, job: dict) -> dict:
     band walks held against the twins and the block walks
     (``slab_exact_vs_block``), and, on rank 1, the rows a table over the
     raw frame would test; then its capped frame of the same state
-    (``job["capped"]``: config, caps, sub-frame length), its capped band
-    walks held the same way (``slab_capped_vs_block``).  Returns the
-    rank's count, live halo rows, band statistics (exact and capped) and
-    (rank 1) its last cell's rows and the raw table's statistics."""
+    (``job["capped"]``: config, caps, sub-frame length; fused, so the frame
+    holds both pairs' tables), its capped band walks held the same way
+    (``slab_capped_vs_block``) and its fused pair against its block walks
+    (``slab_fused_vs_twins``).  Returns the rank's count, live halo rows,
+    band statistics (exact and capped) and (rank 1) its last cell's rows
+    and the raw table's statistics."""
     from smoothed_particle_hydrodynamics_tpu_torch.parallel import slabs
     from smoothed_particle_hydrodynamics_tpu_torch.state import (
         state_from_numpy)
@@ -681,6 +749,8 @@ def corner_rank(group, job: dict) -> dict:
     out["capped_stats"] = slab_capped_vs_block(
         cap["cfg"], group, frame, cap["caps"],
         f"slab corner rank {d} capped")[-1]
+    slab_fused_vs_twins(cap["cfg"], group, frame, cap["caps"],
+                        f"slab corner rank {d} fused")
     return out
 
 
@@ -769,54 +839,126 @@ def slab_capped_vs_block(cfg, group, frame, caps, label: str):
 
 
 def slab_fused_vs_twins(cfg, group, frame, caps, label: str):
-    """The slab engine's fused pair, the sub-frame pre-pass K1 and K3 (block
-    walks), against their twins on one rank's frame (``slabs.prepare_frame``
-    with ``capped_fused``, which holds the pre-pass tables).  Every output
-    row of K3, dead ones included, and every kept pre-pass row must be
-    finite.  Returns the max abs errors, the arguments used (for timing)
-    and the pairs within h each kernel sums (for its bound)."""
+    """The slab engine's fused pair, the sub-frame pre-pass K1 and K3, band
+    walks over the sub frame's table (``SubBand``), against their twins on
+    one rank's frame (``slabs.prepare_frame`` with ``capped_fused``, which
+    holds the pre-pass tables) and against their block walks on the same
+    card tensors: the pre-pass bit-equal on the kept rows, K3 on every own
+    row (the dead rows 0 on both).  Every output row of K3, dead ones
+    included, and every kept pre-pass row must be finite.  The halo rows'
+    pre-pass densities come from the neighbours (``exchange_rho`` on
+    ``group``).  Returns the max abs errors, the arguments used (for
+    timing), the pairs within h each kernel sums, the tensors each reads
+    (for its bound: each row once, not the table) and the block walks'
+    launches, all by kernel name."""
     from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
     from smoothed_particle_hydrodynamics_tpu_torch.parallel import (
         slab_sweeps as ss, slabs)
+    from smoothed_particle_hydrodynamics_tpu_torch.utils.walk_stats import (
+        prepass_rows)
 
     p_cap, h_cap, _ = caps
     ext, cid, f = frame.ext, frame.cid_ext, frame
-    ws, wc, sub_src, cand_cid, w_sub, _, _, ws_s, wc_s = f.tabs
+    ws, wc, sub_src, cand_cid, w_sub, _, band, ws_s, wc_s = f.tabs
     n_kept = int((cand_cid >= 0).sum())
     print(f"[{label}] fused: max_wc_sub={wc_s.max().item()}")
     g8 = ext[sub_src.long()]
-    names = ("density_kernel_t<prepass>[slab]", "fused_kernel_t[slab]")
+    names = ("density_band_t<prepass>[slab]", "fused_band_t[slab]")
     args = {names[0]: ss.density_sub_local_args(cfg, g8, sub_src, cand_cid,
-                                                w_sub, ws_s, wc_s)}
+                                                w_sub, ws_s, wc_s, band)}
     sub_k = ss.density_sub_pre(*args[names[0]])
-    _, pos_sub, mass_sub, wm_sub, cid_sub, src_sub, ws_sub, wc_sub = \
-        args[names[0]]
+    _, pos_sub, mass_sub, wm_sub, cid_sub, src_sub = args[names[0]][:6]
+    sub_bk, sub_nk = sw._launch_density_band(
+        cfg, pos_sub, mass_sub, cid_sub, band.cell_start, pos_sub, wm_sub,
+        src_sub, names[0], self_src=src_sub)
     # density_sub_pre_plain's own call, keeping the counts
     sub_p, sub_nc = sw.density_t_plain(cfg, pos_sub, mass_sub, cid_sub,
-                                       ws_sub, wc_sub, pos_sub, wm_sub,
+                                       ws_s, wc_s, pos_sub, wm_sub,
                                        cid_sub, src_sub, src_sub)
     rho_cand, w_cand = slabs.fused_candidates(slabs.exchange_rho(
         group, slabs.scatter_sub_rho(sub_k, sub_src, cand_cid, h_cap, p_cap),
         f.count, h_cap), sub_src, w_sub)
     args[names[1]] = ss.fused_local_capped_args(
         cfg, ext, g8, cid, rho_cand, ws, wc, sub_src, cand_cid, w_cand, h_cap,
-        p_cap)
-    facc_k, frho_k, fnc_k = ss.fused_ext(*args[names[1]])
+        p_cap, band)
+    fused_k = ss.fused_ext(*args[names[1]])
+    facc_k, frho_k, fnc_k = fused_k
     facc_p, frho_p, fnc_p = ss.fused_ext_plain(*args[names[1]])
+    _, pos_l, vel_l, mass_l, cid_l, _, _, cand = args[names[1]][:8]
+    block = {
+        names[0]: lambda: sw._launch_density(
+            cfg, sw.EXCL_SRC_SRC, pos_sub, mass_sub, cid_sub, ws_s, wc_s,
+            pos_sub, wm_sub, cid_sub, src_sub, src_sub,
+            "density_kernel_t<prepass>[slab]"),
+        names[1]: lambda: sw._launch_fused(
+            cfg, pos_l, vel_l, mass_l, cid_l, ws, wc, cand, cand_cid, sub_src,
+            "fused_kernel_t[slab]", h_cap)}
     torch.cuda.synchronize()
     finite(label, names[0], sub_k[:n_kept])
     finite(label, names[1], facc_k, frho_k, fnc_k)
+    check(bool(torch.equal(sub_bk, sub_k)),
+          f"{label}: pre-pass wrapper == its launch")
+    fused_vs_block(label, n_kept, (sub_k, sub_nk), block[names[0]](),
+                   fused_k, block[names[1]](),
+                   prepass_rows(cfg, cid_sub, ws_s, wc_s, band.cell_start))
+    cnt = f.count
+    dead = not (fnc_k[cnt:].any() or frho_k[cnt:].any()
+                or facc_k[cnt:].any())
+    check(dead, f"{label}: K3's dead rows write 0")
     errs = {
         # the tail rows' pre-pass values feed no pair: kept rows only
         names[0]: agree(label, f"{names[0]} (kept rows)", sub_k[:n_kept],
-                        sub_p[:n_kept]),
+                        sub_p[:n_kept], (sub_nk[:n_kept], sub_nc[:n_kept])),
         names[1]: max(agree(label, f"{names[1]} rho", frho_k, frho_p,
                             (fnc_k, fnc_p)),
                       agree(label, f"{names[1]} acc", facc_k, facc_p,
                             bar=ACC_BAR)),
     }
-    return errs, args, {names[0]: int(sub_nc[:n_kept].sum()),
-                        names[1]: int(fnc_k.sum())}
+    # each row once and not the table, as for the capped pair: the pre-pass
+    # its sub rows (positions, true and reweighted masses, cids, src rows),
+    # K3 the own rows (positions, velocities, masses, the table's self
+    # cids), the staged sub-frame columns and src rows
+    reads = {names[0]: (pos_sub, mass_sub, wm_sub, cid_sub, src_sub),
+             names[1]: (pos_l, vel_l, mass_l, band.cid, cand, sub_src)}
+    return (errs, args, {names[0]: int(sub_nk[:n_kept].sum()),
+                         names[1]: int(fnc_k.sum())}, reads, block)
+
+
+# the block-walk launchers of ops/sweeps_t.py: density_kernel_t (every
+# Excl), force_kernel_t and fused_kernel_t, the band walks' reference only
+BLOCK_WALKS = ("_launch_density", "_launch_force", "_launch_fused")
+
+
+@contextlib.contextmanager
+def counting_block_walks():
+    """Count every block-walk launch (by launcher) while the context is
+    open: no step path may run one."""
+    from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
+
+    counts = dict.fromkeys(BLOCK_WALKS, 0)
+    saved = {name: getattr(sw, name) for name in BLOCK_WALKS}
+
+    def counted(name):
+        def launch(*a, **kw):
+            counts[name] += 1
+            return saved[name](*a, **kw)
+        return launch
+
+    for name in BLOCK_WALKS:
+        setattr(sw, name, counted(name))
+    try:
+        yield counts
+    finally:
+        for name, launch in saved.items():
+            setattr(sw, name, launch)
+
+
+def no_block_walk(path: str, counts: dict) -> None:
+    print(f"[main {path}] block-walk launches: "
+          + ", ".join(f"{k.removeprefix('_launch_')} {v}"
+                      for k, v in counts.items()))
+    check(not any(counts.values()), f"{path}: no block walk {counts}")
+    counts.update(dict.fromkeys(counts, 0))
 
 
 def walks_in_turns(args: dict, block: dict, label: str,
@@ -1194,13 +1336,16 @@ def main() -> int:
               f" lane={int(lane[2].overflow_cells)}")
     del cl, sub, lane, st
 
-    # 10. the main paths, counted
+    # 10. the main paths, counted (the block walks too: no path runs them)
     launches = {}
     for path, (ov, names) in PATHS.items():
         lazy = path != "lane"
         reset_launches()
-        r = run_benchmark(scene="splash", lazy=lazy, steps=STEPS,
-                          warmup=WARMUP, overrides=ov, device="cuda")
+        with counting_block_walks() as block_walks:
+            r = run_benchmark(scene="splash", lazy=lazy, steps=STEPS,
+                              warmup=WARMUP, overrides=ov, device="cuda",
+                              backend="pallas")
+        no_block_walk(path, block_walks)
         counts = {name: wrapper(name).launches for name in KERNELS}
         total_steps = r["warmup_steps"] + r["steps"]
         print(f"[main {path}] 1M splash {'lazy' if lazy else 'eager'} "
@@ -1294,11 +1439,13 @@ def main() -> int:
                 same_table = bool(torch.equal(frame.tabs[6].cell_start,
                                               p1.cell_start))
                 del args, reads, block
-                fused_errs, args, fused_pairs = slab_fused_vs_twins(
-                    cfg, grp, frame, caps, label)
+                fused_errs, args, fused_pairs, reads, block = \
+                    slab_fused_vs_twins(cfg, grp, frame, caps, label)
                 slab_errs.update(fused_errs)
                 slab_pairs.update(fused_pairs)
-                times.update(timed(args, fused_pairs))
+                times.update(timed(args, fused_pairs, reads=reads))
+                walks_in_turns(args, block, label)
+                del reads, block
             else:
                 slab_errs, args, slab_pairs, bands, block, stats = \
                     slab_exact_vs_block(cfg, grp, frame, caps, label)
@@ -1464,26 +1611,14 @@ def main() -> int:
               f"ranks {label}: both ranks populated")
         del st, runs
 
-    # 14. the slab main paths, counted (the EXCL_ROW and EXCL_SRC block
-    #     walks too: no slab path may run them); then single-chip and slab
-    #     in turns
-    block_walks = {sw.EXCL_ROW: 0, sw.EXCL_SRC: 0}
-
-    def count_block_walks(launch):
-        def counted(cfg, excl, *a, **kw):
-            if excl in block_walks:
-                block_walks[excl] += 1
-            return launch(cfg, excl, *a, **kw)
-        return counted
-
-    launchers = sw._launch_density, sw._launch_force
-    sw._launch_density, sw._launch_force = map(count_block_walks, launchers)
+    # 14. the slab main paths, counted (the block walks too: no slab path
+    #     may run them); then single-chip and slab in turns
     for path, (ov, names) in SLAB_PATHS.items():
         reset_launches()
-        block_walks.update({k: 0 for k in block_walks})
-        r = run_slab_benchmark(n=1_000_000, steps=STEPS, warmup=WARMUP,
-                               headroom=SLAB_HEADROOM, overrides=ov,
-                               device="cuda")
+        with counting_block_walks() as block_walks:
+            r = run_slab_benchmark(n=1_000_000, steps=STEPS, warmup=WARMUP,
+                                   headroom=SLAB_HEADROOM, overrides=ov,
+                                   device="cuda")
         counts = {name: wrapper(name).launches for name in KERNELS}
         total_steps = r["warmup_steps"] + r["steps"]
         print(f"[main {path}] 1M splash, one rank ({r['device']}): "
@@ -1503,22 +1638,18 @@ def main() -> int:
             check(counts[name] == total_steps, f"{path}: {name} launched "
                   f"{counts[name]} times in {total_steps} steps")
             launches[name] = counts[name]
-        print(f"[main {path}] block-walk launches: EXCL_ROW "
-              f"{block_walks[sw.EXCL_ROW]}, EXCL_SRC "
-              f"{block_walks[sw.EXCL_SRC]}")
-        check(not any(block_walks.values()),
-              f"{path}: no EXCL_ROW or EXCL_SRC block walk {block_walks}")
+        no_block_walk(path, block_walks)
         for k in ("truncated_ranges", "halo_dropped_steps",
                   "migration_dropped_steps"):
             check(len(r[k]) == total_steps and max(r[k]) == 0,
                   f"{path}: {k} {r[k]}")
         check(r["finite"], f"{path}: store and KE finite")
-    sw._launch_density, sw._launch_force = launchers
     turns = []
     for kind in ("single", "slab", "slab", "single"):
         if kind == "single":
             r = run_benchmark(scene="splash", lazy=True, steps=STEPS,
-                              warmup=WARMUP, overrides=MAIN, device="cuda")
+                              warmup=WARMUP, overrides=MAIN, device="cuda",
+                              backend="pallas")
         else:
             r = run_slab_benchmark(n=1_000_000, steps=STEPS, warmup=WARMUP,
                                    headroom=SLAB_HEADROOM, overrides=SLAB,

@@ -3,8 +3,11 @@
     run   --scene S [-n N] --steps K [--block B]   one JSON line per block
     bench --scene S [-n N] --steps K [--warmup W]  one JSON line
 
-``--scene`` is one of disk, dam_break, splash (default), honey,
-dam_break_10m.  As in the JAX CLI, ``-n`` and ``--seed`` default to the
+``--scene`` is one of disk (default), dam_break, splash, honey,
+dam_break_10m.  The defaults are the JAX CLI's (``cli.py:27``, ``:130``,
+``:743-746``, ``:467``, ``:797-798``): ``run`` steps ``cfg.num_steps + 1``
+of the resolved config in blocks of 50, ``bench`` times 100 steps after 10
+warmup steps.  As in the JAX CLI, ``-n`` and ``--seed`` default to the
 scene's own size and seed (disk 32,768 and 42, dam_break 100k and 7,
 splash 1M and 11), and ``run`` and ``bench`` validate the resolved config
 (``SphConfig.validate``) before any step.  ``bench --partition slab`` times
@@ -95,9 +98,10 @@ def cmd_run(args) -> int:
     backend = _backend(args.backend, dev)
     cfg, state = resolve_scene(args.scene, dev, _overrides(args), args.seed)
     lazy = uses_lazy(cfg, backend)
-    carry, done, rebins = None, 0, args.steps
-    while done < args.steps:
-        k = min(args.block, args.steps - done)
+    total = cfg.num_steps + 1 if args.steps is None else args.steps
+    carry, done, rebins = None, 0, total
+    while done < total:
+        k = min(args.block, total - done)
         t0 = time.perf_counter()
         if lazy:
             carry, d = drive_loop_lazy(cfg, state if carry is None else None,
@@ -139,14 +143,14 @@ def cmd_bench(args) -> int:
     if args.partition == "slab":
         ov = _overrides(args)
         n = ov.pop("num_particles", 1_000_000)
-        r = run_slab_benchmark(n=n, steps=args.steps,
+        r = run_slab_benchmark(n=n, steps=args.steps or 100,
                                warmup=args.warmup, sweeps=args.slab_sweeps,
                                overrides=ov, scan_block=args.scan_block,
                                device=str(dev), seed=args.seed)
         print(json.dumps(r))
         return 0
     r = run_benchmark(scene=args.scene, lazy=False if args.eager else None,
-                      steps=args.steps, warmup=args.warmup,
+                      steps=args.steps or 100, warmup=args.warmup,
                       overrides=_overrides(args), device=str(dev),
                       seed=args.seed, backend=_backend(args.backend, dev))
     print(json.dumps(r))
@@ -158,10 +162,11 @@ def main(argv: list[str] | None = None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
     for name in ("run", "bench"):
         p = sub.add_parser(name)
-        p.add_argument("--scene", default="splash")
+        p.add_argument("--scene", default="disk")
         p.add_argument("-n", "--num-particles", type=int, default=None,
                        help="default: the scene's own size")
-        p.add_argument("--steps", type=int, default=20)
+        p.add_argument("--steps", type=int, default=None,
+                       help="run: default cfg.num_steps + 1; bench: 100")
         p.add_argument("--seed", type=int, default=None,
                        help="default: the scene's own seed")
         p.add_argument("--device", default="cuda")
@@ -169,8 +174,8 @@ def main(argv: list[str] | None = None) -> int:
                        choices=["auto", "pallas", "celllist", "pairwise"],
                        help="auto = pallas on cuda, celllist on cpu")
         p.add_argument("--set", action="append", metavar="KEY=VALUE")
-    sub.choices["run"].add_argument("--block", type=int, default=10)
-    sub.choices["bench"].add_argument("--warmup", type=int, default=3)
+    sub.choices["run"].add_argument("--block", type=int, default=50)
+    sub.choices["bench"].add_argument("--warmup", type=int, default=10)
     sub.choices["bench"].add_argument("--eager", action="store_true",
                                       help="rebin every step (ops.step)")
     sub.choices["bench"].add_argument(

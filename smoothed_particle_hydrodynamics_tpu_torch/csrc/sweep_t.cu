@@ -5,14 +5,14 @@
 // the same sums.
 //
 // Replaces, in smoothed_particle_hydrodynamics_tpu/ops/pallas_step_t.py:
-//   K1 density_kernel_t<Excl>  <- _density_kernel_t: the fused path's
-//      sub-frame pre-pass (kExclSrcSrc, self_src_row=5);
-//   K3 fused_kernel_t          <- _fused_kernel_t (capped only);
 //   K1 density_band_t, K2 force_band_t <- _density_kernel_t and
-//      _force_kernel_t, exact and capped, on one device (the lazy paths) and
-//      in the slab engine: per-lane band walks, see their section.  The
-//      kExclRow and kExclSrc block walks density_kernel_t and
-//      force_kernel_t stay as their bit-equality reference.
+//      _force_kernel_t, exact and capped, and the fused path's sub-frame
+//      pre-pass (_density_kernel_t with self_src_row=5: density_band_t
+//      <kExclSrcSrc>), on one device (the lazy paths) and in the slab
+//      engine: per-lane band walks, see their section;
+//   K3 fused_band_t <- _fused_kernel_t (capped only), the same band walk.
+// The block walks density_kernel_t<Excl>, force_kernel_t<Excl> and
+// fused_kernel_t stay as their bit-equality reference.
 //
 // What they compute.  Particles are sorted by linear cell id
 // (z*ny + y)*nx + x, so each of the 9 (dy, dz) stencil rods of a block of b
@@ -402,15 +402,27 @@ __global__ void fused_kernel_t(FusedArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// K1 and K2 as per-lane band walks: density_band_t and force_band_t, exact
-// (kExclRow) and capped (kExclSrc), the single-device lazy paths' kernels
-// and the slab engine's.
+// K1, K2 and K3 as per-lane band walks: density_band_t and force_band_t,
+// exact (kExclRow) and capped (kExclSrc), the fused path's pre-pass
+// density_band_t<kExclSrcSrc> and K3 fused_band_t, the single-device lazy
+// paths' kernels and the slab engine's.
 //
-// Replace _density_kernel_t (pallas_step_t.py:293, capped :321) and
-// _force_kernel_t (:360, capped :403) in place of density_kernel_t and
-// force_kernel_t above (which the pre-pass still runs); in the slab engine,
-// the exact and capped callers of _slab_chunked_call (parallel/slabs.py:494,
-// :588, :663, :704).
+// Replace _density_kernel_t (pallas_step_t.py:293, capped :321, pre-pass
+// :1090), _force_kernel_t (:360, capped :403) and _fused_kernel_t (:497) in
+// place of the block walks above; in the slab engine, the callers of
+// _slab_chunked_call (parallel/slabs.py:494, :588, :663, :704, :750, :792).
+//
+// The fused path's two kernels walk the capped sub frame's table too.  K3's
+// self rows, candidates and exclusion are capped K2's (the sorted frame, or
+// the own slab with self_base = h_cap, over the sub frame's fused_cand_cols
+// and src rows); it sums K1's rho and count and K2's split pressure and
+// viscosity terms in fused_kernel_t's op order, so rho and the counts also
+// equal capped K1's band walk's on the same tensors.  The pre-pass's self
+// rows are the sub frame itself: self row i's own id is its src row src[i]
+// (kExclSrcSrc), and its unkept tail rows carry self cid TAIL_CID = -2^30,
+// whose bands are all empty, so they write the self term and count 0 (the
+// block walk gives them whatever their block's windows hold; no pair reads
+// a tail row's density).
 //
 // The slab engine's candidates are the LIVE rows of a rank's extended frame
 // [left halo | own slab | right halo], compacted in order (the chain ends'
@@ -473,6 +485,8 @@ constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kDensityPiece = 96;
 template <int kExcl>
 constexpr int kForcePiece = kExcl == kExclSrc ? 32 : 96;
+// K3 stages capped K2's 40-byte rows in capped K2's 32-row pieces.
+constexpr int kFusedPiece = kForcePiece<kExclSrc>;
 
 // Rows [a, e) of self row i's band for rod delta; the cell range is clamped
 // to [0, num_cells], so a band wholly outside the grid is empty, and the
@@ -563,25 +577,26 @@ __device__ __forceinline__ void band_walk(const int* cell_start, int ci,
   }
 }
 
-// Staged words per candidate row: K1 x y z m, K2 the kForceCols columns,
-// each + the candidate's src row in capped mode.
+// Staged words per candidate row: K1 x y z m, K2 and K3 the kForceCols
+// columns, each + the candidate's src row but in exact mode (kExclRow).
 template <int kExcl>
-constexpr int kDensityWords = kExcl == kExclSrc ? 5 : 4;
+constexpr int kDensityWords = kExcl != kExclRow ? 5 : 4;
 template <int kExcl>
-constexpr int kForceWords = kExcl == kExclSrc ? kForceCols + 1 : kForceCols;
+constexpr int kForceWords = kExcl != kExclRow ? kForceCols + 1 : kForceCols;
 
 struct DensityBandArgs {
   const float* pos;       // [n, 3] self positions (sorted)
   const float* mass;      // [n] self masses (the self term)
   const int* cid;         // [n] self cell ids (frozen between rebins)
+  const int* src;         // [n] self src rows (kExclSrcSrc only)
   const float* cpos;      // [m, 3] candidate positions (exact: pos)
   const float* cmass;     // [m] candidate masses (capped: reweighted)
-  const int* csrc;        // [m] candidate sorted rows (kExclSrc only)
+  const int* csrc;        // [m] candidate src rows (not kExclRow)
   const int* cell_start;  // [num_cells + 1] first candidate row of each cell
   float* rho;             // [n] out
   int* ncount;            // [n] out
   int n, m, num_cells, nx, ny, include_self;
-  int self_base;          // own id of self row i: self_base + i
+  int self_base;          // own id of self row i: self_base + i (not SrcSrc)
   float h2, h_scaled2, scale2, poly6;
 };
 
@@ -603,7 +618,7 @@ __global__ void __launch_bounds__(kBandBlock)
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * kBandBlock + threadIdx.x;
   const bool live = i < a.n;
-  const int own = a.self_base + i;
+  int own = a.self_base + i;
   float xi = 0.f, yi = 0.f, zi = 0.f;
   int ci = 0;
   if (live) {
@@ -611,13 +626,14 @@ __global__ void __launch_bounds__(kBandBlock)
     yi = a.pos[3 * i + 1];
     zi = a.pos[3 * i + 2];
     ci = a.cid[i];
+    if (kExcl == kExclSrcSrc) own = a.src[i];
   }
   float rho = 0.f;
   int count = 0;
   auto stage = [&](float* dst, const Piece& p) {
     stage_rows<3>(dst, a.cpos, p.lo, p.hi, lane);
     stage_rows<1>(dst + 3 * kPiece, a.cmass, p.lo, p.hi, lane);
-    if constexpr (kExcl == kExclSrc)
+    if constexpr (kExcl != kExclRow)
       stage_rows<1>(reinterpret_cast<int*>(dst + 4 * kPiece), a.csrc, p.lo,
                     p.hi, lane);
   };
@@ -651,7 +667,7 @@ struct ForceBandArgs {
   const float* rho;       // [n] densities from K1
   const int* cid;         // [n] cell ids
   const float* cand;      // [m, kForceCols] candidate columns
-  const int* csrc;        // [m] candidate sorted rows (kExclSrc only)
+  const int* csrc;        // [m] candidate src rows (kExclSrc only)
   const int* cell_start;  // [num_cells + 1] first candidate row of each cell
   float* acc;             // [n, 3] out: hydro acceleration
   int n, m, num_cells, nx, ny;
@@ -710,7 +726,7 @@ __global__ void __launch_bounds__(kBandBlock)
   ForceSums s{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   auto stage = [&](float* dst, const Piece& p) {
     stage_rows<kForceCols>(dst, a.cand, p.lo, p.hi, lane);
-    if constexpr (kExcl == kExclSrc)
+    if constexpr (kExcl != kExclRow)
       stage_rows<1>(reinterpret_cast<int*>(dst + kForceCols * kPiece),
                     a.csrc, p.lo, p.hi, lane);
   };
@@ -736,6 +752,115 @@ __global__ void __launch_bounds__(kBandBlock)
     a.acc[3 * i] = mu_rhoi * s.vx * a.visc_norm + s.ax * a.visc_norm;
     a.acc[3 * i + 1] = mu_rhoi * s.vy * a.visc_norm + s.ay * a.visc_norm;
     a.acc[3 * i + 2] = mu_rhoi * s.vz * a.visc_norm + s.az * a.visc_norm;
+  }
+}
+
+struct FusedBandArgs {
+  const float* pos;       // [n, 3] self positions
+  const float* vel;       // [n, 3] self velocities
+  const float* mass;      // [n] self masses (the self term)
+  const int* cid;         // [n] self cell ids (NO_CELL: no band)
+  const float* cand;      // [m, kForceCols] sub-frame candidate columns
+  const int* csrc;        // [m] candidate src rows
+  const int* cell_start;  // [num_cells + 1] first kept sub row of each cell
+  float* acc;             // [n, 3] out: hydro acceleration
+  float* rho;             // [n] out
+  int* ncount;            // [n] out
+  int n, m, num_cells, nx, ny, include_self;
+  int self_base;          // own id of self row i: self_base + i
+  float h2, h_scaled2, scale2, poly6;
+  float h, scale, eps, stiffness, rho0, viscosity, visc_norm;
+};
+
+// K3's sums: K1's rho and count, the pressure sums P1 (m_j) and P2
+// (m_j pw_j), the viscosity sums.
+struct FusedSums {
+  float rho;
+  int count;
+  float p1x, p1y, p1z, p2x, p2y, p2z, vx, vy, vz;
+};
+
+// K3 over the sub frame's bands: fused_kernel_t's pair term and epilogue
+// (same op order) on the pairs of capped K2's bands.  It carries 11
+// accumulators against K2's 6.
+__global__ void __launch_bounds__(kBandBlock) fused_band_t(FusedBandArgs a) {
+  // a slot: the kForceCols columns (row-major), then the src rows
+  constexpr int kPiece = kFusedPiece;
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kBandBlock + threadIdx.x;
+  const bool live = i < a.n;
+  const int own = a.self_base + i;
+  float xi = 0.f, yi = 0.f, zi = 0.f, vxi = 0.f, vyi = 0.f, vzi = 0.f;
+  int ci = 0;
+  if (live) {
+    xi = a.pos[3 * i];
+    yi = a.pos[3 * i + 1];
+    zi = a.pos[3 * i + 2];
+    vxi = a.vel[3 * i];
+    vyi = a.vel[3 * i + 1];
+    vzi = a.vel[3 * i + 2];
+    ci = a.cid[i];
+  }
+  FusedSums s{0.f, 0, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  auto stage = [&](float* dst, const Piece& p) {
+    stage_rows<kForceCols>(dst, a.cand, p.lo, p.hi, lane);
+    stage_rows<1>(reinterpret_cast<int*>(dst + kForceCols * kPiece), a.csrc,
+                  p.lo, p.hi, lane);
+  };
+  auto test = [&](const float* sp, const Piece& p) {
+    const int* ss = reinterpret_cast<const int*>(sp + kForceCols * kPiece);
+    const int j1 = min(p.e, p.hi);
+    for (int j = max(p.a, p.lo); j < j1; ++j) {
+      const int k = j - p.lo;
+      const float* c = sp + k * kForceCols;
+      const float dx = c[0] - xi;
+      const float dy = c[1] - yi;
+      const float dz = c[2] - zi;
+      const float d2 = dist2(dx, dy, dz);
+      if (ss[k] != own && d2 < a.h2) {
+        // density part: K1's op sequence, so rho and count equal its bits
+        const float mj = c[7];
+        const float t = __fsub_rn(a.h_scaled2, __fmul_rn(d2, a.scale2));
+        const float w3 = a.poly6 * t * t * t;
+        s.rho += mj * w3;
+        ++s.count;
+        const float d = sqrtf(d2) * a.scale;
+        const float hd = a.h - d;
+        const float hd2inv = (hd * hd) / (d + a.eps) * a.scale;
+        const float c1 = hd2inv * mj;
+        const float c2 = hd2inv * c[8];
+        s.p1x -= dx * c1;
+        s.p1y -= dy * c1;
+        s.p1z -= dz * c1;
+        s.p2x -= dx * c2;
+        s.p2y -= dy * c2;
+        s.p2z -= dz * c2;
+        const float rim = c[6];
+        s.vx += (c[3] - vxi * rim) * hd;
+        s.vy += (c[4] - vyi * rim) * hd;
+        s.vz += (c[5] - vzi * rim) * hd;
+      }
+    }
+  };
+  band_walk<kPiece, kForceWords<kExclSrc>>(a.cell_start, ci, live, a.nx, a.ny,
+                                           a.num_cells, a.m, stage, test);
+  if (live) {
+    float rho = s.rho;
+    if (a.include_self) {
+      const float h2s = a.h_scaled2;
+      rho += a.mass[i] * a.poly6 * h2s * h2s * h2s;
+    }
+    const float rhoi_inv = 1.f / (rho > 0.f ? rho : 1.f);
+    const float pw_i = (rho - a.rho0) * a.stiffness * rhoi_inv * rhoi_inv;
+    const float mu_rhoi = a.viscosity * rhoi_inv;
+    a.acc[3 * i] =
+        mu_rhoi * s.vx * a.visc_norm + (pw_i * s.p1x + s.p2x) * a.visc_norm;
+    a.acc[3 * i + 1] =
+        mu_rhoi * s.vy * a.visc_norm + (pw_i * s.p1y + s.p2y) * a.visc_norm;
+    a.acc[3 * i + 2] =
+        mu_rhoi * s.vz * a.visc_norm + (pw_i * s.p1z + s.p2z) * a.visc_norm;
+    a.rho[i] = rho;
+    a.ncount[i] = s.count;
   }
 }
 
@@ -921,17 +1046,21 @@ int sph_fused_t(const float* pos, const float* vel, const float* mass,
 // csrc null, self_base 0) or, in the slab engine, the live rows of the
 // extended frame (self_base: the compacted row of self row 0); kExclSrc:
 // the capped sub frame, csrc its sorted rows (self_base 0) or, in the slab
-// engine, its extended-frame rows (self_base h_cap).
+// engine, its extended-frame rows (self_base h_cap); kExclSrcSrc (density
+// only, the fused path's pre-pass): the self rows are the sub frame itself,
+// src = csrc its src rows.  src is read by kExclSrcSrc only.
 int sph_density_band_t(const float* pos, const float* mass, const int* cid,
-                       const float* cpos, const float* cmass, const int* csrc,
-                       const int* cell_start, float* rho, int* ncount, int n,
-                       int m, int num_cells, int nx, int ny, int include_self,
-                       int excl, int self_base, float h2, float h_scaled2,
-                       float scale2, float poly6, void* stream) {
+                       const int* src, const float* cpos, const float* cmass,
+                       const int* csrc, const int* cell_start, float* rho,
+                       int* ncount, int n, int m, int num_cells, int nx,
+                       int ny, int include_self, int excl, int self_base,
+                       float h2, float h_scaled2, float scale2, float poly6,
+                       void* stream) {
   DensityBandArgs a;
   a.pos = pos;
   a.mass = mass;
   a.cid = cid;
+  a.src = src;
   a.cpos = cpos;
   a.cmass = cmass;
   a.csrc = csrc;
@@ -954,6 +1083,8 @@ int sph_density_band_t(const float* pos, const float* mass, const int* cid,
       return launch_density_band<kExclRow>(a, stream);
     case kExclSrc:
       return launch_density_band<kExclSrc>(a, stream);
+    case kExclSrcSrc:
+      return launch_density_band<kExclSrcSrc>(a, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -997,6 +1128,49 @@ int sph_force_band_t(const float* pos, const float* vel, const float* rho,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// K3 over the sub frame's table: capped K2's self rows, candidates and
+// exclusion (csrc[j] != self_base + i).
+int sph_fused_band_t(const float* pos, const float* vel, const float* mass,
+                     const int* cid, const float* cand, const int* csrc,
+                     const int* cell_start, float* acc, float* rho,
+                     int* ncount, int n, int m, int num_cells, int nx, int ny,
+                     int include_self, int self_base, float h2,
+                     float h_scaled2, float scale2, float poly6, float h,
+                     float scale, float eps, float stiffness, float rho0,
+                     float viscosity, float visc_norm, void* stream) {
+  FusedBandArgs a;
+  a.pos = pos;
+  a.vel = vel;
+  a.mass = mass;
+  a.cid = cid;
+  a.cand = cand;
+  a.csrc = csrc;
+  a.cell_start = cell_start;
+  a.acc = acc;
+  a.rho = rho;
+  a.ncount = ncount;
+  a.n = n;
+  a.m = m;
+  a.num_cells = num_cells;
+  a.nx = nx;
+  a.ny = ny;
+  a.include_self = include_self;
+  a.self_base = self_base;
+  a.h2 = h2;
+  a.h_scaled2 = h_scaled2;
+  a.scale2 = scale2;
+  a.poly6 = poly6;
+  a.h = h;
+  a.scale = scale;
+  a.eps = eps;
+  a.stiffness = stiffness;
+  a.rho0 = rho0;
+  a.viscosity = viscosity;
+  a.visc_norm = visc_norm;
+  return launch_band<kFusedPiece, kForceWords<kExclSrc>>(fused_band_t, a,
+                                                         stream);
 }
 
 const char* sph_error_string(int code) {

@@ -10,7 +10,8 @@ one.  Backends:
 * ``"pallas"``: the port's sweep kernels, named after the JAX backend they
   replace; ``cfg.pallas_layout`` picks the sublane kernels (``sweeps_t``) or
   the lane kernels (``sweeps_lane``);
-* ``"celllist"``: the portable plain-PyTorch cell-list sweeps;
+* ``"celllist"``: the portable plain-PyTorch cell-list sweeps (the default,
+  as in the JAX package);
 * ``"pairwise"``: the O(N^2) oracle.
 
 Compat mode (the C++ reference's quirks) is not ported yet.
@@ -33,7 +34,7 @@ Backend = Literal["pallas", "celllist", "pairwise"]
 
 
 def compute_forces(cfg: SphConfig, state: ParticleState,
-                   backend: Backend = "pallas"
+                   backend: Backend = "celllist"
                    ) -> tuple[torch.Tensor, torch.Tensor, CellListAux]:
     """(acceleration, density, aux) at the current state."""
     if cfg.capped_candidates and backend != "pallas":
@@ -64,7 +65,7 @@ def compute_forces(cfg: SphConfig, state: ParticleState,
                      "'celllist' or 'pairwise')")
 
 
-def step(cfg: SphConfig, state: ParticleState, backend: Backend = "pallas"
+def step(cfg: SphConfig, state: ParticleState, backend: Backend = "celllist"
          ) -> tuple[ParticleState, StepDiagnostics]:
     """One physics step (forces + KDK integration + diagnostics)."""
     if backend == "compat" or cfg.compat:
@@ -101,7 +102,7 @@ def _kdk_full(cfg: SphConfig, state: ParticleState, acc: torch.Tensor,
 
 
 def drive_loop(cfg: SphConfig, state: ParticleState, num_steps: int,
-               backend: Backend = "pallas", collect_diags: bool = True
+               backend: Backend = "celllist", collect_diags: bool = True
                ) -> tuple[ParticleState, StepDiagnostics | None]:
     """Host loop of ``num_steps`` steps; diagnostics stacked per step."""
     diags = []
@@ -113,7 +114,7 @@ def drive_loop(cfg: SphConfig, state: ParticleState, num_steps: int,
 
 
 def run_steps(cfg: SphConfig, state: ParticleState, num_steps: int,
-              backend: Backend = "pallas"
+              backend: Backend = "celllist"
               ) -> tuple[ParticleState, StepDiagnostics]:
     """``num_steps`` steps with the diagnostics stacked per step (the JAX
     package's ``lax.scan`` run; a host loop here)."""
@@ -121,7 +122,7 @@ def run_steps(cfg: SphConfig, state: ParticleState, num_steps: int,
 
 
 def simulate(cfg: SphConfig, state: ParticleState,
-             backend: Backend = "pallas", steps_per_block: int = 50,
+             backend: Backend = "celllist", steps_per_block: int = 50,
              callback: Callable | None = None
              ) -> tuple[ParticleState, StepDiagnostics]:
     """The whole run, ``cfg.num_steps + 1`` steps (the reference's loop runs

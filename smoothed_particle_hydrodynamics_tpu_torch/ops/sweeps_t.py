@@ -17,25 +17,29 @@ over the sub frame (the candidates' pressures) and one fused pass.
 
 Each kernel has a wrapper and a plain PyTorch twin here:
 
-* ``density_t`` (exact) and ``density_capped_t`` (capped) -> CUDA kernel
-  ``density_band_t<Excl>`` (``csrc/sweep_t.cu``), ``density_pre_t`` (the
-  fused path's sub-frame pre-pass) -> ``density_kernel_t<Excl>``, replacing
+* ``density_t`` (exact), ``density_capped_t`` (capped) and
+  ``density_pre_t`` (the fused path's sub-frame pre-pass) -> CUDA kernel
+  ``density_band_t<Excl>`` (``csrc/sweep_t.cu``), replacing
   ``_density_kernel_t``; twins ``density_t_plain`` and
   ``density_pre_t_plain``;
 * ``force_t`` (exact) and ``force_capped_t`` -> ``force_band_t<Excl>``,
   replacing ``_force_kernel_t``; twin ``force_t_plain``;
-* ``fused_t`` -> ``fused_kernel_t``, replacing ``_fused_kernel_t``; twin
+* ``fused_t`` -> ``fused_band_t``, replacing ``_fused_kernel_t``; twin
   ``fused_t_plain``.
 
-The exact and capped K1/K2 walk per-lane cell bands: self row i tests, for
-each rod, only the candidate rows of the cells its own cid mask accepts, one
+Every kernel walks per-lane cell bands: self row i tests, for each rod,
+only the candidate rows of the cells its own cid mask accepts, one
 contiguous range of the candidates' cell-start table (``band_ranges``: the
-sorted frame's exact, the sub frame's capped), instead of its block's whole
-rod window.  The range holds exactly the window rows that pass the mask, so
-the band kernels sum the same pairs in the same order as the block-walk
-kernels (``density_kernel_t``/``force_kernel_t`` with ``EXCL_ROW`` or
-``EXCL_SRC``; the slab engine's capped callers still run the latter) and
-equal them bit for bit; their twins are the block-walk twins.
+sorted frame's exact, the sub frame's capped and fused), instead of its
+block's whole rod window.  The range holds exactly the window rows that
+pass the mask, so the band kernels sum the same pairs in the same order as
+the block-walk kernels (``density_kernel_t``/``force_kernel_t`` with
+``EXCL_ROW``, ``EXCL_SRC`` or ``EXCL_SRC_SRC``, and ``fused_kernel_t``,
+which ``chip_smoke.py`` runs as their reference) and equal them bit for
+bit; their twins are the block-walk twins.  The pre-pass's unkept tail
+rows (self cid ``TAIL_CID``) have empty bands: the kernel gives them the
+self term and count 0, where the block walk and its twin give them what
+their block's windows hold; no pair reads a tail row's density.
 
 A wrapper given CPU tensors computes with the twin; given CUDA tensors it
 launches the kernel (built from source on first use) or raises; any other
@@ -611,10 +615,12 @@ def _kernels() -> ctypes.CDLL:
     lib.sph_force_t.restype = i
     lib.sph_fused_t.argtypes = [p] * 12 + [i] * 8 + [f] * 11 + [p]
     lib.sph_fused_t.restype = i
-    lib.sph_density_band_t.argtypes = [p] * 9 + [i] * 8 + [f] * 4 + [p]
+    lib.sph_density_band_t.argtypes = [p] * 10 + [i] * 8 + [f] * 4 + [p]
     lib.sph_density_band_t.restype = i
     lib.sph_force_band_t.argtypes = [p] * 8 + [i] * 7 + [f] * 8 + [p]
     lib.sph_force_band_t.restype = i
+    lib.sph_fused_band_t.argtypes = [p] * 10 + [i] * 7 + [f] * 11 + [p]
+    lib.sph_fused_band_t.restype = i
     lib.sph_error_string.argtypes = [i]
     lib.sph_error_string.restype = ctypes.c_char_p
     return lib
@@ -672,7 +678,7 @@ def _band_specs(cfg: SphConfig, n: int, m: int, pos_s, cid, cell_start,
     if cell_start is None:
         raise ValueError("the band kernels need their candidates' cell-start "
                          "table (PreparedT.cell_start, or the slab frame's "
-                         "SlabBand.cell_start)")
+                         "SlabBand.cell_start or SubBand.cell_start)")
     specs = dict(pos_s=(pos_s, torch.float32, (n, 3)),
                  cid=(cid, torch.int32, (n,)),
                  cell_start=(cell_start, torch.int32, (cfg.num_cells + 1,)))
@@ -683,22 +689,27 @@ def _band_specs(cfg: SphConfig, n: int, m: int, pos_s, cid, cell_start,
 
 def _launch_density_band(cfg: SphConfig, pos_s, mass_s, cid, cell_start,
                          cand_pos, cand_mass, cand_src, kernel: str,
-                         self_base: int = 0):
-    """K1 band walk of the sorted self rows over candidates sorted by cell:
-    the self rows themselves (``cand_src`` None, exact), the live rows of a
-    slab's extended frame (exact, self row i at ``self_base + i``) or the
-    capped sub frame (``cand_src`` its sorted rows)."""
+                         self_base: int = 0, self_src=None):
+    """K1 band walk of the self rows over candidates sorted by cell: the
+    sorted particles over themselves (``cand_src`` None, exact), the live
+    rows of a slab's extended frame (exact, self row i at ``self_base +
+    i``), the capped sub frame (``cand_src`` its sorted rows) or, with
+    ``self_src`` (the fused path's pre-pass), the sub frame over itself,
+    self row i's own id ``self_src[i]``."""
     n, m, dev = pos_s.shape[0], cand_pos.shape[0], pos_s.device
+    specs = _band_specs(cfg, n, m, pos_s, cid, cell_start, cand_src)
+    if self_src is not None:
+        specs["self_src"] = (self_src, torch.int32, (n,))
     _check(dev, mass_s=(mass_s, torch.float32, (n,)),
            cand_pos=(cand_pos, torch.float32, (m, 3)),
-           cand_mass=(cand_mass, torch.float32, (m,)),
-           **_band_specs(cfg, n, m, pos_s, cid, cell_start, cand_src))
-    excl = EXCL_ROW if cand_src is None else EXCL_SRC
+           cand_mass=(cand_mass, torch.float32, (m,)), **specs)
+    excl = (EXCL_ROW if cand_src is None
+            else EXCL_SRC if self_src is None else EXCL_SRC_SRC)
     rho = torch.empty(n, dtype=torch.float32, device=dev)
     ncount = torch.empty(n, dtype=torch.int32, device=dev)
     lib = _kernels()
     err = lib.sph_density_band_t(
-        pos_s.data_ptr(), mass_s.data_ptr(), cid.data_ptr(),
+        pos_s.data_ptr(), mass_s.data_ptr(), cid.data_ptr(), _ptr(self_src),
         cand_pos.data_ptr(), cand_mass.data_ptr(), _ptr(cand_src),
         cell_start.data_ptr(), rho.data_ptr(), ncount.data_ptr(), n, m,
         cfg.num_cells, cfg.grid_nx, cfg.grid_ny,
@@ -748,16 +759,20 @@ def density_capped_t(cfg: SphConfig, pos_s: torch.Tensor,
 def density_pre_t(cfg: SphConfig, pos_sub: torch.Tensor,
                   mass_sub: torch.Tensor, wm_sub: torch.Tensor,
                   cid_sub: torch.Tensor, src_sub: torch.Tensor,
-                  ws_sub: torch.Tensor, wc_sub: torch.Tensor) -> torch.Tensor:
+                  ws_sub: torch.Tensor, wc_sub: torch.Tensor,
+                  cell_start: torch.Tensor | None) -> torch.Tensor:
     """Fused path's pre-pass: rho [S] of the sub-frame rows over the sub
     frame itself.  Self rows carry the TRUE mass (the self term), the
-    candidates the reweighted ``wm_sub``; exclusion compares src with src."""
+    candidates the reweighted ``wm_sub``; exclusion compares src with src.
+    The kernel walks each row's cell bands of the sub frame
+    (``cell_start``; the tail rows' ``TAIL_CID`` reaches none), the twin
+    its block's windows (``ws_sub``, ``wc_sub``)."""
     if _use_plain(pos_sub):
         return density_pre_t_plain(cfg, pos_sub, mass_sub, wm_sub, cid_sub,
                                    src_sub, ws_sub, wc_sub)
-    rho, _ = _launch_density(cfg, EXCL_SRC_SRC, pos_sub, mass_sub, cid_sub,
-                             ws_sub, wc_sub, pos_sub, wm_sub, cid_sub,
-                             src_sub, src_sub, "density_kernel_t<prepass>")
+    rho, _ = _launch_density_band(cfg, pos_sub, mass_sub, cid_sub, cell_start,
+                                  pos_sub, wm_sub, src_sub,
+                                  "density_band_t<prepass>", self_src=src_sub)
     density_pre_t.launches += 1
     return rho
 
@@ -846,6 +861,8 @@ def force_capped_t(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
 def _launch_fused(cfg: SphConfig, pos_s, vel_s, mass_s, cid, ws, wc, cand,
                   cand_cid, cand_src, kernel: str, self_base: int = 0
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The block walk ``fused_kernel_t``: ``fused_band_t``'s bit-equality
+    reference (``chip_smoke.py``); no step path launches it."""
     n, m, dev = pos_s.shape[0], cand.shape[0], pos_s.device
     _check(dev, vel_s=(vel_s, torch.float32, (n, 3)),
            mass_s=(mass_s, torch.float32, (n,)),
@@ -870,18 +887,51 @@ def _launch_fused(cfg: SphConfig, pos_s, vel_s, mass_s, cid, ws, wc, cand,
     return acc, rho, ncount
 
 
+def _launch_fused_band(cfg: SphConfig, pos_s, vel_s, mass_s, cid,
+                       cell_start, cand, cand_src, kernel: str,
+                       self_base: int = 0
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3 band walk over the sub frame (``cand`` its ``fused_cand_cols``
+    with the pre-pass densities, ``cand_src`` its src rows): capped K2's
+    self rows, bands and exclusion (self row i's own id ``self_base +
+    i``)."""
+    n, m, dev = pos_s.shape[0], cand.shape[0], pos_s.device
+    _check(dev, vel_s=(vel_s, torch.float32, (n, 3)),
+           mass_s=(mass_s, torch.float32, (n,)),
+           cand=(cand, torch.float32, (m, 9)),
+           **_band_specs(cfg, n, m, pos_s, cid, cell_start, cand_src))
+    acc = torch.empty(n, 3, dtype=torch.float32, device=dev)
+    rho = torch.empty(n, dtype=torch.float32, device=dev)
+    ncount = torch.empty(n, dtype=torch.int32, device=dev)
+    lib = _kernels()
+    err = lib.sph_fused_band_t(
+        pos_s.data_ptr(), vel_s.data_ptr(), mass_s.data_ptr(), cid.data_ptr(),
+        cand.data_ptr(), cand_src.data_ptr(), cell_start.data_ptr(),
+        acc.data_ptr(), rho.data_ptr(), ncount.data_ptr(), n, m,
+        cfg.num_cells, cfg.grid_nx, cfg.grid_ny,
+        int(cfg.include_self_density), self_base, cfg.h2, cfg.h_scaled2,
+        _f32(cfg.sim_scale * cfg.sim_scale), cfg.poly6_norm, cfg.h_scaled,
+        _f32(cfg.sim_scale), _f32(cfg.pressure_softening),
+        _f32(cfg.stiffness), _f32(cfg.rho0), _f32(cfg.viscosity),
+        cfg.visc_lap_norm, _stream(dev))
+    _raise_on(lib, err, kernel)
+    return acc, rho, ncount
+
+
 def fused_t(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
             mass_s: torch.Tensor, cid: torch.Tensor, ws: torch.Tensor,
             wc: torch.Tensor, cand: torch.Tensor, cand_cid: torch.Tensor,
-            cand_src: torch.Tensor
+            cand_src: torch.Tensor, cell_start: torch.Tensor | None
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused capped sweep: (acc [N, 3], rho [N], ncount [N]) in one pass
-    over the sub frame's candidates."""
+    over the sub frame's candidates.  The kernel walks each row's cell
+    bands of the sub frame (``cell_start``), the twin its block's windows
+    (``ws``, ``wc``) with the sub frame's cids."""
     if _use_plain(pos_s):
         return fused_t_plain(cfg, pos_s, vel_s, mass_s, cid, ws, wc, cand,
                              cand_cid, cand_src)
-    out = _launch_fused(cfg, pos_s, vel_s, mass_s, cid, ws, wc, cand,
-                        cand_cid, cand_src, "fused_kernel_t")
+    out = _launch_fused_band(cfg, pos_s, vel_s, mass_s, cid, cell_start, cand,
+                             cand_src, "fused_band_t")
     fused_t.launches += 1
     return out
 
@@ -933,10 +983,10 @@ def force_sweep_t(cfg: SphConfig, p: PreparedT, rho_s: torch.Tensor,
 def density_sub_t(cfg: SphConfig, p: PreparedT, pv_sub) -> torch.Tensor:
     """Fused-path pre-pass: capped density [S] of the sub-frame rows only
     (the candidates' pressures are its only consumer).  Tail rows
-    [n_kept, S) get values no pair ever reads: their candidates fail the
-    cid band."""
+    [n_kept, S) get values no pair ever reads: no band reaches them."""
     return density_pre_t(cfg, pv_sub[0], p.mass_s[p.sub_perm], p.wm_sub,
-                         p.cand_cid, p.sub_perm, p.ws_sub, p.wc_sub)
+                         p.cand_cid, p.sub_perm, p.ws_sub, p.wc_sub,
+                         p.cell_start)
 
 
 def fused_sweep_t(cfg: SphConfig, p: PreparedT, rho_sub: torch.Tensor,
@@ -945,7 +995,7 @@ def fused_sweep_t(cfg: SphConfig, p: PreparedT, rho_sub: torch.Tensor,
     candidates' pressures from the pre-pass densities ``rho_sub``."""
     cand = fused_cand_cols(cfg, pv_sub[0], pv_sub[1], rho_sub, p.wm_sub)
     return fused_t(cfg, p.pos_s, p.vel_s, p.mass_s, p.cid, p.ws, p.wc, cand,
-                   p.cand_cid, p.sub_perm)
+                   p.cand_cid, p.sub_perm, p.cell_start)
 
 
 def sweeps_sorted(cfg: SphConfig, p: PreparedT

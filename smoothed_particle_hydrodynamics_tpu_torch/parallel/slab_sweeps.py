@@ -12,7 +12,7 @@ The candidates are the extended frame ``ext`` = [left halo | own slab |
 right halo] (``h_cap + p_cap + h_cap`` rows, the halos from the ring
 neighbours) or, in capped mode, its sub frame (the kept rows ``ext[sub_src]``).
 The self rows are the own slab, rows ``[h_cap, h_cap + p_cap)`` of ``ext``,
-so every block walk but the sub-frame pre-pass passes ``self_base =
+so every walk but the sub-frame pre-pass passes ``self_base =
 h_cap``: self row i's own id is its extended-frame row, the one
 self-exclusion compares with a candidate's row (exact mode) or its
 ``sub_src`` (capped modes).  This is the Pallas kernels' ``block_base =
@@ -46,6 +46,18 @@ count 0, acc 0, as the block walks give them, since every sub-frame row is
 valid and a dead row's d^2 is inf).  On every own row the band walks equal
 the block walks bit for bit; the twins stay the block-walk twins over
 ``ws``/``wc``.
+
+The fused pair walks the same ``SubBand``.  K3 (``fused_band_t``) is capped
+K2's walk with K1's sums added: the own rows over the sub frame, ``self_base
+= h_cap``, the own dead rows ``NO_CELL`` (rho 0, count 0, acc 0, as the
+block walk ``fused_kernel_t`` gives them); bit-equal to it on every own
+row.  The pre-pass (``density_band_t<kExclSrcSrc>``) walks the sub frame
+over itself: self cids ``cand_cid`` (``TAIL_CID`` on the unkept tail, whose
+bands are empty), own id ``sub_src[i]``; bit-equal to the ``EXCL_SRC_SRC``
+block walk on the kept rows (the tail rows get the self term and count 0,
+the block walk what their windows hold; ``scatter_sub_rho`` keeps only
+kept rows).  Their twins stay the block-walk twins over ``ws``/``wc`` and
+the pre-pass tables ``ws_sub``/``wc_sub``.
 
 Dead rows (``[count, p_cap)`` of the slab) and the inert chain-end halos
 sit at position 1e30 with mass 0: a pair with one of them has d^2 = inf,
@@ -86,8 +98,8 @@ class SlabBand(NamedTuple):
 
 
 class SubBand(NamedTuple):
-    """The capped band kernels' view of a rank's sub frame, built at rebins
-    (``slabs._sub_band``) and frozen with the window tables."""
+    """The capped and fused band kernels' view of a rank's sub frame, built
+    at rebins (``slabs._sub_band``) and frozen with the window tables."""
 
     cell_start: torch.Tensor  # [num_cells + 1] i32 first kept sub row per cell
     cid: torch.Tensor         # [p_cap] i32 own cids, NO_CELL from the count on
@@ -207,42 +219,51 @@ def force_ext_capped(cfg: SphConfig, pos_l, vel_l, rho_l, cand, cid_l, ws, wc,
 
 
 def density_sub_pre_plain(cfg, pos_sub, mass_sub, wm_sub, cid_sub, src_sub,
-                          ws_sub, wc_sub):
+                          ws_sub, wc_sub, band=None):
+    """The block-walk twin over the pre-pass tables (``band`` is the
+    kernel's)."""
     return sw.density_pre_t_plain(cfg, pos_sub, mass_sub, wm_sub, cid_sub,
                                   src_sub, ws_sub, wc_sub)
 
 
 def density_sub_pre(cfg: SphConfig, pos_sub, mass_sub, wm_sub, cid_sub,
-                    src_sub, ws_sub, wc_sub):
+                    src_sub, ws_sub, wc_sub, band: SubBand | None = None):
     """Fused path's pre-pass over the sub frame itself: rho [S] (the
-    src-vs-src exclusion needs no offset)."""
+    src-vs-src exclusion needs no offset).  The twin walks the block
+    windows (``ws_sub``, ``wc_sub``), the kernel the bands of the sub
+    frame's table (``band``) for the self cids ``cid_sub``."""
     if _use_plain(pos_sub):
         return density_sub_pre_plain(cfg, pos_sub, mass_sub, wm_sub, cid_sub,
                                      src_sub, ws_sub, wc_sub)
-    rho, _ = sw._launch_density(cfg, sw.EXCL_SRC_SRC, pos_sub, mass_sub,
-                                cid_sub, ws_sub, wc_sub, pos_sub, wm_sub,
-                                cid_sub, src_sub, src_sub,
-                                "density_kernel_t<prepass>[slab]")
+    band = _band(band)
+    rho, _ = sw._launch_density_band(cfg, pos_sub, mass_sub, cid_sub,
+                                     band.cell_start, pos_sub, wm_sub,
+                                     src_sub, "density_band_t<prepass>[slab]",
+                                     self_src=src_sub)
     density_sub_pre.launches += 1
     return rho
 
 
 def fused_ext_plain(cfg, pos_l, vel_l, mass_l, cid_l, ws, wc, cand, cand_cid,
-                    cand_src, self_base):
+                    cand_src, self_base, band=None):
+    """The block-walk twin over the sub frame (``band`` is the kernel's)."""
     return sw.fused_t_plain(cfg, pos_l, vel_l, mass_l, cid_l, ws, wc, cand,
                             cand_cid, cand_src, self_base=self_base)
 
 
 def fused_ext(cfg: SphConfig, pos_l, vel_l, mass_l, cid_l, ws, wc, cand,
-              cand_cid, cand_src, self_base: int):
+              cand_cid, cand_src, self_base: int, band: SubBand | None = None):
     """Fused capped K3 over the extended frame's sub frame: (acc, rho,
-    ncount) of the own slab."""
+    ncount) of the own slab.  The twin walks the block windows (``ws``,
+    ``wc``), the kernel the sub frame's bands (``band``) for the own cids
+    ``band.cid``."""
     if _use_plain(pos_l):
         return fused_ext_plain(cfg, pos_l, vel_l, mass_l, cid_l, ws, wc, cand,
                                cand_cid, cand_src, self_base)
-    out = sw._launch_fused(cfg, pos_l, vel_l, mass_l, cid_l, ws, wc, cand,
-                           cand_cid, cand_src, "fused_kernel_t[slab]",
-                           self_base)
+    band = _band(band)
+    out = sw._launch_fused_band(cfg, pos_l, vel_l, mass_l, band.cid,
+                                band.cell_start, cand, cand_src,
+                                "fused_band_t[slab]", self_base)
     fused_ext.launches += 1
     return out
 
@@ -350,35 +371,39 @@ def force_local_capped(cfg: SphConfig, ext, g8, cid_ext, rho_e, rho_l, ws, wc,
 
 
 def density_sub_local_args(cfg: SphConfig, g8, sub_src, cand_cid, w_sub,
-                           ws_s, wc_s) -> tuple:
+                           ws_s, wc_s, band: SubBand | None = None) -> tuple:
     mass = g8[:, _MASS].contiguous()
     return (cfg, g8[:, 0:3].contiguous(), mass, mass * w_sub, cand_cid,
-            sub_src, ws_s, wc_s)
+            sub_src, ws_s, wc_s, band)
 
 
 def density_sub_local(cfg: SphConfig, g8, sub_src, cand_cid, w_sub, ws_s,
-                      wc_s) -> torch.Tensor:
+                      wc_s, band: SubBand | None = None) -> torch.Tensor:
     """Fused path's pre-pass: capped density [S] of the sub-frame rows
-    (self rows carry the true mass, candidates the reweighted one)."""
+    (self rows carry the true mass, candidates the reweighted one);
+    ``band`` the sub frame's frozen table (the kernel's)."""
     return density_sub_pre(*density_sub_local_args(cfg, g8, sub_src, cand_cid,
-                                                   w_sub, ws_s, wc_s))
+                                                   w_sub, ws_s, wc_s, band))
 
 
 def fused_local_capped_args(cfg: SphConfig, ext, g8, cid_ext, rho_cand, ws,
                             wc, sub_src, cand_cid, w_sub, h_cap: int,
-                            p_cap: int) -> tuple:
+                            p_cap: int, band: SubBand | None = None) -> tuple:
     pos, vel, mass, cid = _own(ext, cid_ext, h_cap, p_cap)
     cand = sw.fused_cand_cols(cfg, g8[:, 0:3], g8[:, 3:6], rho_cand,
                               g8[:, _MASS] * w_sub)
-    return (cfg, pos, vel, mass, cid, ws, wc, cand, cand_cid, sub_src, h_cap)
+    return (cfg, pos, vel, mass, cid, ws, wc, cand, cand_cid, sub_src, h_cap,
+            band)
 
 
 def fused_local_capped(cfg: SphConfig, ext, g8, cid_ext, rho_cand, ws, wc,
-                       sub_src, cand_cid, w_sub, h_cap: int, p_cap: int):
+                       sub_src, cand_cid, w_sub, h_cap: int, p_cap: int,
+                       band: SubBand | None = None):
     """One fused pass: (acc, rho, ncount) of the own slab; ``rho_cand``
     holds each sub-frame row's pre-pass density (halo rows' from their
-    owner)."""
+    owner), ``band`` the sub frame's frozen table (the kernel's)."""
     args = fused_local_capped_args(cfg, ext, g8, cid_ext, rho_cand, ws, wc,
-                                   sub_src, cand_cid, w_sub, h_cap, p_cap)
+                                   sub_src, cand_cid, w_sub, h_cap, p_cap,
+                                   band)
     acc, rho, ncount = fused_ext(*args)
     return _finish(cfg, acc, args[1]), rho, ncount

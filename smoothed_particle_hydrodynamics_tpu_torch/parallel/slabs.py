@@ -485,8 +485,8 @@ class LazySlabCarry(NamedTuple):
     wc, band) for the exact kernels (``band`` the band walks'
     ``slab_sweeps.SlabBand``, ``ws``/``wc`` the block windows of the twins),
     (ws, wc, sub_src, cand_cid, w_sub, sub_dropped, sub_band) in capped mode
-    (``sub_band`` the capped band walks' ``slab_sweeps.SubBand``), +
-    (ws_sub, wc_sub) when fused.
+    (``sub_band`` the capped and fused band walks' ``slab_sweeps.SubBand``),
+    + (ws_sub, wc_sub) when fused (the pre-pass twin's block windows).
     """
 
     fields: torch.Tensor   # [p_cap, 8] f32, bin-time sorted order
@@ -755,7 +755,7 @@ def slab_step_body(cfg: SphConfig, group: SlabGroup, p_cap: int, h_cap: int,
         if fused:
             rho_l = scatter_sub_rho(
                 ss.density_sub_local(cfg, g8, sub_src, cand_cid, w_sub,
-                                     *tabs[7:9]),
+                                     *tabs[7:9], sub_band),
                 sub_src, cand_cid, h_cap, p_cap)
         else:
             rho_l, nc_l = ss.density_local_capped(
@@ -782,7 +782,7 @@ def slab_step_body(cfg: SphConfig, group: SlabGroup, p_cap: int, h_cap: int,
         rho_cand, w_cand = fused_candidates(rho_e, sub_src, w_sub)
         acc_l, rho_l, nc_l = ss.fused_local_capped(
             cfg, ext, g8, cid_ext, rho_cand, ws, wc, sub_src, cand_cid,
-            w_cand, h_cap, p_cap)
+            w_cand, h_cap, p_cap, sub_band)
     elif capped:
         acc_l = ss.force_local_capped(cfg, ext, g8, cid_ext, rho_e, rho_l, ws,
                                       wc, sub_src, cand_cid, w_sub, h_cap,

@@ -86,11 +86,12 @@ def uses_lazy(cfg: SphConfig, backend: str) -> bool:
             and cfg.pallas_layout == "sublane" and cfg.second_kick != "full")
 
 
-def run_benchmark(scene: str = "splash", lazy: bool | None = True,
-                  steps: int = 20, warmup: int = 3, overrides: dict | None = None,
-                  device: str = "cuda", seed: int | None = None,
-                  backend: str = "pallas") -> dict:
+def run_benchmark(scene: str = "disk", lazy: bool | None = False,
+                  steps: int = 100, warmup: int = 10,
+                  overrides: dict | None = None, device: str = "cuda",
+                  seed: int | None = None, backend: str = "celllist") -> dict:
     """Run ``warmup`` steps, then time ``steps`` steps; returns one record.
+    The defaults are the JAX package's (``utils/benchmark.py:27-29``).
 
     ``lazy=True`` drives ``ops.lazy.drive_loop_lazy`` (the production path,
     the pallas backend only); ``lazy=False`` the eager per-step-rebin

@@ -58,7 +58,7 @@ def worker(paths: list[str], repeat: int, steps: int, n: int = 1_000_000,
             engine, lazy, ov = PATHS[path]
             if engine == "single":
                 r = run_benchmark(scene="splash", lazy=lazy, steps=steps,
-                                  warmup=WARMUP,
+                                  warmup=WARMUP, backend="pallas",
                                   overrides=dict(ov, num_particles=n),
                                   device=device)
             else:

@@ -8,10 +8,12 @@ keeps the 1M scene's 128-cell x-rows and its pool height at ~124k
 particles, for the lane layout (1.0h cells, window 512), for the sublane
 headline shapes (1.25h cells, window 208) and for capped mode on them
 (``capped_candidates`` 4; block, window and sub frame derived as the CLI
-derives them): the block walk's rows and the band kernels'
-(``band_rows_per_lane``; the lane band kernels' ``lane_band_rows_per_lane``;
-the slab engine's exact and capped band kernels' ``slab_band_rows_per_lane``
-and ``slab_sub_band_rows_per_lane``), with the mean neighbor count.
+derives them) and its fused pre-pass: the block walk's rows and the band
+kernels' (``band_rows_per_lane``; the lane band kernels'
+``lane_band_rows_per_lane``; the slab engine's exact and capped band
+kernels' ``slab_band_rows_per_lane`` and ``slab_sub_band_rows_per_lane``;
+the fused path's sub-frame pre-pass, both walks, ``prepass_rows``), with
+the mean neighbor count.
 ``corner_state`` builds the 4-slab frame on which a slab table over the raw
 extended frame would test dead rows.
 """
@@ -95,6 +97,29 @@ def slab_sub_band_rows_per_lane(cfg, band, count: int) -> dict:
                               int(band.cell_start[-1]))
 
 
+def prepass_rows(cfg, cid_sub, ws_sub, wc_sub, cell_start
+                 ) -> tuple[float, dict]:
+    """The fused path's sub-frame pre-pass over the S sub rows (self cids
+    ``cid_sub``, ``TAIL_CID`` on the unkept tail): its block walk's rows per
+    thread over the pre-pass window tables ``ws_sub``/``wc_sub``, in the
+    blocks that hold kept rows, and its band kernel's ``band_stats`` over
+    the kept rows (``cell_start[num_cells]`` of them; the tail rows walk
+    nothing) in the sub frame's table ``cell_start``.  One device:
+    ``prepare_t``'s ``cand_cid``, ``ws_sub``, ``wc_sub`` and
+    ``cell_start``; the slab engine: ``cand_cid``, the fused ``tabs[7:9]``
+    and ``SubBand.cell_start``."""
+    from types import SimpleNamespace
+
+    from ..ops.sweeps_t import NRODS, _blane
+
+    kept = int(cell_start[-1])
+    nt = -(-kept // _blane(cfg)) * NRODS
+    window = sublane_rows_per_thread(
+        cfg, SimpleNamespace(ws=ws_sub[:nt], wc=wc_sub[:nt]),
+        cid_sub.shape[0])
+    return window, band_rows_per_lane(cfg, cid_sub[:kept], cell_start, kept)
+
+
 def corner_state(cfg, counts: tuple = (600, 900, 1200), short: int = 40,
                  seed: int = 9):
     """The frame where a table over a slab's raw extended frame walks dead
@@ -174,7 +199,7 @@ def main() -> None:
     _print_band("1.25h cells, exact",
                 band_rows_per_lane(cfg, p.cid, p.cell_start, st.n))
     capped = dict(num_particles=124_603, cell_size_factor=1.25,
-                  capped_candidates=4, pallas_window_t=0)
+                  capped_candidates=4, pallas_window_t=0, capped_fused=True)
     cfg, st = make_scene("splash", **capped, **thin)
     cfg = resolve_sweep_settings(cfg, st, capped)
     p = sweeps_t.prepare_t(cfg, st)
@@ -186,6 +211,11 @@ def main() -> None:
           f"mean neighbors {nc.double().mean().item():.2f}")
     _print_band("1.25h cells, capped",
                 band_rows_per_lane(cfg, p.cid, p.cell_start, s_len))
+    window, band = prepass_rows(cfg, p.cand_cid, p.ws_sub, p.wc_sub,
+                                p.cell_start)
+    print(f"pre-pass (the sub frame over itself, {int(p.cell_start[-1])} "
+          f"kept rows): {window:.1f} rows/thread")
+    _print_band("1.25h cells, fused pre-pass", band)
 
 
 if __name__ == "__main__":

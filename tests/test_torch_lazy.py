@@ -81,7 +81,7 @@ def test_lazy_matches_eager_step():
     step (ops.step), in the caller's particle order."""
     _, _, tc, ts = _scenes(cell_size_factor=1.5)
     got, diags = tlazy.drive_loop_lazy(tc, ts, STEPS)
-    ref, ref_diags = tstep.drive_loop(tc, ts, STEPS)
+    ref, ref_diags = tstep.drive_loop(tc, ts, STEPS, backend="pallas")
     np.testing.assert_allclose(got.position.numpy(), ref.position.numpy(),
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(got.density.numpy(), ref.density.numpy(),
@@ -135,7 +135,8 @@ def test_run_benchmark_on_cpu(lazy):
     from smoothed_particle_hydrodynamics_tpu_torch.utils.benchmark import (
         run_benchmark)
 
-    r = run_benchmark(lazy=lazy, steps=2, warmup=1, device="cpu",
+    r = run_benchmark(scene="splash", lazy=lazy, steps=2, warmup=1,
+                      device="cpu", backend="pallas",
                       overrides=dict(num_particles=512, cell_size_factor=1.25,
                                      pallas_window_t=0))
     assert r["device"] == "cpu" and r["finite"] and r["steps"] == 2
@@ -148,7 +149,8 @@ def test_cli_run_prints_one_line_per_block(capsys):
 
     from smoothed_particle_hydrodynamics_tpu_torch.__main__ import main
 
-    assert main(["run", "-n", "384", "--steps", "3", "--block", "2",
+    assert main(["run", "--scene", "splash", "-n", "384", "--steps", "3",
+                 "--block", "2",
                  "--device", "cpu", "--set", "cell_size_factor=1.25",
                  "--set", "pallas_window_t=64"]) == 0
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
@@ -165,7 +167,7 @@ def test_cli_refuses_to_fall_back_to_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for cmd in ("run", "bench"):
         with pytest.raises(SystemExit, match="no CUDA device"):
-            main([cmd, "-n", "384", "--steps", "1"])
+            main([cmd, "--scene", "splash", "-n", "384", "--steps", "1"])
 
 
 def test_pairwise_backend_rejects_capped_config():
@@ -192,7 +194,8 @@ def test_cli_run_resolves_capped_settings(capsys):
         *make_scene("splash", device="cpu", seed=11, **ov), ov)
     assert want.pallas_block_t == 256 and want.pallas_window_t >= 64
     assert 0 < want.capped_sub_len < 1024
-    assert main(["run", "-n", "1024", "--steps", "2", "--block", "2",
+    assert main(["run", "--scene", "splash", "-n", "1024", "--steps", "2",
+                 "--block", "2",
                  "--device", "cpu", "--backend", "pallas"]
                 + [f"--set={k}={v}" for k, v in ov.items()
                    if k != "num_particles"]) == 0
@@ -200,7 +203,8 @@ def test_cli_run_resolves_capped_settings(capsys):
     assert (line["block_t"], line["window_t"], line["capped_sub_len"]) == (
         want.pallas_block_t, want.pallas_window_t, want.capped_sub_len)
     assert line["truncated_ranges"] == 0 and np.isfinite(line["kinetic_energy"])
-    r = run_benchmark(steps=1, warmup=1, device="cpu", overrides=ov)
+    r = run_benchmark(scene="splash", lazy=True, steps=1, warmup=1,
+                      device="cpu", overrides=ov, backend="pallas")
     assert (r["block_t"], r["window_t"], r["capped_sub_len"]) == (
         want.pallas_block_t, want.pallas_window_t, want.capped_sub_len)
     assert r["truncated_ranges"] == [0, 0] and r["finite"]

@@ -189,7 +189,8 @@ def test_compute_forces_rejects_compat_and_unknown_backends():
     with pytest.raises(ValueError, match="unknown backend"):
         tstep.compute_forces(tc, ts, backend="xla")
     with pytest.raises(ValueError, match="pallas_layout"):
-        tstep.compute_forces(tc.replace(pallas_layout="tiled"), ts)
+        tstep.compute_forces(tc.replace(pallas_layout="tiled"), ts,
+                             backend="pallas")
 
 
 def test_run_benchmark_eager_backends_on_cpu():
