@@ -119,21 +119,34 @@ Phases (every failed check raises, and the script exits nonzero):
    [131072, 128] at K = 1 and 4 (and the IEEE ops at the probe's K = 64)
    and the reciprocal table against the plain chain (bit-equal where both
    round in IEEE f32, rel <= 1e-5 where the kernel approximates); every
-   gather mode at each S, bit-equal; each d^2 mode at one tile and over
-   4096 tiles, <= 1e-4 max abs against its plain version (FMA and 3xTF32
-   against the f32 one too); then, launch counters reset, the three probes'
-   main runs, whose every line and finding is printed, and the SASS of the
-   chain kernels (sqrtf and '/' IEEE sequences, no chain folded: each MUFU
-   op issues a full unrolled body of its MUFU instructions).
+   gather mode and the one-shot reference (``ONESHOT``, the first design
+   of ``gather_smem``) at each S, lane-varying and lane-uniform indices,
+   bit-equal, ``gather_smem`` also on a grid of ``WALK_GRID`` CTAs (each
+   walks many tiles round its ring, the tiles no multiple of the grid);
+   each d^2 mode at one tile and over 4096 tiles, <= 1e-4 max abs against
+   its plain version (FMA and 3xTF32 against the f32 one too);
+   ``gather_smem`` (the persistent TMA pipeline) and the one-shot kernel
+   in turns at every S, on rotating copies of their inputs (the bytes
+   from device memory, not L2); the one-shot gather, ``torch.gather`` and
+   the center-term chain under the queued timer (its sleep must outlast
+   the enqueue); every step's values of the chains
+   with IEEE slow paths inside their fast paths' range; then, launch
+   counters reset, the three probes' main runs, whose every line and
+   finding is printed, and the SASS of the chain kernels (sqrtf and '/'
+   IEEE sequences, no chain folded: each MUFU op issues a full unrolled
+   body of its MUFU instructions; each counted unrolled body, which the
+   chain bounds come from, at least its ``MIX`` floor).
 
 It then prints the card's name and power limit, one JSON line of kernel
 records (time, twin time, launches, error, and the bound: the larger of the
 bytes each call must move over 3.35 TB/s and the flops on the pairs within
 h over 67 TFLOP/s f32, the H100 SXM's published peaks; for a probe, at the
-case its record names, its instructions over the card's issue rate or its
-tensor-core flops over 495 TFLOP/s TF32, and the PyTorch call that computes
-the same function as ``library_ms``), and last ``{"ok": true, "device":
-{...}}``.  With no CUDA device it exits 1 before printing any result.
+case its record names, the chain's instructions counted from its unrolled
+body's SASS over the card's issue rates (f32, MUFU and integer work;
+control left out), the gather's bytes, or the d^2
+tile's tensor-core flops over 495 TFLOP/s TF32, and the PyTorch call that
+computes the same function as ``library_ms``), and last ``{"ok": true,
+"device": {...}}``.  With no CUDA device it exits 1 before printing any result.
 """
 
 from __future__ import annotations
@@ -1059,29 +1072,105 @@ def vpu_vs_plain(dev) -> float:
     return worst
 
 
+# gather_smem's CTAs in the walk check: far fewer than the tiles at every S
+# and no divisor of any S's tile count, so each CTA wraps its ring many times
+# and the last round is partial
+WALK_GRID = 7
+
+
 def gather_vs_plain(dev) -> float:
-    """Every gather-probe mode, the gathers with lane-varying and
-    lane-uniform indices, at each S of the JAX probe, bit-equal to the
-    plain version.  Returns the max abs error."""
+    """Every gather-probe mode and ``ONESHOT`` (the first design of
+    ``gather_smem``, its reference in turns), the gathers with lane-varying
+    and lane-uniform indices, at each S of the JAX probe, bit-equal to the
+    plain version; ``gather_smem`` also on ``WALK_GRID`` CTAs.  Returns
+    the max abs error."""
     from smoothed_particle_hydrodynamics_tpu_torch.tools import (
         probe_gather as pg)
 
     worst = 0.0
     for S in pg.SIZES:
         src, idx_v, idx_u = pg.make_inputs(S, pg.ELEMENTS, dev)
-        cases = [(m, idx_v) for m in pg.MODES] + [
-            (m, idx_u) for m in pg.MODES if m.startswith("gather")]
-        for mode, idx in cases:
-            a = pg.gather_tile(src, idx, S, mode)
+        ring = pg.pipeline(S)
+        tiles = src.shape[0] // S * (pg.LANES // ring["w"])
+        check(tiles % WALK_GRID != 0 and tiles > 2 * ring["stages"]
+              * WALK_GRID, f"S={S}: {tiles} tiles walk unevenly round the "
+              f"ring on {WALK_GRID} CTAs")
+        cases = [(m, idx_v, 0) for m in pg.KERNEL_MODES] + [
+            (m, idx_u, 0) for m in pg.KERNEL_MODES if m.startswith("gather")]
+        cases += [("gather_smem", idx, WALK_GRID) for idx in (idx_v, idx_u)]
+        for mode, idx, grid in cases:
+            a = pg.gather_tile(src, idx, S, mode, grid=grid)
             b = pg.gather_tile_plain(src, idx, S, mode)
             torch.cuda.synchronize()
             check(bool(torch.equal(a, b)),
-                  f"gather_tile_kernel<{mode}> S={S} bit-equal to plain")
+                  f"gather_tile_kernel<{mode}> S={S} grid={grid} bit-equal "
+                  "to plain")
             worst = max(worst, max_abs(a, b))
-        print(f"[probe gather] S={S} nb={src.shape[0] // S} "
-              f"w={pg.strip_width(S)}: {len(cases)} cases ({', '.join(pg.MODES)}"
-              f"; gathers lane-varying and lane-uniform) bit-equal to plain")
+        print(f"[probe gather] S={S} nb={src.shape[0] // S} pipeline {ring}, "
+              f"one-shot w={pg.oneshot_width(S)}: {len(cases)} cases "
+              f"({', '.join(pg.KERNEL_MODES)}; gathers lane-varying and "
+              f"lane-uniform; gather_smem also on {WALK_GRID} CTAs, "
+              f"{tiles} tiles, up to {-(-tiles // WALK_GRID)} a CTA) "
+              "bit-equal to plain")
     return worst
+
+
+def gather_in_turns(dev) -> None:
+    """``gather_smem`` (the persistent TMA pipeline) against ``ONESHOT``
+    (its first design) in turns (old, new, new, old; queued CUDA events,
+    20 runs after 3, on ``probe_gather.rotation``'s copies of the inputs)
+    at every S, lane-varying and lane-uniform indices."""
+    from smoothed_particle_hydrodynamics_tpu_torch.tools import (
+        probe_gather as pg)
+
+    for S in pg.SIZES:
+        src, idx_v, idx_u = pg.make_inputs(S, pg.ELEMENTS, dev)
+        bound = 3 * src.nbytes / HBM_BYTES_PER_S * 1e3
+        for kind, idx in (("lane-varying", idx_v), ("lane-uniform", idx_u)):
+            fns = {"old": pg.rotation(
+                       lambda s, i: pg.gather_tile(s, i, S, pg.ONESHOT), src,
+                       idx),
+                   "new": pg.rotation(
+                       lambda s, i: pg.gather_tile(s, i, S, "gather_smem"),
+                       src, idx)}
+            ms = {"old": [], "new": []}
+            for which in ("old", "new", "new", "old"):
+                ms[which].append(time_ms(fns[which]))
+            print(f"[probe gather] S={S} {kind} in turns (ms): one-shot "
+                  f"{ms['old'][0]:.5f} {ms['old'][1]:.5f}, pipeline "
+                  f"{ms['new'][0]:.5f} {ms['new'][1]:.5f}; bound "
+                  f"{bound * 1e3:.2f} us (bytes), pipeline at "
+                  f"{bound / min(ms['new']):.0%} of it")
+
+
+def queued_timer(dev) -> None:
+    """The one-shot gather (S = 1024, lane-varying), ``torch.gather`` on the
+    same function and ``chain_kernel<center_now>`` (K = 64) under the
+    queued timer, twice each: the card's sleep before the start event must
+    outlast the host's enqueue of the 20 timed calls."""
+    from smoothed_particle_hydrodynamics_tpu_torch.tools import (
+        probe_gather as pg, probe_vpu_ops as pv, timing)
+
+    S = 1024
+    src, idx_v, _ = pg.make_inputs(S, pg.ELEMENTS, dev)
+    x = pv.make_input(pv.BLOCKS, dev)
+    fns = {"one-shot gather S=1024": pg.rotation(
+               lambda s, i: pg.gather_tile(s, i, S, pg.ONESHOT), src, idx_v),
+           "torch.gather S=1024": pg.rotation(
+               lambda s, i: torch.gather(s, 1, i),
+               src.view(-1, S, pg.LANES), idx_v.view(-1, S, pg.LANES).long()),
+           "chain_kernel<center_now> K=64": lambda: pv.chain(x, "center_now",
+                                                             pv.K)}
+    for name, fn in fns.items():
+        runs = [timing(fn) for _ in range(2)]
+        check(all(r["covered"] for r in runs),
+              f"{name}: the sleep outlasts the enqueue")
+        print(f"[timer] {name} (ms a call; 20 runs after 3, queued): "
+              + " ".join(f"{r['ms']:.5f}" for r in runs)
+              + "; host enqueue of 20 calls " + " ".join(
+                  f"{r['enqueue_ms']:.3f}" for r in runs)
+              + " ms, card sleep " + " ".join(
+                  f"{r['sleep_ms']:.3f}" for r in runs) + " ms")
 
 
 def mxu_vs_plain(dev) -> float:
@@ -1110,18 +1199,18 @@ def mxu_vs_plain(dev) -> float:
     return worst
 
 
-def sass_checks(mix: dict) -> None:
+def sass_checks(mix: dict, body: dict) -> None:
     """The chain kernels compiled as the probe assumes: sqrtf and '/' as
     IEEE sequences (a MUFU seed refined by FFMAs; the divide's FCHK range
     check), not as one MUFU approximation; the mul chain not folded (16
     multiplies in its unrolled body at least); every op that issues on the
-    MUFU at least one unrolled body's worth of its MUFU instructions."""
+    MUFU at least one unrolled body's worth of its MUFU instructions; and
+    each op's counted unrolled body (``sass_body_mix``, which the bounds
+    are counted from) at least its floor ``MIX`` of f32 and MUFU
+    instructions a step."""
     from smoothed_particle_hydrodynamics_tpu_torch.tools import (
         probe_vpu_ops as pv)
 
-    if not mix:
-        print("[probe vpu] cuobjdump not found: SASS not checked")
-        return
     check("MUFU.SQRT" not in mix["sqrt"] and mix["sqrt"]["FFMA"] > 0,
           f"sqrtf is an IEEE sequence: {dict(mix['sqrt'])}")
     check(mix["div"]["FCHK"] > 0 and mix["div"]["FFMA"] > 0,
@@ -1129,6 +1218,33 @@ def sass_checks(mix: dict) -> None:
     check(mix["mul"]["FMUL"] >= 16, f"mul chain unfolded: {dict(mix['mul'])}")
     folded = pv.sass_folded(mix)
     check(not folded, f"MUFU chains unfolded: {folded}")
+    for op, (fp32, mufu) in pv.MIX.items():
+        step = pv.step_mix(body[op])
+        check(step["fp32"] >= fp32 and step["mufu"] >= mufu,
+              f"chain_kernel<{op}> counted body {dict(body[op])} holds its "
+              f"floor of {fp32} f32 and {mufu} MUFU a step")
+
+
+def chain_ranges(dev) -> None:
+    """The chains whose IEEE sequences branch to a slow path (sqrtf, '/',
+    __frcp_rn, the center term): every value each step of the plain chain
+    takes from the probe's input (1.3 + U[0, 1) 0.5, K = 64) lies in
+    [2^-20, 2^20], far inside the range the fast paths take, so the counted
+    bodies (which leave the slow paths out) are what the kernels issue."""
+    from smoothed_particle_hydrodynamics_tpu_torch.tools import (
+        probe_vpu_ops as pv)
+
+    x = pv.make_input(pv.BLOCKS, dev)
+    for op in ("sqrt", "div", "recip", "center_now"):
+        v, lo, hi = x, float("inf"), 0.0
+        for _ in range(pv.K):
+            v = pv.chain_plain(v, op, 1)
+            lo = min(lo, v.abs().min().item())
+            hi = max(hi, v.abs().max().item())
+        print(f"[probe vpu] chain_kernel<{op}> K={pv.K}: every step's values "
+              f"in [{lo:.4g}, {hi:.4g}] (the fast paths')")
+        check(2.0**-20 <= lo and hi <= 2.0**20,
+              f"chain_kernel<{op}> values stay normal: [{lo}, {hi}]")
 
 
 def probe_records(dev, vpu: dict, gat: dict, mxu: dict) -> dict:
@@ -1145,23 +1261,26 @@ def probe_records(dev, vpu: dict, gat: dict, mxu: dict) -> dict:
     out["chain_kernel"] = dict(
         case=f"center_now (K2's sqrtf + divide), K={pv.K}, {tuple(x.shape)}",
         ms=row["ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+        bound_class=f"{row['bound_class']}, counted from the unrolled body: "
+                    f"{row['step']['work']:.3f} instructions of work a step "
+                    f"(control, {row['step']['control']:.3f}, left out)",
         plain_ms=time_ms(lambda: pv.chain_plain(x, "center_now", pv.K),
                          iters=3, warmup=1),
         library_ms=None)
     S = 1024
     src, idx_v, _ = pg.make_inputs(S, pg.ELEMENTS, dev)
     row = next(r for r in gat["tiles"] if r["S"] == S)
-    src3 = src.view(-1, S, pg.LANES)
-    idx3 = idx_v.view(-1, S, pg.LANES).long()
     out["gather_tile_kernel"] = dict(
-        case=f"gather_smem, lane-varying indices, S={S}, {tuple(src.shape)}",
+        case=f"gather_smem (persistent TMA pipeline), lane-varying indices, "
+             f"S={S}, {tuple(src.shape)}, {pg.COPIES} rotating copies",
         ms=row["gather_smem"], bound_ms=row["gather_bound_ms"],
         bound_by="bytes",
-        plain_ms=time_ms(
-            lambda: pg.gather_tile_plain(src, idx_v, S, "gather_smem"),
-            iters=10, warmup=1),
-        library_ms=time_ms(lambda: torch.gather(src3, 1, idx3), iters=10,
-                           warmup=1))
+        plain_ms=time_ms(pg.rotation(
+            lambda s, i: pg.gather_tile_plain(s, i, S, "gather_smem"), src,
+            idx_v), iters=10, warmup=1),
+        library_ms=time_ms(pg.rotation(
+            lambda s, i: torch.gather(s, 1, i), src.view(-1, S, pg.LANES),
+            idx_v.view(-1, S, pg.LANES).long()), iters=10, warmup=1))
     g, selfv, offs = pm.make_tiles(mxu["tiles"], dev)
     row = mxu["timed"]["tf32x3"]
     out["d2_tile_kernel"] = dict(
@@ -1667,13 +1786,16 @@ def main() -> int:
     errs["chain_kernel"] = vpu_vs_plain(dev)
     errs["gather_tile_kernel"] = gather_vs_plain(dev)
     errs["d2_tile_kernel"] = mxu_vs_plain(dev)
+    gather_in_turns(dev)
+    queued_timer(dev)
+    chain_ranges(dev)
     reset_launches()
     vpu, gat, mxu = probe_vpu_ops.main(), probe_gather.main(), probe_mxu.main()
     for name in PROBE_KERNELS:
         launches[name] = wrapper(name).launches
         check(launches[name] > 0, f"probe run: {name} launched")
     check(mxu["ok"], "d^2 probe: every mode within 1e-4 at the JAX shapes")
-    sass_checks(vpu["sass"])
+    sass_checks(vpu["sass"], vpu["sass_body"])
     times.update(probe_records(dev, vpu, gat, mxu))
     for name in PROBE_KERNELS:
         t = times[name]
@@ -1681,7 +1803,9 @@ def main() -> int:
               f"{t['plain_ms']:.4f} ms, library "
               + ("none" if t["library_ms"] is None
                  else f"{t['library_ms']:.4f} ms")
-              + f", bound {t['bound_ms'] * 1e3:.1f} us ({t['bound_by']}); "
+              + f", bound {t['bound_ms'] * 1e3:.1f} us ({t['bound_by']}"
+              + (f": {t['bound_class']}" if "bound_class" in t else "")
+              + f"), {t['bound_ms'] / t['ms']:.0%} of it; "
               f"{launches[name]} launches in the probe run")
     print(f"[probe] phase 15 took {time.perf_counter() - t0:.1f} s")
 

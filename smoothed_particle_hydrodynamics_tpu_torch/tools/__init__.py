@@ -11,8 +11,10 @@ cpu`` runs the plain PyTorch versions at small sizes, with host times.  The
 kernels live in ``csrc/probes.cu`` (built on first use, like the sweeps);
 each module holds a kernel's counted wrapper, its plain version and the
 probe's main routine.  This module holds what the three share: the library, the
-timer, the error measure and the card's peaks and issue rates (``chip_smoke.py``
-reads the same timer, error measure and peaks).
+timer (CUDA events around launches that are already queued behind a sleep
+on the card, so a kernel shorter than its host call is timed, not the
+host), the error measure and the card's peaks and issue rates
+(``chip_smoke.py`` reads the same timer, error measure and peaks).
 """
 
 from __future__ import annotations
@@ -31,8 +33,10 @@ from ..utils import build
 HBM_BYTES_PER_S, F32_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 495e12
 # results per clock per SM, compute capability 9.0 (CUDA C Programming
 # Guide, arithmetic instruction throughput): f32 add/mul/fma; the
-# multi-function unit (reciprocal, reciprocal square root, ...)
-FP32_PER_CLK, MUFU_PER_CLK = 128, 16
+# multi-function unit (reciprocal, reciprocal square root, ...); 32-bit
+# integer add, compare, logic and shift; and lane-instructions of any kind
+# (4 schedulers issuing one warp instruction a clock each)
+FP32_PER_CLK, MUFU_PER_CLK, INT_PER_CLK, ISSUE_PER_CLK = 128, 16, 64, 128
 
 
 @functools.cache
@@ -42,7 +46,7 @@ def kernels() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.probe_chain.argtypes = [p, p, ctypes.c_longlong, i, i, p]
     lib.probe_chain.restype = i
-    lib.probe_gather_tile.argtypes = [p, p, p, i, i, i, i, p]
+    lib.probe_gather_tile.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.probe_gather_tile.restype = i
     lib.probe_d2_tile.argtypes = [p, p, p, p, i, i, p]
     lib.probe_d2_tile.restype = i
@@ -63,26 +67,54 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def time_ms(fn, device="cuda", iters: int = 20, warmup: int = 3) -> float:
-    """Mean ms of ``fn`` over ``iters`` runs after ``warmup``: CUDA events
-    on the card, the host clock on the CPU."""
+SLEEP_MS, SLEEP_MAX_MS = 2.0, 100.0
+
+
+def timing(fn, device="cuda", iters: int = 20, warmup: int = 3) -> dict:
+    """Mean ms of ``fn`` over ``iters`` runs after ``warmup`` (``ms``):
+    CUDA events on the card, the host clock on the CPU.
+
+    On the card the stream first sleeps (``torch.cuda._sleep``) for 1.5x
+    the host time of the ``iters`` calls, as the last warmup call took it,
+    and at least ``SLEEP_MS``, at most ``SLEEP_MAX_MS``; only then is the
+    start event recorded.  So the timed launches are already queued when
+    the first one runs, and the events time the card, not the host's
+    enqueue.  ``enqueue_ms`` is the host's time for the ``iters`` calls,
+    ``sleep_ms`` the sleep on the card, and ``covered`` says that the
+    start event had not yet run when the last call was enqueued."""
     device = torch.device(device)
+    call_ms = SLEEP_MS
     for _ in range(warmup):
+        t0 = time.perf_counter()
         fn()
+        call_ms = (time.perf_counter() - t0) * 1e3
     if device.type != "cuda":
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
-        return (time.perf_counter() - t0) / iters * 1e3
+        return dict(ms=(time.perf_counter() - t0) / iters * 1e3)
     torch.cuda.synchronize(device)
+    before = torch.cuda.Event(enable_timing=True)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    sleep = min(max(1.5 * iters * call_ms, SLEEP_MS), SLEEP_MAX_MS)
+    before.record()
+    torch.cuda._sleep(int(sleep * 1e-3 * card(device.index or 0)["clock_hz"]))
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    covered = not start.query()
     end.record()
     torch.cuda.synchronize(device)
-    return start.elapsed_time(end) / iters
+    return dict(ms=start.elapsed_time(end) / iters, enqueue_ms=enqueue_ms,
+                sleep_ms=before.elapsed_time(start), covered=covered)
+
+
+def time_ms(fn, device="cuda", iters: int = 20, warmup: int = 3) -> float:
+    """``timing(...)["ms"]``: mean ms a run of ``fn``."""
+    return timing(fn, device, iters, warmup)["ms"]
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -101,13 +133,6 @@ def card(index: int = 0) -> dict:
         capture_output=True, text=True, check=True, timeout=60)
     return dict(name=props.name, sms=props.multi_processor_count,
                 clock_hz=float(out.stdout.strip()) * 1e6)
-
-
-def issue_ms(count: float, per_clk: int, index: int = 0) -> float:
-    """ms the card needs to issue ``count`` instructions of a class that
-    retires ``per_clk`` per clock per SM, at its maximum SM clock."""
-    c = card(index)
-    return count / (per_clk * c["sms"] * c["clock_hz"]) * 1e3
 
 
 def bound(nbytes: int, ops_ms: float) -> tuple[float, str]:

@@ -24,8 +24,9 @@ HIGHEST).  The probe prints
    direct f32 form's (sum of squared differences, as K1/K2 compute d^2),
    max abs error against the exact d^2 and the number of pair decisions
    d^2 < h^2 it flips;
-3. each mode's time over the tiles (CUDA events, 3 warmup + 20 timed runs)
-   beside its bound, and ``torch.bmm`` of the same P and Q in f32;
+3. each mode's time over the tiles (queued CUDA events, 3 warmup + 20
+   timed runs) beside its bound, and ``torch.bmm`` of the same P and Q in
+   f32;
 
 and the finding.
 

@@ -11,15 +11,20 @@ reciprocal issue as one instruction, rewriting the center term as a
 reciprocal-multiply chain is a kernel gain.  This probe times K-deep chains
 of each op over the same [512 * 256, 128] f32 array (one thread per element,
 the chain in registers), plus the three forms of the force kernel's center
-term, and prints per op: ms (CUDA events, 3 warmup + 20 timed runs), G op/s,
-the cost relative to mul, and the op's bound (the larger of the bytes over
-the HBM rate and its instructions over the card's issue rate for their
-class, at the SM count and maximum SM clock the run reads).  The mul chain
-sits near the memory bound, so each op's cost is also given against its own
-issue bound.  Then the approximate reciprocal's relative error over d in
-[1e-3, 4] (K = 1), the instruction mix of each chain in the built SASS
-(``cuobjdump``: ``sqrtf`` and ``/`` must stay IEEE sequences, and every
-chain must issue its MUFU instructions, not fold), and the findings.
+term, and prints per op: ms (queued CUDA events, 3 warmup + 20 timed
+runs), G op/s, the cost relative to mul, and the op's bound with the op's
+share of it.  The bound is counted from the built SASS (``cuobjdump``):
+the instructions of the chain's 16-step unrolled loop body on its fast
+path (``sass_body_mix``; the IEEE sequences' slow paths, which the inputs
+never take, left out), by class, a step; then the largest of the bytes
+over the HBM rate, the MUFU instructions over 16 a clock a SM, the integer
+ones over 64 and the three classes together over 128 lane-issues a clock a
+SM (control, the compiler's BSSY/BSYNC/branches, left out), at the SM
+count and maximum SM clock the run reads (``counted_bound``).  Then the
+approximate reciprocal's relative error over d in [1e-3, 4] (K = 1), the
+instruction mix of each chain (``sqrtf`` and ``/`` must stay IEEE
+sequences, and every chain must issue its MUFU instructions, not fold),
+and the findings.
 
 Kernel ``chain_kernel<Op>`` (``csrc/probes.cu``) replaces ``_chain_kernel``
 (``tools/probe_vpu_ops.py:36``) and the reciprocal table kernel (``:118``).
@@ -46,8 +51,8 @@ import torch
 
 from ..ops.launch import check, raise_on, stream, use_plain
 from ..utils import build
-from . import (FP32_PER_CLK, MUFU_PER_CLK, bound, card, issue_ms, kernels,
-               resolve_device, time_ms)
+from . import (FP32_PER_CLK, HBM_BYTES_PER_S, INT_PER_CLK, ISSUE_PER_CLK,
+               MUFU_PER_CLK, card, kernels, resolve_device, time_ms)
 
 ROWS = 256     # rows per block of the JAX probe
 BLOCKS = 512   # its grid
@@ -66,9 +71,10 @@ LABELS = dict(mul="mul", add="add", sqrt="sqrt", rsqrt="rsqrt",
 BARS = dict(mul=0.0, add=0.0, sqrt=0.0, rsqrt=1e-5, div=0.0, recip=0.0,
             recip_approx=1e-5, select=0.0, center_now=0.0,
             center_recip=1e-5, center_rsqrt=1e-5)
-# the least instructions one step issues: (f32 add/mul, MUFU); IEEE sqrtf,
-# divide and __frcp_rn count their one MUFU op, not their refinement; the
-# approximate reciprocal's step adds the opaque zero (csrc/probes.cu)
+# the least f32 add/mul and MUFU instructions one step issues (IEEE sqrtf,
+# divide and __frcp_rn counted as their one MUFU op, not their refinement;
+# the approximate reciprocal's step adds the opaque zero, csrc/probes.cu):
+# a floor that the counted unrolled body (sass_body_mix) must reach
 MIX = dict(mul=(1, 0), add=(1, 0), sqrt=(0, 1), rsqrt=(0, 1), div=(0, 1),
            recip=(0, 1), recip_approx=(1, 1), select=(1, 0),
            center_now=(9, 2), center_recip=(10, 2), center_rsqrt=(11, 2))
@@ -176,31 +182,178 @@ def recip_rel_err(d: torch.Tensor, approx: torch.Tensor) -> tuple[float,
     return rel.max().item(), rel.mean().item()
 
 
-def sass_mix() -> dict:
-    """Per chain op, its kernel's f32, MUFU and control instructions in the
-    built library's SASS (``cuobjdump -sass``); empty when the toolkit has
-    no ``cuobjdump``."""
+def sass_listing() -> str:
+    """The built probes library's SASS (``cuobjdump -sass``, from the CUDA
+    toolkit beside nvcc)."""
     tool = shutil.which("cuobjdump") or str(
         Path(build.nvcc_path()).with_name("cuobjdump"))
     if not Path(tool).exists():
-        return {}
+        raise RuntimeError(f"no cuobjdump beside nvcc ({tool}): the chain "
+                           "kernels' bounds are counted from their SASS")
     kernels()  # built
-    out = subprocess.run([tool, "-sass", str(build.library_path("probes"))],
-                         capture_output=True, text=True, check=True,
-                         timeout=120).stdout
-    mix, op = {}, None
-    for line in out.splitlines():
+    return subprocess.run([tool, "-sass", str(build.library_path("probes"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+
+
+_FUNCTION = re.compile(r"Function : \S*chain_kernelILi(\d+)E")
+_INSTR = re.compile(r"\s*/\*([0-9a-f]+)\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+                    r"([^;]*);")
+_TARGET = re.compile(r"0x([0-9a-f]+)")
+
+
+def _chain_functions(listing: str) -> dict:
+    """Per chain op, its kernel's instructions in order: (address,
+    predicated, opcode, branch target or None)."""
+    funcs, op = {}, None
+    for line in listing.splitlines():
         if "Function :" in line:
-            m = re.search(r"chain_kernelILi(\d+)E", line)
+            m = _FUNCTION.search(line)
             op = OPS[int(m.group(1))] if m else None
             if op:
-                mix[op] = collections.Counter()
+                funcs[op] = []
             continue
-        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
-                     line)
-        if op and m and m.group(1).startswith(("MUFU", "F", "CALL", "BRA")):
-            mix[op][m.group(1)] += 1
-    return mix
+        m = _INSTR.match(line)
+        if op and m:
+            t = _TARGET.search(m.group(4)) if m.group(3).startswith("BRA") \
+                else None
+            funcs[op].append((int(m.group(1), 16), bool(m.group(2)),
+                              m.group(3), int(t.group(1), 16) if t else None))
+    return funcs
+
+
+def sass_mix(listing: str) -> dict:
+    """Per chain op, its whole kernel's f32, MUFU and control instructions
+    in ``listing`` (``sass_listing``)."""
+    return {op: collections.Counter(
+                ins for _, _, ins, _ in body
+                if ins.startswith(("MUFU", "F", "CALL", "BRA")))
+            for op, body in _chain_functions(listing).items()}
+
+
+# a slow path behind a predicated branch: a few instructions, a CALL among
+# them (the IEEE sequences' out-of-range operands); a branch over one is
+# the fast path
+SLOW_PATH = 4
+
+
+def _slow(code: list, start: int, stop: int) -> bool:
+    """Whether the instructions ``code[start:]`` below address ``stop`` are
+    a slow path."""
+    block = [ins for addr, _, ins, _ in code[start:start + SLOW_PATH + 1]
+             if addr < stop]
+    return len(block) <= SLOW_PATH and any(b.startswith("CALL")
+                                           for b in block)
+
+
+def _loop_body(code: list, at: dict, head: int) -> tuple[list, bool] | None:
+    """The instructions one pass of the loop at ``head`` issues on its fast
+    path: from the head to the branch back to it, a predicated branch over
+    a slow path taken, other predicated forward branches (to out-of-line
+    slow paths among them) not, unpredicated ones followed.  Also whether
+    the pass crosses the back edge of another loop (so the loop is not
+    innermost).  None when the pass leaves the function or cycles without
+    returning to the head."""
+    i, body, inner, seen = at[head], [], False, set()
+    while i < len(code) and i not in seen:
+        seen.add(i)
+        addr, pred, ins, tgt = code[i]
+        body.append(ins)
+        if ins.startswith(("EXIT", "RET")) and not pred:
+            return None
+        if ins.startswith("BRA") and tgt is not None:
+            if tgt == head:
+                return body, inner
+            if not pred:
+                i = at.get(tgt, len(code))
+                continue
+            if tgt < addr:
+                inner = True
+            elif _slow(code, i + 1, tgt):
+                i = at[tgt]
+                continue
+        i += 1
+    return None
+
+
+def sass_body_mix(listing: str) -> dict:
+    """Per chain op, the instructions of its unrolled loop body (``UNROLL``
+    steps) in ``listing`` by opcode: of the loops whose body holds no other
+    loop, the one with the most f32 and MUFU instructions (the chain's;
+    the others copy or count).  The remainder steps and the grid-stride
+    loop's own instructions are left out, as are the slow paths that the
+    IEEE sequences branch to and the probe's inputs never take."""
+    def arithmetic(body):
+        return sum(sass_class(ins) in ("fp32", "mufu") for ins in body)
+
+    out = {}
+    for op, code in _chain_functions(listing).items():
+        at = {addr: i for i, (addr, *_rest) in enumerate(code)}
+        best = ()
+        for addr, _, ins, tgt in code:
+            if ins.startswith("BRA") and tgt is not None and tgt <= addr \
+                    and tgt in at:
+                found = _loop_body(code, at, tgt)
+                if found and not found[1] and (arithmetic(found[0]), len(
+                        found[0])) > (arithmetic(best), len(best)):
+                    best = found[0]
+        out[op] = collections.Counter(best)
+    return out
+
+
+FP32_SASS = ("FADD", "FMUL", "FFMA", "FCHK", "FSETP", "FSEL", "FMNMX", "FSET")
+INT_SASS = ("IADD3", "VIADD", "ISETP", "LOP3", "IMAD", "SHF", "LEA", "SEL",
+            "MOV", "IABS", "IMNMX", "VIMNMX", "PRMT", "PLOP3", "POPC", "FLO")
+CONTROL_SASS = ("BRA", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "WARPSYNC",
+                "NOP")
+
+
+def sass_class(ins: str) -> str:
+    """The class of a SASS opcode: fp32, mufu, int, control or other."""
+    base = ins.split(".")[0]
+    if base == "MUFU":
+        return "mufu"
+    for name, group in (("fp32", FP32_SASS), ("int", INT_SASS),
+                        ("control", CONTROL_SASS)):
+        if base in group:
+            return name
+    return "other"
+
+
+def step_mix(body: collections.Counter) -> dict:
+    """Instructions per chain step by class (the unrolled body over
+    ``UNROLL``); ``work``, the step's own arithmetic (f32, MUFU and
+    integer: the IEEE sequences' refinement and range checks among them),
+    and ``all``, control and the rest too."""
+    per = collections.Counter()
+    for ins, count in body.items():
+        per[sass_class(ins)] += count
+    step = {c: per[c] / UNROLL for c in ("fp32", "mufu", "int", "control",
+                                         "other")}
+    step["work"] = step["fp32"] + step["mufu"] + step["int"]
+    step["all"] = sum(per.values()) / UNROLL
+    return step
+
+
+def counted_bound(steps: float, nbytes: int, step: dict, sms: int,
+                  clock_hz: float) -> dict:
+    """The least time for ``steps`` chain steps and ``nbytes`` of device
+    memory, from the counted body: the largest of the bytes over the HBM
+    rate, the MUFU instructions over 16 per clock per SM, the integer ones
+    over 64 and the step's own arithmetic (``work``: f32, MUFU and
+    integer) over 128 lane-issues per clock per SM (4 schedulers, one warp
+    instruction each), at the card's SM count and maximum clock.  Control
+    (BSSY, BSYNC, branches) is left out: it is the compiler's layout of
+    the branches, not the function's work, and whether it takes issue
+    slots is not measured.  ``ms``, ``by`` (which of the four) and each
+    part."""
+    rate = sms * clock_hz
+    parts = dict(bytes=nbytes / HBM_BYTES_PER_S * 1e3,
+                 mufu=steps * step["mufu"] / (MUFU_PER_CLK * rate) * 1e3,
+                 int=steps * step["int"] / (INT_PER_CLK * rate) * 1e3,
+                 issue=steps * step["work"] / (ISSUE_PER_CLK * rate) * 1e3)
+    by = max(parts, key=parts.get)
+    return dict(ms=parts[by], by=by, parts=parts)
 
 
 def sass_folded(mix: dict) -> list[str]:
@@ -225,6 +378,10 @@ def main(device="cuda") -> dict:
     print(f"== chain probe: {n} f32 elements, K = {k}, on "
           + (card(dev.index or 0)["name"] if on_card
              else "cpu (plain versions, host times)") + " ==")
+    if on_card:
+        c = card(dev.index or 0)
+        listing = sass_listing()
+        body = sass_body_mix(listing)
     rows, base = {}, None
     for op in OPS:
         ms = time_ms(lambda: chain(x, op, k), dev)
@@ -234,14 +391,18 @@ def main(device="cuda") -> dict:
             row["x_mul"] = ms / base
             line += f"  {row['x_mul']:5.2f}x mul"
         if on_card:
-            fp32, mufu = MIX[op]
-            ops_ms = max(issue_ms(n * k * fp32, FP32_PER_CLK),
-                         issue_ms(n * k * mufu, MUFU_PER_CLK))
-            row["bound_ms"], row["bound_by"] = bound(2 * x.nbytes, ops_ms)
-            row["issue_ms"] = ops_ms
-            line += (f"  bound {row['bound_ms'] * 1e3:7.1f} us "
-                     f"({row['bound_by']})  {ms / row['bound_ms']:5.2f}x bound"
-                     f"  {ms / ops_ms:5.2f}x its issue bound")
+            row["step"] = step = step_mix(body[op])
+            b = counted_bound(n * k, 2 * x.nbytes, step, c["sms"],
+                              c["clock_hz"])
+            row["bound_ms"], row["bound_class"] = b["ms"], b["by"]
+            row["bound_by"] = "bytes" if b["by"] == "bytes" else "operations"
+            row["bound_parts"], row["share"] = b["parts"], b["ms"] / ms
+            line += (f"  bound {b['ms'] * 1e3:7.1f} us ({b['by']}; a step "
+                     f"{step['work']:.2f} instructions of work: fp32 "
+                     f"{step['fp32']:.2f}, mufu {step['mufu']:.2f}, int "
+                     f"{step['int']:.2f}; control {step['control']:.2f} "
+                     f"not counted)  "
+                     f"{row['share']:.0%} of it")
         print(line)
         rows[op] = row
         base = ms if base is None else base
@@ -251,19 +412,19 @@ def main(device="cuda") -> dict:
     result = dict(ops=rows, recip_err=err, n=n, k=k, device=str(dev))
     if not on_card:
         return result
-    result["sass"] = mix = sass_mix()
+    result["sass"] = mix = sass_mix(listing)
+    result["sass_body"] = body
     for op, counts in mix.items():
         print(f"sass chain_kernel<{op}>: "
               + " ".join(f"{c} {v}" for c, v in sorted(counts.items())))
-    if not mix:
-        print("sass: cuobjdump not found, the instruction mix is not checked")
-    else:
-        result["sass_folded"] = folded = sass_folded(mix)
-        print("sass: every MUFU chain issues a full unrolled body" if not folded
-              else f"sass: folded chains: {folded}")
+    for op, counts in body.items():
+        print(f"sass chain_kernel<{op}> unrolled body ({UNROLL} steps): "
+              + " ".join(f"{c} {v}" for c, v in sorted(counts.items())))
+    result["sass_folded"] = folded = sass_folded(mix)
+    print("sass: every MUFU chain issues a full unrolled body" if not folded
+          else f"sass: folded chains: {folded}")
     # issue slots: the f32 ops the card could issue per element in the time
     # one step of the op took
-    c = card(dev.index or 0)
     slots = {op: r["ms"] * 1e-3 / (n * k) * FP32_PER_CLK * c["sms"]
              * c["clock_hz"] for op, r in rows.items()}
     pair = slots["sqrt"] + slots["div"]
