@@ -147,14 +147,23 @@ control left out), the gather's bytes, or the d^2
 tile's tensor-core flops over 495 TFLOP/s TF32, and the PyTorch call that
 computes the same function as ``library_ms``), and last ``{"ok": true,
 "device": {...}}``.  With no CUDA device it exits 1 before printing any result.
+On every exit it stops the resource tracker that the spawned ranks started,
+so no process of the script outlives it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
+import io
 import json
+import math
+import os
+import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from typing import NamedTuple
 
@@ -1293,6 +1302,216 @@ def probe_records(dev, vpu: dict, gat: dict, mxu: dict) -> dict:
     return out
 
 
+# phase 16: the CLI in this process, as a user runs it.  The reference's
+# headless run (the 32k disk, cfg.num_steps + 1 = 1001 steps in blocks of
+# 50) checkpointed every 500 steps; its resumes; the 1M splash's 20 steps
+# with their outputs; info, watch and a small sweep
+CLI_STEPS = 1001
+CLI_EVERY = 500
+CLI_APPLY = (700, "viscosity", 0.02)
+CLI_SPLASH = ["--scene", "splash", "--steps", "20", "--block", "10"]
+CLI_SWEEP = ["--scene", "honey", "--steps", "50", "--block", "25",
+             "--viscosity", "0.01,10", "--stiffness", "1e-4"]
+CLI_FILES = {"energy.txt": "Step, Kinetic Energy, Potential Energy, "
+             "Total Energy", "angularmomentum.txt": "Step, Angular Momentum",
+             "timing.txt": "Step, Voxelize, Find Neighbors, Compute Density, "
+             "Compute Pressure, Compute Acceleration, Integrate",
+             "neighbors.txt": None, "diagnostics.jsonl": None}
+
+
+def cli(argv: list[str]) -> tuple[int, str]:
+    """The port's CLI in this process, so the launch counters see its
+    kernels: its exit code and standard output."""
+    from smoothed_particle_hydrodynamics_tpu_torch.__main__ import main as run
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run(argv)
+    return rc, buf.getvalue()
+
+
+def _lines(path: str) -> list[str]:
+    with open(path) as fh:
+        return fh.read().splitlines()
+
+
+def _jsonl(path: str) -> list[dict]:
+    return [json.loads(x) for x in _lines(path)]
+
+
+def _finite_state(st) -> bool:
+    return all(bool(torch.isfinite(t).all()) for t in st)
+
+
+def cli_phase(dev) -> None:
+    """Phase 16: ``run``, its checkpoints and resumes, ``info``, ``watch``
+    and ``sweep`` through the port's ``__main__.main`` on the card."""
+    from smoothed_particle_hydrodynamics_tpu_torch.config import SphConfig
+    from smoothed_particle_hydrodynamics_tpu_torch.init import load_state
+    from smoothed_particle_hydrodynamics_tpu_torch.models import make_scene
+    from smoothed_particle_hydrodynamics_tpu_torch.ops.lazy import (
+        drive_loop_lazy)
+    from smoothed_particle_hydrodynamics_tpu_torch.utils import io as ckpt_io
+    from smoothed_particle_hydrodynamics_tpu_torch.utils.benchmark import (
+        run_benchmark)
+    from smoothed_particle_hydrodynamics_tpu_torch.utils.diagnostics import (
+        DiagnosticsWriter, host_diagnostics)
+    from smoothed_particle_hydrodynamics_tpu_torch.utils.native import (
+        AsyncFileWriter)
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        # the reference's headless run, counted
+        d1, ck = f"{root}/disk", f"{root}/ck"
+        reset_launches()
+        with counting_block_walks() as block_walks:
+            w0 = time.perf_counter()
+            rc, _ = cli(["run", "--out", d1, "--checkpoint-every",
+                         str(CLI_EVERY), "--checkpoint-dir", ck, "--quiet"])
+            wall = time.perf_counter() - w0
+        counts = {name: wrapper(name).launches
+                  for name in ("density_band_t", "force_band_t")}
+        check(rc == 0, f"cli disk run exit {rc}")
+        meta = json.load(open(f"{d1}/run.json"))
+        cfg = SphConfig.from_json(json.dumps(meta["config"]))
+        rows = _jsonl(f"{d1}/diagnostics.jsonl")
+        print(f"[cli disk] run: {CLI_STEPS} steps of the {cfg.num_particles}"
+              f" disk ({meta['backend']}, lazy {meta['lazy']}, "
+              f"{meta['device']}) in {wall:.3f} s with its outputs; median "
+              f"{statistics.median(r['step_ms'] for r in rows):.4f} ms/step "
+              f"(diagnostics.jsonl); launches {counts}")
+        no_block_walk("cli disk", block_walks)
+        for name, c in counts.items():
+            check(c >= CLI_STEPS, f"cli disk: {name} launched {c} times")
+        check(cfg.num_steps + 1 == CLI_STEPS and meta["lazy"]
+              and meta["backend"] == "pallas", f"cli disk: {meta}")
+        for name, header in CLI_FILES.items():
+            lines = _lines(f"{d1}/{name}")
+            body = lines if header is None else lines[1:]
+            check(header is None or lines[0] == header,
+                  f"cli disk: {name} header {lines[:1]}")
+            check(len(body) == CLI_STEPS, f"cli disk: {name} has "
+                  f"{len(body)} rows")
+        energy = [[float(x) for x in ln.split(", ")]
+                  for ln in _lines(f"{d1}/energy.txt")[1:]]
+        check([int(e[0]) for e in energy] == list(range(CLI_STEPS))
+              and all(math.isfinite(x) for e in energy for x in e),
+              "cli disk: energy.txt steps 0..1000, energies finite")
+        check(all(r["truncated_ranges"] == 0 for r in rows),
+              "cli disk: truncated_ranges 0 in every row")
+        check(meta["fingerprint"] == ckpt_io.config_fingerprint(cfg),
+              "cli disk: run.json fingerprint")
+        final = load_state(f"{d1}/final_state.npz", dev)
+        check(final.n == cfg.num_particles and _finite_state(final),
+              "cli disk: final_state.npz loads, finite")
+        for step in (CLI_EVERY, 2 * CLI_EVERY):
+            s, c, st = ckpt_io.load_checkpoint(
+                f"{ck}/ckpt_{step:08d}.npz", dev)
+            check(s == step and c == cfg and st.n == cfg.num_particles
+                  and _finite_state(st), f"cli disk: checkpoint {step}")
+        s, c, back = ckpt_io.load_checkpoint(ckpt_io.save_checkpoint(
+            f"{root}/round", CLI_STEPS, cfg, final), dev)
+        check(s == CLI_STEPS and c == cfg and all(
+            torch.equal(a, b) for a, b in zip(back, final)),
+            "cli disk: checkpoint round trip bit-equal on the card")
+        print(f"[cli disk] 5 files x {CLI_STEPS} rows, run.json fingerprint "
+              f"{meta['fingerprint']}, checkpoints {sorted(os.listdir(ck))},"
+              f" final total energy {rows[-1]['total_energy']:.9e}; "
+              "checkpoint round trip bit-equal")
+
+        # resume at 1000, then from 500 with an apply at 700
+        d2 = f"{root}/resumed"
+        rc, _ = cli(["run", "--resume", "--checkpoint-dir", ck, "--out", d2,
+                     "--quiet"])
+        first = _lines(f"{d2}/energy.txt")[1]
+        check(rc == 0 and first.startswith(f"{2 * CLI_EVERY}, "),
+              f"cli resume: exit {rc}, first row {first!r}")
+        ck500 = f"{root}/ck500"
+        os.makedirs(ck500)
+        shutil.copy(f"{ck}/ckpt_{CLI_EVERY:08d}.npz", ck500)
+        d3 = f"{root}/applied"
+        at, key, value = CLI_APPLY
+        rc, text = cli(["run", "--resume", "--checkpoint-dir", ck500,
+                        "--out", d3, "--apply", f"{at}:{key}={value}",
+                        "--quiet"])
+        rows3 = _jsonl(f"{d3}/diagnostics.jsonl")
+        applied = f"applied at step {at}: {key}={value}"
+        check(rc == 0 and applied in text, f"cli apply: exit {rc}, {text!r}")
+        check([r["step"] for r in rows3] == list(range(CLI_EVERY, CLI_STEPS)),
+              "cli apply: rows 500..1000")
+        e1, e3 = rows[-1]["total_energy"], rows3[-1]["total_energy"]
+        print(f"[cli resume] from {2 * CLI_EVERY}: first row {first!r}; from "
+              f"{CLI_EVERY} with --apply {at}:{key}={value} (disk "
+              f"{cfg.viscosity}): {applied!r} printed, rows "
+              f"{rows3[0]['step']}..{rows3[-1]['step']}, final total energy "
+              f"{e3:.9e}, relative to the straight run's {e1:.9e}: "
+              f"{(e3 - e1) / abs(e1):+.6e}")
+
+        # the main path's step with its outputs, beside run_benchmark's
+        d4 = f"{root}/splash"
+        w0 = time.perf_counter()
+        rc, _ = cli(["run", *CLI_SPLASH, "--out", d4, "--quiet"])
+        wall = time.perf_counter() - w0
+        check(rc == 0, f"cli splash run exit {rc}")
+        rows4 = _jsonl(f"{d4}/diagnostics.jsonl")
+        blocks = list(dict.fromkeys(r["step_ms"] for r in rows4))
+        check(len(rows4) == 20 and all(math.isfinite(r["total_energy"])
+                                       for r in rows4), "cli splash rows")
+        # the same config: 3 warmup + 20 timed steps, and the CLI's second
+        # block alone (10 warmup + 10 timed steps)
+        r, r2 = (run_benchmark(scene="splash", lazy=None, steps=k, warmup=w,
+                               device="cuda", backend="pallas")
+                 for k, w in ((20, 3), (10, 10)))
+        writer = AsyncFileWriter()
+        native = writer.stats()["native"]
+        writer.close()
+        cfg_d, st_d = make_scene("disk", device=dev)
+        _, d = drive_loop_lazy(cfg_d, st_d, 10)
+        reps = 50
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        for _ in range(reps):
+            host_diagnostics(d)
+        fetch_ms = (time.perf_counter() - w0) * 1e3 / reps
+        with DiagnosticsWriter(f"{root}/fetch") as w:
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            for i in range(reps):
+                w.write_block(10 * i, d, {"step": 1.0})
+            write_ms = (time.perf_counter() - w0) * 1e3 / reps
+        med = statistics.median(x["step_ms"] for x in rows4)
+        print(f"[cli splash] run {' '.join(CLI_SPLASH)} (1M, lazy, exact): "
+              f"{wall:.2f} s; ms/step per block from diagnostics.jsonl "
+              f"{blocks}, median {med:.4f}; run_benchmark on the same "
+              f"config: {r['ms_per_step']:.4f} ms/step (3 warmup + 20 "
+              f"steps), {r2['ms_per_step']:.4f} ms/step (10 warmup + 10 "
+              f"steps, the second block's); writer native={native}; "
+              f"per-block host fetch of a 10-step block (host_diagnostics: "
+              f"two stacks, two copies) {fetch_ms:.4f} ms, write_block "
+              f"{write_ms:.4f} ms")
+        del st_d, d
+
+        # info, watch, a small sweep
+        rc, text = cli(["info"])
+        check(rc == 0 and json.loads(text)["num_particles"] == 32768,
+              f"cli info: exit {rc}")
+        rc, text = cli(["watch", "--once", "--out", d1])
+        check(rc == 0 and "E_total" in text, f"cli watch: exit {rc}")
+        sweep = f"{root}/sweep.json"
+        rc, _ = cli(["sweep", *CLI_SWEEP, "--out", sweep])
+        recs = json.load(open(sweep))
+        by_mu = {x["viscosity"]: x for x in recs}
+        check(rc == 0 and len(recs) == 2 and by_mu[10.0]["stable"],
+              f"cli sweep: exit {rc}, {recs}")
+        print(f"[cli] info, watch --once and sweep exit 0; watch: "
+              f"{text.splitlines()[1]!r}; sweep: {json.dumps(recs)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[cli] phase 16 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1809,6 +2028,11 @@ def main() -> int:
               f"{launches[name]} launches in the probe run")
     print(f"[probe] phase 15 took {time.perf_counter() - t0:.1f} s")
 
+    # 16. the CLI on the card: the reference's headless run with its
+    #     outputs and checkpoints, resumes, an apply, the 1M splash's
+    #     outputs, info, watch and a sweep
+    cli_phase(dev)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
@@ -1830,5 +2054,25 @@ def main() -> int:
     return 0
 
 
+def stop_resource_tracker() -> None:
+    """Stop and reap multiprocessing's resource tracker, if this process
+    started one.
+
+    ``spawn_ranks`` (phases 11-14) starts its ranks with the ``spawn``
+    method, which starts the tracker as a child of this process; left
+    alone, it outlives the script until it reads the end of its pipe.  The
+    ranks are joined by then and their queues collected first, so the
+    tracker holds nothing to clean up when it stops.
+    """
+    from multiprocessing import resource_tracker
+
+    gc.collect()
+    resource_tracker._resource_tracker._stop()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_resource_tracker()
+    sys.exit(code)

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from .config import SphConfig, _f32
-from .state import ParticleState
+from .state import ParticleState, state_from_numpy
 
 
 def init_rotating_sphere(gen: torch.Generator, cfg: SphConfig,
@@ -144,3 +144,11 @@ def init_splash(gen: torch.Generator, cfg: SphConfig,
     vel = torch.cat([vel_drop, torch.zeros(n_pool, 3, device=gen.device)], dim=0)
     pos = _clip_to_box(pos, box)
     return ParticleState.from_arrays(pos.to(device), vel.to(device), cfg=cfg)
+
+
+def load_state(path: str, device: torch.device | str = "cuda"
+               ) -> ParticleState:
+    """A state saved as ``.npz`` by either package (``utils.io.save_state``
+    or a checkpoint) on ``device``."""
+    with np.load(path) as d:
+        return state_from_numpy({k: d[k] for k in d.files}, device)

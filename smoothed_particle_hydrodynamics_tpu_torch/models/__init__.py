@@ -1,3 +1,3 @@
-from .scenes import SCENES, make_scene
+from .scenes import SCENES, make_scene, scene_config
 
-__all__ = ["SCENES", "make_scene"]
+__all__ = ["SCENES", "make_scene", "scene_config"]

@@ -26,24 +26,7 @@ from ..state import ParticleState
 Device = torch.device | str
 
 
-def _config(n: int, defaults: dict, overrides: dict) -> SphConfig:
-    kw = dict(defaults, num_particles=n)
-    kw.update(overrides)
-    return SphConfig(**kw)
-
-
-def _disk(n: int = 32 * 1024, device: Device = "cuda", seed: int = 42,
-          exact_ic: bool = False, **overrides
-          ) -> tuple[SphConfig, ParticleState]:
-    if exact_ic:
-        raise ValueError("exact_ic=True needs compat mode's bit-exact initial "
-                         "state (compat/exact_ic.py), which is not ported to "
-                         "the torch package yet")
-    cfg = _config(n, {}, overrides)
-    gen = torch.Generator().manual_seed(seed)
-    return cfg, init_rotating_sphere(gen, cfg, device=device)
-
-
+# each scene's own size and config defaults, the one place they are stated
 _DAM_BREAK = dict(
     boundary="reflect",
     gravity=(0.0, -9.81, 0.0),
@@ -60,15 +43,6 @@ _DAM_BREAK = dict(
     neighborhood="cell27",
     grid_nx=64, grid_ny=64, grid_nz=64,
 )
-
-
-def _dam_break(n: int = 100_000, device: Device = "cuda", seed: int = 7,
-               **overrides) -> tuple[SphConfig, ParticleState]:
-    cfg = _config(n, _DAM_BREAK, overrides)
-    gen = torch.Generator().manual_seed(seed)
-    return cfg, init_dam_break(gen, cfg, device=device)
-
-
 _SPLASH = dict(
     boundary="reflect",
     gravity=(0.0, -9.81, 0.0),
@@ -86,29 +60,61 @@ _SPLASH = dict(
     cell_capacity=64,
     range_slice=128,
 )
+_CONFIGS: dict[str, tuple[int, dict]] = {
+    "disk": (32 * 1024, {}),
+    "dam_break": (100_000, _DAM_BREAK),
+    "splash": (1_000_000, _SPLASH),
+    "honey": (32 * 1024, dict(viscosity=10.0, stiffness=1e-4)),
+    "dam_break_10m": (10_000_000, dict(  # 25.6^3, h-cells
+        _DAM_BREAK, grid_nx=256, grid_ny=256, grid_nz=256, cell_capacity=64,
+        range_slice=96)),
+}
 
 
-def _splash(n: int = 1_000_000, device: Device = "cuda", seed: int = 11,
-            **overrides) -> tuple[SphConfig, ParticleState]:
-    cfg = _config(n, _SPLASH, overrides)
+def scene_config(name: str, **overrides) -> SphConfig:
+    """The config ``make_scene(name, **overrides)`` returns, without drawing
+    the particles; every keyword overrides a config field."""
+    _known(name)
+    n, defaults = _CONFIGS[name]
+    kw = dict(defaults, num_particles=n)
+    kw.update(overrides)
+    return SphConfig(**kw)
+
+
+def _draw(name: str, init, device: Device, seed: int, overrides: dict
+          ) -> tuple[SphConfig, ParticleState]:
+    cfg = scene_config(name, **overrides)
     gen = torch.Generator().manual_seed(seed)
-    return cfg, init_splash(gen, cfg, device=device)
+    return cfg, init(gen, cfg, device=device)
 
 
-def _honey(n: int = 32 * 1024, device: Device = "cuda", seed: int = 42,
-           **overrides) -> tuple[SphConfig, ParticleState]:
-    cfg = _config(n, dict(viscosity=10.0, stiffness=1e-4), overrides)
-    gen = torch.Generator().manual_seed(seed)
-    return cfg, init_rotating_sphere(gen, cfg, device=device)
+def _disk(device: Device = "cuda", seed: int = 42, exact_ic: bool = False,
+          **overrides) -> tuple[SphConfig, ParticleState]:
+    if exact_ic:
+        raise ValueError("exact_ic=True needs compat mode's bit-exact initial "
+                         "state (compat/exact_ic.py), which is not ported to "
+                         "the torch package yet")
+    return _draw("disk", init_rotating_sphere, device, seed, overrides)
 
 
-def _dam_break_10m(n: int = 10_000_000, device: Device = "cuda",
-                   seed: int = 7, **overrides
+def _dam_break(device: Device = "cuda", seed: int = 7, **overrides
+               ) -> tuple[SphConfig, ParticleState]:
+    return _draw("dam_break", init_dam_break, device, seed, overrides)
+
+
+def _splash(device: Device = "cuda", seed: int = 11, **overrides
+            ) -> tuple[SphConfig, ParticleState]:
+    return _draw("splash", init_splash, device, seed, overrides)
+
+
+def _honey(device: Device = "cuda", seed: int = 42, **overrides
+           ) -> tuple[SphConfig, ParticleState]:
+    return _draw("honey", init_rotating_sphere, device, seed, overrides)
+
+
+def _dam_break_10m(device: Device = "cuda", seed: int = 7, **overrides
                    ) -> tuple[SphConfig, ParticleState]:
-    defaults = dict(grid_nx=256, grid_ny=256, grid_nz=256,  # 25.6^3, h-cells
-                    cell_capacity=64, range_slice=96)
-    defaults.update(overrides)
-    return _dam_break(n, device=device, seed=seed, **defaults)
+    return _draw("dam_break_10m", init_dam_break, device, seed, overrides)
 
 
 SCENES: dict[str, Callable[..., tuple[SphConfig, ParticleState]]] = {
@@ -120,10 +126,14 @@ SCENES: dict[str, Callable[..., tuple[SphConfig, ParticleState]]] = {
 }
 
 
+def _known(name: str) -> None:
+    if name not in SCENES:
+        raise KeyError(f"unknown scene {name!r}; available: {sorted(SCENES)}")
+
+
 def make_scene(name: str, **overrides) -> tuple[SphConfig, ParticleState]:
     """``make_scene("disk", device="cpu", seed=42, num_particles=...)``:
     ``device`` (default the card) and ``seed`` go to the initial conditions,
     ``exact_ic`` to the disk, every other keyword overrides a config field."""
-    if name not in SCENES:
-        raise KeyError(f"unknown scene {name!r}; available: {sorted(SCENES)}")
+    _known(name)
     return SCENES[name](**overrides)

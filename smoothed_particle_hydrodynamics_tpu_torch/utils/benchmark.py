@@ -39,30 +39,35 @@ def _device_name(dev: torch.device) -> str:
 
 
 def resolve_sweep_settings(cfg: SphConfig, state: ParticleState,
-                           overrides: dict) -> SphConfig:
+                           overrides: dict, backend: str = "pallas"
+                           ) -> SphConfig:
     """The settings the JAX CLI resolves before a run (``cli.py:101-129``),
-    shared by ``run`` and ``bench``: capped mode takes 256-row blocks unless
-    ``overrides`` set ``pallas_block_t`` (its windows are K_c-bounded, so
-    wider blocks halve the per-(block, rod) visits for little window
-    growth); ``pallas_window_t=0`` derives the sublane window from this
-    state (capped-aware); capped ``capped_sub_len=0`` derives the sub-frame
-    bound from the occupancy histogram; ``range_slice=0`` derives the
-    cell-list candidate slice from the 3-cell occupancies."""
+    shared by ``run``, ``bench`` and ``sweep``.  For the pallas backend:
+    capped mode takes 256-row blocks unless ``overrides`` set
+    ``pallas_block_t`` (its windows are K_c-bounded, so wider blocks halve
+    the per-(block, rod) visits for little window growth);
+    ``pallas_window_t=0`` derives the sublane window from this state
+    (capped-aware); capped ``capped_sub_len=0`` derives the sub-frame bound
+    from the occupancy histogram.  For every backend ``range_slice=0``
+    derives the cell-list candidate slice from the 3-cell occupancies."""
     from ..ops import celllist, sweeps_t
 
-    if cfg.capped_candidates and "pallas_block_t" not in overrides:
-        cfg = cfg.replace(pallas_block_t=256)
-    if cfg.pallas_window_t == 0:
-        cfg = cfg.replace(pallas_window_t=sweeps_t.derive_window_t(cfg, state))
-    if cfg.capped_candidates and cfg.capped_sub_len == 0:
-        cfg = cfg.replace(capped_sub_len=sweeps_t.derive_sub_len(cfg, state))
+    if backend == "pallas":
+        if cfg.capped_candidates and "pallas_block_t" not in overrides:
+            cfg = cfg.replace(pallas_block_t=256)
+        if cfg.pallas_window_t == 0:
+            cfg = cfg.replace(
+                pallas_window_t=sweeps_t.derive_window_t(cfg, state))
+        if cfg.capped_candidates and cfg.capped_sub_len == 0:
+            cfg = cfg.replace(
+                capped_sub_len=sweeps_t.derive_sub_len(cfg, state))
     if cfg.range_slice == 0:
         cfg = cfg.replace(range_slice=celllist.derive_range_slice(cfg, state))
     return cfg
 
 
 def resolve_scene(scene: str, device: torch.device, overrides: dict,
-                  seed: int | None = None
+                  seed: int | None = None, backend: str = "pallas"
                   ) -> tuple[SphConfig, ParticleState]:
     """The scene a run or a benchmark steps (the CLI's ``run`` and
     ``bench``, ``run_benchmark``): ``make_scene`` with ``overrides`` (the
@@ -73,7 +78,7 @@ def resolve_scene(scene: str, device: torch.device, overrides: dict,
     if seed is not None:
         kw["seed"] = seed
     cfg, state = make_scene(scene, device=device, **kw)
-    cfg = resolve_sweep_settings(cfg, state, overrides)
+    cfg = resolve_sweep_settings(cfg, state, overrides, backend)
     cfg.validate()
     return cfg, state
 
@@ -107,7 +112,7 @@ def run_benchmark(scene: str = "disk", lazy: bool | None = False,
         raise ValueError(f"lazy=True benchmarks the pallas backend; got "
                          f"backend={backend!r}")
     dev = _device(device)
-    cfg, state = resolve_scene(scene, dev, overrides or {}, seed)
+    cfg, state = resolve_scene(scene, dev, overrides or {}, seed, backend)
     if lazy is None:
         lazy = uses_lazy(cfg, backend)
 

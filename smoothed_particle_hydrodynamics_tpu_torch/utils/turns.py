@@ -10,12 +10,20 @@ package from its own tree and drives every path ``--repeat`` times:
 ``utils.benchmark.run_benchmark`` (1M splash; exact, capped and fused
 lazy, lane eager) or ``run_slab_benchmark`` (the slab engine at world size
 1; exact, capped, fused), 3 warmup + ``--steps`` timed steps, the shapes
-of ``chip_smoke.py``'s main paths.  Each worker prints one JSON line of
-ms/step per path; the main process prints the card's name and power limit
-and then, per path and tree, the median, min and max over all runs and the
-change of the medians (second tree over first).  Each tree builds its own kernels on
-first use.  ``-n`` and ``--device cpu`` shrink a run to check the script
-on the CPU; such a time is never a device number.
+of ``chip_smoke.py``'s main paths.  ``run`` is the CLI's ``run --scene
+splash`` in blocks of 10, in a fresh working directory, timed over the
+blocks after the first from its per-block ms/step (``diagnostics.jsonl``,
+or the JSON line per block that ``run`` printed before it wrote its
+outputs); ``splash`` is ``run_benchmark`` on the same config.  Each
+worker prints one JSON line of ms/step per path; the main process prints
+the card's name and power limit and then, per path and tree, the median,
+min and max over all runs and the change of the medians (second tree over
+first), and for each pair of paths the median ratio of their times in the
+same process.  ``--summarize
+F.json`` prints that summary again from a saved ``--out`` file.  Each
+tree builds its own kernels on first use.  ``-n`` and ``--device cpu``
+shrink a run to check the script on the CPU; such a time is never a
+device number.
 """
 
 from __future__ import annotations
@@ -42,8 +50,44 @@ PATHS = {
     "slab_exact": ("slab", True, dict(cell_size_factor=1.25)),
     "slab_capped": ("slab", True, _SLAB_CAPPED),
     "slab_fused": ("slab", True, dict(_SLAB_CAPPED, capped_fused=True)),
+    "run": ("cli", True, {}),
+    "splash": ("single", True, {}),
 }
 WARMUP = 3
+CLI_BLOCK = 10
+
+
+def cli_ms(steps: int, n: int, device: str) -> float:
+    """``run --scene splash``'s mean ms/step over ``steps`` steps after a
+    first block of ``CLI_BLOCK``, in a temporary working directory."""
+    import contextlib
+    import io
+    import tempfile
+
+    from smoothed_particle_hydrodynamics_tpu_torch.__main__ import main as cli
+
+    argv = ["run", "--scene", "splash", "-n", str(n), "--steps",
+            str(CLI_BLOCK + steps), "--block", str(CLI_BLOCK), "--device",
+            device, "--backend", "pallas"]
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        text = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(text):
+                if cli(argv) != 0:
+                    raise RuntimeError("run failed")
+            jsonl = os.path.join("out", "diagnostics.jsonl")
+            if os.path.exists(jsonl):
+                with open(jsonl) as fh:
+                    ms = [json.loads(ln)["step_ms"] for ln in fh][CLI_BLOCK:]
+            else:
+                ms = [json.loads(ln)["ms_per_step"]
+                      for ln in text.getvalue().splitlines()
+                      if ln.startswith("{")][1:]
+        finally:
+            os.chdir(here)
+    return statistics.fmean(ms)
 
 
 def worker(paths: list[str], repeat: int, steps: int, n: int = 1_000_000,
@@ -56,6 +100,9 @@ def worker(paths: list[str], repeat: int, steps: int, n: int = 1_000_000,
     for _ in range(repeat):
         for path in paths:
             engine, lazy, ov = PATHS[path]
+            if engine == "cli":
+                out.setdefault(path, []).append(cli_ms(steps, n, device))
+                continue
             if engine == "single":
                 r = run_benchmark(scene="splash", lazy=lazy, steps=steps,
                                   warmup=WARMUP, backend="pallas",
@@ -69,6 +116,33 @@ def worker(paths: list[str], repeat: int, steps: int, n: int = 1_000_000,
                 raise RuntimeError(f"{path}: state not finite")
             out.setdefault(path, []).append(r["ms_per_step"])
     return out
+
+
+def summarize(runs: dict, paths: list[str], a: str, b: str) -> dict:
+    """Per path and tree the median, min and max, and the change of the
+    medians; for each pair of paths p, q (p listed first) the median over
+    runs of p / q, the two timed in the same process."""
+    summary = {}
+    for p in paths:
+        med = {t: statistics.median(runs[t][p]) for t in (a, b)}
+        summary[p] = {
+            "median": med, "min": {t: min(runs[t][p]) for t in (a, b)},
+            "max": {t: max(runs[t][p]) for t in (a, b)},
+            "runs": len(runs[a][p]), "change": med[b] / med[a] - 1.0}
+        print(f"[turns] {p}: median {med[a]:.3f} ({a}) -> {med[b]:.3f} "
+              f"({b}) ms/step, {summary[p]['change'] * 100:+.1f} %, "
+              f"{summary[p]['runs']} runs each; range {a} "
+              f"{summary[p]['min'][a]:.3f}-{summary[p]['max'][a]:.3f}, {b} "
+              f"{summary[p]['min'][b]:.3f}-{summary[p]['max'][b]:.3f}",
+              flush=True)
+    for i, p in enumerate(paths):
+        for q in paths[i + 1:]:
+            ratio = {t: statistics.median(x / y for x, y in zip(
+                runs[t][p], runs[t][q])) for t in (a, b)}
+            summary[f"{p}/{q}"] = {"paired_median": ratio}
+            print(f"[turns] {p}/{q} in the same process: median "
+                  f"{ratio[a]:.4f} ({a}), {ratio[b]:.4f} ({b})", flush=True)
+    return summary
 
 
 def _run_tree(tree: str, args) -> dict:
@@ -98,7 +172,16 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--timeout", type=float, default=900.0)
     ap.add_argument("--out", default=None)
     ap.add_argument("--worker", action="store_true")
+    ap.add_argument("--summarize", default=None, metavar="TURNS_JSON",
+                    help="print the summary of a saved --out file")
     args = ap.parse_args(argv)
+    if args.summarize:
+        with open(args.summarize) as f:
+            saved = json.load(f)
+        print(saved["device"])
+        a, b = dict.fromkeys(saved["order"])
+        summarize(saved["runs"], list(saved["runs"][a]), a, b)
+        return 0
     if args.worker:
         # import the package from the tree this process runs in, not from
         # the directory of this file
@@ -125,19 +208,7 @@ def main(argv: list[str] | None = None) -> int:
         print(json.dumps({"tree": tree, "ms_per_step": got}), flush=True)
         for p, v in got.items():
             runs[tree][p] += v
-    summary = {}
-    for p in args.paths:
-        med = {t: statistics.median(runs[t][p]) for t in (a, b)}
-        summary[p] = {
-            "median": med, "min": {t: min(runs[t][p]) for t in (a, b)},
-            "max": {t: max(runs[t][p]) for t in (a, b)},
-            "runs": len(runs[a][p]), "change": med[b] / med[a] - 1.0}
-        print(f"[turns] {p}: median {med[a]:.3f} ({a}) -> {med[b]:.3f} "
-              f"({b}) ms/step, {summary[p]['change'] * 100:+.1f} %, "
-              f"{summary[p]['runs']} runs each; range {a} "
-              f"{summary[p]['min'][a]:.3f}-{summary[p]['max'][a]:.3f}, {b} "
-              f"{summary[p]['min'][b]:.3f}-{summary[p]['max'][b]:.3f}",
-              flush=True)
+    summary = summarize(runs, args.paths, a, b)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": card, "order": order,

@@ -20,8 +20,6 @@ them.
 
 import inspect
 import json
-from types import SimpleNamespace
-
 import pytest
 import torch
 
@@ -32,6 +30,7 @@ from smoothed_particle_hydrodynamics_tpu.utils import benchmark as jbench
 from smoothed_particle_hydrodynamics_tpu_torch.__main__ import main
 from smoothed_particle_hydrodynamics_tpu_torch.models import make_scene
 from smoothed_particle_hydrodynamics_tpu_torch.ops import step as tstep
+from smoothed_particle_hydrodynamics_tpu_torch.state import StepDiagnostics
 from smoothed_particle_hydrodynamics_tpu_torch.utils import benchmark
 
 torch.set_num_threads(1)
@@ -119,14 +118,21 @@ def test_unknown_config_field_is_refused():
               "--set", "no_such_field=1"])
 
 
-def test_run_prints_the_resolved_scene(capsys):
-    """A whole ``run`` of a small splash: the line names the size given."""
+def test_run_prints_the_resolved_scene(capsys, tmp_path):
+    """A whole ``run`` of a small splash: the banner names the size given,
+    its one step is written and ``run.json`` holds the window given."""
+    out = str(tmp_path / "o")
     assert main(["run", "--scene", "splash", "-n", "384", "--steps", "1",
-                 "--block", "1",
+                 "--block", "1", "--out", out,
                  "--device", "cpu", "--set", "cell_size_factor=1.25",
                  "--set", "pallas_window_t=64"]) == 0
-    line = json.loads(capsys.readouterr().out.splitlines()[-1])
-    assert line["step"] == 1 and line["window_t"] == 64
+    text = capsys.readouterr().out.splitlines()
+    assert text[0].startswith("scene=splash n=384 steps=1 ")
+    assert text[1].startswith("step 1/1  ")
+    assert [r["step"] for r in _jsonl(out)] == [0]
+    meta = json.load(open(f"{out}/run.json"))
+    assert meta["config"]["num_particles"] == 384
+    assert meta["config"]["pallas_window_t"] == 64
 
 
 # ---------------------------------------------------------------------------
@@ -158,49 +164,65 @@ def test_scene_default_is_the_jax_clis(cmd, resolved, monkeypatch):
 
 def _record_run(monkeypatch) -> list[int]:
     """Replace the eager step loop ``run`` drives on the CPU by a recorder
-    of each block's step count; it returns the state and one step's
+    of each block's step count; it returns the state and the block's
     diagnostics (zeros), so the 32k disk is never stepped."""
     blocks = []
 
     def drive_loop(cfg, state, k, backend):
         blocks.append(k)
-        z = torch.zeros(1)
-        return state, SimpleNamespace(
+        z = torch.zeros(k)
+        return state, StepDiagnostics(
             kinetic_energy=z, potential_energy=z, angular_momentum=z,
-            neighbor_mean=z, neighbor_min=z, neighbor_max=z,
-            truncated_ranges=z.int(), overflow_cells=z.int())
+            neighbor_mean=z, neighbor_min=z.int(), neighbor_max=z.int(),
+            overflow_cells=z.int(), truncated_ranges=z.int(),
+            halo_dropped=z.int(), migration_dropped=z.int())
 
     monkeypatch.setattr(tstep, "drive_loop", drive_loop)
     return blocks
 
 
-def test_run_steps_default_is_the_jax_clis(monkeypatch, capsys):
+def _jsonl(out: str) -> list[dict]:
+    with open(f"{out}/diagnostics.jsonl") as fh:
+        return [json.loads(x) for x in fh]
+
+
+def _progress(text: str) -> list[int]:
+    """The steps done at each block's ``step k/total`` line."""
+    return [int(x.split()[1].split("/")[0]) for x in text.splitlines()
+            if x.startswith("step ")]
+
+
+def test_run_steps_default_is_the_jax_clis(monkeypatch, capsys, tmp_path):
     """No ``--steps``: ``run`` takes ``cfg.num_steps + 1`` steps of the
     resolved config, as the JAX CLI's ``run`` does (``cli.py:130``)."""
     assert _jax_args("run", monkeypatch).steps is None
     blocks = _record_run(monkeypatch)
-    assert main(["run", "--device", "cpu"]) == 0
+    out = str(tmp_path / "a")
+    assert main(["run", "--device", "cpu", "--out", out]) == 0
     cfg, _ = make_scene("disk", device="cpu")
     assert cfg.num_steps == jmake_scene("disk", num_particles=64)[0].num_steps
     assert sum(blocks) == cfg.num_steps + 1
-    lines = capsys.readouterr().out.splitlines()
-    assert json.loads(lines[-1])["step"] == cfg.num_steps + 1
+    assert _progress(capsys.readouterr().out)[-1] == cfg.num_steps + 1
+    assert [r["step"] for r in _jsonl(out)] == list(range(cfg.num_steps + 1))
     # a given --steps still counts
     blocks.clear()
-    assert main(["run", "--device", "cpu", "--steps", "7"]) == 0
+    assert main(["run", "--device", "cpu", "--steps", "7", "--out",
+                 str(tmp_path / "b")]) == 0
     assert sum(blocks) == 7
 
 
-def test_run_block_default_is_the_jax_clis(monkeypatch, capsys):
+def test_run_block_default_is_the_jax_clis(monkeypatch, capsys, tmp_path):
     """No ``--block``: blocks of 50 steps (``cli.py:746``), the last one
     the rest."""
     block = _jax_args("run", monkeypatch).block
     assert block == 50
     blocks = _record_run(monkeypatch)
-    assert main(["run", "--device", "cpu", "--steps", "120"]) == 0
+    out = str(tmp_path / "o")
+    assert main(["run", "--device", "cpu", "--steps", "120", "--out",
+                 out]) == 0
     assert blocks == [block, block, 20]
-    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
-    assert [x["step"] for x in lines] == [50, 100, 120]
+    assert _progress(capsys.readouterr().out) == [50, 100, 120]
+    assert [r["step"] for r in _jsonl(out)] == list(range(120))
 
 
 def _record_bench(monkeypatch) -> dict:

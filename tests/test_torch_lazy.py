@@ -144,19 +144,25 @@ def test_run_benchmark_on_cpu(lazy):
     assert len(r["kinetic_energy"]) == 2
 
 
-def test_cli_run_prints_one_line_per_block(capsys):
+def test_cli_run_prints_one_line_per_block(capsys, tmp_path):
+    """One ``step k/total`` line per block; every step's diagnostics in
+    ``diagnostics.jsonl``."""
     import json
 
     from smoothed_particle_hydrodynamics_tpu_torch.__main__ import main
 
+    out = str(tmp_path / "o")
     assert main(["run", "--scene", "splash", "-n", "384", "--steps", "3",
-                 "--block", "2",
+                 "--block", "2", "--out", out,
                  "--device", "cpu", "--set", "cell_size_factor=1.25",
                  "--set", "pallas_window_t=64"]) == 0
-    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
-    assert [x["step"] for x in lines] == [2, 3]
-    assert all(np.isfinite(x["kinetic_energy"]) for x in lines)
-    assert all(x["neighbor_max"] >= x["neighbor_min"] for x in lines)
+    lines = [x for x in capsys.readouterr().out.splitlines()
+             if x.startswith("step ")]
+    assert [x.split()[1] for x in lines] == ["2/3", "3/3"]
+    rows = [json.loads(x) for x in open(f"{out}/diagnostics.jsonl")]
+    assert [x["step"] for x in rows] == [0, 1, 2]
+    assert all(np.isfinite(x["kinetic_energy"]) for x in rows)
+    assert all(x["neighbor_max"] >= x["neighbor_min"] for x in rows)
 
 
 def test_cli_refuses_to_fall_back_to_cpu(monkeypatch):
@@ -177,7 +183,7 @@ def test_pairwise_backend_rejects_capped_config():
                              backend="pairwise")
 
 
-def test_cli_run_resolves_capped_settings(capsys):
+def test_cli_run_resolves_capped_settings(tmp_path):
     """run and bench resolve capped mode's block (256), the derived window
     and the derived sub-frame length through one function."""
     import json
@@ -194,15 +200,20 @@ def test_cli_run_resolves_capped_settings(capsys):
         *make_scene("splash", device="cpu", seed=11, **ov), ov)
     assert want.pallas_block_t == 256 and want.pallas_window_t >= 64
     assert 0 < want.capped_sub_len < 1024
+    out = str(tmp_path / "o")
     assert main(["run", "--scene", "splash", "-n", "1024", "--steps", "2",
-                 "--block", "2",
+                 "--block", "2", "--out", out,
                  "--device", "cpu", "--backend", "pallas"]
                 + [f"--set={k}={v}" for k, v in ov.items()
                    if k != "num_particles"]) == 0
-    line = json.loads(capsys.readouterr().out.splitlines()[-1])
-    assert (line["block_t"], line["window_t"], line["capped_sub_len"]) == (
+    got = json.load(open(f"{out}/run.json"))["config"]
+    assert (got["pallas_block_t"], got["pallas_window_t"],
+            got["capped_sub_len"]) == (
         want.pallas_block_t, want.pallas_window_t, want.capped_sub_len)
-    assert line["truncated_ranges"] == 0 and np.isfinite(line["kinetic_energy"])
+    rows = [json.loads(x) for x in open(f"{out}/diagnostics.jsonl")]
+    assert len(rows) == 2
+    assert all(x["truncated_ranges"] == 0 and np.isfinite(x["kinetic_energy"])
+               for x in rows)
     r = run_benchmark(scene="splash", lazy=True, steps=1, warmup=1,
                       device="cpu", overrides=ov, backend="pallas")
     assert (r["block_t"], r["window_t"], r["capped_sub_len"]) == (

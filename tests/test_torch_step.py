@@ -208,7 +208,7 @@ def test_run_benchmark_eager_backends_on_cpu():
         assert r["overflow_cells"] == [0, 0, 0] and r["device"] == "cpu"
 
 
-def test_cli_backend_choice(capsys):
+def test_cli_backend_choice(capsys, tmp_path):
     """auto is celllist on the CPU (eager); pallas in the sublane layout
     drives the lazy loop; the lane layout and the other backends run the
     eager loop; range_slice=0 is derived."""
@@ -227,10 +227,14 @@ def test_cli_backend_choice(capsys):
             (["--backend", "pairwise"], ("pairwise", False)),
             (["--backend", "celllist", "--set", "range_slice=0"],
              ("celllist", False))]:
-        assert main(["run", "--block", "2"] + base + extra) == 0
-        line = json.loads(capsys.readouterr().out.splitlines()[-1])
-        assert (line["backend"], line["lazy"]) == want, extra
-        assert np.isfinite(line["kinetic_energy"])
+        out = str(tmp_path / "o")
+        assert main(["run", "--block", "2", "--out", out] + base + extra) == 0
+        capsys.readouterr()
+        meta = json.load(open(f"{out}/run.json"))
+        assert (meta["backend"], meta["lazy"]) == want, extra
+        with open(f"{out}/diagnostics.jsonl") as fh:
+            last = json.loads(fh.readlines()[-1])
+        assert last["step"] == 1 and np.isfinite(last["kinetic_energy"])
         assert main(["bench", "--warmup", "1"] + base + extra) == 0
         rec = json.loads(capsys.readouterr().out.splitlines()[-1])
         assert (rec["backend"], rec["lazy"]) == want, extra
