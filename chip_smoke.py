@@ -135,7 +135,33 @@ Phases (every failed check raises, and the script exits nonzero):
    finding is printed, and the SASS of the chain kernels (sqrtf and '/'
    IEEE sequences, no chain folded: each MUFU op issues a full unrolled
    body of its MUFU instructions; each counted unrolled body, which the
-   chain bounds come from, at least its ``MIX`` floor).
+   chain bounds come from, at least its ``MIX`` floor);
+16. the CLI in this process, as a user runs it (``cli_phase``): ``run``
+   with no scene flags (the 32k disk's 1,001 lazy steps, checkpointed every
+   500, K1/K2 counted, the five files, ``run.json``, ``final_state.npz``,
+   a bit-equal checkpoint round trip), resumes from 1,000 and from 500
+   with ``--apply``, the 1M splash's ``run`` beside ``run_benchmark``,
+   ``info``, ``watch --once`` and a ``sweep``;
+17. the renderer, lane groups, compat mode and the examples
+   (``slice_phase``; none has a kernel of its own): the 1M splash and a 1M
+   uniform cloud (drawn at gain 1, so a particle moved across a pixel edge
+   shows) rendered on the card byte-equal to the same states on the CPU
+   (orthographic, voxels, perspective with the box at two cameras and
+   without it), the splash's ms per frame; ``run --render --live
+   --live-term`` on the 32k disk's lazy path (K1/K2 counted, the GIF, the
+   live PNG, one repaint a block) and ``render`` of phase 16's checkpoint,
+   its PNG equal to the CPU's; the exact 1M lazy splash at
+   ``pallas_groups`` 1, 2, 4 (window tables on the card bit-equal to the
+   CPU's, counts, rho, acc, positions and velocities bit-equal to G = 1,
+   K1/K2 counted), the band kernels against the G = 2 twins on the 32k
+   splash, the one-rank slab exact step at G = 2 bit-equal to G = 1, and
+   ms/step at G = 1, 2, 4 in turns; compat mode on the 32k exact-IC disk
+   (step-0 neighbor ids, counts and stored distances bit-equal to the
+   CPU's, 10 compat steps: counts equal, positions rel-L2 <= 1e-6, acc
+   rel-L2 <= 1e-4; its ms/step, and ``utils/profile_step.py --backend
+   compat``'s host ops and busy share), ``run --compat --exact-ic`` and
+   ``parity`` on dumps of the CPU's trajectory (PASS); both examples under
+   ``SPH_EXAMPLE_QUICK=1`` on the card.
 
 It then prints the card's name and power limit, one JSON line of kernel
 records (time, twin time, launches, error, and the bound: the larger of the
@@ -167,6 +193,7 @@ import tempfile
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 # the H100 SXM's published peaks (HBM bytes/s, f32 FLOP/s outside the tensor
@@ -1343,9 +1370,11 @@ def _finite_state(st) -> bool:
     return all(bool(torch.isfinite(t).all()) for t in st)
 
 
-def cli_phase(dev) -> None:
+def cli_phase(dev, keep: str | None = None) -> None:
     """Phase 16: ``run``, its checkpoints and resumes, ``info``, ``watch``
-    and ``sweep`` through the port's ``__main__.main`` on the card."""
+    and ``sweep`` through the port's ``__main__.main`` on the card.
+    ``keep``: a path to copy the run's last checkpoint to (phase 17 renders
+    it)."""
     from smoothed_particle_hydrodynamics_tpu_torch.config import SphConfig
     from smoothed_particle_hydrodynamics_tpu_torch.init import load_state
     from smoothed_particle_hydrodynamics_tpu_torch.models import make_scene
@@ -1416,6 +1445,8 @@ def cli_phase(dev) -> None:
         check(s == CLI_STEPS and c == cfg and all(
             torch.equal(a, b) for a, b in zip(back, final)),
             "cli disk: checkpoint round trip bit-equal on the card")
+        if keep:
+            shutil.copy(f"{ck}/ckpt_{2 * CLI_EVERY:08d}.npz", keep)
         print(f"[cli disk] 5 files x {CLI_STEPS} rows, run.json fingerprint "
               f"{meta['fingerprint']}, checkpoints {sorted(os.listdir(ck))},"
               f" final total energy {rows[-1]['total_energy']:.9e}; "
@@ -1510,6 +1541,385 @@ def cli_phase(dev) -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"[cli] phase 16 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# phase 17: the renderer, lane groups, compat mode and the examples, none
+# with a kernel of its own; the groups and the CLI's rendered run step
+# through K1/K2
+RENDER_CAMERAS = {"persp": {}, "persp az135": dict(
+    azimuth=135.0, elevation=0.6, distance=1.8)}
+RENDER_REPS = 5
+RENDER_SCENE: dict = {}         # the splash at its own size (1M)
+GROUPS = (1, 2, 4)
+GROUP_STEPS = 3
+COMPAT_N = 32 * 1024
+COMPAT_STEPS = 10
+CLI_RENDER_STEPS, CLI_RENDER_EVERY = 100, 25
+CLI_RENDER = ["--steps", str(CLI_RENDER_STEPS), "--block", "25", "--render",
+              "--render-every", str(CLI_RENDER_EVERY)]
+CLI_COMPAT_STEPS = 100
+CLI_COMPAT = ["--compat", "--exact-ic", "--steps", str(CLI_COMPAT_STEPS),
+              "--block", "50"]
+PROFILE_COMPAT = ["--scene", "disk", "-n", str(COMPAT_N), "--backend",
+                  "compat", "--steps", "10", "--warmup", "2", "--repeats",
+                  "3"]
+EXAMPLES = ("quickstart", "custom_scene")
+EXAMPLE_ARGS: list[str] = []    # the examples' flags (the card by default)
+
+
+def host_ms(fn, reps: int = RENDER_REPS) -> float:
+    """Host clock around ``reps`` calls that end on the host (each render
+    copies its image to the host), after one warmup call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def render_checks(dev) -> dict:
+    """The renders of the 1M splash and of a 1M uniform cloud drawn at
+    gain 1 (a pixel holds a few particles, so a particle moved across a
+    pixel edge shows) on the card against the same states on the CPU:
+    byte-equal images; the card's ms per frame."""
+    from smoothed_particle_hydrodynamics_tpu_torch.models import make_scene
+    from smoothed_particle_hydrodynamics_tpu_torch.state import ParticleState
+    from smoothed_particle_hydrodynamics_tpu_torch.utils.render import (
+        render_frame, render_frame_perspective)
+
+    cfg, st = make_scene("splash", device=dev, **RENDER_SCENE)
+    gen = torch.Generator().manual_seed(17)
+    box = torch.tensor(cfg.box_max)
+    cloud = ParticleState.from_arrays(
+        (torch.rand(st.n, 3, generator=gen) * box).to(dev),
+        torch.zeros(st.n, 3, device=dev), cfg=cfg)
+    views = {"ortho": lambda s, g: render_frame(cfg, s, gain=g),
+             "voxels": lambda s, g: render_frame(cfg, s, gain=g,
+                                                 voxels=True),
+             **{name: (lambda s, g, cam=cam: render_frame_perspective(
+                 cfg, s, gain=g, **cam)) for name, cam in
+                RENDER_CAMERAS.items()},
+             "persp no box": lambda s, g: render_frame_perspective(
+                 cfg, s, gain=g, box=False)}
+    ms = {}
+    for label, state, gain in (("splash", st, 40.0), ("cloud", cloud, 1.0)):
+        host = ParticleState(*(t.cpu() for t in state))
+        diffs = {}
+        for name, view in views.items():
+            card, want = view(state, gain), view(host, gain)
+            diffs[name] = (int((card != want).sum())
+                           if card.shape == want.shape else card.size)
+            check(diffs[name] == 0 and card.any(), f"render {label} {name}: "
+                  f"{diffs[name]} pixels differ from the CPU's")
+            if label == "splash":
+                ms[name] = host_ms(lambda: view(state, gain))
+        print(f"[render] {label} {st.n} (gain {gain}): pixels differing "
+              f"from the CPU's render of the same state: {diffs}")
+    print(f"[render] splash {st.n} on {dev}, ms per frame (host clock, the "
+          f"image on the host, {RENDER_REPS} frames): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+    return ms
+
+
+def cli_render_checks(dev, root: str, ckpt: str | None) -> None:
+    """``run --render --live --live-term`` on the 32k disk's lazy path,
+    counted, then ``render`` of phase 16's checkpoint, on the card and
+    (``--device cpu``) on the CPU: the same PNG bytes."""
+    out, live = f"{root}/render_run", f"{root}/live.png"
+    reset_launches()
+    with counting_block_walks() as block_walks:
+        t0 = time.perf_counter()
+        rc, text = cli(["run", *CLI_RENDER, "--out", out, "--live", live,
+                        "--live-term", "--quiet"])
+        wall = time.perf_counter() - t0
+    counts = {name: wrapper(name).launches
+              for name in ("density_band_t", "force_band_t")}
+    no_block_walk("cli render", block_walks)
+    gif = f"{out}/sph_anim.gif"
+    want = CLI_RENDER_STEPS // CLI_RENDER_EVERY
+    frames = (want if os.path.isfile(gif)
+              else len(os.listdir(f"{out}/sph_anim"))
+              if os.path.isdir(f"{out}/sph_anim") else 0)
+    repaints = text.count("\x1b[2J\x1b[H")
+    print(f"[render cli] run {' '.join(CLI_RENDER)} --live --live-term (32k "
+          f"disk, lazy): {wall:.2f} s; launches {counts}; "
+          f"{'GIF' if os.path.isfile(gif) else 'frame directory'} of "
+          f"{frames} frames, live PNG {os.path.getsize(live)} bytes, "
+          f"{repaints} terminal repaints")
+    check(rc == 0 and f"({frames} frames)" in text and frames == want,
+          f"render cli: exit {rc}, {frames} frames")
+    last = f"\nstep {CLI_RENDER_STEPS}/{CLI_RENDER_STEPS}\n"
+    check(repaints == want and last in text,
+          f"render cli: {repaints} repaints")
+    check(all(c == CLI_RENDER_STEPS for c in counts.values()),
+          f"render cli: K1/K2 launches {counts}")
+    if ckpt is None:
+        return
+    for flags in ([], ["--perspective"], ["--voxels"]):
+        pngs = []
+        for device in ("cuda", "cpu"):
+            png = f"{root}/render_{device}.png"
+            rc, _ = cli(["render", ckpt, "-o", png, "--device", device,
+                         *flags])
+            check(rc == 0, f"render {flags} --device {device}: exit {rc}")
+            pngs.append(open(png, "rb").read())
+        check(pngs[0] == pngs[1], f"render {flags}: card PNG != CPU PNG")
+        print(f"[render cli] render {os.path.basename(ckpt)} {flags}: "
+              f"{len(pngs[0])} bytes, the card's PNG equal to the CPU's")
+
+
+def groups_checks(dev) -> None:
+    """Lane groups: the exact 1M lazy splash at G = 1, 2, 4 (tables on the
+    card bit-equal to the CPU's, step quantities bit-equal across G, K1/K2
+    counted); the band kernels at G = 2 against the G = 2 twins on the 32k
+    splash; the one-rank slab exact step at G = 2 bit-equal to G = 1;
+    ms/step at G = 1, 2, 4 in turns."""
+    from smoothed_particle_hydrodynamics_tpu_torch.models import make_scene
+    from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
+    from smoothed_particle_hydrodynamics_tpu_torch.ops.lazy import (
+        drive_loop_lazy)
+    from smoothed_particle_hydrodynamics_tpu_torch.parallel import slabs
+    from smoothed_particle_hydrodynamics_tpu_torch.parallel.comm import (
+        local_group)
+    from smoothed_particle_hydrodynamics_tpu_torch.state import ParticleState
+    from smoothed_particle_hydrodynamics_tpu_torch.utils.benchmark import (
+        run_benchmark, slab_setup)
+    from smoothed_particle_hydrodynamics_tpu_torch.utils.turns import PATHS
+
+    cfg, st = make_scene("splash", device=dev, **MAIN)
+    host = ParticleState(*(t.cpu() for t in st))
+    outs, sizes = {}, {}
+    for g in GROUPS:
+        cg = cfg.replace(pallas_groups=g)
+        p, q = sw.prepare_t(cg, st), sw.prepare_t(cg, host)
+        for f in ("order", "cid", "ws", "wc", "cell_start"):
+            check(torch.equal(getattr(p, f).cpu(), getattr(q, f)),
+                  f"groups G={g}: prepare_t {f} card != CPU")
+        sizes[g] = p.ws.numel()
+        del p, q
+        reset_launches()
+        with counting_block_walks() as block_walks:
+            out, _ = drive_loop_lazy(cg, st, GROUP_STEPS)
+        counts = {name: wrapper(name).launches
+                  for name in ("density_band_t", "force_band_t")}
+        no_block_walk(f"groups G={g}", block_walks)
+        check(all(c == GROUP_STEPS for c in counts.values()),
+              f"groups G={g}: launches {counts}")
+        outs[g] = out
+    for g in GROUPS[1:]:
+        for f in ("neighbor_count", "density", "acceleration", "position",
+                  "velocity"):
+            check(torch.equal(getattr(outs[g], f), getattr(outs[1], f)),
+                  f"groups: {f} at G={g} != G=1")
+    print(f"[groups] exact 1M lazy splash, {GROUP_STEPS} steps at G = "
+          f"{GROUPS}: window tables on the card bit-equal to the CPU's "
+          f"({sizes} entries); counts, rho, acc, positions and velocities "
+          f"bit-equal to G=1; K1/K2 launched once a step")
+    del outs, host
+
+    # the band kernels against the G = 2 twins, 32k splash
+    cfg, st = make_scene("splash", device=dev, num_particles=32768,
+                         cell_size_factor=1.25, pallas_window_t=64,
+                         grid_nx=32, grid_ny=32, grid_nz=32, pallas_groups=2)
+    p = sw.prepare_t(cfg, st)
+    rho_k, nc_k = sw.density_t(cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc,
+                               p.cell_start)
+    rho_p, nc_p = sw.density_t_plain(cfg, p.pos_s, p.mass_s, p.cid, p.ws,
+                                     p.wc)
+    agree("groups 32k G=2", "density_band_t", rho_k, rho_p, (nc_k, nc_p))
+    cand = sw.fused_cand_cols(cfg, p.pos_s, p.vel_s, rho_p, p.mass_s)
+    acc_k = sw.force_t(cfg, p.pos_s, p.vel_s, rho_p, cand, p.cid, p.ws, p.wc,
+                       p.cell_start)
+    acc_p = sw.force_t_plain(cfg, p.pos_s, p.vel_s, rho_p, cand, p.cid, p.ws,
+                             p.wc)
+    agree("groups 32k G=2", "force_band_t", acc_k, acc_p, bar=ACC_BAR)
+
+    # the slab engine at world size 1, exact, G = 2 against G = 1
+    cfg, st, zsplit, caps, _ = slab_setup(MAIN["num_particles"], SLAB,
+                                          SLAB_HEADROOM, dev)
+    runs = {}
+    for g in (1, 2):
+        with local_group(dev) as grp:
+            runs[g] = slabs.run_slab_steps(
+                grp, cfg.replace(pallas_groups=g), st, caps, zsplit, 2,
+                sweeps="pallas")
+    for k, v in runs[1]["diags"].items():
+        check(bool((runs[2]["diags"][k] == v).all()), f"slab G=2: {k}")
+    for k in ("position", "velocity"):
+        check(np.array_equal(runs[2][k], runs[1][k]), f"slab G=2: {k}")
+    print(f"[groups] slab exact 1M, one rank, 2 steps: G=2 bit-equal to G=1 "
+          f"(diagnostics, collected positions and velocities); neighbor mean "
+          f"{runs[2]['diags']['neighbor_mean'].tolist()}")
+    del runs, st
+
+    # ms/step at G = 1, 2, 4 in turns (utils/turns.py's paths)
+    paths = {1: PATHS["exact"][2], 2: PATHS["groups2"][2],
+             4: PATHS["groups4"][2]}
+    turns = {g: [] for g in GROUPS}
+    for g in [*GROUPS, *reversed(GROUPS)]:
+        r = run_benchmark(scene="splash", lazy=True, steps=STEPS,
+                          warmup=WARMUP, overrides=paths[g], device="cuda",
+                          backend="pallas")
+        turns[g].append(r["ms_per_step"])
+    print(f"[groups] exact 1M lazy splash ms/step in turns "
+          f"(G 1 2 4 4 2 1, {WARMUP} + {STEPS} steps each): "
+          + "; ".join(f"G={g} " + " ".join(f"{t:.4f}" for t in ts)
+                      for g, ts in turns.items()))
+
+
+def compat_checks(dev, root: str) -> None:
+    """Compat mode: the 32k exact-IC disk's neighbor tables on the card
+    bit-equal to the CPU's, 10 compat steps against the CPU's (counts
+    equal, positions rel-L2 <= 1e-6, acc rel-L2 <= 1e-4), the step profiled
+    (``utils/profile_step.py --backend compat``), ``run --compat
+    --exact-ic`` and ``parity`` on dumps of the CPU's trajectory."""
+    from smoothed_particle_hydrodynamics_tpu_torch.compat import golden
+    from smoothed_particle_hydrodynamics_tpu_torch.compat.exact_ic import (
+        reference_initial_state)
+    from smoothed_particle_hydrodynamics_tpu_torch.compat.neighbors import (
+        find_neighbors_compat)
+    from smoothed_particle_hydrodynamics_tpu_torch.compat.step import (
+        compat_density, compat_step)
+    from smoothed_particle_hydrodynamics_tpu_torch.config import SphConfig
+    from smoothed_particle_hydrodynamics_tpu_torch.state import ParticleState
+    from smoothed_particle_hydrodynamics_tpu_torch.utils import profile_step
+
+    cfg = SphConfig(num_particles=COMPAT_N)
+    t0 = time.perf_counter()
+    host = reference_initial_state(cfg, device="cpu")
+    ic_s = time.perf_counter() - t0
+    st = ParticleState(*(t.to(dev) for t in host))
+    nb, nb_h = (find_neighbors_compat(cfg, s.position) for s in (st, host))
+    check(torch.equal(nb.count.cpu(), nb_h.count)
+          and torch.equal(nb.ids.cpu(), nb_h.ids)
+          and torch.equal(nb.dists.cpu().view(torch.int32),
+                          nb_h.dists.view(torch.int32)),
+          "compat: step-0 neighbor ids, counts, dists card != CPU")
+    rho, rho_h = compat_density(cfg, st, nb), compat_density(cfg, host, nb_h)
+    rho_bits = torch.equal(rho.cpu().view(torch.int32),
+                           rho_h.view(torch.int32))
+    print(f"[compat] 32k exact-IC disk ({ic_s:.2f} s on the host): step-0 "
+          f"neighbor ids, counts and stored distances bit-equal to the CPU's "
+          f"(mean {nb.count.float().mean().item():.4f}, max "
+          f"{int(nb.count.max())}); rho bit-equal: {rho_bits}")
+    traj = [host]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(COMPAT_STEPS):
+        st, _ = compat_step(cfg, st)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / COMPAT_STEPS
+    for _ in range(COMPAT_STEPS):
+        traj.append(compat_step(cfg, traj[-1])[0])
+    h = traj[-1]
+    r_pos = rel_l2(st.position.cpu(), h.position)
+    r_acc = rel_l2(st.acceleration.cpu(), h.acceleration)
+    counts_eq = torch.equal(st.neighbor_count.cpu(), h.neighbor_count)
+    print(f"[compat] {COMPAT_STEPS} compat steps on the card vs the CPU: "
+          f"counts_equal={counts_eq} pos_rel_l2={r_pos:.3e} "
+          f"acc_rel_l2={r_acc:.3e}; {ms:.3f} ms/step on the card (host "
+          f"clock, synchronized)")
+    check(counts_eq and r_pos <= 1e-6 and r_acc <= ACC_BAR,
+          f"compat steps: counts {counts_eq} pos {r_pos} acc {r_acc}")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        profile_step.main(PROFILE_COMPAT)
+    prof = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"[compat] profile_step {' '.join(PROFILE_COMPAT)}: untraced "
+          f"ms/step {[round(x, 4) for x in prof['untraced_ms_per_step']]}, "
+          f"traced {prof['traced_ms_per_step']:.4f}, device busy "
+          f"{prof['device_busy_ms_per_step']:.4f} ms/step "
+          f"({prof['device_busy_share']:.1%}), host aten ops/step "
+          f"{prof['host_aten_ops_per_step']:.1f}; top kernels "
+          + json.dumps({k[:40]: round(v, 4) for k, v in
+                        prof["top_kernels_ms_per_step"].items()}))
+
+    out = f"{root}/compat_run"
+    t0 = time.perf_counter()
+    rc, text = cli(["run", *CLI_COMPAT, "--out", out, "--quiet"])
+    wall = time.perf_counter() - t0
+    rows = _jsonl(f"{out}/diagnostics.jsonl")
+    meta = json.load(open(f"{out}/run.json"))
+    check(rc == 0 and len(rows) == CLI_COMPAT_STEPS
+          and meta["backend"] == "compat"
+          and meta["config"]["compat"] and all(
+              math.isfinite(r["total_energy"]) for r in rows),
+          f"cli compat run: exit {rc}, {len(rows)} rows")
+    print(f"[compat cli] run {' '.join(CLI_COMPAT)}: {wall:.2f} s, median "
+          f"{statistics.median(r['step_ms'] for r in rows):.4f} ms/step; "
+          f"neighbor mean {rows[0]['neighbor_mean']:.4f} -> "
+          f"{rows[-1]['neighbor_mean']:.4f}")
+
+    # dumps of the CPU's trajectory in tools/golden_main.cpp's format
+    gdir = f"{root}/golden"
+    os.makedirs(gdir)
+    dumps = traj[:4]
+    for k, s in enumerate(dumps):
+        zeros = np.zeros((s.n, 32), np.float32)
+        golden.write_golden(f"{gdir}/state_{k:05d}.bin", golden.GoldenState(
+            s.n, s.mass.numpy(), s.density.numpy(), s.position.numpy(),
+            s.velocity.numpy(), s.acceleration.numpy(),
+            s.neighbor_count.numpy(), zeros.astype(np.uint32), zeros))
+    rc, text = cli(["parity", gdir, "--cell-capacity",
+                    str(cfg.cell_capacity)])
+    print("[compat cli] parity on dumps of the CPU's trajectory: exit "
+          f"{rc}\n" + text.replace(gdir + "/", "  ").rstrip())
+    check(rc == 0 and "PASS" in text and text.count(
+        "neighbor_count_match=1.0000") == len(dumps) - 1,
+        f"cli parity: exit {rc}")
+
+
+def examples_checks(dev, root: str) -> None:
+    """The examples under ``SPH_EXAMPLE_QUICK=1`` on the card, in a
+    working directory of their own."""
+    import runpy
+
+    here, argv = os.getcwd(), sys.argv
+    os.environ["SPH_EXAMPLE_QUICK"] = "1"
+    try:
+        for name in EXAMPLES:
+            os.makedirs(f"{root}/{name}")
+            os.chdir(f"{root}/{name}")
+            sys.argv = [name, *EXAMPLE_ARGS]
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                runpy.run_module(f"{PKG.replace('/', '.')}.examples.{name}",
+                                 run_name="__main__")
+            wall = time.perf_counter() - t0
+            text = buf.getvalue()
+            want = ("total-energy drift" if name == "quickstart"
+                    else "final KE")
+            check(want in text, f"example {name}: {text!r}")
+            if name == "quickstart":
+                check(os.path.getsize("quickstart_final.png") > 0,
+                      "quickstart: no PNG")
+                check(f"device={dev}" in text, f"quickstart: not on {dev}")
+            print(f"[examples] {name} ({wall:.2f} s): "
+                  + " | ".join(text.strip().splitlines()))
+    finally:
+        os.chdir(here)
+        sys.argv = argv
+        del os.environ["SPH_EXAMPLE_QUICK"]
+
+
+def slice_phase(dev, ckpt: str | None) -> dict:
+    """Phase 17; returns the render ms per frame at 1M."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_p17_",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        ms = render_checks(dev)
+        cli_render_checks(dev, root, ckpt)
+        groups_checks(dev)
+        compat_checks(dev, root)
+        examples_checks(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[p17] phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return ms
 
 
 def main() -> int:
@@ -2031,7 +2441,16 @@ def main() -> int:
     # 16. the CLI on the card: the reference's headless run with its
     #     outputs and checkpoints, resumes, an apply, the 1M splash's
     #     outputs, info, watch and a sweep
-    cli_phase(dev)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_",
+                                dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        ckpt = os.path.join(ckpt_dir, "ckpt.npz")
+        cli_phase(dev, keep=ckpt)
+
+        # 17. the renderer, lane groups, compat mode and the examples
+        slice_phase(dev, ckpt)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

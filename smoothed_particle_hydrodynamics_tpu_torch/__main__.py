@@ -5,6 +5,9 @@
     sweep [--scene S] [--viscosity MUS] [--stiffness KS] [--out F.json]
     info  [--scene S] [-n N] [--set KEY=VALUE]           the resolved config
     watch [--out DIR] [--once]                           a run's dashboard
+    render STATE.npz [-o F.png] [--perspective] [--camera AZ,EL,DIST]
+          [--no-box] [--voxels]                          a state as a PNG
+    parity GOLDEN_DIR [--steps K] [--cell-capacity C]    compat vs dumps
 
 The flags and defaults are the JAX CLI's (``cli.py``).  ``--scene`` is one
 of disk (default), dam_break, splash, honey, dam_break_10m; ``-n`` and
@@ -27,7 +30,14 @@ the current state.  A JSON object of config fields dropped at
 ``<out>/apply.json`` lands at the next block boundary, and the file is
 renamed ``.applied`` (or ``.rejected``).  SIGINT saves a checkpoint at the
 end of the block and exits 130; SIGUSR1 pauses and resumes at block
-boundaries; the caller's handlers come back when ``run`` returns.  A
+boundaries; the caller's handlers come back when ``run`` returns.
+``--render`` collects a frame every ``--render-every`` steps (at block
+boundaries) and writes ``<out>/sph_anim.gif`` at the end; ``--live PATH``
+swaps a PNG of the current state into PATH every block (atomic
+``os.replace``); ``--live-term`` repaints the splat in the terminal every
+block.  A lazy run renders from its sorted carry (the splat does not depend
+on particle order), so no block unsorts for a frame.  ``--exact-ic``
+starts the disk from the reference's srand(42) state.  A
 non-finite energy saves a checkpoint and exits 2; dropped interactions
 (``truncated_ranges``) print one warning.  ``--lazy/--no-lazy`` forces the
 driver (default: the lazy loop for the pallas backend in the sublane
@@ -44,8 +54,19 @@ of energy drift, |L|, step time and neighbor counts from
 times the distributed slab engine (``parallel/slabs.py``) on a one-rank
 group of the device with the splash scene (1M particles unless ``-n``).
 
-``--backend`` is ``auto`` (default: pallas on cuda, celllist on cpu),
-``pallas``, ``celllist`` or ``pairwise``.  ``--device`` defaults to cuda,
+``render`` draws a saved state (a checkpoint or ``final_state.npz``) under
+the scene's config: the orthographic x-z splat, ``--voxels`` with the
+occupied cells in red, or ``--perspective`` (``--camera`` implies it; the
+box outline unless ``--no-box``).  ``parity`` steps the compat pipeline from
+the first ``state_*.bin`` dump of a directory written by
+``tools/golden_main.cpp`` and prints each later dump's density and position
+rel-L2 and neighbor-count match; it exits 1 when the worst density rel-L2
+is above 1e-3.
+
+``--backend`` is ``auto`` (default: pallas on cuda, celllist on cpu; with
+``--compat``, compat), ``pallas``, ``celllist``, ``pairwise`` or
+``compat`` (the C++ reference's quirks, ``compat/``; ``--compat`` sets
+``cfg.compat``, which every backend but pairwise runs as compat).  ``--device`` defaults to cuda,
 and a command without a CUDA device stops with an error; ``--device cpu``
 runs the kernels' plain twins on the CPU.  ``--set key=value`` overrides a
 config field, the value parsed as JSON (a list becomes a tuple; a value
@@ -90,6 +111,8 @@ def _overrides(args) -> dict:
     fields = _fields()
     ov = ({} if args.num_particles is None
           else {"num_particles": args.num_particles})
+    if getattr(args, "compat", False):
+        ov["compat"] = True
     for kv in args.set or []:
         k, _, v = kv.partition("=")
         if k not in fields:
@@ -111,11 +134,14 @@ def _device(name: str) -> torch.device:
     return dev
 
 
-def _backend(name: str, dev: torch.device) -> str:
-    """``auto`` = the kernels on the card, the cell-list sweeps on the CPU
-    (the JAX CLI's rule, ``cli.py:41-55``)."""
+def _backend(name: str, dev: torch.device, compat: bool = False) -> str:
+    """``auto`` = compat with ``--compat``, else the kernels on the card
+    and the cell-list sweeps on the CPU (the JAX CLI's rule,
+    ``cli.py:41-55``)."""
     if name != "auto":
         return name
+    if compat:
+        return "compat"
     return "pallas" if dev.type == "cuda" else "celllist"
 
 
@@ -197,7 +223,7 @@ def cmd_run(args) -> int:
                                     detect_truncation)
 
     dev = _device(args.device)
-    backend = _backend(args.backend, dev)
+    backend = _backend(args.backend, dev, args.compat)
     overrides = _overrides(args)
     if args.resume:
         path = ckpt_io.latest_checkpoint(args.checkpoint_dir)
@@ -212,7 +238,12 @@ def cmd_run(args) -> int:
     else:
         start_step = 0
         given = scene_config(args.scene, **overrides)
-        cfg, state = benchmark.resolve_scene(args.scene, dev, overrides,
+        scene_kw = overrides
+        if args.exact_ic:
+            if args.scene != "disk":
+                raise SystemExit("--exact-ic only applies to the disk scene")
+            scene_kw = dict(overrides, exact_ic=True)
+        cfg, state = benchmark.resolve_scene(args.scene, dev, scene_kw,
                                              args.seed, backend)
     for name in ("pallas_window_t", "capped_sub_len", "range_slice"):
         if getattr(given, name) == 0 and getattr(cfg, name):
@@ -247,6 +278,11 @@ def cmd_run(args) -> int:
             state = unsort_carry(carry)
         return state
 
+    def shown():
+        """The state to draw: a frame is a sum over particles, so the lazy
+        carry's sorted frame draws the same image without an unsort."""
+        return state if carry is None else carry.state
+
     def rebuild(new_cfg):
         """An applied config: the next block rebins from the current state
         under it (the JAX CLI's fresh ``make_run``)."""
@@ -256,6 +292,7 @@ def cmd_run(args) -> int:
         cfg, carry = new_cfg, None
 
     pending = _applies(args.apply)
+    frames = []
     with _Signals() as signals:
         print(f"scene={args.scene} n={cfg.num_particles} steps={total} "
               f"backend={backend} devices=[{dev}]", flush=True)
@@ -332,6 +369,7 @@ def cmd_run(args) -> int:
                         done % args.checkpoint_every) < nblock:
                     ckpt_io.save_checkpoint(args.checkpoint_dir, done, cfg,
                                             current())
+                _draw(args, cfg, shown(), done, nblock, total, frames)
                 if not args.quiet:
                     pps = cfg.num_particles * nblock / max(
                         time.perf_counter() - t0, 1e-9)
@@ -340,9 +378,39 @@ def cmd_run(args) -> int:
             elapsed = time.perf_counter() - t_start
         ckpt_io.save_state(os.path.join(args.out, "final_state.npz"),
                            current())
+        if frames:
+            from .utils.render import save_gif
+
+            save_gif(frames, f"{args.out}/sph_anim.gif")
+            print(f"wrote {args.out}/sph_anim.gif ({len(frames)} frames)")
         print(f"done: {total - start_step} steps in {elapsed:.1f}s; "
               f"diagnostics in {args.out}/")
     return 0
+
+
+def _draw(args, cfg, state, done: int, nblock: int, total: int,
+          frames: list) -> None:
+    """``run``'s pictures at a block boundary: a GIF frame every
+    ``--render-every`` steps, the terminal repaint (``--live-term``) and
+    the PNG swapped into ``--live``."""
+    from .utils.render import ansi_frame, render_frame, save_png
+
+    if args.render and (done % args.render_every) < nblock:
+        frames.append(render_frame(cfg, state))
+    if args.live_term:
+        import shutil
+
+        tcols, tlines = shutil.get_terminal_size((80, 26))
+        frame = ansi_frame(render_frame(cfg, state, size=256),
+                           cols=min(tcols, 160),
+                           rows=max(min(tlines - 2, 60), 4))
+        sys.stdout.write("\x1b[2J\x1b[H" + frame
+                         + f"\nstep {done}/{total}\n")
+        sys.stdout.flush()
+    if args.live:
+        tmp = args.live + ".tmp.png"  # the suffix keeps the encoder happy
+        save_png(render_frame(cfg, state), tmp)
+        os.replace(tmp, args.live)
 
 
 def cmd_bench(args) -> int:
@@ -361,7 +429,8 @@ def cmd_bench(args) -> int:
     r = run_benchmark(scene=args.scene, lazy=False if args.eager else None,
                       steps=args.steps or 100, warmup=args.warmup,
                       overrides=_overrides(args), device=str(dev),
-                      seed=args.seed, backend=_backend(args.backend, dev))
+                      seed=args.seed,
+                      backend=_backend(args.backend, dev, args.compat))
     print(json.dumps(r))
     return 0
 
@@ -381,7 +450,7 @@ def cmd_sweep(args) -> int:
     from .utils.diagnostics import detect_blowup, host_diagnostics
 
     dev = _device(args.device)
-    backend = _backend(args.backend, dev)
+    backend = _backend(args.backend, dev, args.compat)
     overrides = _overrides(args)
     mus = [float(x) for x in args.viscosity.split(",")]
     ks = [float(x) for x in args.stiffness.split(",")]
@@ -441,6 +510,80 @@ def cmd_info(args) -> int:
 
     print(scene_config(args.scene, **_overrides(args)).to_json())
     return 0
+
+
+def cmd_render(args) -> int:
+    """A saved state as a PNG (the JAX CLI's ``render``), drawn on the
+    device under the scene's config."""
+    from .init import load_state
+    from .models import scene_config
+    from .utils.render import (render_frame, render_frame_perspective,
+                               save_png)
+
+    dev = _device(args.device)
+    cfg = scene_config(args.scene, **_overrides(args))
+    state = load_state(args.state, dev)
+    if args.perspective or args.camera:
+        cam = {}
+        if args.camera:
+            try:
+                az, el, dist = (float(v) for v in args.camera.split(","))
+            except ValueError:
+                raise SystemExit("--camera expects AZ,EL,DIST "
+                                 "(e.g. --camera 135,0.6,1.8)")
+            cam = dict(azimuth=az, elevation=el, distance=dist)
+        img = render_frame_perspective(cfg, state, box=not args.no_box, **cam)
+    else:
+        img = render_frame(cfg, state, voxels=args.voxels)
+    save_png(img, args.output)
+    print(f"wrote {args.output}")
+    return 0
+
+
+def cmd_parity(args) -> int:
+    """Step the compat pipeline from a golden dump and report each later
+    dump's errors (the JAX CLI's ``parity``)."""
+    import glob
+
+    import numpy as np
+
+    from .compat import golden
+    from .compat.step import compat_step
+    from .config import SphConfig
+    from .state import ParticleState
+
+    dev = _device(args.device)
+    files = sorted(glob.glob(f"{args.golden}/state_*.bin"))
+    if len(files) < 2:
+        raise SystemExit(
+            f"need >= 2 golden dumps under {args.golden} "
+            "(generate with tools/build_reference.sh + golden_gen)")
+    g0 = golden.load_golden(files[0])
+    cfg = SphConfig(num_particles=g0.n, cell_capacity=args.cell_capacity)
+    state = ParticleState.from_arrays(
+        torch.from_numpy(g0.position).to(dev),
+        torch.from_numpy(g0.velocity).to(dev),
+        mass=torch.from_numpy(g0.mass).to(dev))
+
+    worst = 0.0
+    for path in files[1:args.steps + 1 if args.steps else None]:
+        state, _ = compat_step(cfg, state)
+        g = golden.load_golden(path)
+        rho = state.density.cpu().numpy()
+        l2 = float(np.linalg.norm(rho - g.density)
+                   / max(np.linalg.norm(g.density), 1e-30))
+        nc_ok = (state.neighbor_count.cpu().numpy()
+                 == g.neighbor_count).mean()
+        pos_l2 = float(np.linalg.norm(state.position.cpu().numpy()
+                                      - g.position)
+                       / np.linalg.norm(g.position))
+        worst = max(worst, l2)
+        print(f"{path}: density_L2={l2:.3e} pos_L2={pos_l2:.3e} "
+              f"neighbor_count_match={nc_ok:.4f}")
+    target = 1e-3
+    print(f"worst density L2 = {worst:.3e}  (north-star target <= "
+          f"{target:g}): {'PASS' if worst <= target else 'FAIL'}")
+    return 0 if worst <= target else 1
 
 
 _SPARK = "▁▂▃▄▅▆▇█"
@@ -539,8 +682,12 @@ def _scene_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("-n", "--num-particles", type=int, default=None,
                    help="default: the scene's own size")
     p.add_argument("--backend", default="auto",
-                   choices=["auto", "pallas", "celllist", "pairwise"],
-                   help="auto = pallas on cuda, celllist on cpu")
+                   choices=["auto", "pallas", "celllist", "pairwise",
+                            "compat"],
+                   help="auto = compat with --compat, else pallas on cuda "
+                        "and celllist on cpu")
+    p.add_argument("--compat", action="store_true",
+                   help="reproduce the C++ reference's quirks")
     p.add_argument("--set", action="append", metavar="KEY=VALUE")
 
 
@@ -548,7 +695,7 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m smoothed_particle_hydrodynamics_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    for name in ("run", "bench", "sweep", "info"):
+    for name in ("run", "bench", "sweep", "info", "render"):
         p = sub.add_parser(name)
         _scene_flags(p)
         if name != "info":
@@ -575,6 +722,17 @@ def main(argv: list[str] | None = None) -> int:
                    help="accepted for the JAX CLI; changes nothing here")
     p.add_argument("--profile-phases", action="store_true",
                    help="time the step's phases once (timing.txt columns)")
+    p.add_argument("--render", action="store_true",
+                   help="collect GIF frames (<out>/sph_anim.gif)")
+    p.add_argument("--render-every", type=int, default=10)
+    p.add_argument("--live", default="",
+                   help="swap a PNG of the current state into this path "
+                        "every block")
+    p.add_argument("--live-term", action="store_true",
+                   help="repaint the splat in the terminal every block")
+    p.add_argument("--exact-ic", action="store_true",
+                   help="disk scene: start from the reference's srand(42) "
+                        "state bit for bit")
     p.add_argument("--quiet", action="store_true")
     p = sub.choices["bench"]
     p.add_argument("--warmup", type=int, default=10)
@@ -597,6 +755,27 @@ def main(argv: list[str] | None = None) -> int:
                    help="comma-separated k grid")
     p.add_argument("--out", default="",
                    help="write the sweep records to this JSON file")
+    p = sub.choices["render"]
+    p.add_argument("state", help="path to a .npz state or checkpoint")
+    p.add_argument("-o", "--output", default="frame.png")
+    p.add_argument("--perspective", action="store_true",
+                   help="3-D perspective camera instead of the "
+                        "orthographic projection")
+    p.add_argument("--camera", default="", metavar="AZ,EL,DIST",
+                   help="perspective view: azimuth degrees around +y (180 "
+                        "= the -z view), elevation (fraction of the box "
+                        "span), eye distance (box spans); implies "
+                        "--perspective")
+    p.add_argument("--no-box", action="store_true",
+                   help="perspective view: no wireframe box outline")
+    p.add_argument("--voxels", action="store_true",
+                   help="overlay occupied grid cells in red")
+    p = sub.add_parser("parity")
+    p.add_argument("golden", help="directory of golden state dumps "
+                                  "(state_*.bin)")
+    p.add_argument("--steps", type=int, default=None)
+    p.add_argument("--cell-capacity", type=int, default=64)
+    p.add_argument("--device", default="cuda")
     p = sub.add_parser("watch")
     p.add_argument("--out", default="out", help="run output directory")
     p.add_argument("--interval", type=float, default=1.0)
@@ -604,7 +783,8 @@ def main(argv: list[str] | None = None) -> int:
                    help="print one snapshot and exit")
     args = ap.parse_args(argv)
     return {"run": cmd_run, "bench": cmd_bench, "sweep": cmd_sweep,
-            "info": cmd_info, "watch": cmd_watch}[args.cmd](args)
+            "info": cmd_info, "watch": cmd_watch, "render": cmd_render,
+            "parity": cmd_parity}[args.cmd](args)
 
 
 if __name__ == "__main__":

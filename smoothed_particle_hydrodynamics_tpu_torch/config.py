@@ -84,7 +84,7 @@ class SphConfig:
     pallas_layout: str = "sublane"      # "sublane" (sweeps_t) or "lane" (sweeps_lane)
     pallas_window_t: int = 192          # rows per window chunk (multiple of 8)
     pallas_block_t: int = 128           # sorted particles per block (128/256/512)
-    pallas_groups: int = 1              # lane groups: the port supports 1
+    pallas_groups: int = 1              # lane groups: 1, 2 or 4 (exact mode)
     # --- capped candidates ("Subsets"; ops/sweeps_t.py) -----------------------
     capped_candidates: int = 0          # K_c kept candidates per cell (0 = exact)
     capped_reweight: bool = True        # kept masses * occupancy/kept

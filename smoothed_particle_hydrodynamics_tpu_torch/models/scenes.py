@@ -90,10 +90,14 @@ def _draw(name: str, init, device: Device, seed: int, overrides: dict
 
 def _disk(device: Device = "cuda", seed: int = 42, exact_ic: bool = False,
           **overrides) -> tuple[SphConfig, ParticleState]:
+    """``exact_ic=True`` reproduces the reference's srand(42) initial state
+    bit for bit (``compat.exact_ic``; ``seed`` is not used) instead of the
+    statistically equivalent generator draw."""
     if exact_ic:
-        raise ValueError("exact_ic=True needs compat mode's bit-exact initial "
-                         "state (compat/exact_ic.py), which is not ported to "
-                         "the torch package yet")
+        from ..compat.exact_ic import reference_initial_state
+
+        cfg = scene_config("disk", **overrides)
+        return cfg, reference_initial_state(cfg, device=device)
     return _draw("disk", init_rotating_sphere, device, seed, overrides)
 
 

@@ -3,7 +3,9 @@
 
 The closing kick re-evaluates only the central point-mass gravity
 (``second_kick="gravity"``) or nothing (``"none"``); ``"full"`` re-evaluates
-the whole force and is applied by ``ops.step``.  Default-mode tallies only.
+the whole force and is applied by ``ops.step``.  In compat mode the tallies
+are the reference's: at-rest particles are left out of both, the potential
+divides by (d + eps)^3 (quirk 8) and |L| is 0, as the reference logs it.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import torch
 
 from ..config import SphConfig, _f32
 from ..state import ParticleState
-from .physics import _no_compat, central_gravity
+from .physics import central_gravity
 
 
 class EnergyTally(NamedTuple):
@@ -71,11 +73,12 @@ def energy_tally(cfg: SphConfig, pos: torch.Tensor, vel: torch.Tensor,
     Only non-finite velocities are masked from KE; PE is not velocity-gated,
     so NaN positions surface as NaN PE.  With no central mass (G*M == 0) the
     PE pass is skipped and a ``0 * x`` canary keeps non-finite positions
-    visible in PE.
+    visible in PE.  Compat mode: the reference's tallies (module docstring).
     """
-    _no_compat(cfg)
     rel = _rel(cfg, pos)
     v2 = (vel * vel).sum(-1)
+    if cfg.compat:
+        return _compat_tally(cfg, rel, v2, mass)
     ke_i = torch.where(torch.isfinite(v2), 0.5 * mass * v2, torch.zeros_like(v2))
     if float(cfg.grav_constant) * float(cfg.central_mass) == 0.0:
         pe_i = (rel[:, 0] + rel[:, 1] + rel[:, 2]) * 0.0
@@ -87,6 +90,20 @@ def energy_tally(cfg: SphConfig, pos: torch.Tensor, vel: torch.Tensor,
     s = torch.cat([ke_i[:, None], pe_i[:, None], l_i], dim=1).sum(0)
     l_vec = s[2:5]
     return EnergyTally(s[0], -s[1], torch.linalg.norm(l_vec), l_vec)
+
+
+def _compat_tally(cfg: SphConfig, rel: torch.Tensor, v2: torch.Tensor,
+                  mass: torch.Tensor) -> EnergyTally:
+    """The reference's tallies: its ``dot > 0`` guard leaves at-rest
+    particles out of KE and PE, PE divides by (d + eps)^3, |L| is 0."""
+    gm = _f32(_f32(cfg.grav_constant) * _f32(cfg.central_mass))
+    base = torch.linalg.norm(rel, dim=-1) + cfg.softening_eff
+    ok = v2 > 0.0
+    zero = torch.zeros_like(v2)
+    ke = torch.where(ok, 0.5 * mass * v2, zero).sum()
+    pe = -torch.where(ok, gm * mass / (base * base * base), zero).sum()
+    zero3 = torch.zeros(3, dtype=torch.float32, device=v2.device)
+    return EnergyTally(ke, pe, zero3[0], zero3)
 
 
 def reflect_boundary(cfg: SphConfig, old_pos: torch.Tensor,

@@ -38,8 +38,8 @@ class LazyCarry(NamedTuple):
     order: torch.Tensor     # [N] i64: state[i] == initial_state[order[i]]
     pos_bin: torch.Tensor   # [N, 3] sorted-frame positions at bin time
     cid: torch.Tensor       # [N] i32 frozen cell ids
-    ws: torch.Tensor        # [nblocks*9] i32 frozen window starts
-    wc: torch.Tensor        # [nblocks*9] i32 frozen chunk counts
+    ws: torch.Tensor        # [nblocks*G*9] i32 frozen window starts
+    wc: torch.Tensor        # [nblocks*G*9] i32 frozen chunk counts
     steps_since: int        # steps since the last rebin
     rebin_count: int        # rebins so far (the initial binning excluded)
     # capped mode only (None otherwise), frozen with the bins:

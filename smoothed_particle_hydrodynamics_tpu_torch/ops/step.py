@@ -12,9 +12,10 @@ one.  Backends:
   the lane kernels (``sweeps_lane``);
 * ``"celllist"``: the portable plain-PyTorch cell-list sweeps (the default,
   as in the JAX package);
-* ``"pairwise"``: the O(N^2) oracle.
-
-Compat mode (the C++ reference's quirks) is not ported yet.
+* ``"pairwise"``: the O(N^2) oracle;
+* ``"compat"``: the C++ reference's quirks (``compat/``), which ``step``
+  also runs for ``cfg.compat`` on every backend but ``pairwise``, as the
+  JAX package does.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from . import celllist, pairwise, sweeps_lane, sweeps_t
 from .celllist import CellListAux
 from .integrate import energy_tally, kdk_integrate, reflect_boundary
 
-Backend = Literal["pallas", "celllist", "pairwise"]
+Backend = Literal["pallas", "celllist", "pairwise", "compat"]
 
 
 def compute_forces(cfg: SphConfig, state: ParticleState,
@@ -59,18 +60,20 @@ def compute_forces(cfg: SphConfig, state: ParticleState,
         return acc, rho, CellListAux(pairwise.neighbor_counts(cfg, state),
                                      zero, zero)
     if backend == "compat":
-        raise NotImplementedError("the compat backend is not ported to the "
-                                  "torch package yet")
+        from ..compat.step import compute_compat_quantities
+
+        return compute_compat_quantities(cfg, state)
     raise ValueError(f"unknown backend {backend!r} (torch package: 'pallas', "
-                     "'celllist' or 'pairwise')")
+                     "'celllist', 'pairwise' or 'compat')")
 
 
 def step(cfg: SphConfig, state: ParticleState, backend: Backend = "celllist"
          ) -> tuple[ParticleState, StepDiagnostics]:
     """One physics step (forces + KDK integration + diagnostics)."""
-    if backend == "compat" or cfg.compat:
-        raise NotImplementedError("compat mode is not ported to the torch "
-                                  "package yet")
+    if backend == "compat" or (cfg.compat and backend != "pairwise"):
+        from ..compat.step import compat_step
+
+        return compat_step(cfg, state)
     acc, rho, aux = compute_forces(cfg, state, backend)
     state = state._replace(density=rho, neighbor_count=aux.neighbor_count)
     if cfg.second_kick == "full":

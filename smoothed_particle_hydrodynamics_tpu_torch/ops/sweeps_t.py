@@ -58,7 +58,15 @@ particles), window walks stop at the candidate count instead of reading
 padded rows, the sub frame's unkept tail rows get cell id ``TAIL_CID``
 instead of -10, and the force sums are direct per-pair sums (no per-block
 reference point, no MXU reduction), so accelerations differ from the TPU's
-by reassociation only.  Lane groups (``pallas_groups > 1``) are not ported.
+by reassociation only.
+
+Lane groups (``pallas_groups`` G in {2, 4}, exact mode only): each block's
+rows split into G groups of consecutive rows, each with its own rod windows,
+so the window tables are laid out (block, group, rod), as the JAX
+package's; the twins walk each group's windows for that group's rows.  The
+band kernels read no window table, so on the card G changes only the size
+of the tables ``prepare_t`` builds, and the step's counts, rho and acc are
+the same at every G.  The block-walk kernels take G = 1 tables only.
 """
 
 from __future__ import annotations
@@ -125,11 +133,12 @@ def _validate(cfg: SphConfig) -> None:
     if cfg.pallas_window_t <= 0 or cfg.pallas_window_t % SUB:
         raise ValueError(f"pallas_window_t must be a positive multiple of {SUB}"
                          " (0 = auto is resolved by derive_window_t)")
-    if cfg.pallas_groups != 1:
-        raise NotImplementedError("pallas_groups > 1 (lane groups) is not "
-                                  "ported to the torch package")
+    if cfg.pallas_groups not in (1, 2, 4):
+        raise ValueError("pallas_groups must be 1, 2, or 4")
     if _blane(cfg) not in (128, 256, 512):
         raise ValueError("pallas_block_t must be 128, 256, or 512")
+    if cfg.capped_candidates and cfg.pallas_groups != 1:
+        raise ValueError("capped_candidates currently requires pallas_groups=1")
 
 
 class PreparedT(NamedTuple):
@@ -145,8 +154,8 @@ class PreparedT(NamedTuple):
     vel_s: torch.Tensor    # [N, 3] sorted
     mass_s: torch.Tensor   # [N] sorted
     cid: torch.Tensor      # [N] i32 sorted cell ids
-    ws: torch.Tensor       # [nblocks*9] i32 window starts
-    wc: torch.Tensor       # [nblocks*9] i32 window chunk counts
+    ws: torch.Tensor       # [nblocks*G*9] i32 window starts
+    wc: torch.Tensor       # [nblocks*G*9] i32 window chunk counts
     sub_perm: torch.Tensor | None = None     # [S] i32 sub row -> sorted row
     cand_cid: torch.Tensor | None = None     # [S] i32 sub cids (TAIL_CID tail)
     wm_sub: torch.Tensor | None = None       # [S] f32 reweighted cand mass
@@ -163,17 +172,27 @@ SUB_FIELDS = ("sub_perm", "cand_cid", "wm_sub", "sub_dropped", "ws_sub",
               "wc_sub")
 
 
+def _groups(cfg: SphConfig, n: int) -> tuple[int, int]:
+    """(window groups, rows per group) of a sweep of ``n`` self rows: each
+    block of ``pallas_block_t`` rows is ``pallas_groups`` groups of
+    consecutive rows, each with its own rod windows."""
+    g = cfg.pallas_groups
+    return -(-n // _blane(cfg)) * g, _blane(cfg) // g
+
+
 def _block_windows_t(cfg: SphConfig, cid_sorted: torch.Tensor, nblocks: int,
                      window: int, n: int, n_pad: int,
                      cid_search: torch.Tensor | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per (block, rod): 8-aligned window start + chunk count of ``window``
-    rows, flattened in (block, rod) order, and the cell-start table of
+    """Per (block, group, rod): 8-aligned window start + chunk count of
+    ``window`` rows, flattened in (block, group, rod) order
+    ([nblocks * G * 9]), and the cell-start table of
     ``cid_search`` ([num_cells + 2] i64: its first row of each cell, its
     row count below ``num_cells`` and then its whole count at the end).
 
-    A block's rod window spans the cells from (first cid + delta - 1) to
-    (last cid + delta + 1) of ``cid_sorted`` (the self rows), looked up in
+    A group's rod window spans the cells from (first cid + delta - 1) to
+    (last cid + delta + 1) of its rows of ``cid_sorted`` (the self rows; a
+    group is the whole block at G = 1), looked up in
     one bincount + cumsum of ``cid_search`` (the candidate rows, default the
     same).  Search cids >= num_cells (the capped sub frame's tail) land in a
     bucket no window reaches.  Any superset of the true window gives the
@@ -187,7 +206,7 @@ def _block_windows_t(cfg: SphConfig, cid_sorted: torch.Tensor, nblocks: int,
     deltas = torch.tensor(rod_deltas(cfg), dtype=torch.int64,
                           device=cid_sorted.device)
     blocks = F.pad(cid_sorted.long(), (0, nblocks * b - n),
-                   value=last).view(nblocks, b)
+                   value=last).view(nblocks * cfg.pallas_groups, -1)
     lo = (blocks[:, :1] + deltas - 1).clamp(0, last)
     hi = (blocks[:, -1:] + deltas + 1).clamp(0, last)
     counts = torch.bincount(cid_search.long().clamp(0, cfg.num_cells),
@@ -316,14 +335,15 @@ def derive_window_t(cfg: SphConfig, state: ParticleState,
     given percentile rounded up to 8 rows (at least 64).  In capped mode the
     windows index the sub frame, so the per-cell cap is replayed on the
     occupancy histogram.  Host-side, once per run."""
-    b = _blane(cfg)
+    grows = _blane(cfg) // cfg.pallas_groups
     n = state.n
     cid = np.sort(linear_cell_id(cfg, cell_coords(cfg, state.position))
                   .cpu().numpy())
     deltas = np.asarray(rod_deltas(cfg))
-    nblocks = -(-n // b)
-    cid_p = np.pad(cid, (0, nblocks * b - n), constant_values=cfg.num_cells - 1)
-    blocks = cid_p.reshape(nblocks, b)
+    ngroups = -(-n // grows)
+    cid_p = np.pad(cid, (0, ngroups * grows - n),
+                   constant_values=cfg.num_cells - 1)
+    blocks = cid_p.reshape(ngroups, grows)
     lo = np.clip(blocks[:, 0][:, None] + deltas[None, :] - 1,
                  0, cfg.num_cells - 1)
     hi = np.clip(blocks[:, -1][:, None] + deltas[None, :] + 1,
@@ -405,13 +425,13 @@ def fused_cand_cols(cfg: SphConfig, pos_c: torch.Tensor, vel_c: torch.Tensor,
 
 def _window_chunks(cfg: SphConfig, n: int, m: int, ws: torch.Tensor,
                    wc: torch.Tensor):
-    """Yield ``(blocks, rod, rows, valid)`` for every (block slice, rod,
-    chunk) visit of a sweep of ``n`` self rows over ``m`` candidate rows.
-    ``rows`` [nb, s_t] are the chunk's candidate rows clamped into [0, m);
-    ``valid`` marks rows inside the block's window and the candidates."""
-    b = _blane(cfg)
+    """Yield ``(blocks, rod, rows, valid)`` for every (group slice, rod,
+    chunk) visit of a sweep of ``n`` self rows over ``m`` candidate rows
+    (a group is a block at G = 1).  ``rows`` [nb, s_t] are the chunk's
+    candidate rows clamped into [0, m); ``valid`` marks rows inside the
+    group's window and the candidates."""
+    nblocks, b = _groups(cfg, n)
     s = cfg.pallas_window_t
-    nblocks = -(-n // b)
     ws2 = ws.view(nblocks, NRODS).long()
     wc2 = wc.view(nblocks, NRODS).long()
     lane = torch.arange(s, device=ws.device)
@@ -437,10 +457,10 @@ def _pair_chunks(cfg: SphConfig, pos_s, cid, ws, wc, cand_pos, cand_cid,
     [nb, b, s_t] candidate-minus-self offsets, d^2 and pair mask
     |cid_j - cid_i - delta| <= 1, id_j != own_i, d^2 < h^2.  The ids are
     the candidate row vs ``self_base`` + the self row (``cand_src`` None),
-    the candidate's src vs the same, or src vs ``self_src``."""
+    the candidate's src vs the same, or src vs ``self_src``.  The leading
+    axis runs over window groups (``_groups``)."""
     n, m = pos_s.shape[0], cand_pos.shape[0]
-    b = _blane(cfg)
-    nblocks = -(-n // b)
+    nblocks, b = _groups(cfg, n)
     xyz = [_self_rows(pos_s[:, c], nblocks, b) for c in range(3)]
     ci = _self_rows(cid, nblocks, b)
     own = (torch.arange(self_base, self_base + nblocks * b,
@@ -479,8 +499,7 @@ def density_t_plain(cfg: SphConfig, pos_s: torch.Tensor, mass_s: torch.Tensor,
     if cand_pos is None:
         cand_pos, cand_mass, cand_cid = pos_s, mass_s, cid
     n = pos_s.shape[0]
-    b = _blane(cfg)
-    nblocks = -(-n // b)
+    nblocks, b = _groups(cfg, n)
     rho = torch.zeros(nblocks, b, dtype=torch.float32, device=pos_s.device)
     count = torch.zeros(nblocks, b, dtype=torch.int32, device=pos_s.device)
     for blocks, rows, _, d2, mask in _pair_chunks(
@@ -518,8 +537,7 @@ def force_t_plain(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
     if cand_cid is None:
         cand_cid = cid
     n = pos_s.shape[0]
-    b = _blane(cfg)
-    nblocks = -(-n // b)
+    nblocks, b = _groups(cfg, n)
     rhoi = F.pad(rho_s, (0, nblocks * b - n), value=1.0).view(nblocks, b, 1)
     h = cfg.h_scaled
     scale = _f32(cfg.sim_scale)
@@ -559,8 +577,7 @@ def fused_t_plain(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
     the pre-pass densities).  The pressure sum is split into pw_i-free
     P1 (m_j) and P2 (m_j pw_j) sums, combined with the walk's own rho."""
     n = pos_s.shape[0]
-    b = _blane(cfg)
-    nblocks = -(-n // b)
+    nblocks, b = _groups(cfg, n)
     dev = pos_s.device
     h = cfg.h_scaled
     scale = _f32(cfg.sim_scale)

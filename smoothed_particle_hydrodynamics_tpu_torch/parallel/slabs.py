@@ -259,14 +259,13 @@ def _pallas_ext_pad(cfg: SphConfig, h_cap: int, p_cap: int) -> int:
 
 def _rod_cells(cfg: SphConfig, cid_loc: torch.Tensor, nblocks: int
                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per (block, rod): the first and last cell of the rod's window (the
-    block's first / last cid + the rod's offset -/+ 1, clipped to the
-    grid), int64 [nblocks, 9]."""
-    b = sw._blane(cfg)
+    """Per (block, group, rod): the first and last cell of the rod's window
+    (the group's first / last cid + the rod's offset -/+ 1, clipped to the
+    grid), int64 [nblocks * pallas_groups, 9]."""
     last = cfg.num_cells - 1
     deltas = torch.tensor(rod_deltas(cfg), dtype=torch.int64,
                           device=cid_loc.device)
-    blocks = cid_loc.long().view(nblocks, b)
+    blocks = cid_loc.long().view(nblocks * cfg.pallas_groups, -1)
     return ((blocks[:, :1] + deltas - 1).clamp(0, last),
             (blocks[:, -1:] + deltas + 1).clamp(0, last))
 
@@ -274,13 +273,15 @@ def _rod_cells(cfg: SphConfig, cid_loc: torch.Tensor, nblocks: int
 def _chunked(cfg: SphConfig, w_start: torch.Tensor, w_end: torch.Tensor,
              n_pad: int, cnt, nblocks: int
              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """8-aligned, clipped window starts and chunk counts; blocks whose
-    first row is dead (>= ``cnt``) get none."""
+    """8-aligned, clipped window starts and chunk counts; (block, group)
+    rows of a block whose first row is dead (>= ``cnt``) get none."""
     window = cfg.pallas_window_t
     w_start = (w_start & ~(sw.SUB - 1)).clamp(0, max(n_pad - window, 0))
     w_len = (w_end - w_start).clamp(min=0)
     w_chunks = torch.where(w_len > 0, -(-w_len // window), 0)
-    first_row = torch.arange(nblocks, device=w_start.device) * sw._blane(cfg)
+    g = cfg.pallas_groups
+    first_row = (torch.arange(nblocks * g, device=w_start.device) // g
+                 * sw._blane(cfg))
     live_block = (first_row < cnt)[:, None]
     w_start = torch.where(live_block, w_start, 0)
     w_chunks = torch.where(live_block, w_chunks, 0)
@@ -293,7 +294,7 @@ def _pallas_tables(cfg: SphConfig, cid_loc: torch.Tensor,
                    slab_hi: int, base: int | None = None,
                    loc_cells: int | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Frozen per-(block, rod) window tables of the exact sweeps over the
+    """Frozen per-(block, group, rod) window tables of the exact sweeps over the
     extended frame, dead-row aware and plane-local (the JAX package's
     ``_pallas_tables`` docstring derives them).
 
@@ -845,7 +846,7 @@ def _table_zeros(cfg: SphConfig, sweeps: str, p_cap: int, sub_len: int = 0,
     if sweeps != "pallas":
         return (torch.zeros(p_cap, 9, **i32), torch.zeros(p_cap, 9, **i32))
     b = sw._blane(cfg)
-    tsize = (p_cap // b) * sw.NRODS
+    tsize = (p_cap // b) * cfg.pallas_groups * sw.NRODS
     tabs = (torch.zeros(tsize, **i32), torch.zeros(tsize, **i32))
     if not cfg.capped_candidates:
         return tabs + (ss.SlabBand(
@@ -857,7 +858,7 @@ def _table_zeros(cfg: SphConfig, sweeps: str, p_cap: int, sub_len: int = 0,
              ss.SubBand(torch.zeros(cfg.num_cells + 1, **i32),
                         torch.zeros(p_cap, **i32)))
     if cfg.capped_fused:
-        ssize = -(-sub_len // b) * sw.NRODS
+        ssize = -(-sub_len // b) * cfg.pallas_groups * sw.NRODS
         tabs += (torch.zeros(ssize, **i32), torch.zeros(ssize, **i32))
     return tabs
 

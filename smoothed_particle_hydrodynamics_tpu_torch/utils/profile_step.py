@@ -12,8 +12,9 @@ the top kernels' device ms per step, and the host-side aten ops per step.
 The loop is the one ``run`` and ``bench`` pick (``uses_lazy``) unless
 ``--eager``; ``--partition slab`` profiles the distributed slab step on a
 one-rank NCCL group instead (``run_slab_benchmark``'s splash run).  The
-host ops are also listed by name (the most frequent, per step).  Needs a
-CUDA device.
+host ops are also listed by name (the most frequent, per step).
+``--backend compat`` profiles the reference-quirk step (``compat/``), e.g.
+``--scene disk -n 32768 --backend compat``.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ def profile(scene: str, overrides: dict, backend: str, lazy: bool,
     from .benchmark import resolve_sweep_settings
 
     cfg, state = make_scene(scene, device="cuda", **overrides)
-    cfg = resolve_sweep_settings(cfg, state, overrides)
+    cfg = resolve_sweep_settings(cfg, state, overrides, backend)
     if lazy:
         carry, _ = drive_loop_lazy(cfg, state, warmup, keep_carry=True)
 
@@ -120,7 +121,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--scene", default="splash")
     ap.add_argument("-n", "--num-particles", type=int, default=1_000_000)
     ap.add_argument("--backend", default="pallas",
-                    choices=["pallas", "celllist", "pairwise"])
+                    choices=["pallas", "celllist", "pairwise", "compat"])
     ap.add_argument("--eager", action="store_true")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--warmup", type=int, default=3)

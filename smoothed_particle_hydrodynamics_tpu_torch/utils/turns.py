@@ -8,7 +8,8 @@ Each round runs one process per tree in the order A B B A (then B A A B in
 the next round, so neither tree always goes first).  A process imports the
 package from its own tree and drives every path ``--repeat`` times:
 ``utils.benchmark.run_benchmark`` (1M splash; exact, capped and fused
-lazy, lane eager) or ``run_slab_benchmark`` (the slab engine at world size
+lazy, lane eager; ``groups2``/``groups4`` the exact path at
+``pallas_groups`` 2 and 4) or ``run_slab_benchmark`` (the slab engine at world size
 1; exact, capped, fused), 3 warmup + ``--steps`` timed steps, the shapes
 of ``chip_smoke.py``'s main paths.  ``run`` is the CLI's ``run --scene
 splash`` in blocks of 10, in a fresh working directory, timed over the
@@ -52,6 +53,12 @@ PATHS = {
     "slab_fused": ("slab", True, dict(_SLAB_CAPPED, capped_fused=True)),
     "run": ("cli", True, {}),
     "splash": ("single", True, {}),
+    # the exact path with lane groups: the band kernels read no window
+    # table, so only the size of prepare_t's tables changes
+    "groups2": ("single", True, dict(_SPLASH, pallas_window_t=208,
+                                     pallas_groups=2)),
+    "groups4": ("single", True, dict(_SPLASH, pallas_window_t=208,
+                                     pallas_groups=4)),
 }
 WARMUP = 3
 CLI_BLOCK = 10
@@ -162,8 +169,9 @@ def _run_tree(tree: str, args) -> dict:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trees", nargs=2, default=None)
-    ap.add_argument("--paths", nargs="+", default=list(PATHS),
-                    choices=list(PATHS))
+    # the group paths only on request: an older tree has no lane groups
+    ap.add_argument("--paths", nargs="+", choices=list(PATHS),
+                    default=[p for p in PATHS if not p.startswith("groups")])
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--repeat", type=int, default=2)
     ap.add_argument("--steps", type=int, default=100)

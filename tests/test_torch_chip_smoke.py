@@ -10,6 +10,8 @@ a card under it.
 """
 
 import json
+
+import pytest
 import subprocess
 import sys
 from pathlib import Path
@@ -74,3 +76,73 @@ def test_chip_smoke_without_cuda_exits_1_and_leaves_nothing():
     rc, rep = leftover(sys.executable, "chip_smoke.py")
     assert rc == 1 and rep["rc"] == 1
     assert rep["after_exit"] == [{"t": 0.0, "left": {}}]
+
+
+# ---------------------------------------------------------------------------
+# phase 17's helpers on the CPU, at small sizes (on the card they compare
+# the card's results with the CPU's; here both sides run on the CPU)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def smoke(monkeypatch):
+    """``chip_smoke`` with the card's fences stubbed and the CLI and the
+    benchmark on the CPU."""
+    import torch
+
+    import chip_smoke
+    from smoothed_particle_hydrodynamics_tpu_torch import __main__ as tmain
+    from smoothed_particle_hydrodynamics_tpu_torch.utils import benchmark
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(tmain, "_device", lambda name: torch.device("cpu"))
+    monkeypatch.setattr(benchmark, "_device",
+                        lambda name: torch.device("cpu"))
+    monkeypatch.setattr(chip_smoke, "EXAMPLE_ARGS", ["--device", "cpu"])
+    return chip_smoke, torch.device("cpu")
+
+
+def test_phase17_renders_agree_across_devices(smoke, monkeypatch, capsys):
+    cs, dev = smoke
+    monkeypatch.setattr(cs, "RENDER_SCENE", dict(num_particles=20_000))
+    monkeypatch.setattr(cs, "RENDER_REPS", 1)
+    ms = cs.render_checks(dev)
+    assert set(ms) == {"ortho", "voxels", "persp", "persp az135",
+                       "persp no box"}
+    out = capsys.readouterr().out
+    assert "'persp az135': 0" in out and "cloud 20000" in out
+
+
+def test_phase17_compat_and_parity(smoke, monkeypatch, tmp_path, capsys):
+    """The compat checks at 2,048 particles: tables and steps on the two
+    sides, ``run --compat --exact-ic`` and ``parity`` on dumps of the
+    trajectory (profile_step needs the card: its line is stood in)."""
+    import json as _json
+
+    from smoothed_particle_hydrodynamics_tpu_torch.utils import profile_step
+
+    cs, dev = smoke
+    monkeypatch.setattr(cs, "COMPAT_N", 2048)
+    monkeypatch.setattr(cs, "COMPAT_STEPS", 2)
+    monkeypatch.setattr(cs, "CLI_COMPAT_STEPS", 3)
+    monkeypatch.setattr(cs, "CLI_COMPAT", ["--compat", "--exact-ic",
+                                           "--steps", "3", "-n", "2048"])
+    monkeypatch.setattr(profile_step, "main", lambda argv: print(_json.dumps(
+        {"untraced_ms_per_step": [1.0], "traced_ms_per_step": 1.0,
+         "device_busy_ms_per_step": 0.5, "device_busy_share": 0.5,
+         "host_aten_ops_per_step": 1.0, "top_kernels_ms_per_step": {}})))
+    cs.compat_checks(dev, str(tmp_path))
+    out = capsys.readouterr().out
+    assert "PASS" in out and "neighbor ids, counts and stored distances" \
+        in out
+
+
+def test_phase17_examples(smoke, tmp_path, capsys):
+    import os
+
+    cs, dev = smoke
+    here = os.getcwd()
+    cs.examples_checks(dev, str(tmp_path))
+    assert os.getcwd() == here and "SPH_EXAMPLE_QUICK" not in os.environ
+    out = capsys.readouterr().out
+    assert "[examples] quickstart" in out and "[examples] custom_scene" in out
+    assert (tmp_path / "quickstart" / "quickstart_final.png").exists()

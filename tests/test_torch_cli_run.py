@@ -486,15 +486,107 @@ def test_sigusr1_pauses_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--devices", "2"], ["--partition", "slab"],
-                                  ["--rebalance-threshold", "1.5"],
-                                  ["--render"], ["--render-every", "5"],
-                                  ["--live", "x.png"], ["--live-term"],
-                                  ["--compat"], ["--exact-ic"]])
+                                  ["--rebalance-threshold", "1.5"]])
 def test_flags_of_later_slices_are_refused(flag, capsys):
     with pytest.raises(SystemExit) as e:
         main(["run", "--device", "cpu"] + flag)
     assert e.value.code == 2
     assert "unrecognized arguments" in capsys.readouterr().err
+
+
+class _Parsed(Exception):
+    """Raised by the recorder in place of a command: the parse is done."""
+
+
+def _parsed(monkeypatch, module, name, argv, run):
+    seen = []
+
+    def record(args):
+        seen.append(args)
+        raise _Parsed
+
+    monkeypatch.setattr(module, name, record)
+    with pytest.raises(_Parsed):
+        run(argv)
+    return seen[0]
+
+
+# the flags this slice ported and the scene flags they go with
+SLICE_FLAGS = {"compat", "backend", "exact_ic", "render", "render_every",
+               "live", "live_term", "perspective", "camera", "no_box",
+               "voxels", "output", "state", "golden", "steps",
+               "cell_capacity", "scene", "num_particles"}
+
+
+@pytest.mark.parametrize("flags", [
+    ["run", "--render"], ["run", "--render-every", "5"],
+    ["run", "--live", "x.png"], ["run", "--live-term"],
+    ["run", "--compat"], ["run", "--exact-ic"],
+    ["run", "--backend", "compat"], ["bench", "--compat"],
+    ["sweep", "--compat", "--backend", "compat"], ["info", "--compat"],
+    ["render", "s.npz", "--compat", "--voxels", "-o", "f.png"],
+    ["render", "s.npz", "--camera", "1,2,3", "--no-box", "--perspective"],
+    ["parity", "g", "--steps", "3", "--cell-capacity", "96"]])
+def test_flags_of_this_slice_parse_as_jax(flags, monkeypatch):
+    """``--compat``, ``--backend compat``, ``--exact-ic``, the picture
+    flags of ``run`` and the ``render`` and ``parity`` subcommands parse to
+    the JAX CLI's values, overrides and resolved backend."""
+    from smoothed_particle_hydrodynamics_tpu_torch import __main__ as tmain
+
+    cmd = "cmd_" + flags[0]
+    targs = _parsed(monkeypatch, tmain, cmd, flags, tmain.main)
+    jargs = _parsed(monkeypatch, jcli, cmd, flags, jcli.main)
+    shared = SLICE_FLAGS & set(vars(jargs))
+    assert shared <= set(vars(targs)) and shared
+    assert {k: vars(targs)[k] for k in shared} == {
+        k: vars(jargs)[k] for k in shared}
+    if flags[0] == "parity":
+        return
+    assert tmain._overrides(targs) == jcli._apply_overrides(jargs)
+    jcli._resolve_backend(jargs)
+    assert tmain._backend(targs.backend, torch.device("cpu"),
+                          targs.compat) == jargs.backend
+
+
+def test_exact_ic_is_for_the_disk_only(capsys):
+    argv = ["run", "--scene", "splash", "--exact-ic"]
+    with pytest.raises(SystemExit) as jerr:
+        jcli.main(argv)
+    with pytest.raises(SystemExit) as terr:
+        main(argv + ["--device", "cpu"])
+    assert str(terr.value) == str(jerr.value) == (
+        "--exact-ic only applies to the disk scene")
+
+
+def test_compat_exact_ic_run_matches_jax(tmp_path, capsys):
+    """``run --compat --exact-ic`` on a 2048-particle disk, both CLIs: the
+    same stdout, neighbor counts and compat tallies (KE and PE of the
+    moving particles, |L| 0)."""
+    argv = ["run", "--compat", "--exact-ic", "-n", "2048", "--steps", "6",
+            "--block", "3"]
+    jout, tout = str(tmp_path / "jax"), str(tmp_path / "torch")
+    capsys.readouterr()
+    with kept_signals():
+        assert jcli.main(argv + ["--out", jout]) == 0
+    jtext = capsys.readouterr().out
+    assert main(argv + ["--out", tout, "--device", "cpu"]) == 0
+    ttext = capsys.readouterr().out
+    assert [ln.split("  ")[0] for ln in _untimed(ttext)] == [
+        ln.split("  ")[0] for ln in _untimed(jtext)]
+    assert "backend=compat" in ttext
+    jr, tr = (_rows(f"{d}/diagnostics.jsonl") for d in (jout, tout))
+    assert [r["step"] for r in tr] == [r["step"] for r in jr] == list(range(6))
+    for a, b in zip(tr, jr):
+        for k in ("neighbor_max", "neighbor_min", "neighbor_mean"):
+            assert a[k] == b[k], k
+        for k in ("kinetic_energy", "potential_energy"):
+            assert abs(a[k] - b[k]) <= ENERGY_BAR * abs(b[k]), (k, a, b)
+        assert a["angular_momentum"] == b["angular_momentum"] == 0.0
+    t, j = (np.load(f"{d}/final_state.npz") for d in (tout, jout))
+    np.testing.assert_array_equal(t["neighbor_count"], j["neighbor_count"])
+    assert _rel_l2(t["position"], j["position"]) <= 1e-6
+    meta = json.load(open(f"{tout}/run.json"))
+    assert meta["config"]["compat"] and meta["backend"] == "compat"
 
 
 def test_lazy_flag_and_scan_block(tmp_path):

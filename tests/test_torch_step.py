@@ -170,8 +170,13 @@ def test_scene_configs_and_layout_match_jax(scene):
 
 
 def test_disk_exact_ic_and_dam_break_overflow_raise():
-    with pytest.raises(ValueError, match="compat"):
-        tscene("disk", num_particles=64, device="cpu", exact_ic=True)
+    # the disk's exact_ic (compat mode's srand(42) state) is ported: the
+    # JAX package's bit for bit
+    tc, ts = tscene("disk", num_particles=64, device="cpu", exact_ic=True)
+    jc, js = jscene("disk", num_particles=64, exact_ic=True)
+    assert tc.to_json() == jc.to_json()
+    assert np.array_equal(ts.position.numpy(), np.asarray(js.position))
+    assert np.array_equal(ts.velocity.numpy(), np.asarray(js.velocity))
     with pytest.raises(ValueError, match="overflow the box"):
         jscene("dam_break", num_particles=100_000, grid_nx=8, grid_ny=8,
                grid_nz=8)
@@ -181,11 +186,15 @@ def test_disk_exact_ic_and_dam_break_overflow_raise():
 
 
 def test_compute_forces_rejects_compat_and_unknown_backends():
-    _, _, tc, ts = _scenes("disk", **dict(DISK, num_particles=128))
-    with pytest.raises(NotImplementedError, match="compat"):
-        tstep.compute_forces(tc, ts, backend="compat")
-    with pytest.raises(NotImplementedError, match="compat"):
-        tstep.step(tc.replace(compat=True), ts, backend="celllist")
+    jc, js, tc, ts = _scenes("disk", **dict(DISK, num_particles=128))
+    # the compat backend is ported (tests/test_torch_compat.py holds it to
+    # JAX's): compute_forces and step reach it as the JAX package's do
+    _, _, aux = tstep.compute_forces(tc, ts, backend="compat")
+    _, _, jaux = jstep.compute_forces(jc, js, backend="compat")
+    assert np.array_equal(aux.neighbor_count.numpy(),
+                          np.asarray(jaux.neighbor_count))
+    st, _ = tstep.step(tc.replace(compat=True), ts, backend="celllist")
+    assert torch.equal(st.neighbor_count, aux.neighbor_count)
     with pytest.raises(ValueError, match="unknown backend"):
         tstep.compute_forces(tc, ts, backend="xla")
     with pytest.raises(ValueError, match="pallas_layout"):

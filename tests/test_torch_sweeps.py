@@ -115,8 +115,8 @@ def test_wrappers_take_twin_on_cpu_only(kw):
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(pallas_groups=2), NotImplementedError),
-    (dict(capped_candidates=4, pallas_groups=2), NotImplementedError),
+    (dict(pallas_groups=3), ValueError),
+    (dict(capped_candidates=4, pallas_groups=2), ValueError),
     (dict(pallas_window_t=60), ValueError),
     (dict(grid_nx=2), ValueError),
 ])
