@@ -161,7 +161,30 @@ Phases (every failed check raises, and the script exits nonzero):
    rel-L2 <= 1e-4; its ms/step, and ``utils/profile_step.py --backend
    compat``'s host ops and busy share), ``run --compat --exact-ic`` and
    ``parity`` on dumps of the CPU's trajectory (PASS); both examples under
-   ``SPH_EXAMPLE_QUICK=1`` on the card.
+   ``SPH_EXAMPLE_QUICK=1`` on the card;
+18. the multi-rank work (``devices_phase``; no kernel of its own): ``run
+   --devices 2 --partition slab --backend pallas`` on the 1M splash (1.25h
+   cells), exact, capped (K_c 4) and fused, 20 steps in blocks of 10 with
+   ``--rebalance-threshold 1.5`` and ``--checkpoint-every 10``, then
+   ``--resume`` of the fused run for 10 more: on every rank each slab
+   kernel of the mode launched once a step and nothing else (no block
+   walk), reported by the ranks as their pool closes; ``diagnostics.jsonl``
+   with no counted loss, a finite ``final_state.npz`` holding every
+   particle once, the exact run's band tables with live halo rows on both
+   inner sides, ``run.json``'s ranks and comm backend; the exact run and a
+   second one in turns with the single-device ``run`` (single, slab, slab,
+   single); ``run --devices 2 --partition halo`` (cell-list, 3 steps, no
+   loss); in one spawn of two ranks from one 1M splash state, one step by
+   the halo step and the gather oracle at world 2 against the
+   single-device cell-list step (counts equal, rho, positions and
+   velocities rel-L2 <= 1e-6, KE rel <= 1e-5, every rank sorted alike),
+   then the slab exact step with its collectives and their device-host
+   copies timed (the share of gloo's host staging);
+   ``graft_entry.dryrun_multichip`` at 2 and 4 ranks;
+   ``examples/distributed.py`` (quick size); NCCL at ``--devices 2`` only
+   on two cards, else
+   one line saying it was not run.  On one card every group is gloo ranks
+   sharing cuda:0 (NCCL refuses two ranks on one device).
 
 It then prints the card's name and power limit, one JSON line of kernel
 records (time, twin time, launches, error, and the bound: the larger of the
@@ -174,7 +197,8 @@ tile's tensor-core flops over 495 TFLOP/s TF32, and the PyTorch call that
 computes the same function as ``library_ms``), and last ``{"ok": true,
 "device": {...}}``.  With no CUDA device it exits 1 before printing any result.
 On every exit it stops the resource tracker that the spawned ranks started,
-so no process of the script outlives it.
+so no process of the script outlives it (every rank pool and spawn of
+phases 11-14 and 18 joins its ranks before it returns).
 """
 
 from __future__ import annotations
@@ -334,6 +358,8 @@ def reset_launches() -> None:
     for mod in _modules().values():
         for w in mod.WRAPPERS:
             w.launches = 0
+    walks = _modules()["t"].BLOCK_WALK_LAUNCHES
+    walks.update(dict.fromkeys(walks, 0))
 
 
 def check(ok: bool, what: str) -> None:
@@ -973,33 +999,12 @@ def slab_fused_vs_twins(cfg, group, frame, caps, label: str):
                          names[1]: int(fnc_k.sum())}, reads, block)
 
 
-# the block-walk launchers of ops/sweeps_t.py: density_kernel_t (every
-# Excl), force_kernel_t and fused_kernel_t, the band walks' reference only
-BLOCK_WALKS = ("_launch_density", "_launch_force", "_launch_fused")
-
-
-@contextlib.contextmanager
-def counting_block_walks():
-    """Count every block-walk launch (by launcher) while the context is
-    open: no step path may run one."""
-    from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
-
-    counts = dict.fromkeys(BLOCK_WALKS, 0)
-    saved = {name: getattr(sw, name) for name in BLOCK_WALKS}
-
-    def counted(name):
-        def launch(*a, **kw):
-            counts[name] += 1
-            return saved[name](*a, **kw)
-        return launch
-
-    for name in BLOCK_WALKS:
-        setattr(sw, name, counted(name))
-    try:
-        yield counts
-    finally:
-        for name, launch in saved.items():
-            setattr(sw, name, launch)
+def block_walk_launches() -> dict:
+    """The launches since ``reset_launches`` of ops/sweeps_t.py's block
+    walks (density_kernel_t, every Excl; force_kernel_t; fused_kernel_t;
+    the band walks' reference only), by launcher: no step path may run
+    one."""
+    return dict(_modules()["t"].BLOCK_WALK_LAUNCHES)
 
 
 def no_block_walk(path: str, counts: dict) -> None:
@@ -1007,7 +1012,6 @@ def no_block_walk(path: str, counts: dict) -> None:
           + ", ".join(f"{k.removeprefix('_launch_')} {v}"
                       for k, v in counts.items()))
     check(not any(counts.values()), f"{path}: no block walk {counts}")
-    counts.update(dict.fromkeys(counts, 0))
 
 
 def walks_in_turns(args: dict, block: dict, label: str,
@@ -1395,11 +1399,11 @@ def cli_phase(dev, keep: str | None = None) -> None:
         # the reference's headless run, counted
         d1, ck = f"{root}/disk", f"{root}/ck"
         reset_launches()
-        with counting_block_walks() as block_walks:
-            w0 = time.perf_counter()
-            rc, _ = cli(["run", "--out", d1, "--checkpoint-every",
-                         str(CLI_EVERY), "--checkpoint-dir", ck, "--quiet"])
-            wall = time.perf_counter() - w0
+        w0 = time.perf_counter()
+        rc, _ = cli(["run", "--out", d1, "--checkpoint-every",
+                     str(CLI_EVERY), "--checkpoint-dir", ck, "--quiet"])
+        wall = time.perf_counter() - w0
+        block_walks = block_walk_launches()
         counts = {name: wrapper(name).launches
                   for name in ("density_band_t", "force_band_t")}
         check(rc == 0, f"cli disk run exit {rc}")
@@ -1628,11 +1632,11 @@ def cli_render_checks(dev, root: str, ckpt: str | None) -> None:
     (``--device cpu``) on the CPU: the same PNG bytes."""
     out, live = f"{root}/render_run", f"{root}/live.png"
     reset_launches()
-    with counting_block_walks() as block_walks:
-        t0 = time.perf_counter()
-        rc, text = cli(["run", *CLI_RENDER, "--out", out, "--live", live,
-                        "--live-term", "--quiet"])
-        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rc, text = cli(["run", *CLI_RENDER, "--out", out, "--live", live,
+                    "--live-term", "--quiet"])
+    wall = time.perf_counter() - t0
+    block_walks = block_walk_launches()
     counts = {name: wrapper(name).launches
               for name in ("density_band_t", "force_band_t")}
     no_block_walk("cli render", block_walks)
@@ -1699,8 +1703,8 @@ def groups_checks(dev) -> None:
         sizes[g] = p.ws.numel()
         del p, q
         reset_launches()
-        with counting_block_walks() as block_walks:
-            out, _ = drive_loop_lazy(cg, st, GROUP_STEPS)
+        out, _ = drive_loop_lazy(cg, st, GROUP_STEPS)
+        block_walks = block_walk_launches()
         counts = {name: wrapper(name).launches
                   for name in ("density_band_t", "force_band_t")}
         no_block_walk(f"groups G={g}", block_walks)
@@ -1922,6 +1926,392 @@ def slice_phase(dev, ckpt: str | None) -> dict:
     return ms
 
 
+# phase 18: the multi-rank work through what a user runs: ``run
+# --devices 2`` on the 1M splash (the slab engine with its kernels, exact,
+# capped and fused, checkpointed, resumed; the halo-sharded step), one
+# step of the halo step, the gather oracle and the single-device step from
+# one state, the dry run at 2 and 4 ranks, the distributed example, and
+# where the slab step's time goes under gloo's host staging.  On one card
+# the ranks are gloo ranks sharing cuda:0 (NCCL refuses two ranks on one
+# device).
+DEV_N = 1_000_000
+# the splash's overrides: bench.py's 1.25h cells, the exact window of the
+# single-device main path (capped modes derive theirs)
+DEV_SCENE_NAME = "splash"
+DEV_SCENE = dict(cell_size_factor=1.25, pallas_window_t=208)
+DEV_SLAB = ["--devices", "2", "--partition", "slab", "--backend", "pallas",
+            "--rebalance-threshold", "1.5"]
+DEV_STEPS, DEV_BLOCK, DEV_RESUME = 20, 10, 10
+DEV_HALO_STEPS = 3
+DEV_CAPPED = ["--set", "capped_candidates=4", "--set", "pallas_window_t=0"]
+# mode -> (flags, the slab kernels' wrappers it launches once a step)
+DEV_MODES = {
+    "exact": ([], ("density_ext", "force_ext")),
+    "capped": (DEV_CAPPED, ("density_ext_capped", "force_ext_capped")),
+    "fused": (DEV_CAPPED + ["--set", "capped_fused=true"],
+              ("density_sub_pre", "fused_ext")),
+}
+DEV_DRYRUNS = (2, 4)
+# the distributed example at its quick size (4,096 particles): at its own
+# 32,768, 8 gloo ranks on one H100 took 79 s
+DIST_QUICK = True
+STAGING_STEPS = 10
+
+
+def dev_splash() -> list[str]:
+    return ["--scene", DEV_SCENE_NAME, "-n", str(DEV_N)] + [
+        a for k, v in DEV_SCENE.items() for a in ("--set", f"{k}={v}")]
+
+
+@contextlib.contextmanager
+def rank_reports():
+    """Every ``RankPool`` closed while the context is open reports its
+    ranks first (``report``: launch counts, valid rows, live halo rows),
+    appended to the yielded list, one list of rank reports per pool."""
+    from smoothed_particle_hydrodynamics_tpu_torch.parallel import comm
+
+    reports = []
+    close = comm.RankPool.close
+
+    def closing(self):
+        try:
+            if self._procs and not getattr(self, "_reporting", False):
+                self._reporting = True
+                reports.append(self.call("report"))
+        finally:
+            close(self)
+
+    comm.RankPool.close = closing
+    try:
+        yield reports
+    finally:
+        comm.RankPool.close = close
+
+
+def _step_ms(rows: list[dict], skip: int) -> float:
+    """The median ``step_ms`` of a run's rows after the first ``skip``."""
+    return statistics.median(r["step_ms"] for r in rows[skip:])
+
+
+def dev_run(dev, label: str, argv: list[str], out: str, steps: int,
+            names: tuple = ()) -> tuple[list[dict], list[dict], str]:
+    """One ``run --devices`` through the CLI in this process: exit 0, the
+    losses 0 on every row, a finite final state holding every particle,
+    and each of ``names`` launched once a step on every rank (no other
+    slab kernel and no block walk).  Returns the rows, the rank reports
+    and stdout."""
+    from smoothed_particle_hydrodynamics_tpu_torch.parallel import make_mesh
+
+    reset_launches()
+    with rank_reports() as reps:
+        w0 = time.perf_counter()
+        rc, text = cli(argv + ["--out", out])
+        wall = time.perf_counter() - w0
+    check(rc == 0 and len(reps) == 1, f"{label}: exit {rc}")
+    ranks = reps[0]
+    rows = _jsonl(f"{out}/diagnostics.jsonl")
+    meta = json.load(open(f"{out}/run.json"))
+    final = np.load(f"{out}/final_state.npz")
+    n = meta["config"]["num_particles"]
+    losses = {k: sum(r[k] for r in rows) for k in
+              ("truncated_ranges", "halo_dropped", "migration_dropped")}
+    banner = next((x for x in text.splitlines() if x.startswith("scene=")),
+                  "")
+    print(f"[devices {label}] {wall:.2f} s: {banner!r}; {len(rows)} rows, "
+          f"median {_step_ms(rows, 0):.3f} ms/step; losses {losses}; rows "
+          f"per rank {[r['count'] for r in ranks]}; live halo rows (left, "
+          f"right) {[r['band_halo'] for r in ranks]}; launches per rank "
+          f"{[{k: v for k, v in r['launches'].items() if v} for r in ranks]}"
+          f"; run.json devices {meta['devices']} comm {meta['comm']}")
+    for line in text.splitlines():
+        if line.startswith(("derived", "rebalanced", "resumed")):
+            print(f"[devices {label}]   {line}")
+    check(not any(losses.values()), f"{label}: losses {losses}")
+    check(bool(np.isfinite(final["position"]).all()
+               and np.isfinite(final["velocity"]).all()
+               and (final["mass"] > 0).all())
+          and final["position"].shape == (n, 3)
+          and sum(r["count"] for r in ranks) == n,
+          f"{label}: every particle held once, finite")
+    layout = make_mesh(2, dev)
+    check(meta["devices"] == list(layout.devices)
+          and meta["comm"] == layout.backend,
+          f"{label}: placement {meta['devices']} {meta['comm']}")
+    # the kernels launch on the card (on the CPU the twins run, uncounted)
+    once = steps if dev.type == "cuda" else 0
+    for r in ranks:
+        got = r["launches"]
+        check(all(got[k] == once for k in names)
+              and not any(v for k, v in got.items() if k not in names),
+              f"{label}: {names} once a step ({steps}), nothing else: {got}")
+    return rows, ranks, text
+
+
+def dev_cli_checks(dev, root: str) -> dict:
+    """The ``run --devices 2`` runs: slab exact (timed in turns against
+    the single-device ``run``), capped, fused, a resume; then the halo
+    partition.  Returns ms/step by run."""
+    ms = {}
+    single = ["run", *dev_splash(), "--steps",
+              str(DEV_STEPS), "--block", str(DEV_BLOCK), "--quiet"]
+    turns = []
+
+    def single_turn(tag):
+        out = f"{root}/single_{tag}"
+        rc, _ = cli(single + ["--out", out])
+        check(rc == 0, f"single-device run {tag}: exit {rc}")
+        turns.append(("single", _step_ms(_jsonl(f"{out}/diagnostics.jsonl"),
+                                         DEV_BLOCK)))
+
+    def argv(flags, tag, steps=DEV_STEPS):
+        return ["run", *dev_splash(), *flags, *DEV_SLAB,
+                "--steps", str(steps), "--block", str(DEV_BLOCK),
+                "--checkpoint-every", str(DEV_BLOCK), "--checkpoint-dir",
+                f"{root}/ck_{tag}", "--quiet"]
+
+    single_turn("a")
+    for label, (flags, names) in DEV_MODES.items():
+        rows, ranks, _ = dev_run(dev, f"slab {label}", argv(flags, label),
+                                 f"{root}/{label}", DEV_STEPS, names)
+        ms[f"slab {label}"] = _step_ms(rows, DEV_BLOCK)
+        if label == "exact":
+            turns.append(("slab", ms["slab exact"]))
+            # the inner sides' halos were live (rank 0's right, rank 1's
+            # left)
+            check(ranks[0]["band_halo"][1] > 0 and ranks[1]["band_halo"][0] > 0,
+                  f"slab exact: live inner halos {[r['band_halo'] for r in ranks]}")
+            rows2, _, _ = dev_run(dev, "slab exact (turn)", argv(flags, "turn"),
+                                  f"{root}/turn", DEV_STEPS, names)
+            turns.append(("slab", _step_ms(rows2, DEV_BLOCK)))
+            single_turn("b")
+            print(f"[devices turns] 1M splash exact, ms/step of the second "
+                  f"block (diagnostics.jsonl), single-device run then run "
+                  f"--devices 2 in turns: {turns}")
+            ms["turns"] = turns
+    # resume the fused run for 10 more steps
+    _, names = DEV_MODES["fused"]
+    rows, _, text = dev_run(
+        dev, "slab fused resume", ["run", *DEV_SLAB, "--resume",
+                              "--checkpoint-dir", f"{root}/ck_fused",
+                              "--steps", str(DEV_STEPS + DEV_RESUME),
+                              "--block", str(DEV_BLOCK), "--quiet"],
+        f"{root}/resume", DEV_RESUME, names)
+    check(f"at step {DEV_STEPS}" in text and rows[0]["step"] == DEV_STEPS
+          and len(rows) == DEV_RESUME, f"resume: {text!r} {rows[0]['step']}")
+    # the halo partition (cell-list sweeps, replicated binning)
+    rows, _, _ = dev_run(dev, "halo", ["run", *dev_splash(),
+                                  "--devices", "2", "--partition", "halo",
+                                  "--steps", str(DEV_HALO_STEPS), "--block",
+                                  "1", "--quiet"], f"{root}/halo",
+                         DEV_HALO_STEPS)
+    ms["halo"] = _step_ms(rows, 1)
+    return ms
+
+
+def dev_library_checks(dev) -> None:
+    """One spawn of two ranks from one 1M splash state (``library_rank``):
+    one step of the halo step and of the gather oracle at world 2 against
+    the single-device cell-list step; then where the slab step's time goes
+    under gloo's host staging."""
+    from smoothed_particle_hydrodynamics_tpu_torch.models import make_scene
+    from smoothed_particle_hydrodynamics_tpu_torch.ops.step import step
+    from smoothed_particle_hydrodynamics_tpu_torch.parallel import (
+        make_mesh, spawn_ranks)
+    from smoothed_particle_hydrodynamics_tpu_torch.state import state_to_numpy
+
+    cfg, st = make_scene(DEV_SCENE_NAME, device=dev, num_particles=DEV_N,
+                         **DEV_SCENE)
+    layout = make_mesh(2, dev)
+    state = state_to_numpy(st)
+    jobs = [dict(cfg=cfg, state=state, variant=v) for v in ("halo", "gather")]
+    t0 = time.perf_counter()
+    outs = spawn_ranks(2, library_rank, jobs, STAGING_STEPS,
+                       backend=layout.backend, devices=list(layout.devices),
+                       timeout_s=600.0, threads=layout.threads)
+    wall = time.perf_counter() - t0
+    sharded = [o["sharded"] for o in outs]
+    one, d1 = step(cfg, st, backend="celllist")
+    check(all((o[0]["order"] == sharded[0][0]["order"]).all()
+              for o in sharded), "sharded: every rank sorts alike")
+    ke1 = float(d1.kinetic_energy)
+    for i, v in enumerate(("halo", "gather")):
+        s, d = sharded[0][i]["state"], sharded[0][i]["diags"]
+        nc_eq = bool((torch.from_numpy(s["neighbor_count"])
+                      == one.neighbor_count.cpu()).all())
+        r_rho = rel_l2(torch.from_numpy(s["density"]), one.density.cpu())
+        r_pos = rel_l2(torch.from_numpy(s["position"]), one.position.cpu())
+        r_vel = rel_l2(torch.from_numpy(s["velocity"]), one.velocity.cpu())
+        ke = float(d["kinetic_energy"][0])
+        print(f"[devices three-way 1M] {v} at world 2 ({layout.describe()}) "
+              f"vs the single-device celllist step: counts equal {nc_eq}, "
+              f"rho rel_l2 {r_rho:.3e}, position rel_l2 {r_pos:.3e}, "
+              f"velocity rel_l2 {r_vel:.3e}, KE {ke} vs {ke1}; halo_dropped "
+              f"{int(d['halo_dropped'][0])} truncated "
+              f"{int(d['truncated_ranges'][0])} vs "
+              f"{int(d1.truncated_ranges)}; spawn + 2 steps + staging "
+              f"{wall:.2f} s")
+        check(nc_eq and r_rho <= 1e-6 and r_pos <= 1e-6 and r_vel <= 1e-6
+              and abs(ke - ke1) <= 1e-5 * max(abs(ke1), 1e-30)
+              and int(d["halo_dropped"][0]) == 0,
+              f"three-way {v}: counts {nc_eq} rho {r_rho} pos {r_pos} vel "
+              f"{r_vel} KE {ke} vs {ke1}")
+    for r, o in enumerate(outs):
+        o = o["staging"]
+        print(f"[devices staging] rank {r} ({layout.describe()}, staged "
+              f"{o['staged']}): slab exact 1M {o['plain_ms']:.3f} ms/step "
+              f"plain; {o['traced_ms']:.3f} ms/step with the collectives "
+              f"timed, of which {o['comm_ms']:.3f} ms inside collectives "
+              f"({o['comm_ms'] / o['traced_ms']:.1%}) and {o['copy_ms']:.3f} "
+              f"ms in their device-host copies "
+              f"({o['copy_ms'] / o['traced_ms']:.1%})")
+
+
+def dev_dryruns(dev) -> None:
+    from smoothed_particle_hydrodynamics_tpu_torch import graft_entry
+
+    for n in DEV_DRYRUNS:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = graft_entry.dryrun_multichip(n, dev)
+        text = buf.getvalue().strip().splitlines()
+        print(f"[devices dryrun {n}] ({time.perf_counter() - t0:.2f} s) "
+              + " | ".join(text) + f"; rank 0 launches "
+              f"{ {k: v for k, v in res['launches'].items() if v} }")
+        check(text[-1].startswith(f"dryrun_multichip({n}): ok"),
+              f"dryrun {n}: {text}")
+        if dev.type == "cuda":
+            check(all(res["launches"][k] == 2 for k in (
+                "density_ext", "force_ext", "density_ext_capped",
+                "force_ext_capped")), f"dryrun {n}: kernels {res['launches']}")
+
+
+def dev_example(dev, root: str) -> None:
+    """``examples/distributed.py`` as a user runs it (its own size unless
+    ``DIST_QUICK``)."""
+    import runpy
+
+    here, argv = os.getcwd(), sys.argv
+    os.makedirs(f"{root}/distributed")
+    if DIST_QUICK:
+        os.environ["SPH_EXAMPLE_QUICK"] = "1"
+    try:
+        os.chdir(f"{root}/distributed")
+        sys.argv = ["distributed", *EXAMPLE_ARGS]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            runpy.run_module(f"{PKG}.examples.distributed".replace("/", "."),
+                             run_name="__main__")
+        text = buf.getvalue()
+    finally:
+        os.chdir(here)
+        sys.argv = argv
+        os.environ.pop("SPH_EXAMPLE_QUICK", None)
+    print(f"[devices example] distributed ({time.perf_counter() - t0:.2f} s):"
+          " " + " | ".join(text.strip().splitlines()))
+    check("all particles accounted for" in text
+          and "migration_dropped=0" in text, f"example: {text!r}")
+
+
+def library_rank(group, jobs: list[dict], n_steps: int) -> dict:
+    """One rank of phase 18's library checks: the sharded steps of
+    ``jobs`` (``sharding.run_sharded_jobs``), then the staging measurement
+    (``staging_rank``, ``n_steps`` steps) from the first job's state."""
+    from smoothed_particle_hydrodynamics_tpu_torch.parallel import sharding
+    from smoothed_particle_hydrodynamics_tpu_torch.state import (
+        state_from_numpy)
+
+    sharded = sharding.run_sharded_jobs(group, jobs)
+    st = state_from_numpy(jobs[0]["state"], group.device)
+    return dict(sharded=sharded,
+                staging=staging_rank(group, jobs[0]["cfg"], st, n_steps))
+
+
+def staging_rank(group, cfg, st, n_steps: int) -> dict:
+    """One rank of the staging measurement: the slab exact step on ``st``,
+    timed plain (``n_steps`` steps after 3 warmup steps), then with every
+    collective and every host copy of the group timed (device synchronised
+    around each): ms per step and the time inside the collectives and
+    inside their device-host copies."""
+    from smoothed_particle_hydrodynamics_tpu_torch.parallel import slabs
+
+    dev = group.device
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (
+        lambda: None)
+    zsplit = slabs.derive_zsplit(cfg, st, group.world)
+    caps = slabs.derive_slab_caps(cfg, st, group.world, zsplit=zsplit)
+    carry = slabs.distribute(cfg, st, group, caps[0], zsplit)
+    step = slabs.make_slab_step(cfg, group, *caps, zsplit=zsplit,
+                                sweeps="pallas")
+    for _ in range(3):
+        carry, _ = step(carry)
+
+    def steps():
+        nonlocal carry
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            carry, _ = step(carry)
+        sync()
+        return (time.perf_counter() - t0) * 1e3 / n_steps
+
+    plain = steps()
+    spent = {"comm": 0.0, "copy": 0.0}
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    for name, key in (("_ring", "comm"), ("_reduce", "comm"),
+                      ("all_gather", "comm"), ("_out", "copy"),
+                      ("_back", "copy")):
+        setattr(group, name, timed(getattr(group, name), key))
+    traced = steps()
+    per = {k: v * 1e3 / n_steps for k, v in spent.items()}
+    return dict(plain_ms=plain, traced_ms=traced, comm_ms=per["comm"],
+                copy_ms=per["copy"], staged=group._staged,
+                caps=caps, backend=group.backend)
+
+
+def dev_nccl(dev, root: str) -> None:
+    """``run --devices 2`` on NCCL needs two cards."""
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if cards < 2:
+        print(f"[devices nccl] NCCL at --devices 2: not run ({cards} card"
+              f"{'s' if cards != 1 else ''}; NCCL refuses two ranks on one "
+              "device); not counted as a pass")
+        return
+    _, names = DEV_MODES["exact"]
+    dev_run(dev, "slab exact nccl", ["run", *dev_splash(), *DEV_SLAB,
+                                     "--steps", "4", "--block", "2",
+                                     "--quiet"], f"{root}/nccl", 4, names)
+
+
+def devices_phase(dev) -> dict:
+    """Phase 18; returns ms/step by run."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_p18_",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        ms = dev_cli_checks(dev, root)
+        dev_library_checks(dev)
+        dev_dryruns(dev)
+        dev_example(dev, root)
+        dev_nccl(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[devices] ms/step: {ms}")
+    print(f"[p18] phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -2089,10 +2479,10 @@ def main() -> int:
     for path, (ov, names) in PATHS.items():
         lazy = path != "lane"
         reset_launches()
-        with counting_block_walks() as block_walks:
-            r = run_benchmark(scene="splash", lazy=lazy, steps=STEPS,
-                              warmup=WARMUP, overrides=ov, device="cuda",
-                              backend="pallas")
+        r = run_benchmark(scene="splash", lazy=lazy, steps=STEPS,
+                          warmup=WARMUP, overrides=ov, device="cuda",
+                          backend="pallas")
+        block_walks = block_walk_launches()
         no_block_walk(path, block_walks)
         counts = {name: wrapper(name).launches for name in KERNELS}
         total_steps = r["warmup_steps"] + r["steps"]
@@ -2363,10 +2753,10 @@ def main() -> int:
     #     may run them); then single-chip and slab in turns
     for path, (ov, names) in SLAB_PATHS.items():
         reset_launches()
-        with counting_block_walks() as block_walks:
-            r = run_slab_benchmark(n=1_000_000, steps=STEPS, warmup=WARMUP,
-                                   headroom=SLAB_HEADROOM, overrides=ov,
-                                   device="cuda")
+        r = run_slab_benchmark(n=1_000_000, steps=STEPS, warmup=WARMUP,
+                               headroom=SLAB_HEADROOM, overrides=ov,
+                               device="cuda")
+        block_walks = block_walk_launches()
         counts = {name: wrapper(name).launches for name in KERNELS}
         total_steps = r["warmup_steps"] + r["steps"]
         print(f"[main {path}] 1M splash, one rank ({r['device']}): "
@@ -2451,6 +2841,10 @@ def main() -> int:
         slice_phase(dev, ckpt)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # 18. the multi-rank work: run --devices 2, slab and halo, the three-way
+    #     step, the dry runs, the distributed example, the staging share
+    devices_phase(dev)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

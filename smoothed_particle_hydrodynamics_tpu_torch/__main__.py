@@ -44,6 +44,22 @@ driver (default: the lazy loop for the pallas backend in the sublane
 layout, unless ``second_kick=full``); ``--scan-block`` is accepted and
 changes nothing here (the steps run one by one either way).
 
+``run --devices N`` (N > 1) runs on N ranks (``parallel.make_mesh``:
+NCCL with rank r on ``cuda:r`` when there are N cards, else gloo ranks
+sharing the cards round-robin, or on the CPU with ``--device cpu``), named
+in the banner as ``devices=[cuda:0, cuda:0] comm=gloo`` and recorded in
+``run.json`` (``devices``, ``comm``, ``partition``).  The ranks are one
+``parallel.RankPool`` for the whole run: they hold the state, and the
+blocks, applies, checkpoints and pictures are commands to them; the state
+crosses to this process only where it is read.  ``--partition slab``
+(default) is the distributed slab engine (``--backend`` celllist or
+pallas; its split, capped sub-frame bound and capacities derived from the
+state); after every block but the last, ``--rebalance-threshold T``
+(default 1.5, 0 = off) re-partitions when the ranks' max/mean particle
+count exceeds T.  ``--partition halo`` is the row-sharded step with
+replicated binning (``parallel/sharding.py``, celllist only; ``auto``
+resolves to it).
+
 ``sweep`` runs a viscosity x stiffness grid (default 200 steps a cell) and
 prints one JSON record per cell and a table; ``info`` prints the resolved
 config's JSON without drawing the particles; ``watch`` repaints sparklines
@@ -134,15 +150,65 @@ def _device(name: str) -> torch.device:
     return dev
 
 
-def _backend(name: str, dev: torch.device, compat: bool = False) -> str:
-    """``auto`` = compat with ``--compat``, else the kernels on the card
-    and the cell-list sweeps on the CPU (the JAX CLI's rule,
-    ``cli.py:41-55``)."""
+def _backend(name: str, dev: torch.device, compat: bool = False,
+             devices: int = 0, partition: str = "slab") -> str:
+    """``auto`` = compat with ``--compat``, the cell-list sweeps on
+    ``--devices N --partition halo`` (the halo-sharded step has no other),
+    else the kernels on the card and the cell-list sweeps on the CPU (the
+    JAX CLI's rule, ``cli.py:41-55``)."""
     if name != "auto":
         return name
     if compat:
         return "compat"
+    if devices > 1 and partition != "slab":
+        return "celllist"
     return "pallas" if dev.type == "cuda" else "celllist"
+
+
+def _check_partition(args, backend: str) -> None:
+    """The backends each multi-rank partition runs (the JAX CLI's refusals,
+    ``cli.py:139-150``): the slab engine's sweeps are celllist or pallas,
+    the halo-sharded step's celllist only."""
+    if args.partition == "slab":
+        if backend not in ("celllist", "pallas"):
+            raise SystemExit(
+                f"--devices {args.devices} --partition slab supports "
+                f"--backend celllist or pallas, not {backend}")
+    elif backend != "celllist":
+        raise SystemExit(
+            f"--devices {args.devices} --partition halo uses the sharded "
+            f"cell-list step; --backend {backend} is not available")
+
+
+def _rank_pool(args, cfg, state, backend: str, dev: torch.device):
+    """Start the ranks of a ``run --devices N``: their layout
+    (``parallel.make_mesh``) and a ``RankPool`` of the partition's worker,
+    holding the distributed state from here on.  The slab partition
+    derives its split, capped sub-frame bound and caps from ``state`` here,
+    as the JAX CLI does."""
+    from .parallel import RankPool, make_mesh, slabs
+    from .parallel.sharding import HaloRanks
+    from .state import state_to_numpy
+
+    layout = make_mesh(args.devices, dev)
+    if args.partition == "halo":
+        worker, wargs = HaloRanks, (cfg.to_json(), state_to_numpy(state))
+    else:
+        sweeps = "pallas" if backend == "pallas" else "celllist"
+        zsplit = slabs.derive_zsplit(cfg, state, layout.world)
+        sub_len = None
+        if sweeps == "pallas" and cfg.capped_candidates:
+            sub_len = slabs.derive_sub_len_slab(cfg, state, layout.world,
+                                                zsplit)
+            print(f"derived slab sub_len={sub_len}")
+        caps = slabs.derive_slab_caps(cfg, state, layout.world,
+                                      zsplit=zsplit)
+        worker = slabs.SlabRanks
+        wargs = (cfg.to_json(), state_to_numpy(state), zsplit, caps, sweeps,
+                 sub_len)
+    pool = RankPool(layout.world, worker, *wargs, backend=layout.backend,
+                    devices=list(layout.devices), threads=layout.threads)
+    return pool, layout
 
 
 def _applies(specs: list[str]) -> dict[int, dict]:
@@ -217,13 +283,18 @@ def cmd_run(args) -> int:
     from .models import scene_config
     from .ops.lazy import drive_loop_lazy, unsort_carry
     from .ops.step import drive_loop
+    from .state import StepDiagnostics, state_from_numpy
     from .utils import benchmark
     from .utils import io as ckpt_io
     from .utils.diagnostics import (DiagnosticsWriter, detect_blowup,
                                     detect_truncation)
 
     dev = _device(args.device)
-    backend = _backend(args.backend, dev, args.compat)
+    multi = args.devices > 1
+    backend = _backend(args.backend, dev, args.compat, args.devices,
+                       args.partition)
+    if multi:
+        _check_partition(args, backend)
     overrides = _overrides(args)
     if args.resume:
         path = ckpt_io.latest_checkpoint(args.checkpoint_dir)
@@ -248,8 +319,10 @@ def cmd_run(args) -> int:
     for name in ("pallas_window_t", "capped_sub_len", "range_slice"):
         if getattr(given, name) == 0 and getattr(cfg, name):
             print(f"derived {name}={getattr(cfg, name)}")
-    lazy = (benchmark.uses_lazy(cfg, backend) if args.lazy is None
-            else args.lazy)
+    # the multi-rank engines keep their own state; the lazy driver is the
+    # single-device loop's
+    lazy = not multi and (benchmark.uses_lazy(cfg, backend)
+                          if args.lazy is None else args.lazy)
     if lazy and backend != "pallas":
         # the lazy driver always runs the sublane sweeps
         raise SystemExit(f"--lazy drives the pallas sweeps; got --backend "
@@ -257,12 +330,20 @@ def cmd_run(args) -> int:
     total = cfg.num_steps + 1 if args.steps is None else args.steps
 
     # the lazy driver's carry between blocks (None: the next block bins
-    # ``state`` afresh); ``state`` is brought up to date from it only where
-    # it is read: a checkpoint, an apply, the end
-    carry = None
+    # ``state`` afresh), or the ranks of ``--devices N``, which hold the
+    # state from their start; ``state`` is brought up to date from either
+    # only where it is read: a checkpoint, an apply, a frame, the end
+    carry = pool = None
+    stale = False
 
     def advance(n):
-        nonlocal state, carry
+        nonlocal state, carry, stale
+        if pool is not None:
+            stale = True
+            # the pool's limit for each step: a hang inside the block is
+            # caught sooner by the ranks' own collective timeout
+            return StepDiagnostics(**pool.call(
+                "step", n, limit_s=n * pool.timeout_s)[0])
         if not lazy:
             state, diags = drive_loop(cfg, state, n, backend=backend)
             return diags
@@ -273,128 +354,159 @@ def cmd_run(args) -> int:
 
     def current():
         """The state in the caller's particle order."""
-        nonlocal state
-        if carry is not None:
+        nonlocal state, stale
+        if stale:
+            state = state_from_numpy(pool.call("collect")[0], dev)
+            stale = False
+        elif carry is not None:
             state = unsort_carry(carry)
         return state
 
     def shown():
         """The state to draw: a frame is a sum over particles, so the lazy
         carry's sorted frame draws the same image without an unsort."""
-        return state if carry is None else carry.state
+        return current() if carry is None else carry.state
 
     def rebuild(new_cfg):
         """An applied config: the next block rebins from the current state
         under it (the JAX CLI's fresh ``make_run``)."""
         nonlocal cfg, carry
         new_cfg.validate()
-        current()
+        if pool is not None:
+            pool.call("rebuild", new_cfg.to_json())
+        else:
+            current()
         cfg, carry = new_cfg, None
 
     pending = _applies(args.apply)
     frames = []
-    with _Signals() as signals:
-        print(f"scene={args.scene} n={cfg.num_particles} steps={total} "
-              f"backend={backend} devices=[{dev}]", flush=True)
-        phase_ms = {}
-        if args.profile_phases:
-            from .utils.profiling import profile_phases
+    try:
+        meta = {}
+        if multi:
+            # the ranks live until the finally below, whatever ends the run
+            pool, layout = _rank_pool(args, cfg, state, backend, dev)
+            meta = {"partition": args.partition,
+                    "devices": list(layout.devices), "comm": layout.backend}
+            where = layout.describe()
+        else:
+            where = f"devices=[{dev}]"
+        with _Signals() as signals:
+            print(f"scene={args.scene} n={cfg.num_particles} steps={total} "
+                  f"backend={backend} {where}", flush=True)
+            phase_ms = {}
+            if args.profile_phases:
+                from .utils.profiling import profile_phases
 
-            phase_ms = profile_phases(cfg, state)
-            print("per-phase [ms]: " + "  ".join(
-                f"{k}={v:.2f}" for k, v in phase_ms.items()))
-        truncation_warned = False
-        with DiagnosticsWriter(args.out) as writer:
-            ckpt_io.write_run_metadata(args.out, cfg, {
-                "scene": args.scene, "backend": backend,
-                "phase_ms": phase_ms, "lazy": lazy,
-                "device": benchmark._device_name(dev)})
-            done = start_step
-            t_start = time.perf_counter()
-            apply_path = os.path.join(args.out, "apply.json")
-            while done < total:
-                due = sorted(k for k in pending if k <= done)
-                if due:
-                    merged = {}
-                    for k in due:
-                        merged.update(pending.pop(k))
-                    rebuild(cfg.replace(**merged))
-                    print(f"applied at step {done}: "
-                          + ", ".join(f"{k}={v}" for k, v in merged.items()))
-                if os.path.exists(apply_path):
-                    try:
-                        cfg_new, payload = _read_apply(apply_path, cfg)
-                    except (OSError, ValueError, TypeError) as e:
-                        os.replace(apply_path, apply_path + ".rejected")
-                        print(f"apply.json rejected at step {done}: {e}",
-                              file=sys.stderr)
-                    else:
-                        rebuild(cfg_new)
-                        os.replace(apply_path, apply_path + ".applied")
-                        print(f"applied at step {done} (apply.json): "
-                              + ", ".join(f"{k}={v}"
-                                          for k, v in payload.items()))
-                while signals.paused and not signals.interrupted:
-                    time.sleep(0.2)   # paused in place; state stays put
-                nblock = min(args.block, total - done)
-                if pending:
-                    upcoming = min(k for k in pending if k > done)
-                    nblock = min(nblock, max(upcoming - done, 1))
-                t0 = time.perf_counter()
-                diags = advance(nblock)
-                _sync(dev)
-                dt_ms = (time.perf_counter() - t0) * 1000.0 / nblock
-                host = writer.write_block(done, diags,
-                                          dict(phase_ms, step=dt_ms))
-                bad, why = detect_blowup(host)
-                if bad:
-                    ckpt_io.save_checkpoint(args.checkpoint_dir,
-                                            done + nblock, cfg, current())
-                    print(f"ABORT at step {done + nblock}: {why} "
-                          "(checkpoint saved)", file=sys.stderr)
-                    return 2
-                lossy, what = detect_truncation(host)
-                if lossy and not truncation_warned:
-                    truncation_warned = True
-                    print(f"WARNING at step {done + nblock}: {what} — "
-                          "interactions are being dropped", file=sys.stderr)
-                done += nblock
-                if signals.interrupted:
-                    p = ckpt_io.save_checkpoint(args.checkpoint_dir, done,
-                                                cfg, current())
-                    print(f"interrupted at step {done}; checkpoint saved "
-                          f"to {p}")
-                    return 130
-                if args.checkpoint_every and (
-                        done % args.checkpoint_every) < nblock:
-                    ckpt_io.save_checkpoint(args.checkpoint_dir, done, cfg,
-                                            current())
-                _draw(args, cfg, shown(), done, nblock, total, frames)
-                if not args.quiet:
-                    pps = cfg.num_particles * nblock / max(
-                        time.perf_counter() - t0, 1e-9)
-                    print(f"step {done}/{total}  {dt_ms:.2f} ms/step  "
-                          f"{pps:.3e} particle-steps/s")
-            elapsed = time.perf_counter() - t_start
-        ckpt_io.save_state(os.path.join(args.out, "final_state.npz"),
-                           current())
-        if frames:
-            from .utils.render import save_gif
+                phase_ms = profile_phases(cfg, state)
+                print("per-phase [ms]: " + "  ".join(
+                    f"{k}={v:.2f}" for k, v in phase_ms.items()))
+            truncation_warned = False
+            with DiagnosticsWriter(args.out) as writer:
+                ckpt_io.write_run_metadata(args.out, cfg, {
+                    "scene": args.scene, "backend": backend,
+                    "phase_ms": phase_ms, "lazy": lazy,
+                    "device": benchmark._device_name(dev), **meta})
+                done = start_step
+                t_start = time.perf_counter()
+                apply_path = os.path.join(args.out, "apply.json")
+                while done < total:
+                    due = sorted(k for k in pending if k <= done)
+                    if due:
+                        merged = {}
+                        for k in due:
+                            merged.update(pending.pop(k))
+                        rebuild(cfg.replace(**merged))
+                        print(f"applied at step {done}: "
+                              + ", ".join(f"{k}={v}" for k, v in merged.items()))
+                    if os.path.exists(apply_path):
+                        try:
+                            cfg_new, payload = _read_apply(apply_path, cfg)
+                        except (OSError, ValueError, TypeError) as e:
+                            os.replace(apply_path, apply_path + ".rejected")
+                            print(f"apply.json rejected at step {done}: {e}",
+                                  file=sys.stderr)
+                        else:
+                            rebuild(cfg_new)
+                            os.replace(apply_path, apply_path + ".applied")
+                            print(f"applied at step {done} (apply.json): "
+                                  + ", ".join(f"{k}={v}"
+                                              for k, v in payload.items()))
+                    while signals.paused and not signals.interrupted:
+                        time.sleep(0.2)   # paused in place; state stays put
+                    nblock = min(args.block, total - done)
+                    if pending:
+                        upcoming = min(k for k in pending if k > done)
+                        nblock = min(nblock, max(upcoming - done, 1))
+                    t0 = time.perf_counter()
+                    diags = advance(nblock)
+                    _sync(dev)
+                    dt_ms = (time.perf_counter() - t0) * 1000.0 / nblock
+                    host = writer.write_block(done, diags,
+                                              dict(phase_ms, step=dt_ms))
+                    bad, why = detect_blowup(host)
+                    if bad:
+                        ckpt_io.save_checkpoint(args.checkpoint_dir,
+                                                done + nblock, cfg, current())
+                        print(f"ABORT at step {done + nblock}: {why} "
+                              "(checkpoint saved)", file=sys.stderr)
+                        return 2
+                    lossy, what = detect_truncation(host)
+                    if lossy and not truncation_warned:
+                        truncation_warned = True
+                        print(f"WARNING at step {done + nblock}: {what} — "
+                              "interactions are being dropped", file=sys.stderr)
+                    done += nblock
+                    if (multi and args.partition == "slab"
+                            and args.rebalance_threshold and done < total):
+                        moved = pool.call("rebalance",
+                                          args.rebalance_threshold)[0]
+                        if moved is not None:
+                            print(f"rebalanced slabs: p_cap={moved[0]} "
+                                  f"zsplit={moved[1]}")
+                    if signals.interrupted:
+                        p = ckpt_io.save_checkpoint(args.checkpoint_dir, done,
+                                                    cfg, current())
+                        print(f"interrupted at step {done}; checkpoint saved "
+                              f"to {p}")
+                        return 130
+                    if args.checkpoint_every and (
+                            done % args.checkpoint_every) < nblock:
+                        ckpt_io.save_checkpoint(args.checkpoint_dir, done, cfg,
+                                                current())
+                    _draw(args, cfg, shown, done, nblock, total, frames)
+                    if not args.quiet:
+                        pps = cfg.num_particles * nblock / max(
+                            time.perf_counter() - t0, 1e-9)
+                        print(f"step {done}/{total}  {dt_ms:.2f} ms/step  "
+                              f"{pps:.3e} particle-steps/s")
+                elapsed = time.perf_counter() - t_start
+            ckpt_io.save_state(os.path.join(args.out, "final_state.npz"),
+                               current())
+            if frames:
+                from .utils.render import save_gif
 
-            save_gif(frames, f"{args.out}/sph_anim.gif")
-            print(f"wrote {args.out}/sph_anim.gif ({len(frames)} frames)")
-        print(f"done: {total - start_step} steps in {elapsed:.1f}s; "
-              f"diagnostics in {args.out}/")
+                save_gif(frames, f"{args.out}/sph_anim.gif")
+                print(f"wrote {args.out}/sph_anim.gif ({len(frames)} frames)")
+            print(f"done: {total - start_step} steps in {elapsed:.1f}s; "
+                  f"diagnostics in {args.out}/")
+    finally:
+        if pool is not None:
+            pool.close()
     return 0
 
 
-def _draw(args, cfg, state, done: int, nblock: int, total: int,
+def _draw(args, cfg, shown, done: int, nblock: int, total: int,
           frames: list) -> None:
     """``run``'s pictures at a block boundary: a GIF frame every
     ``--render-every`` steps, the terminal repaint (``--live-term``) and
-    the PNG swapped into ``--live``."""
+    the PNG swapped into ``--live``; ``shown()`` gives the state to draw,
+    read only when a picture is due."""
     from .utils.render import ansi_frame, render_frame, save_png
 
+    if not (args.live_term or args.live
+            or (args.render and (done % args.render_every) < nblock)):
+        return
+    state = shown()
     if args.render and (done % args.render_every) < nblock:
         frames.append(render_frame(cfg, state))
     if args.live_term:
@@ -720,6 +832,20 @@ def main(argv: list[str] | None = None) -> int:
                    "for the sublane pallas backend)")
     p.add_argument("--scan-block", type=int, default=0,
                    help="accepted for the JAX CLI; changes nothing here")
+    p.add_argument("--devices", type=int, default=0,
+                   help="run on N ranks (0 or 1 = one device): NCCL ranks "
+                        "on N cards, or gloo ranks sharing fewer cards or "
+                        "on the CPU")
+    p.add_argument("--partition", default="slab", choices=["slab", "halo"],
+                   help="multi-rank decomposition: 'slab' = the "
+                        "distributed slab engine (parallel/slabs.py); "
+                        "'halo' = the row-sharded step whose binning runs "
+                        "replicated on every rank (parallel/sharding.py), "
+                        "an oracle for the slab engine")
+    p.add_argument("--rebalance-threshold", type=float, default=1.5,
+                   help="slab partition: re-derive the z-split at block "
+                        "boundaries when the per-rank load imbalance "
+                        "(max/mean count) exceeds this ratio; 0 disables")
     p.add_argument("--profile-phases", action="store_true",
                    help="time the step's phases once (timing.txt columns)")
     p.add_argument("--render", action="store_true",

@@ -687,6 +687,7 @@ def _launch_density(cfg: SphConfig, excl: int, pos_s, mass_s, cid, ws, wc,
         self_base, cfg.h2, cfg.h_scaled2, _f32(cfg.sim_scale * cfg.sim_scale),
         cfg.poly6_norm, _stream(dev))
     _raise_on(lib, err, kernel)
+    BLOCK_WALK_LAUNCHES["_launch_density"] += 1
     return rho, ncount
 
 
@@ -814,6 +815,7 @@ def _launch_force(cfg: SphConfig, excl: int, pos_s, vel_s, rho_s, cand, cid,
         _f32(cfg.pressure_softening), _f32(cfg.stiffness), _f32(cfg.rho0),
         _f32(cfg.viscosity), cfg.visc_lap_norm, _stream(dev))
     _raise_on(lib, err, kernel)
+    BLOCK_WALK_LAUNCHES["_launch_force"] += 1
     return acc
 
 
@@ -901,6 +903,7 @@ def _launch_fused(cfg: SphConfig, pos_s, vel_s, mass_s, cid, ws, wc, cand,
         _f32(cfg.pressure_softening), _f32(cfg.stiffness), _f32(cfg.rho0),
         _f32(cfg.viscosity), cfg.visc_lap_norm, _stream(dev))
     _raise_on(lib, err, kernel)
+    BLOCK_WALK_LAUNCHES["_launch_fused"] += 1
     return acc, rho, ncount
 
 
@@ -957,6 +960,9 @@ WRAPPERS = (density_t, density_capped_t, density_pre_t, force_t,
             force_capped_t, fused_t)
 for _w in WRAPPERS:
     _w.launches = 0
+# the block walks' launches, by launcher (no step path may launch one)
+BLOCK_WALK_LAUNCHES = dict.fromkeys(
+    ("_launch_density", "_launch_force", "_launch_fused"), 0)
 
 
 # ---------------------------------------------------------------------------

@@ -49,8 +49,8 @@ from ..ops import sweeps_t as sw
 from ..ops.grid import NO_CELL, cell_coords, linear_cell_id, rod_deltas
 from ..ops.integrate import kdk_integrate
 from ..ops.lazy import skin_half
-from ..state import (ParticleState, StepDiagnostics, stack_diagnostics,
-                     state_from_numpy)
+from ..state import (ParticleState, StepDiagnostics, diagnostics_rows,
+                     state_from_numpy, state_to_numpy)
 from . import slab_sweeps as ss
 from .comm import SlabGroup
 
@@ -1071,7 +1071,6 @@ def run_slab_steps(group: SlabGroup, cfg: SphConfig, state, caps, zsplit,
     rows = group.all_gather(carry.fields).reshape(-1, _NCOLS).cpu().numpy()
     pos, vel, mass = collect_rows(rows, n)
     oid = rows[:, _OID][rows[:, _OID] >= 0].astype(np.int64)
-    stacked = stack_diagnostics(diags)
     # the exact band tables (a rebalance on the last step leaves a fresh
     # SlabCarry, without tables)
     band = (carry.tabs[2] if sweeps == "pallas" and not cfg.capped_candidates
@@ -1079,7 +1078,7 @@ def run_slab_steps(group: SlabGroup, cfg: SphConfig, state, caps, zsplit,
     return dict(
         band_halo=None if band is None else (band.nl, band.nr),
         launches={w.__name__: w.launches for w in ss.WRAPPERS},
-        diags={k: v.cpu().numpy() for k, v in stacked._asdict().items()},
+        diags=diagnostics_rows(diags),
         counts=counts, rebins=rebins, rebalanced=rebalanced,
         caps=caps, zsplit=zsplit, position=pos, velocity=vel, mass=mass,
         ids_once=bool((np.bincount(oid, minlength=n) == 1).all()))
@@ -1089,3 +1088,74 @@ def run_slab_jobs(group: SlabGroup, jobs: list[dict]) -> list[dict]:
     """``run_slab_steps`` for each job's keyword arguments, in order (one
     spawn of ranks for several runs)."""
     return [run_slab_steps(group, **job) for job in jobs]
+
+
+class SlabRanks:
+    """A ``comm.RankPool`` worker: this rank's slab of a ``run --devices N
+    --partition slab``: the host loop of the JAX CLI's slab ``run``
+    (``cli.py:179-202``), one step at a time (the JAX CLI's K-step scan
+    amortises dispatch on the TPU; here it would loop the same step).
+    Replies are plain values; the diagnostics and the collected state come
+    from rank 0 (None from the others)."""
+
+    def __init__(self, group: SlabGroup, cfg_json: str, state: dict,
+                 zsplit: tuple[int, ...], caps: tuple[int, int, int],
+                 sweeps: str, sub_len: int | None):
+        self.group, self.sweeps = group, sweeps
+        self.zsplit, self.caps, self.sub_len = tuple(zsplit), tuple(caps), sub_len
+        self.cfg = SphConfig.from_json(cfg_json)
+        st = state_from_numpy(state, group.device)
+        self.n = st.n
+        self.carry = distribute(self.cfg, st, group, self.caps[0], self.zsplit)
+        self._make()
+
+    def _make(self) -> None:
+        self.step_fn = make_slab_step(
+            self.cfg, self.group, *self.caps, sweeps=self.sweeps,
+            zsplit=self.zsplit, sub_len=self.sub_len)
+
+    def step(self, n: int) -> dict | None:
+        diags = []
+        for _ in range(n):
+            self.carry, d = self.step_fn(self.carry)
+            diags.append(d)
+        return diagnostics_rows(diags) if self.group.rank == 0 else None
+
+    def collect(self) -> dict | None:
+        """The state in the caller's order (a collective)."""
+        st = collect(self.group, self.carry, self.n)
+        return state_to_numpy(st) if self.group.rank == 0 else None
+
+    def rebalance(self, threshold: float):
+        """``maybe_rebalance`` at ``threshold``: (p_cap, zsplit) when it
+        re-partitioned, else None.  A capped pallas run takes the new
+        sub-frame bound (the t=0 one goes stale with the partition)."""
+        carry, zsplit, caps, sub_len, changed = maybe_rebalance(
+            self.cfg, self.group, self.carry, self.n, threshold=threshold)
+        if not changed:
+            return None
+        if self.sweeps == "pallas" and self.cfg.capped_candidates:
+            self.sub_len = sub_len
+        self.carry, self.zsplit, self.caps = carry, zsplit, caps
+        self._make()
+        return caps[0], zsplit
+
+    def rebuild(self, cfg_json: str) -> None:
+        """A new config: the store is kept, and the next step migrates,
+        sorts and builds its tables afresh under it."""
+        self.cfg = SphConfig.from_json(cfg_json)
+        self.carry = SlabCarry(self.carry.fields, self.carry.count)
+        self._make()
+
+    def report(self) -> dict:
+        """This rank's launch counts (the slab kernels' wrappers and the
+        sublane block walks, which no step path may launch), its valid
+        rows, and the live halo rows (nl, nr) of the exact band tables
+        (None in other modes)."""
+        band = (self.carry.tabs[2] if isinstance(self.carry, LazySlabCarry)
+                and self.sweeps == "pallas"
+                and not self.cfg.capped_candidates else None)
+        return dict(launches={**{w.__name__: w.launches for w in ss.WRAPPERS},
+                              **sw.BLOCK_WALK_LAUNCHES},
+                    count=self.carry.count,
+                    band_halo=None if band is None else (band.nl, band.nr))

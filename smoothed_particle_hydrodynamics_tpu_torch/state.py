@@ -87,12 +87,14 @@ class StepDiagnostics(NamedTuple):
 
 def make_step_diagnostics(tally, neighbor_count: torch.Tensor,
                           overflow_cells: torch.Tensor,
-                          truncated_ranges: torch.Tensor | None = None
+                          truncated_ranges: torch.Tensor | None = None,
+                          halo_dropped: torch.Tensor | None = None
                           ) -> StepDiagnostics:
     """Assemble the per-step record from an energy tally, the neighbor
-    counts, the backend's count of cells over ``cell_capacity`` and the
-    candidate ranges it cut (None = 0).  The halo and migration counters are
-    0: the single-device path has neither."""
+    counts, the backend's count of cells over ``cell_capacity``, the
+    candidate ranges it cut and the halo candidates it dropped (None = 0:
+    only the halo-sharded step has a halo).  The migration counter is 0:
+    the slab engine assembles its own record."""
     nc = neighbor_count
     zero = torch.zeros((), dtype=torch.int32, device=nc.device)
     return StepDiagnostics(
@@ -104,7 +106,7 @@ def make_step_diagnostics(tally, neighbor_count: torch.Tensor,
         neighbor_min=nc.min(),
         overflow_cells=overflow_cells,
         truncated_ranges=zero if truncated_ranges is None else truncated_ranges,
-        halo_dropped=zero,
+        halo_dropped=zero if halo_dropped is None else halo_dropped,
         migration_dropped=zero,
     )
 
@@ -112,3 +114,10 @@ def make_step_diagnostics(tally, neighbor_count: torch.Tensor,
 def stack_diagnostics(diags: list[StepDiagnostics]) -> StepDiagnostics:
     """Per-step records -> one record of [steps] tensors."""
     return StepDiagnostics(*(torch.stack(f) for f in zip(*diags)))
+
+
+def diagnostics_rows(diags: list[StepDiagnostics]) -> dict[str, np.ndarray]:
+    """Records of one step (0-d) or of K steps ([K]) -> numpy arrays of
+    one row per step, by field (what ranks hand their parent)."""
+    return {k: torch.cat([v.reshape(-1) for v in vals]).cpu().numpy()
+            for k, vals in zip(StepDiagnostics._fields, zip(*diags))}

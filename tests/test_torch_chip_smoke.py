@@ -146,3 +146,38 @@ def test_phase17_examples(smoke, tmp_path, capsys):
     out = capsys.readouterr().out
     assert "[examples] quickstart" in out and "[examples] custom_scene" in out
     assert (tmp_path / "quickstart" / "quickstart_final.png").exists()
+
+
+# ---------------------------------------------------------------------------
+# phase 18's helpers on the CPU, at small sizes: gloo ranks on the CPU, the
+# slab kernels' twins (uncounted) in place of the kernels
+# ---------------------------------------------------------------------------
+
+def test_phase18_runs_three_way_and_staging(smoke, monkeypatch, tmp_path,
+                                            capsys):
+    cs, dev = smoke
+    monkeypatch.setattr(cs, "DEV_N", 2048)
+    monkeypatch.setattr(cs, "DEV_SCENE_NAME", "dam_break")
+    monkeypatch.setattr(cs, "DEV_SCENE", dict(
+        cell_size_factor=1.25, grid_nx=16, grid_ny=16, grid_nz=16,
+        pallas_window_t=64))
+    monkeypatch.setattr(cs, "DEV_STEPS", 4)
+    monkeypatch.setattr(cs, "DEV_BLOCK", 2)
+    monkeypatch.setattr(cs, "DEV_RESUME", 2)
+    monkeypatch.setattr(cs, "DEV_HALO_STEPS", 2)
+    monkeypatch.setattr(cs, "STAGING_STEPS", 2)
+    ms = cs.dev_cli_checks(dev, str(tmp_path))
+    cs.dev_library_checks(dev)
+    cs.dev_nccl(dev, str(tmp_path))
+    out = capsys.readouterr().out
+    assert set(ms) == {"slab exact", "slab capped", "slab fused", "turns",
+                       "halo"}
+    assert [k for k, _ in ms["turns"]] == ["single", "slab", "slab",
+                                           "single"]
+    for label in ("slab exact", "slab capped", "slab fused",
+                  "slab fused resume", "halo"):
+        assert f"[devices {label}]" in out
+    assert "derived slab sub_len=" in out
+    assert out.count("[devices three-way 1M]") == 2
+    assert out.count("[devices staging] rank") == 2
+    assert "NCCL at --devices 2: not run (0 cards" in out

@@ -8,8 +8,9 @@
 * The rest of ``run``: checkpoints and resume, ``--apply`` and
   ``<out>/apply.json``, a blow-up (exit 2 and a checkpoint), the one-time
   truncation warning, SIGINT (exit 130 and a checkpoint) and SIGUSR1
-  (pause) in a subprocess, the caller's signal handlers restored, the
-  flags left for later slices refused.
+  (pause) in a subprocess, the caller's signal handlers restored; the
+  multi-device flags parse as the JAX CLI's (their runs:
+  ``tests/test_torch_cli_devices.py``).
 * ``info`` and ``watch --once`` print what the JAX CLI prints;
   ``sweep`` keeps its record schema and the honey corner is stable.
 """
@@ -485,13 +486,6 @@ def test_sigusr1_pauses_and_resumes(tmp_path):
     assert "resumed" in stderr
 
 
-@pytest.mark.parametrize("flag", [["--devices", "2"], ["--partition", "slab"],
-                                  ["--rebalance-threshold", "1.5"]])
-def test_flags_of_later_slices_are_refused(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        main(["run", "--device", "cpu"] + flag)
-    assert e.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
 
 
 class _Parsed(Exception):
@@ -546,6 +540,21 @@ def test_flags_of_this_slice_parse_as_jax(flags, monkeypatch):
     jcli._resolve_backend(jargs)
     assert tmain._backend(targs.backend, torch.device("cpu"),
                           targs.compat) == jargs.backend
+
+
+@pytest.mark.parametrize("flag", [["--devices", "2"],
+                                  ["--partition", "halo"],
+                                  ["--rebalance-threshold", "0.75"]])
+def test_multi_device_flags_parse_as_jax(flag, monkeypatch):
+    """``--devices``, ``--partition`` and ``--rebalance-threshold`` parse
+    to the JAX CLI's values, given and left at their defaults."""
+    from smoothed_particle_hydrodynamics_tpu_torch import __main__ as tmain
+
+    argv = ["run"] + flag
+    targs = _parsed(monkeypatch, tmain, "cmd_run", argv, tmain.main)
+    jargs = _parsed(monkeypatch, jcli, "cmd_run", argv, jcli.main)
+    for k in ("devices", "partition", "rebalance_threshold"):
+        assert getattr(targs, k) == getattr(jargs, k), k
 
 
 def test_exact_ic_is_for_the_disk_only(capsys):

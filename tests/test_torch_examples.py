@@ -3,8 +3,9 @@ examples/``) run as a user runs them, and print the JAX examples' lines.
 
 Each runs as a subprocess (a fresh interpreter) under
 ``SPH_EXAMPLE_QUICK=1`` with ``--device cpu``, in a scratch working
-directory; the JAX package's ``examples/quickstart.py`` and
-``custom_scene.py`` run the same way on the CPU platform.  The two draw
+directory; the JAX package's ``examples/quickstart.py``,
+``custom_scene.py`` and ``distributed.py`` (8 gloo ranks against an
+8-device virtual mesh) run the same way on the CPU platform.  The two draw
 their particles from different generators, so their numbers differ; the
 lines are compared with every number (and the device name) blanked.
 """
@@ -18,7 +19,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-EXAMPLES = ("quickstart", "custom_scene")
+EXAMPLES = ("quickstart", "custom_scene", "distributed")
 
 
 def _env() -> dict:
@@ -50,8 +51,9 @@ def _jax(name: str, cwd: Path) -> str:
 
 
 def _shape(text: str) -> list[str]:
+    # the port's distributed example also prints where its ranks run
     lines = [re.sub(r"device=\S+", "device=?", ln) for ln in
-             text.splitlines()]
+             text.splitlines() if not ln.startswith("placement: ")]
     return [re.sub(r"[-+]?\d[\d.]*(e[-+]?\d+)?%?", "#", ln) for ln in lines]
 
 
@@ -66,6 +68,10 @@ def test_example_runs_and_prints_the_jax_lines(name, tmp_path):
         assert "scene=disk n=2048 steps=10 device=cpu" in out
         png = (tmp_path / "t" / "quickstart_final.png").read_bytes()
         assert png.startswith(b"\x89PNG")
+    elif name == "distributed":
+        assert "placement: devices=[" + ", ".join(["cpu"] * 8) + "] comm=gloo" in out
+        assert "devices=8  n=4096" in out
+        assert "all particles accounted for" in out
     else:
         assert "final KE" in out and "step   0:" in out
 
