@@ -184,7 +184,20 @@ Phases (every failed check raises, and the script exits nonzero):
    ``examples/distributed.py`` (quick size); NCCL at ``--devices 2`` only
    on two cards, else
    one line saying it was not run.  On one card every group is gloo ranks
-   sharing cuda:0 (NCCL refuses two ranks on one device).
+   sharing cuda:0 (NCCL refuses two ranks on one device);
+19. the study and profiling tools (``tools_phase``; no kernel of their
+   own), each through its ``main``: ``capped_fullrun`` at full duration
+   (the 32k disk 1,001 steps and the 1M splash 1,000, exact and capped
+   K_c 4) held to the JAX record's envelopes (KE tail ratio, capped
+   energy drift, same-state density ratios, the cap binding), K1/K2 exact
+   and capped counted; ``capped_noise`` at 1M (rel-L2 in (0, 1), mean
+   ratio within 1 %); ``trace_drift`` (1M) and ``ab_engines`` (8192) for
+   24 steps (the engines' positions rel-L2 <= 1e-5 until the lazy
+   driver's first rebin); ``profile_pallas``, ``profile_prepare`` (its
+   rebuild bit-equal to ``prepare_t`` on the card), ``profile_lazy``,
+   ``profile_slab --phases`` and ``profile_step`` once at 1M;
+   ``ab_dials`` with two variants for two rounds and ``ab_slab``'s
+   baseline; ``microbench``, each op equal to numpy's result.
 
 It then prints the card's name and power limit, one JSON line of kernel
 records (time, twin time, launches, error, and the bound: the larger of the
@@ -2312,6 +2325,163 @@ def devices_phase(dev) -> dict:
     return ms
 
 
+# phase 19: the study and profiling tools (``tools/``), each through its
+# ``main`` as ``python -m ...tools.<name>`` runs it, on the card: the capped
+# full-run record at full duration held to the JAX record's envelopes, the
+# capped density noise at 1M, the drift trace and the engines' A/B for 24
+# steps, each profile tool once at 1M, the dial A/B with two variants for
+# two rounds, and the primitive ops, each against numpy.
+TOOLS_STEPS = 24
+TOOLS_DIALS = ("baseline", "block256")
+TOOLS_DIAL_ROUNDS, TOOLS_DIAL_BLOCK = 2, 10
+# the cell-list profile at 1M (the disk's own size is 32,768): its phases
+# take ~1 s a call there, so few calls
+TOOLS_PROFILE_STEP_N, TOOLS_PROFILE_STEP_ITERS = 1_000_000, 2
+# the sweeps' wrappers a capped full run launches (exact and capped K_c 4)
+FULLRUN_WRAPPERS = ("density_t", "force_t", "density_capped_t",
+                    "force_capped_t")
+
+
+def tools_fullrun(dev, out: str) -> dict:
+    """``tools/capped_fullrun`` at full duration: the envelopes, the K1/K2
+    launches of its runs, each row's ms/step."""
+    from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t
+    from smoothed_particle_hydrodynamics_tpu_torch.tools import capped_fullrun
+
+    reset_launches()
+    rec = capped_fullrun.main(device=dev, out=out)
+    check(not rec["smoke"] and rec["steps_scale"] >= 1.0,
+          "capped_fullrun: a full-duration record")
+    check(rec["rows"]["disk_32k"]["steps"] >= 1001
+          and rec["rows"]["splash_1m"]["steps"] >= 1000,
+          "capped_fullrun: 1,001 disk and 1,000 splash steps")
+    bad = capped_fullrun.envelope_failures(rec["rows"])
+    for name, row in rec["rows"].items():
+        print(f"[tools] capped_fullrun {name}: exact "
+              f"{row['exact']['ms_per_step']:.4f} ms/step, capped "
+              f"{row['capped_k4']['ms_per_step']:.4f} ms/step; KE tail ratio "
+              f"{row['ke_tail_ratio']:.4f}, drift exact "
+              f"{row['exact']['energy_drift']:.4f} capped "
+              f"{row['capped_k4']['energy_drift']:.4f}, density ratios "
+              f"{row['density_ratio_t0']:.5f} / "
+              f"{row['density_ratio_end']:.5f}, cap binds {row['cap_binds']}, "
+              f"truncated {row['capped_k4']['truncated_ranges_max']}")
+    check(not bad, f"capped_fullrun envelopes: {bad}")
+    for name in FULLRUN_WRAPPERS:
+        n = getattr(sweeps_t, name).launches
+        check(n > 0, f"capped_fullrun: {name} launched")
+        print(f"[tools] capped_fullrun: {name} {n} launches")
+    return rec
+
+
+def tools_checks(dev) -> dict:
+    """The other eleven tools; returns what each measured."""
+    from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t
+    from smoothed_particle_hydrodynamics_tpu_torch.tools import (
+        ab_dials, ab_engines, ab_slab, capped_noise, microbench,
+        profile_lazy, profile_pallas, profile_prepare, profile_slab,
+        profile_step, trace_drift)
+
+    def times_ok(label, ms):
+        vals = list(ms.values()) if isinstance(ms, dict) else list(ms)
+        check(all(math.isfinite(v) and v > 0 for v in vals),
+              f"{label}: every time finite and positive")
+
+    out = {}
+    t = time.perf_counter()
+    r = capped_noise.main(device=dev)
+    check(0.0 < r["rel_l2"] < 1.0 and abs(r["mean_ratio"] - 1.0) < 0.01,
+          f"capped_noise: rel-L2 in (0, 1), mean ratio within 1 %: {r}")
+    out["capped_noise"] = r
+    print(f"[tools] capped_noise {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    r = trace_drift.main(steps=TOOLS_STEPS, device=dev)
+    check(len(r["times_ms"]) == TOOLS_STEPS, "trace_drift: every step")
+    times_ok("trace_drift", r["times_ms"])
+    check(all(math.isfinite(d) for d in r["drift_over_skin"]),
+          "trace_drift: finite drift")
+    out["trace_drift"] = {k: r[k] for k in ("steady_ms", "rebin_ms", "skin")}
+    out["trace_drift"]["rebins"] = int(sum(r["rebinned"]))
+    print(f"[tools] trace_drift {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    r = ab_engines.main(steps=TOOLS_STEPS, device=dev)
+    rel = r["rel_l2"]
+    first = (r["rebinned_single"].index(True)
+             if True in r["rebinned_single"] else len(rel))
+    check(all(math.isfinite(x) for x in rel), "ab_engines: finite rel-L2")
+    check(max(rel[:first]) <= 1e-5,
+          f"ab_engines: rel-L2 <= 1e-5 before the first rebin: {rel[:first]}")
+    out["ab_engines"] = dict(first_rebin=first, rel_l2_last=rel[-1],
+                             rel_l2_before_rebin=max(rel[:first]))
+    print(f"[tools] ab_engines {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    r = profile_pallas.main(device=dev)
+    times_ok("profile_pallas", r["ms"])
+    out["profile_pallas"] = r["ms"]
+    r = profile_prepare.main(device=dev)
+    times_ok("profile_prepare", r["ms"])
+    want = sweeps_t.prepare_t(r["cfg"], r["state"])
+    for f in want._fields:
+        a, b = getattr(r["composed"], f), getattr(want, f)
+        check((a is None and b is None) or torch.equal(a, b),
+              f"profile_prepare: composed {f} bit-equal to prepare_t's")
+    out["profile_prepare"] = r["ms"]
+    r = profile_lazy.main(device=dev)
+    times_ok("profile_lazy", [v[0] for v in r["steady_rebin_ms"].values()])
+    out["profile_lazy"] = r["steady_rebin_ms"]
+    r = profile_slab.main(phases=True, device=dev)
+    times_ok("profile_slab", [v[0] for v in r["steady_rebin_ms"].values()])
+    out["profile_slab"] = r["steady_rebin_ms"]
+    r = profile_step.main(TOOLS_PROFILE_STEP_N, device=dev,
+                          iters=TOOLS_PROFILE_STEP_ITERS)
+    times_ok("profile_step", r["ms"])
+    out["profile_step"] = r["ms"]
+    print(f"[tools] profile tools {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    r = ab_dials.main(rounds=TOOLS_DIAL_ROUNDS, block=TOOLS_DIAL_BLOCK,
+                      only=list(TOOLS_DIALS), device=dev)
+    check(sorted(r) == sorted(TOOLS_DIALS), "ab_dials: both variants")
+    check(all(math.isfinite(v["fp"]) and v["steps"] == TOOLS_DIAL_ROUNDS
+              * TOOLS_DIAL_BLOCK for v in r.values()),
+          "ab_dials: finite fingerprints, every step")
+    out["ab_dials"] = r
+    r = ab_slab.main(rounds=1, block_calls=2, only=["baseline"], device=dev)
+    check(list(r) == ["baseline"] and math.isfinite(r["baseline"]["fp"]),
+          "ab_slab: the baseline built and stepped")
+    out["ab_slab"] = r
+    print(f"[tools] A/B tools {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    out["microbench"] = microbench.main(device=dev)
+    for label, call, ref in microbench.ops(dev):
+        check(np.array_equal(call().cpu().numpy(), ref()),
+              f"microbench: {label} equals numpy's")
+    print(f"[tools] microbench {time.perf_counter() - t:.1f} s")
+    return out
+
+
+def tools_phase(dev, fullrun_out: str | None = None) -> dict:
+    """Phase 19; returns the full-run record and the tools' readings.
+    ``fullrun_out`` keeps the full-run record (default: a temporary file
+    beside the script, removed)."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_p19_",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        rec = tools_fullrun(dev, fullrun_out
+                            or os.path.join(root, "capped_fullrun.json"))
+        print(f"[tools] capped_fullrun {time.perf_counter() - t_phase:.1f} s")
+        out = tools_checks(dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[p19] phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(fullrun=rec, tools=out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -2845,6 +3015,9 @@ def main() -> int:
     # 18. the multi-rank work: run --devices 2, slab and halo, the three-way
     #     step, the dry runs, the distributed example, the staging share
     devices_phase(dev)
+
+    # 19. the study and profiling tools
+    tools_phase(dev)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,7 +1,8 @@
 """Command line: ``python -m smoothed_particle_hydrodynamics_tpu_torch``.
 
     run   [--scene S] [-n N] [--steps K] [--block B] [--out DIR] ...
-    bench [--scene S] [-n N] [--steps K] [--warmup W]   one JSON line
+    bench [--scene S] [-n N] [--steps K] [--warmup W] [--lazy|--no-lazy]
+                                                        one JSON line
     sweep [--scene S] [--viscosity MUS] [--stiffness KS] [--out F.json]
     info  [--scene S] [-n N] [--set KEY=VALUE]           the resolved config
     watch [--out DIR] [--once]                           a run's dashboard
@@ -66,7 +67,12 @@ config's JSON without drawing the particles; ``watch`` repaints sparklines
 of energy drift, |L|, step time and neighbor counts from
 ``<out>/diagnostics.jsonl``.
 
-``bench`` times 100 steps after 10 warmup steps; ``bench --partition slab``
+``bench`` times 100 steps after 10 warmup steps and prints the record of
+``utils.benchmark.run_benchmark``; ``--lazy/--no-lazy`` forces the driver
+as in the JAX CLI (default: the lazy loop for the pallas backend in the
+sublane layout, unless ``compat`` or ``second_kick=full``; ``--lazy`` with
+another backend is refused), and ``--eager`` is ``--no-lazy``.
+``bench --partition slab``
 times the distributed slab engine (``parallel/slabs.py``) on a one-rank
 group of the device with the splash scene (1M particles unless ``-n``).
 
@@ -526,7 +532,8 @@ def _draw(args, cfg, shown, done: int, nblock: int, total: int,
 
 
 def cmd_bench(args) -> int:
-    from .utils.benchmark import run_benchmark, run_slab_benchmark
+    from .config import SphConfig
+    from .utils.benchmark import run_benchmark, run_slab_benchmark, uses_lazy
 
     dev = _device(args.device)
     if args.partition == "slab":
@@ -538,11 +545,18 @@ def cmd_bench(args) -> int:
                                device=str(dev), seed=args.seed)
         print(json.dumps(r))
         return 0
-    r = run_benchmark(scene=args.scene, lazy=False if args.eager else None,
-                      steps=args.steps or 100, warmup=args.warmup,
-                      overrides=_overrides(args), device=str(dev),
-                      seed=args.seed,
-                      backend=_backend(args.backend, dev, args.compat))
+    ov = _overrides(args)
+    backend = _backend(args.backend, dev, args.compat)
+    # the JAX CLI's rule (cli.py:452-470): --lazy/--no-lazy (--eager is
+    # --no-lazy) forces the driver; by default the lazy loop where it is
+    # valid, judged on the default config with the overrides; --lazy with
+    # a backend that has no lazy driver is run_benchmark's ValueError
+    lazy = args.lazy
+    if lazy is None:
+        lazy = uses_lazy(SphConfig().replace(**ov), backend)
+    r = run_benchmark(scene=args.scene, lazy=lazy, steps=args.steps or 100,
+                      warmup=args.warmup, overrides=ov, device=str(dev),
+                      seed=args.seed, backend=backend)
     print(json.dumps(r))
     return 0
 
@@ -862,8 +876,13 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--quiet", action="store_true")
     p = sub.choices["bench"]
     p.add_argument("--warmup", type=int, default=10)
-    p.add_argument("--eager", action="store_true",
-                   help="rebin every step (ops.step)")
+    p.add_argument("--lazy", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="lazy rebinning driver (default: auto, on for the "
+                        "sublane pallas backend in default mode)")
+    p.add_argument("--eager", dest="lazy", action="store_false",
+                   default=None,
+                   help="the same as --no-lazy: rebin every step (ops.step)")
     p.add_argument("--partition", default="single",
                    choices=["single", "slab"],
                    help="slab = the distributed slab engine on a one-rank "

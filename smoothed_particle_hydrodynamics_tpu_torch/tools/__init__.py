@@ -15,6 +15,20 @@ timer (CUDA events around launches that are already queued behind a sleep
 on the card, so a kernel shorter than its host call is timed, not the
 host), the error measure and the card's peaks and issue rates
 (``chip_smoke.py`` reads the same timer, error measure and peaks).
+
+The study tools, counterparts of the JAX package's other ``tools/`` with
+the same file names, drive the port's step to answer questions about it:
+``capped_fullrun`` (the capped mode's full-run record), ``capped_noise``,
+``trace_drift``, ``ab_engines``, ``profile_pallas``, ``profile_prepare``,
+``profile_lazy``, ``profile_slab``, ``profile_step`` (the cell-list step by
+phase; ``utils/profile_step.py`` is the ``torch.profiler`` trace),
+``ab_dials``, ``ab_slab`` and ``microbench``.  Each takes the JAX tool's
+positional arguments, in its order and with its defaults, plus
+``--device`` (default ``cuda``; with no card it stops with the reason,
+``--device cpu`` runs it at small sizes for the tests, its times labelled
+host times), prints the card's name and power limit on its first line, and
+times on the host clock around ``torch.cuda.synchronize()`` (``Phases``),
+a phase that is one launch by queued CUDA events (``time_ms``).
 """
 
 from __future__ import annotations
@@ -24,6 +38,7 @@ import functools
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from ..utils import build
@@ -141,3 +156,108 @@ def bound(nbytes: int, ops_ms: float) -> tuple[float, str]:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return ((bytes_ms, "bytes") if bytes_ms >= ops_ms
             else (ops_ms, "operations"))
+
+
+# ---------------------------------------------------------------------------
+# The study tools' shared pieces
+# ---------------------------------------------------------------------------
+
+def tool_device(device) -> torch.device:
+    """The study tools' device: cuda (the default) or cpu.  With no card
+    the tool stops (``SystemExit``: exit status 1 and the reason) instead
+    of carrying on on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: this tool measures the card "
+                         "(--device cpu runs it on the host at small sizes, "
+                         "with host times)")
+    if dev.type not in ("cuda", "cpu"):
+        raise SystemExit(f"the tools run on cuda or cpu, not {dev}")
+    return dev
+
+
+def card_line(dev: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` gives them; on the CPU a note
+    that every time is a host time."""
+    if dev.type != "cuda":
+        return "cpu (host times, not the card's)"
+    out = subprocess.run(
+        ["nvidia-smi", "-i", str(dev.index or 0),
+         "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip()
+
+
+def start(device) -> torch.device:
+    """A tool's first step: resolve ``device`` (``tool_device``) and print
+    ``card_line`` as the first line of the output."""
+    dev = tool_device(device)
+    print(card_line(dev), flush=True)
+    return dev
+
+
+def sync(dev: torch.device) -> None:
+    """Wait for the card (nothing on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def host_tag(dev: torch.device) -> str:
+    """What follows a time taken on ``dev``: ``" host"`` on the CPU."""
+    return "" if dev.type == "cuda" else " host"
+
+
+def derive_settings(cfg, state):
+    """The JAX tools' two derivations from the scene's state:
+    ``pallas_window_t`` 0 from its rod windows, and in capped mode
+    ``capped_sub_len`` 0 from its occupancy."""
+    from ..ops import sweeps_t
+
+    if cfg.pallas_window_t == 0:
+        cfg = cfg.replace(
+            pallas_window_t=sweeps_t.derive_window_t(cfg, state))
+    if cfg.capped_candidates and cfg.capped_sub_len == 0:
+        cfg = cfg.replace(capped_sub_len=sweeps_t.derive_sub_len(cfg, state))
+    return cfg
+
+
+def steady_rebin(times, rebinned, stat=np.mean) -> tuple[float, float]:
+    """(steady, rebin): ``stat`` of the step times without and with a
+    rebin (NaN where there is none)."""
+    t, m = np.asarray(times), np.asarray(rebinned, dtype=bool)
+    return (float(stat(t[~m])) if (~m).any() else float("nan"),
+            float(stat(t[m])) if m.any() else float("nan"))
+
+
+class Phases:
+    """Times of a tool's phases (ms by name, in ``ms``), each printed as
+    the JAX tools print theirs (``name  ms``), with ``host`` after it on
+    the CPU."""
+
+    def __init__(self, dev: torch.device, width: int = 34):
+        self.dev, self.width, self.ms = dev, width, {}
+
+    def show(self, name: str, ms: float, note: str = "") -> None:
+        self.ms[name] = ms
+        print(f"{name:{self.width}s} {ms:9.3f} ms{host_tag(self.dev)}{note}",
+              flush=True)
+
+    def host(self, name: str, fn, *args, iters: int = 10):
+        """The JAX tools' ``bench``: one call off the clock (it builds what
+        the first call builds), then ``iters`` calls on the host clock,
+        ended by a device sync; returns the last call's output."""
+        out = fn(*args)
+        sync(self.dev)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = fn(*args)
+        sync(self.dev)
+        self.show(name, (time.perf_counter() - t0) / iters * 1e3)
+        return out
+
+    def events(self, name: str, fn, *args, iters: int = 20):
+        """A phase that is one launch: ``time_ms``'s queued CUDA events (the
+        host clock on the CPU); returns one call's output."""
+        self.show(name, time_ms(lambda: fn(*args), self.dev, iters))
+        return fn(*args)

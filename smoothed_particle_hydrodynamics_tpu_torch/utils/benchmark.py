@@ -144,8 +144,9 @@ def run_benchmark(scene: str = "disk", lazy: bool | None = False,
                 + getattr(diags, name).tolist())
 
     return {
-        "metric": "particle-steps/s",
+        "metric": "particle-steps/sec/chip",
         "value": n * steps / elapsed,
+        "unit": "particle-steps/s",
         "ms_per_step": elapsed * 1000.0 / steps,
         "scene": scene,
         "backend": backend,
@@ -173,7 +174,22 @@ def run_benchmark(scene: str = "disk", lazy: bool | None = False,
                        and torch.isfinite(final.velocity).all()
                        and torch.isfinite(diags.kinetic_energy).all()),
         "device": _device_name(dev),
+        "platform": "gpu" if dev.type == "cuda" else dev.type,
     }
+
+
+def slab_sizes(cfg: SphConfig, state: ParticleState, headroom: float
+               ) -> tuple[tuple[int, ...], tuple[int, int, int], int | None]:
+    """A one-rank slab run's (z split, (p_cap, h_cap, m_cap) at
+    ``headroom``, capped sub-frame bound or None), from ``state``."""
+    from ..parallel import slabs
+
+    zsplit = slabs.derive_zsplit(cfg, state, 1)
+    caps = slabs.derive_slab_caps(cfg, state, 1, zsplit=zsplit,
+                                  headroom=headroom)
+    sub_len = (slabs.derive_sub_len_slab(cfg, state, 1, zsplit)
+               if cfg.capped_candidates else None)
+    return zsplit, caps, sub_len
 
 
 def slab_setup(n: int, overrides: dict | None, headroom: float,
@@ -184,7 +200,6 @@ def slab_setup(n: int, overrides: dict | None, headroom: float,
     bound.  Returns (cfg,
     state, zsplit, caps, sub_len)."""
     from ..ops.sweeps_t import derive_window_t
-    from ..parallel import slabs
 
     ov = dict(num_particles=n, cell_size_factor=1.25)
     ov.update(overrides or {})
@@ -194,12 +209,7 @@ def slab_setup(n: int, overrides: dict | None, headroom: float,
     if cfg.pallas_window_t == 0 or "pallas_window_t" not in ov:
         cfg = cfg.replace(pallas_window_t=derive_window_t(cfg, state))
     cfg.validate()
-    zsplit = slabs.derive_zsplit(cfg, state, 1)
-    caps = slabs.derive_slab_caps(cfg, state, 1, zsplit=zsplit,
-                                  headroom=headroom)
-    sub_len = (slabs.derive_sub_len_slab(cfg, state, 1, zsplit)
-               if cfg.capped_candidates else None)
-    return cfg, state, zsplit, caps, sub_len
+    return (cfg, state) + slab_sizes(cfg, state, headroom)
 
 
 def run_slab_benchmark(n: int = 1_000_000, steps: int = 15, warmup: int = 3,
