@@ -6,7 +6,8 @@
 Phases (every failed check raises, and the script exits nonzero):
 
 1. build the kernels (``csrc/sweep_t.cu``, ``csrc/sweep_lane.cu``,
-   ``csrc/probes.cu``) with nvcc, one process per source, started together;
+   ``csrc/probes.cu``, ``csrc/floor_t.cu``: ``LIBRARIES``) with nvcc, one
+   process per source, started together;
    print the build time and ptxas's register/spill report;
 2. exact mode, 32k splash: K1 and K2, the per-lane band walks
    (``density_band_t``, ``force_band_t``), against their plain PyTorch twins
@@ -124,7 +125,13 @@ Phases (every failed check raises, and the script exits nonzero):
    bit-equal, ``gather_smem`` also on a grid of ``WALK_GRID`` CTAs (each
    walks many tiles round its ring, the tiles no multiple of the grid);
    each d^2 mode at one tile and over 4096 tiles, <= 1e-4 max abs against
-   its plain version (FMA and 3xTF32 against the f32 one too);
+   its plain version (FMA and 3xTF32 against the f32 one too); the floor
+   kernels (``tools/probe_dma_floor.py``: ``floor_window_t``, the TPU
+   probe's window walk, and ``floor_band_t``, the band kernels' walk at W
+   4 and 9) against their plain versions, rel-L2 <= ``FLOOR_BAR``, finite,
+   band ``halfbytes`` bit-equal to band ``full``: every walk, mode and K on
+   the 32k splash, K = 2 capped (K_c 4, 256-row blocks), ``full`` and
+   ``nostage`` at K = 2 on the 1M splash, which gives their records;
    ``gather_smem`` (the persistent TMA pipeline) and the one-shot kernel
    in turns at every S, on rotating copies of their inputs (the bytes
    from device memory, not L2); the one-shot gather, ``torch.gather`` and
@@ -197,7 +204,13 @@ Phases (every failed check raises, and the script exits nonzero):
    rebuild bit-equal to ``prepare_t`` on the card), ``profile_lazy``,
    ``profile_slab --phases`` and ``profile_step`` once at 1M;
    ``ab_dials`` with two variants for two rounds and ``ab_slab``'s
-   baseline; ``microbench``, each op equal to numpy's result.
+   baseline; ``microbench``, each op equal to numpy's result; then the
+   five probes (``tools_probes``): ``probe_dma_floor`` at 1M exact and
+   K_c 4, the floor kernels counted from 0 (their launches in the kernels
+   line: no step path runs them), ``probe_cond``, ``probe_scan`` on the 32k
+   disk and the 1M splash (K frozen steps as one CUDA graph),
+   ``probe_dispatch`` and ``probe_tally`` (its five formulations' KE, PE
+   and |L| within ``TALLY_BAR`` of ``kdk_integrate``'s), every time finite.
 
 It then prints the card's name and power limit, one JSON line of kernel
 records (time, twin time, launches, error, and the bound: the larger of the
@@ -205,8 +218,9 @@ bytes each call must move over 3.35 TB/s and the flops on the pairs within
 h over 67 TFLOP/s f32, the H100 SXM's published peaks; for a probe, at the
 case its record names, the chain's instructions counted from its unrolled
 body's SASS over the card's issue rates (f32, MUFU and integer work;
-control left out), the gather's bytes, or the d^2
-tile's tensor-core flops over 495 TFLOP/s TF32, and the PyTorch call that
+control left out), the gather's bytes, the d^2
+tile's tensor-core flops over 495 TFLOP/s TF32, or the floor ladder's
+flops, 2K + 2 a tested lane-row, over 67 TFLOP/s, and the PyTorch call that
 computes the same function as ``library_ms``), and last ``{"ok": true,
 "device": {...}}``.  With no CUDA device it exits 1 before printing any result.
 On every exit it stops the resource tracker that the spawned ranks started,
@@ -254,6 +268,9 @@ PKG = "smoothed_particle_hydrodynamics_tpu_torch"
 SOURCE_T = f"{PKG}/csrc/sweep_t.cu"
 SOURCE_LANE = f"{PKG}/csrc/sweep_lane.cu"
 SOURCE_PROBES = f"{PKG}/csrc/probes.cu"
+SOURCE_FLOOR = f"{PKG}/csrc/floor_t.cu"
+# the CUDA sources, one library each (utils/build.py)
+LIBRARIES = ("sweep_t", "sweep_lane", "probes", "floor_t")
 TPU_T = "smoothed_particle_hydrodynamics_tpu/ops/pallas_step_t.py"
 TPU_LANE = "smoothed_particle_hydrodynamics_tpu/ops/pallas_step.py"
 TPU_SLABS = "smoothed_particle_hydrodynamics_tpu/parallel/slabs.py"
@@ -274,7 +291,7 @@ CORNER_CAPPED = dict(capped_candidates=4, pallas_block_t=256,
 class Kernel(NamedTuple):
     module: str          # "t" (ops/sweeps_t.py), "lane" (ops/sweeps_lane.py),
     #                      "slab" (parallel/slab_sweeps.py) or a probe
-    #                      ("vpu", "gather", "mxu": tools/probe_*.py)
+    #                      ("vpu", "gather", "mxu", "floor": tools/probe_*.py)
     wrapper: str
     twin: str
     source: str
@@ -328,8 +345,15 @@ KERNELS = {
                                  SOURCE_PROBES, "tools/probe_gather.py:40", 0),
     "d2_tile_kernel": Kernel("mxu", "d2_tile", "d2_tile_plain", SOURCE_PROBES,
                              "tools/probe_mxu.py:27", 0),
+    # the floor probe's two walks: one TPU kernel, _probe_kernel
+    "floor_window_t": Kernel("floor", "floor_window_t", "floor_window_t_plain",
+                             SOURCE_FLOOR, "tools/probe_dma_floor.py:61", 0),
+    "floor_band_t": Kernel("floor", "floor_band_t", "floor_band_t_plain",
+                           SOURCE_FLOOR, "tools/probe_dma_floor.py:61", 0),
 }
-PROBE_KERNELS = ("chain_kernel", "gather_tile_kernel", "d2_tile_kernel")
+FLOOR_KERNELS = ("floor_window_t", "floor_band_t")
+PROBE_KERNELS = ("chain_kernel", "gather_tile_kernel", "d2_tile_kernel",
+                 *FLOOR_KERNELS)
 # which kernels each main path runs (the first path a kernel is in gives its
 # launch count in the kernels line)
 PATHS = {
@@ -353,10 +377,11 @@ def _modules() -> dict:
     from smoothed_particle_hydrodynamics_tpu_torch.parallel import (
         slab_sweeps)
     from smoothed_particle_hydrodynamics_tpu_torch.tools import (
-        probe_gather, probe_mxu, probe_vpu_ops)
+        probe_dma_floor, probe_gather, probe_mxu, probe_vpu_ops)
 
     return {"t": sweeps_t, "lane": sweeps_lane, "slab": slab_sweeps,
-            "vpu": probe_vpu_ops, "gather": probe_gather, "mxu": probe_mxu}
+            "vpu": probe_vpu_ops, "gather": probe_gather, "mxu": probe_mxu,
+            "floor": probe_dma_floor}
 
 
 def _module(name: str):
@@ -1298,6 +1323,74 @@ def chain_ranges(dev) -> None:
               f"in [{lo:.4g}, {hi:.4g}] (the fast paths')")
         check(2.0**-20 <= lo and hi <= 2.0**20,
               f"chain_kernel<{op}> values stay normal: [{lo}, {hi}]")
+
+
+# the floor kernels against their plain versions (phase 15): (n, K_c,
+# modes, ks) on the splash at 1.25h cells, window derived (capped: 256-row
+# blocks); the 1M exact case also gives their records
+FLOOR_CASES = ((32_768, 0, None, None), (32_768, 4, None, (2,)),
+               (1_000_000, 0, ("full", "nostage"), (2,)))
+FLOOR_RECORD = ("full", 2)
+# kernel against plain version, rel-L2 over the self rows: both sum the
+# same f32 ladders (the plain version's FMA emulated in f64 and rounded
+# once), the kernel row by row within a rod, the plain version by torch's
+# reductions
+FLOOR_BAR = 1e-5
+
+
+def floor_vs_plain(dev) -> tuple[dict, dict]:
+    """Each floor kernel against its plain version on every walk (window;
+    band at W 4 and 9) of ``FLOOR_CASES``: rel-L2 <= ``FLOOR_BAR``, every
+    output finite, band ``halfbytes`` bit-equal to band ``full`` (the same
+    ladders on the same words).  Returns (max abs error by kernel, the
+    kernels' records at 1M exact, ``FLOOR_RECORD``)."""
+    from smoothed_particle_hydrodynamics_tpu_torch.tools import (
+        probe_dma_floor as pf)
+
+    errs, recs = dict.fromkeys(FLOOR_KERNELS, 0.0), {}
+    for case in FLOOR_CASES:
+        n, k_c, modes, ks = case
+        cfg, p = pf.setup(n, k_c, dev)
+        label = f"probe floor {n} K_c={k_c}"
+        for walk_name, walk in pf.walks(cfg, p).items():
+            name = "floor_window_t" if walk_name == "window" else "floor_band_t"
+            full = {}
+            for mode in modes or pf.MODES:
+                for k in ks or pf.KS:
+                    a, b = walk["run"](mode, k), walk["plain"](mode, k)
+                    torch.cuda.synchronize()
+                    r = rel_l2(a, b)
+                    fin = bool(torch.isfinite(a).all())
+                    print(f"[{label}] {name} {walk_name} {mode} K={k} vs "
+                          f"plain: rel_l2={r:.3e} finite={fin}")
+                    check(fin and r <= FLOOR_BAR,
+                          f"{label}: {walk_name} {mode} K={k} rel-L2 {r} "
+                          f"<= {FLOOR_BAR}, finite {fin}")
+                    errs[name] = max(errs[name], max_abs(a, b))
+                    if mode == "full":
+                        full[k] = a
+                    elif mode == "halfbytes" and name == "floor_band_t":
+                        check(torch.equal(a, full[k]),
+                              f"{label}: {walk_name} halfbytes K={k} "
+                              f"bit-equal to full")
+            if case == FLOOR_CASES[-1] and name not in recs:
+                mode, k = FLOOR_RECORD
+                kern = lambda w=walk: w["run"](mode, k)
+                nbytes = io_bytes(walk["reads"], kern())
+                flops = walk["tested"] * (2 * k + 2)
+                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+                recs[name] = dict(
+                    case=f"{walk_name} walk, 1M splash exact, window "
+                         f"{cfg.pallas_window_t}, {mode}, K={k}; no step "
+                         f"path launches it (0 a step), launches: the "
+                         f"probe's run in phase 19",
+                    ms=time_ms(kern, iters=10, warmup=1),
+                    plain_ms=time_ms(lambda w=walk: w["plain"](mode, k),
+                                     iters=3, warmup=1),
+                    bound_ms=max(t_bytes, t_ops) * 1e3,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    library_ms=None)
+    return errs, recs
 
 
 def probe_records(dev, vpu: dict, gat: dict, mxu: dict) -> dict:
@@ -2464,8 +2557,75 @@ def tools_checks(dev) -> dict:
     return out
 
 
+# the probes' runs in phase 19: the floor probe at its default (1M exact)
+# and at K_c 4; probe_scan at its default (the 32k disk) and on the 1M
+# splash, as the JAX tool's docstring runs it; the other three at their
+# defaults
+FLOOR_K_CS = (0, 4)
+SCAN_CASES = ((32_768, "disk"), (1_000_000, "splash"))
+# the tally's formulations against kdk_integrate's: f32 sums of 1M terms in
+# other orders, |L| over terms of both signs
+TALLY_BAR = 1e-4
+
+
+def tools_probes(dev) -> dict:
+    """The five probes through their mains; returns what each measured and
+    ``floor_launches``, each floor kernel's launches in the floor probe's
+    runs (launch counters reset just before)."""
+    from smoothed_particle_hydrodynamics_tpu_torch.tools import (
+        probe_cond, probe_dispatch, probe_dma_floor, probe_scan, probe_tally)
+
+    def finite_ms(label, vals):
+        check(all(math.isfinite(v) and v > 0 for v in vals),
+              f"{label}: every time finite and positive")
+
+    out = {}
+    t = time.perf_counter()
+    reset_launches()
+    for k_c in FLOOR_K_CS:
+        r = probe_dma_floor.main(k_c=k_c, device=dev)
+        finite_ms(f"probe_dma_floor K_c={k_c}",
+                  [v["ms"] for v in r["rows"].values()]
+                  + list(r["real"].values()))
+        out[f"probe_dma_floor K_c={k_c}"] = {
+            k: r[k] for k in ("rows", "decomposition", "real", "volume")}
+    floor = {name: wrapper(name).launches for name in FLOOR_KERNELS}
+    for name, count in floor.items():
+        check(count > 0, f"probe_dma_floor: {name} launched")
+    print(f"[tools] probe_dma_floor {time.perf_counter() - t:.1f} s, "
+          f"launches {floor}")
+
+    t = time.perf_counter()
+    r = probe_cond.main(device=dev)
+    finite_ms("probe_cond", list(r["median"].values()))
+    out["probe_cond"] = r
+    for n, scene in SCAN_CASES:
+        r = probe_scan.main(n, scene, device=dev)
+        finite_ms(f"probe_scan {scene}", list(r["ms"].values()))
+        out[f"probe_scan {scene}"] = r
+    print(f"[tools] probe_cond, probe_scan {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    r = probe_dispatch.main(device=dev)
+    finite_ms("probe_dispatch", list(r["ms"].values()))
+    out["probe_dispatch"] = r["ms"]
+    r = probe_tally.main(device=dev)
+    finite_ms("probe_tally", list(r["ms"].values()))
+    ref = np.asarray(r["values"]["kdk production (reference point)"])
+    for name, vals in r["values"].items():
+        err = np.abs(np.asarray(vals) - ref) / np.maximum(np.abs(ref), 1e-30)
+        check(bool((err <= TALLY_BAR).all()),
+              f"probe_tally: {name} (KE, PE, |L|) within rel {TALLY_BAR} of "
+              f"kdk_integrate's: {vals} vs {ref.tolist()}")
+    out["probe_tally"] = r["ms"]
+    print(f"[tools] probe_dispatch, probe_tally "
+          f"{time.perf_counter() - t:.1f} s")
+    return dict(probes=out, floor_launches=floor)
+
+
 def tools_phase(dev, fullrun_out: str | None = None) -> dict:
-    """Phase 19; returns the full-run record and the tools' readings.
+    """Phase 19; returns the full-run record, the tools' and the probes'
+    readings and the floor kernels' launches (``tools_probes``).
     ``fullrun_out`` keeps the full-run record (default: a temporary file
     beside the script, removed)."""
     t_phase = time.perf_counter()
@@ -2476,10 +2636,11 @@ def tools_phase(dev, fullrun_out: str | None = None) -> dict:
                             or os.path.join(root, "capped_fullrun.json"))
         print(f"[tools] capped_fullrun {time.perf_counter() - t_phase:.1f} s")
         out = tools_checks(dev)
+        probes = tools_probes(dev)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"[p19] phase 19 took {time.perf_counter() - t_phase:.1f} s")
-    return dict(fullrun=rec, tools=out)
+    return dict(fullrun=rec, tools=out, **probes)
 
 
 def main() -> int:
@@ -2516,10 +2677,10 @@ def main() -> int:
 
     # 1. build from the checkout's sources, one nvcc per source in parallel
     t0 = time.perf_counter()
-    build.build_libraries(["sweep_t", "sweep_lane", "probes"])
-    print(f"[build] sweep_t.cu + sweep_lane.cu + probes.cu built in "
+    build.build_libraries(list(LIBRARIES))
+    print(f"[build] {' + '.join(f'{n}.cu' for n in LIBRARIES)} built in "
           f"{time.perf_counter() - t0:.2f} s")
-    for name in ("sweep_t", "sweep_lane", "probes"):
+    for name in LIBRARIES:
         build.load_library(name)
         print(build.build_log(name).strip())
 
@@ -2975,12 +3136,16 @@ def main() -> int:
     errs["chain_kernel"] = vpu_vs_plain(dev)
     errs["gather_tile_kernel"] = gather_vs_plain(dev)
     errs["d2_tile_kernel"] = mxu_vs_plain(dev)
+    floor_errs, floor_recs = floor_vs_plain(dev)
+    errs.update(floor_errs)
+    times.update(floor_recs)
     gather_in_turns(dev)
     queued_timer(dev)
     chain_ranges(dev)
     reset_launches()
     vpu, gat, mxu = probe_vpu_ops.main(), probe_gather.main(), probe_mxu.main()
-    for name in PROBE_KERNELS:
+    hw_probes = [n for n in PROBE_KERNELS if n not in FLOOR_KERNELS]
+    for name in hw_probes:
         launches[name] = wrapper(name).launches
         check(launches[name] > 0, f"probe run: {name} launched")
     check(mxu["ok"], "d^2 probe: every mode within 1e-4 at the JAX shapes")
@@ -2994,8 +3159,9 @@ def main() -> int:
                  else f"{t['library_ms']:.4f} ms")
               + f", bound {t['bound_ms'] * 1e3:.1f} us ({t['bound_by']}"
               + (f": {t['bound_class']}" if "bound_class" in t else "")
-              + f"), {t['bound_ms'] / t['ms']:.0%} of it; "
-              f"{launches[name]} launches in the probe run")
+              + f"), {t['bound_ms'] / t['ms']:.0%} of it"
+              + (f"; {launches[name]} launches in the probe run"
+                 if name in launches else ""))
     print(f"[probe] phase 15 took {time.perf_counter() - t0:.1f} s")
 
     # 16. the CLI on the card: the reference's headless run with its
@@ -3016,8 +3182,8 @@ def main() -> int:
     #     step, the dry runs, the distributed example, the staging share
     devices_phase(dev)
 
-    # 19. the study and profiling tools
-    tools_phase(dev)
+    # 19. the study and profiling tools and the five probes
+    launches.update(tools_phase(dev)["floor_launches"])
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -74,9 +74,10 @@
 
 #include <climits>
 
+#include "band_walk.cuh"
+
 namespace {
 
-constexpr int kRods = 9;
 // force candidate columns: x y z rimj*vx rimj*vy rimj*vz rimj mj mj*pwj
 constexpr int kForceCols = 9;
 
@@ -86,14 +87,6 @@ enum Excl {
   kExclSrc = 1,     // candidate's full-frame row vs self row (capped)
   kExclSrcSrc = 2,  // candidate's vs self's full-frame row (sub-frame pre-pass)
 };
-
-// Rod r of [(dy, dz) for dy in (-1, 0, 1) for dz in (-1, 0, 1)]: its linear
-// cell-id offset (dz * ny + dy) * nx.
-__device__ __forceinline__ int rod_delta(int r, int nx, int ny) {
-  const int dy = r / 3 - 1;
-  const int dz = r % 3 - 1;
-  return (dz * ny + dy) * nx;
-}
 
 __device__ __forceinline__ float dist2(float dx, float dy, float dz) {
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
@@ -472,9 +465,10 @@ __global__ void fused_kernel_t(FusedArgs a) {
 // (rows shared by a warp broadcast from L1), so the staged walk is kept.
 // Capped, the walk took 0.147 ms (K1) and 0.241 ms (K2) against the block
 // walk's 1.03 and 1.33, testing ~95 rows per lane against ~1030.
-
-constexpr int kBandBlock = 128;   // threads (self rows) per block: 4 warps
-constexpr unsigned kFullMask = 0xffffffffu;
+//
+// The walk (band_rows, Piece, next_piece, stage_rows, band_walk) and its
+// constants live in band_walk.cuh, which csrc/floor_t.cu's floor probe
+// includes too.
 
 // Rows per staged piece.  A rod's warp union is ~64 rows exact and ~18
 // capped.  In turns on an H100 at the 1M splash, 32-row pieces ran capped
@@ -487,95 +481,6 @@ template <int kExcl>
 constexpr int kForcePiece = kExcl == kExclSrc ? 32 : 96;
 // K3 stages capped K2's 40-byte rows in capped K2's 32-row pieces.
 constexpr int kFusedPiece = kForcePiece<kExclSrc>;
-
-// Rows [a, e) of self row i's band for rod delta; the cell range is clamped
-// to [0, num_cells], so a band wholly outside the grid is empty, and the
-// rows to the m candidates.
-__device__ __forceinline__ void band_rows(const int* cell_start, int ci,
-                                          int delta, int num_cells, int m,
-                                          int& a, int& e) {
-  a = min(__ldg(cell_start + min(max(ci + delta - 1, 0), num_cells)), m);
-  e = min(__ldg(cell_start + min(max(ci + delta + 2, 0), num_cells)), m);
-}
-
-// One staged piece of a warp's walk: rows [lo, hi) of rod r's union
-// [.., u_hi), and this lane's band [a, e) in rod r.  r == kRods: done.
-struct Piece {
-  int r, lo, hi, u_hi, a, e;
-};
-
-// Advance p to the warp's next piece of at most kPiece rows: the rest of
-// rod r's union, else the union of the next rod in which some live lane has
-// a non-empty band.  Every lane calls it with the same p.r, p.hi, p.u_hi
-// (warp-uniform).
-template <int kPiece>
-__device__ __forceinline__ void next_piece(Piece& p, const int* cell_start,
-                                           int ci, bool live, int nx, int ny,
-                                           int num_cells, int m) {
-  if (p.hi < p.u_hi) {
-    p.lo = p.hi;
-    p.hi = min(p.lo + kPiece, p.u_hi);
-    return;
-  }
-  while (++p.r < kRods) {
-    int a = 0, e = 0;
-    if (live)
-      band_rows(cell_start, ci, rod_delta(p.r, nx, ny), num_cells, m, a, e);
-    const bool some = a < e;
-    const int lo = __reduce_min_sync(kFullMask, some ? a : INT_MAX);
-    const int hi = __reduce_max_sync(kFullMask, some ? e : 0);
-    if (lo < hi) {
-      p.lo = lo;
-      p.hi = min(lo + kPiece, hi);
-      p.u_hi = hi;
-      p.a = a;
-      p.e = e;
-      return;
-    }
-  }
-}
-
-// Copy rows [lo, hi) of a row-major [m, W] array to dst[(j - lo) * W + c]:
-// the lanes take consecutive words (coalesced), asynchronously.
-template <int W, typename T>
-__device__ __forceinline__ void stage_rows(T* dst, const T* src, int lo,
-                                           int hi, int lane) {
-  const T* s = src + static_cast<long long>(lo) * W;
-  const int words = (hi - lo) * W;
-  for (int w = lane; w < words; w += 32)
-    __pipeline_memcpy_async(dst + w, s + w, sizeof(T));
-}
-
-// The staged walk both band kernels share.  Per warp, two slots of kPiece
-// rows of kWords words each (double-buffered); stage(dst, piece) issues a
-// piece's copies into a slot, and test(slot, piece) tests this lane's band
-// rows in it once they have landed.
-template <int kPiece, int kWords, typename Stage, typename Test>
-__device__ __forceinline__ void band_walk(const int* cell_start, int ci,
-                                          bool live, int nx, int ny,
-                                          int num_cells, int m, Stage stage,
-                                          Test test) {
-  extern __shared__ float smem[];
-  constexpr int kSlot = kPiece * kWords;
-  float* buf = smem + (threadIdx.x >> 5) * 2 * kSlot;
-  Piece cur{-1, 0, 0, 0, 0, 0};
-  next_piece<kPiece>(cur, cell_start, ci, live, nx, ny, num_cells, m);
-  if (cur.r < kRods) stage(buf, cur);
-  __pipeline_commit();
-  int slot = 0;
-  while (cur.r < kRods) {
-    Piece nxt = cur;
-    next_piece<kPiece>(nxt, cell_start, ci, live, nx, ny, num_cells, m);
-    if (nxt.r < kRods) stage(buf + (slot ^ 1) * kSlot, nxt);
-    __pipeline_commit();
-    __pipeline_wait_prior(1);  // cur's rows have landed
-    __syncwarp();
-    test(buf + slot * kSlot, cur);
-    __syncwarp();  // every lane is done with this slot before its restage
-    cur = nxt;
-    slot ^= 1;
-  }
-}
 
 // Staged words per candidate row: K1 x y z m, K2 and K3 the kForceCols
 // columns, each + the candidate's src row but in exact mode (kExclRow).

@@ -10,7 +10,13 @@ Each runs on the card (``cuda``) and stops when there is none; ``--device
 cpu`` runs the plain PyTorch versions at small sizes, with host times.  The
 kernels live in ``csrc/probes.cu`` (built on first use, like the sweeps);
 each module holds a kernel's counted wrapper, its plain version and the
-probe's main routine.  This module holds what the three share: the library, the
+probe's main routine.  ``probe_dma_floor`` (kernels in ``csrc/floor_t.cu``)
+splits a sweep's time into staged bytes, the walk and the arithmetic, on
+the JAX probe's window walk and on the port's band walk; ``probe_cond``,
+``probe_scan``, ``probe_dispatch`` and ``probe_tally`` have no kernel and
+time the step's host side (the drift test's read, K frozen steps as one
+CUDA graph, launches, the tally's reductions), with the study tools'
+conventions below.  This module holds what the three share: the library, the
 timer (CUDA events around launches that are already queued behind a sleep
 on the card, so a kernel shorter than its host call is timed, not the
 host), the error measure and the card's peaks and issue rates

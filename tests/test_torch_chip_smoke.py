@@ -78,6 +78,24 @@ def test_chip_smoke_without_cuda_exits_1_and_leaves_nothing():
     assert rep["after_exit"] == [{"t": 0.0, "left": {}}]
 
 
+def test_floor_kernels_are_listed_with_the_tpu_kernel_they_replace():
+    """The floor probe's two kernels in ``KERNELS`` and ``PROBE_KERNELS``:
+    built from ``csrc/floor_t.cu`` (in ``LIBRARIES``), each wrapper counted,
+    and ``replaces`` naming the line of the JAX tool's ``_probe_kernel``."""
+    import chip_smoke as cs
+
+    assert "floor_t" in cs.LIBRARIES
+    for name in cs.FLOOR_KERNELS:
+        k = cs.KERNELS[name]
+        assert name in cs.PROBE_KERNELS and k.module == "floor"
+        assert (ROOT / k.source).exists() and k.source == cs.SOURCE_FLOOR
+        path, line = k.replaces.split(":")
+        src = (ROOT / path).read_text().splitlines()[int(line) - 1]
+        assert src.startswith("def _probe_kernel("), src
+        assert hasattr(cs.wrapper(name), "launches")
+        assert callable(getattr(cs._module(name), k.twin))
+
+
 # ---------------------------------------------------------------------------
 # phase 17's helpers on the CPU, at small sizes (on the card they compare
 # the card's results with the CPU's; here both sides run on the CPU)
@@ -181,3 +199,48 @@ def test_phase18_runs_three_way_and_staging(smoke, monkeypatch, tmp_path,
     assert out.count("[devices three-way 1M]") == 2
     assert out.count("[devices staging] rank") == 2
     assert "NCCL at --devices 2: not run (0 cards" in out
+
+
+# ---------------------------------------------------------------------------
+# phase 15's floor checks and phase 19's probes on the CPU, at small sizes
+# (the plain versions on both sides; the CPU launches no kernel, so the
+# launch checks are the ones left to fail)
+# ---------------------------------------------------------------------------
+
+def test_phase15_floor_checks_and_phase19_probes(smoke, monkeypatch, capsys):
+    import functools
+
+    from smoothed_particle_hydrodynamics_tpu_torch.tools import (
+        probe_cond, probe_dispatch, probe_dma_floor, probe_scan, probe_tally)
+
+    cs, dev = smoke
+    failed = []
+    monkeypatch.setattr(cs, "check", lambda ok, what: ok or failed.append(
+        what))
+    monkeypatch.setattr(cs, "time_ms", lambda fn, iters=1, warmup=0: (
+        fn(), 1.0)[1])
+    monkeypatch.setattr(cs, "FLOOR_CASES", ((1024, 0, None, (2,)),
+                                            (1024, 4, None, (2,)),
+                                            (2048, 0, ("full", "nostage"),
+                                             (2,))))
+    errs, recs = cs.floor_vs_plain(dev)
+    assert not failed and set(errs) == set(recs) == set(cs.FLOOR_KERNELS)
+    for rec in recs.values():
+        assert rec["library_ms"] is None and rec["bound_ms"] > 0
+        assert rec["bound_by"] in ("bytes", "operations")
+    small = dict(n=512, iters=1)
+    for mod, kw in ((probe_dma_floor, small), (probe_cond, dict(
+            n=512, rounds=1)), (probe_dispatch, small), (probe_tally, small)):
+        monkeypatch.setattr(mod, "main", functools.partial(mod.main, **kw))
+    monkeypatch.setattr(probe_scan, "main", functools.partial(
+        probe_scan.main, k=2, rounds=1))
+    monkeypatch.setattr(cs, "SCAN_CASES", ((512, "disk"), (512, "splash")))
+    r = cs.tools_probes(dev)
+    assert failed == [f"probe_dma_floor: {n} launched"
+                      for n in cs.FLOOR_KERNELS]
+    assert set(r["probes"]) == {
+        "probe_dma_floor K_c=0", "probe_dma_floor K_c=4", "probe_cond",
+        "probe_scan disk", "probe_scan splash", "probe_dispatch",
+        "probe_tally"}
+    out = capsys.readouterr().out
+    assert out.count("[probe floor") == 3 * 3 + 3 * 3 + 3 * 2

@@ -19,7 +19,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "smoothed_particle_hydrodynamics_tpu_torch"
 TOOLS = ("capped_fullrun", "capped_noise", "trace_drift", "ab_engines",
          "profile_pallas", "profile_prepare", "profile_lazy", "profile_slab",
-         "profile_step", "ab_dials", "ab_slab", "microbench")
+         "profile_step", "ab_dials", "ab_slab", "microbench",
+         "probe_dma_floor", "probe_cond", "probe_scan", "probe_dispatch",
+         "probe_tally")
 
 
 def _jax_positionals(name: str) -> list:
