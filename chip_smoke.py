@@ -210,7 +210,18 @@ Phases (every failed check raises, and the script exits nonzero):
    line: no step path runs them), ``probe_cond``, ``probe_scan`` on the 32k
    disk and the 1M splash (K frozen steps as one CUDA graph),
    ``probe_dispatch`` and ``probe_tally`` (its five formulations' KE, PE
-   and |L| within ``TALLY_BAR`` of ``kdk_integrate``'s), every time finite.
+   and |L| within ``TALLY_BAR`` of ``kdk_integrate``'s), every time finite;
+   last ``scale_projection`` (``tools_projection``) at 125k a card of an
+   8-card run (``grid_nz`` 16), both slab rows in processes of their own,
+   no drop, no truncation, every time finite;
+20. the single-card 10M configurations (``tenm_phase``): ``bench.py``'s
+   ``capped_k4_10m`` row (the splash, K_c 4) and the 10M dam break
+   (exact, window 208), each first as a state whose K1 and K2 are held
+   against their twins over every row (counts equal, rho rel-L2 <= 1e-6,
+   acc rel-L2 <= 1e-4), then as its ``bench`` loop through the CLI with
+   its K1/K2 counted from 0: ms/step, rebins, ``truncated_ranges`` (0 in
+   every step), window, sub frame and the peak allocated memory printed,
+   every value finite.
 
 It then prints the card's name and power limit, one JSON line of kernel
 records (time, twin time, launches, error, and the bound: the larger of the
@@ -220,7 +231,9 @@ case its record names, the chain's instructions counted from its unrolled
 body's SASS over the card's issue rates (f32, MUFU and integer work;
 control left out), the gather's bytes, the d^2
 tile's tensor-core flops over 495 TFLOP/s TF32, or the floor ladder's
-flops, 2K + 2 a tested lane-row, over 67 TFLOP/s, and the PyTorch call that
+lane instructions, K + 2 a tested lane-row, over the card's 128 lanes a
+clock a SM (``tools/probe_dma_floor.py``'s ``ladder_ops`` and
+``issue_ms``, the tool's own count), and the PyTorch call that
 computes the same function as ``library_ms``), and last ``{"ok": true,
 "device": {...}}``.  With no CUDA device it exits 1 before printing any result.
 On every exit it stops the resource tracker that the spawned ranks started,
@@ -1376,9 +1389,10 @@ def floor_vs_plain(dev) -> tuple[dict, dict]:
             if case == FLOOR_CASES[-1] and name not in recs:
                 mode, k = FLOOR_RECORD
                 kern = lambda w=walk: w["run"](mode, k)
-                nbytes = io_bytes(walk["reads"], kern())
-                flops = walk["tested"] * (2 * k + 2)
-                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+                # the tool's bound: its ladders' lane instructions at the
+                # card's issue rate, beside each input read once
+                t_bytes = io_bytes(walk["reads"], kern()) / HBM_BYTES_PER_S
+                t_ops = pf.issue_ms(pf.ladder_ops(walk, k), dev) * 1e-3
                 recs[name] = dict(
                     case=f"{walk_name} walk, 1M splash exact, window "
                          f"{cfg.pallas_window_t}, {mode}, K={k}; no step "
@@ -1389,6 +1403,7 @@ def floor_vs_plain(dev) -> tuple[dict, dict]:
                                      iters=3, warmup=1),
                     bound_ms=max(t_bytes, t_ops) * 1e3,
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    bound_bytes_ms=t_bytes * 1e3, bound_ops_ms=t_ops * 1e3,
                     library_ms=None)
     return errs, recs
 
@@ -2623,6 +2638,44 @@ def tools_probes(dev) -> dict:
     return dict(probes=out, floor_launches=floor)
 
 
+# phase 19's run of the strong-scaling projection: one size (125k a card of
+# an 8-card run, grid_nz 16) and both of bench.py's slab rows
+PROJECTION_SIZES, PROJECTION_CHIPS = "125000", 8
+PROJECTION_ROWS = "slab_1dev,slab_capped_k4"
+PROJECTION_TIMEOUT_S = 300.0
+
+
+def tools_projection(dev, root: str) -> dict:
+    """``tools/scale_projection`` at ``PROJECTION_SIZES``: every row
+    measured in its own process, none lost a particle or a candidate, every
+    time finite, the modeled hop in each row."""
+    from smoothed_particle_hydrodynamics_tpu_torch.tools import (
+        scale_projection)
+
+    t = time.perf_counter()
+    doc = scale_projection.main(
+        sizes=PROJECTION_SIZES, chips=PROJECTION_CHIPS, rows=PROJECTION_ROWS,
+        out=os.path.join(root, "scale_projection.json"), device=dev,
+        timeout=PROJECTION_TIMEOUT_S)
+    want = len(PROJECTION_SIZES.split(",")) * len(PROJECTION_ROWS.split(","))
+    check(not doc["failed"] and len(doc["rows"]) == want,
+          f"scale_projection: {want} rows measured, failed {doc['failed']}")
+    link = f"projected_pps_x{PROJECTION_CHIPS}_with_link"
+    for r in doc["rows"]:
+        check(scale_projection.lossless(r),
+              f"scale_projection {r['row']} @ {r['n_per_chip']}: no drop, "
+              f"no truncation, finite: {r}")
+        check(all(math.isfinite(r[k]) and r[k] > 0 for k in (
+            "ms_per_step", "link_ms_per_step", "ms_per_step_with_link",
+            link)), f"scale_projection {r['row']}: finite times")
+        print(f"[tools] scale_projection {r['row']} @ {r['n_per_chip']}: "
+              f"{r['ms_per_step']:.4f} ms/step, with link "
+              f"{r['ms_per_step_with_link']:.4f}, rebins {r['rebins']}, "
+              f"h_cap {r['h_cap']}, window {r['window_t']}")
+    print(f"[tools] scale_projection {time.perf_counter() - t:.1f} s")
+    return doc
+
+
 def tools_phase(dev, fullrun_out: str | None = None) -> dict:
     """Phase 19; returns the full-run record, the tools' and the probes'
     readings and the floor kernels' launches (``tools_probes``).
@@ -2637,10 +2690,162 @@ def tools_phase(dev, fullrun_out: str | None = None) -> dict:
         print(f"[tools] capped_fullrun {time.perf_counter() - t_phase:.1f} s")
         out = tools_checks(dev)
         probes = tools_probes(dev)
+        out["scale_projection"] = tools_projection(dev, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"[p19] phase 19 took {time.perf_counter() - t_phase:.1f} s")
     return dict(fullrun=rec, tools=out, **probes)
+
+
+# phase 20: the single-card 10M configurations through the port's entry
+# points.  bench.py's capped_k4_10m row (bench.py:133-145: 8 steps after 3
+# warmup) and the 10M dam break at the settings `python bench.py --scene
+# dam_break_10m -n 10000000` gives it (bench.py:223-229, with its 50 steps
+# after 5 warmup): name -> (scene, config overrides, bench arguments, the
+# step kernels it runs: K1 and K2 in KERNELS)
+TENM_N = 10_000_000
+TENM = {
+    "capped_k4_10m": ("splash", dict(
+        num_particles=TENM_N, cell_size_factor=1.25, capped_candidates=4,
+        pallas_window_t=0, pallas_block_t=256),
+        ["--steps", "8", "--warmup", "3"],
+        ("density_band_t<capped>", "force_band_t<capped>")),
+    "dam_break_10m": ("dam_break_10m", dict(
+        num_particles=TENM_N, cell_size_factor=1.25, pallas_window_t=208),
+        ["--steps", "50", "--warmup", "5"], ("density_band_t", "force_band_t")),
+}
+
+
+def peak_gb(dev) -> float:
+    """``torch.cuda.max_memory_allocated`` in GB (0 on the CPU)."""
+    return (torch.cuda.max_memory_allocated(dev) / 1e9
+            if dev.type == "cuda" else 0.0)
+
+
+def reset_peak(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def tenm_vs_twins(dev, name: str) -> dict:
+    """K1 and K2 of ``TENM[name]``'s first state (its sweep settings
+    resolved as ``bench`` resolves them) against their twins over every
+    row: counts equal, rho rel-L2 <= 1e-6, acc rel-L2 <= 1e-4, every
+    output finite."""
+    from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
+    from smoothed_particle_hydrodynamics_tpu_torch.utils.benchmark import (
+        resolve_scene)
+
+    t0 = time.perf_counter()
+    reset_peak(dev)
+    scene, ov, _, (k1, k2) = TENM[name]
+    cfg, state = resolve_scene(scene, dev, ov, backend="pallas")
+    p = sw.prepare_t(cfg, state)
+    del state
+    label = f"10M {name}"
+    if cfg.capped_candidates:
+        pos_c, vel_c = sw.gather_sub_pv(p)
+        args_d = (cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc, pos_c, p.wm_sub,
+                  p.cand_cid, p.sub_perm, p.cell_start)
+        rho_k, nc_k = sw.density_capped_t(*args_d)
+        cand = sw.fused_cand_cols(cfg, pos_c, vel_c, rho_k[p.sub_perm],
+                                  p.wm_sub)
+        args_f = (cfg, p.pos_s, p.vel_s, rho_k, cand, p.cid, p.ws, p.wc,
+                  p.cand_cid, p.sub_perm, p.cell_start)
+        acc_k = sw.force_capped_t(*args_f)
+        frame = (f"sub frame {p.sub_perm.shape[0]} rows, kept "
+                 f"{int((p.cand_cid >= 0).sum())}, sub_dropped "
+                 f"{int(p.sub_dropped)}")
+        check(int(p.sub_dropped) == 0, f"{label}: sub_dropped 0")
+    else:
+        args_d = (cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc, p.cell_start)
+        rho_k, nc_k = sw.density_t(*args_d)
+        cand = sw.fused_cand_cols(cfg, p.pos_s, p.vel_s, rho_k, p.mass_s)
+        args_f = (cfg, p.pos_s, p.vel_s, rho_k, cand, p.cid, p.ws, p.wc,
+                  p.cell_start)
+        acc_k = sw.force_t(*args_f)
+        frame = "no sub frame (exact)"
+    torch.cuda.synchronize()
+    t_kernels = time.perf_counter() - t0
+    rho_p, nc_p = sw.density_t_plain(*args_d[:-1])
+    acc_p = sw.force_t_plain(*args_f[:-1])
+    torch.cuda.synchronize()
+    widest = int(p.wc.view(-1, sw.NRODS).sum(1).argmax())
+    print(f"[{label}] n={p.pos_s.shape[0]} grid {cfg.grid_nx}x{cfg.grid_ny}"
+          f"x{cfg.grid_nz} window={cfg.pallas_window_t} "
+          f"block={cfg.pallas_block_t} capped_sub_len={cfg.capped_sub_len} "
+          f"{frame}; max_wc={int(p.wc.max())} (widest block {widest} of "
+          f"{p.wc.numel() // sw.NRODS}); twins over all rows")
+    fin = all(bool(torch.isfinite(x).all()) for x in (rho_k, acc_k))
+    check(fin, f"{label}: K1 and K2 outputs finite")
+    errs = {k1: agree(label, k1, rho_k, rho_p, (nc_k, nc_p)),
+            k2: agree(label, k2, acc_k, acc_p, bar=ACC_BAR)}
+    out = dict(errs=errs, kernels_s=t_kernels,
+               twins_s=time.perf_counter() - t0 - t_kernels,
+               peak_gb=peak_gb(dev), window_t=cfg.pallas_window_t,
+               capped_sub_len=cfg.capped_sub_len)
+    print(f"[{label}] state, prepare_t and kernels {out['kernels_s']:.1f} s, "
+          f"twins {out['twins_s']:.1f} s, peak allocated "
+          f"{out['peak_gb']:.3f} GB")
+    return out
+
+
+def tenm_bench(dev, name: str) -> dict:
+    """``bench`` on ``TENM[name]`` through the CLI, its K1/K2 counted from 0:
+    ms/step, rebins and ``truncated_ranges`` (0 in every step), the window,
+    block and sub frame, the peak allocated memory; every value finite."""
+    scene, ov, extra, kernels = TENM[name]
+    argv = ["bench", "--scene", scene, "-n", str(ov["num_particles"]),
+            "--backend", "pallas", "--lazy", *extra]
+    for k, v in ov.items():
+        if k != "num_particles":
+            argv += ["--set", f"{k}={json.dumps(v)}"]
+    label = f"10M {name}"
+    reset_peak(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    rc, text = cli(argv)
+    wall = time.perf_counter() - t0
+    r = json.loads(text.strip().splitlines()[-1])
+    counts = {k: wrapper(k).launches for k in kernels}
+    steps = r["steps"] + r["warmup_steps"]
+    trunc = max(r["truncated_ranges"])
+    out = dict(ms_per_step=r["ms_per_step"], steps=r["steps"],
+               warmup_steps=r["warmup_steps"], rebins=r["rebins"],
+               truncated_ranges=trunc, window_t=r["window_t"],
+               block_t=r["block_t"], capped_sub_len=r["capped_sub_len"],
+               peak_gb=peak_gb(dev), launches=counts, wall_s=wall,
+               finite=r["finite"])
+    print(f"[{label}] bench {' '.join(argv[1:])}: rc={rc} "
+          f"{out['ms_per_step']:.4f} ms/step over {r['steps']} steps after "
+          f"{r['warmup_steps']} warmup, rebins {out['rebins']}, "
+          f"truncated_ranges max {trunc}, window {out['window_t']}, block "
+          f"{out['block_t']}, capped_sub_len (sub frame) "
+          f"{out['capped_sub_len']}, peak allocated {out['peak_gb']:.3f} GB, "
+          f"launches {counts}, finite={r['finite']}, {wall:.1f} s")
+    check(rc == 0 and r["num_particles"] == ov["num_particles"],
+          f"{label}: bench ran at {ov['num_particles']}")
+    check(r["finite"] and math.isfinite(out["ms_per_step"])
+          and out["ms_per_step"] > 0 and all(
+              math.isfinite(x) for x in r["kinetic_energy"]),
+          f"{label}: finite state, energies and ms/step")
+    check(trunc == 0, f"{label}: truncated_ranges 0 in every step")
+    for k, n in counts.items():
+        check(n == steps, f"{label}: {k} launched {n} times in {steps} steps")
+    return out
+
+
+def tenm_phase(dev) -> dict:
+    """Phase 20: each 10M configuration's kernels against their twins on its
+    first state, then its ``bench`` loop."""
+    t_phase = time.perf_counter()
+    out = {}
+    for name in TENM:
+        out[name] = dict(twins=tenm_vs_twins(dev, name),
+                         bench=tenm_bench(dev, name))
+    print(f"[p20] phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -3182,8 +3387,13 @@ def main() -> int:
     #     step, the dry runs, the distributed example, the staging share
     devices_phase(dev)
 
-    # 19. the study and profiling tools and the five probes
+    # 19. the study and profiling tools, the five probes and the
+    #     strong-scaling projection
     launches.update(tools_phase(dev)["floor_launches"])
+
+    # 20. the single-card 10M configurations: kernels against twins, then
+    #     the bench loops
+    tenm_phase(dev)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -29,6 +29,8 @@ from ..ops.physics import central_gravity
 from . import Phases, start
 
 ITERS = 20
+SPLASH_N = 1_000_000
+ONE_LAUNCH = "x + 1  (one launch)"
 
 
 def chain10(x: torch.Tensor) -> torch.Tensor:
@@ -58,7 +60,7 @@ def variants(cfg, state, acc) -> dict:
     """label -> call: the probe's programs on ``state``."""
     x = state.position
     return {
-        "x + 1  (one launch)": lambda: x + 1.0,
+        ONE_LAUNCH: lambda: x + 1.0,
         "sum(x)  (one reduce)": lambda: x.sum(),
         "10-op elementwise chain (10 launches)": lambda: chain10(x),
         "8 reduce barriers (24 launches)": lambda: barriers8(x),
@@ -73,7 +75,7 @@ def variants(cfg, state, acc) -> dict:
     }
 
 
-def main(n=1_000_000, device="cuda", iters=ITERS) -> dict:
+def main(n=SPLASH_N, device="cuda", iters=ITERS) -> dict:
     dev = start(device)
     cfg, state = make_scene("splash", device=dev, num_particles=n)
     acc = torch.zeros_like(state.position)
@@ -84,11 +86,21 @@ def main(n=1_000_000, device="cuda", iters=ITERS) -> dict:
     return dict(ms=ph.ms)
 
 
+def one_launch_ms(n=SPLASH_N, device="cuda", iters=ITERS) -> float:
+    """The probe's first program alone (``ONE_LAUNCH``), timed as ``main``
+    times it: the host cost of one launch, with its device work."""
+    dev = torch.device(device)
+    cfg, state = make_scene("splash", device=dev, num_particles=n)
+    ph = Phases(dev, width=40)
+    ph.host(ONE_LAUNCH, variants(cfg, state, None)[ONE_LAUNCH], iters=iters)
+    return ph.ms[ONE_LAUNCH]
+
+
 def cli(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m smoothed_particle_hydrodynamics_tpu_torch.tools."
              "probe_dispatch")
-    ap.add_argument("n", nargs="?", type=int, default=1_000_000)
+    ap.add_argument("n", nargs="?", type=int, default=SPLASH_N)
     ap.add_argument("--device", default="cuda")
     a = ap.parse_args(argv)
     main(a.n, device=a.device)

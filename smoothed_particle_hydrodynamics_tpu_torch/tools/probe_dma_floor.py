@@ -42,7 +42,9 @@ The probe prints the card's line, the swept volume, then per walk (window;
 band at W 4; band at W 9), mode and K in (2, 12, 24) the kernel's time
 (``tools.timing``: queued CUDA events) beside its bound (``tools.bound``:
 the bytes staged over 3.35 TB/s, or the ladder's lane operations, K + 2 a
-tested row, over the card's 128 lanes a clock a SM).  Per walk and K, the
+tested row, over the card's 128 lanes a clock a SM) and that issue bound
+alone (``chip_smoke.py``'s kernels line bounds the floor kernels by it and
+each input read once).  Per walk and K, the
 JAX tool's decomposition: bytes(half) = full - halfbytes, staging = full -
 nostage, walk + ladder = nostage; the FMA slope of nostage over K and the
 rate it implies, and its intercept at K = 0: the walk alone.  Last, real K1
@@ -355,6 +357,14 @@ def real_sweeps(cfg, p) -> dict:
                 p.cell_start)}
 
 
+def ladder_ops(walk: dict, k: int) -> float:
+    """The lane instructions of a walk's ladders at depth ``k``: per tested
+    lane-row one FSUB (u = x_j - x_i), K FFMAs and one FADD (the sum), each
+    a full issue slot (``csrc/floor_t.cu``, ``ladder`` and the sums around
+    it).  The bound of both floor kernels here and in ``chip_smoke.py``."""
+    return walk["tested"] * (k + 2)
+
+
 def issue_ms(ops: float, dev: torch.device) -> float:
     """Least ms for ``ops`` lane operations at the card's issue rate (128
     lanes a clock a SM); NaN on the CPU."""
@@ -400,12 +410,13 @@ def main(n=1_000_000, k_c=0, device="cuda", iters=20) -> dict:
             for k in KS:
                 t = timing(lambda: walk["run"](mode, k), dev, iters)["ms"]
                 ms[(mode, k)] = t
-                b_ms, by = bound(walk["bytes"][mode],
-                                 issue_ms(walk["tested"] * (k + 2), dev))
+                ops_ms = issue_ms(ladder_ops(walk, k), dev)
+                b_ms, by = bound(walk["bytes"][mode], ops_ms)
                 rows[f"{name} {mode} K={k}"] = dict(
-                    ms=t, bound_ms=b_ms, bound_by=by)
+                    ms=t, bound_ms=b_ms, bound_by=by, issue_ms=ops_ms)
                 print(f"{name:8s} {mode:10s} {k:3d} FMA/lane {t:9.4f} ms"
-                      f"{host}  bound {b_ms:.4f} ms ({by})", flush=True)
+                      f"{host}  bound {b_ms:.4f} ms ({by}; issue "
+                      f"{ops_ms:.4f} ms)", flush=True)
         decomp[name] = decompose(ms)
     print()
     for name, d in decomp.items():

@@ -244,3 +244,84 @@ def test_phase15_floor_checks_and_phase19_probes(smoke, monkeypatch, capsys):
         "probe_tally"}
     out = capsys.readouterr().out
     assert out.count("[probe floor") == 3 * 3 + 3 * 3 + 3 * 2
+
+
+def test_floor_bounds_are_the_tools_issue_count(smoke, monkeypatch, capsys):
+    """The kernels line's bound of both floor kernels: the floor probe's
+    own count (``ladder_ops``, K + 2 lane instructions a tested lane-row)
+    at the card's issue rate (``issue_ms``), beside each input read once;
+    the tool's row at the same case carries the same number.  The card is
+    stood in by an H100's 132 SMs at 1.98 GHz."""
+    import torch
+
+    from smoothed_particle_hydrodynamics_tpu_torch.tools import (
+        probe_dma_floor as pf)
+
+    cs, dev = smoke
+    card = dict(name="NVIDIA H100 80GB HBM3", sms=132, clock_hz=1.98e9)
+    monkeypatch.setattr(pf, "card", lambda index=0: card)
+    issue = pf.issue_ms
+    monkeypatch.setattr(pf, "issue_ms", lambda ops, d: issue(
+        ops, torch.device("cuda")))
+    monkeypatch.setattr(cs, "time_ms", lambda fn, iters=1, warmup=0: (
+        fn(), 1.0)[1])
+    monkeypatch.setattr(cs, "FLOOR_CASES", ((2048, 0, ("full",), (2,)),))
+    _, recs = cs.floor_vs_plain(dev)
+    r = pf.main(n=2048, k_c=0, device=dev, iters=1)
+    cfg, p = pf.setup(2048, 0, dev)
+    walks = pf.walks(cfg, p)
+    rate = 128 * 132 * 1.98e9
+    for name, walk in (("floor_window_t", "window"),
+                       ("floor_band_t", "band W4")):
+        rec, tool = recs[name], r["rows"][f"{walk} full K=2"]["issue_ms"]
+        assert tool == pytest.approx(walks[walk]["tested"] * 4 / rate * 1e3,
+                                     rel=1e-12)
+        assert rec["bound_ops_ms"] == pytest.approx(tool, rel=1e-12)
+        assert rec["bound_ms"] == max(rec["bound_ops_ms"],
+                                      rec["bound_bytes_ms"])
+        assert rec["bound_by"] == ("operations" if rec["bound_ops_ms"]
+                                   > rec["bound_bytes_ms"] else "bytes")
+
+
+# ---------------------------------------------------------------------------
+# phase 19's strong-scaling projection and phase 20's 10M checks on the
+# CPU, at small sizes (phase 20's wrappers run their twins here, so its
+# launch checks are the ones left to fail)
+# ---------------------------------------------------------------------------
+
+def test_phase19_scale_projection(smoke, monkeypatch, tmp_path, capsys):
+    cs, dev = smoke
+    small = ":grid_nx=16:grid_ny=16:scan_block=2"
+    monkeypatch.setattr(cs, "PROJECTION_SIZES", "2048")
+    monkeypatch.setattr(cs, "PROJECTION_ROWS",
+                        f"slab_1dev{small},slab_capped_k4{small}")
+    doc = cs.tools_projection(dev, str(tmp_path))
+    assert [r["row"].split("+")[0] for r in doc["rows"]] == [
+        "slab_1dev", "slab_capped_k4"]
+    out = capsys.readouterr().out
+    assert out.count("[tools] scale_projection slab_") == 2
+    assert "[tools] scale_projection " in out.splitlines()[-1]
+
+
+def test_phase20_tenm_checks(smoke, monkeypatch, capsys):
+    cs, dev = smoke
+    failed = []
+    monkeypatch.setattr(cs, "check", lambda ok, what: ok or failed.append(
+        what))
+    grid = dict(num_particles=4096, grid_nx=16, grid_ny=16, grid_nz=16)
+    steps = ["--steps", "3", "--warmup", "2"]
+    monkeypatch.setattr(cs, "TENM", {
+        name: (scene, dict(ov, **grid), steps, kernels)
+        for name, (scene, ov, _, kernels) in cs.TENM.items()})
+    out = cs.tenm_phase(dev)
+    assert failed == [f"10M {name}: {k} launched 0 times in 5 steps"
+                      for name, t in cs.TENM.items() for k in t[3]]
+    for name, r in out.items():
+        assert r["bench"]["steps"] == 3 and r["bench"]["finite"]
+        assert r["bench"]["truncated_ranges"] == 0
+        assert set(r["twins"]["errs"]) == set(cs.TENM[name][3])
+    assert out["capped_k4_10m"]["bench"]["capped_sub_len"] > 0
+    assert out["dam_break_10m"]["bench"]["window_t"] == 208
+    text = capsys.readouterr().out
+    assert text.count("counts_equal=True") == 2
+    assert "[p20] phase 20 took" in text

@@ -21,7 +21,7 @@ TOOLS = ("capped_fullrun", "capped_noise", "trace_drift", "ab_engines",
          "profile_pallas", "profile_prepare", "profile_lazy", "profile_slab",
          "profile_step", "ab_dials", "ab_slab", "microbench",
          "probe_dma_floor", "probe_cond", "probe_scan", "probe_dispatch",
-         "probe_tally")
+         "probe_tally", "scale_projection")
 
 
 def _jax_positionals(name: str) -> list:
