@@ -14,7 +14,9 @@ Phases (every failed check raises, and the script exits nonzero):
    on the card (neighbor counts equal, rho rel-L2 <= 1e-6, acc rel-L2 <=
    1e-4) and against the block-walk kernels (``density_kernel_t`` and
    ``force_kernel_t`` with ``EXCL_ROW``) on the same tensors: counts, rho
-   and acc bit-equal;
+   and acc bit-equal; the counter kernel ``band_rows_t`` (the lane-rows
+   of a band sweep, ``sweeps.rows_tested``) equal to its twin, 32 times
+   ``walk_stats.band_sums``' warp union, exactly;
 3. exact mode, 4096-particle splash: the kernel-backed step quantities
    against the O(N^2) pairwise oracle, with the same bars;
 4. exact mode, 1M splash shapes: the same checks at the main path's
@@ -32,7 +34,7 @@ Phases (every failed check raises, and the script exits nonzero):
    pre-pass against ``density_kernel_t`` with ``EXCL_SRC_SRC`` (rho and
    counts bit-equal on the kept sub rows; the tail rows count 0); K3's rho
    and counts bit-equal to capped K1's; the pre-pass's rows per thread and
-   lane;
+   lane; ``band_rows_t`` over the sub frame's table equal to its twin;
 6. capped mode, 4096-particle splash with a keep-all cap (K_c = the largest
    cell occupancy), two-pass and fused, against the pairwise oracle;
 7. capped mode, 1M splash shapes: the same checks, the rows tested per
@@ -60,8 +62,9 @@ Phases (every failed check raises, and the script exits nonzero):
    block 256, window and sub-frame length derived), then the 1M lane splash
    eager (rebinned every step) for 3 + 20 steps.  Each kernel of a path
    must have launched once per step, no block walk of ``ops/sweeps_t.py``
-   (``density_kernel_t``, ``force_kernel_t``, ``fused_kernel_t``) on any
-   path, no step may drop candidates
+   (``density_kernel_t``, ``force_kernel_t``, ``fused_kernel_t``) and no
+   ``band_rows_t`` (no profiler records) on any path, no step may drop
+   candidates
    (``truncated_ranges`` 0) and the final state must be finite; after the
    capped run, one lazy step from the same state, capped and exact, must
    give densities whose means agree within 1 %.  Last, the
@@ -218,7 +221,7 @@ Phases (every failed check raises, and the script exits nonzero):
    ``capped_k4_10m`` row (the splash, K_c 4) and the 10M dam break
    (exact, window 208), each first as a state whose K1 and K2 are held
    against their twins over every row (counts equal, rho rel-L2 <= 1e-6,
-   acc rel-L2 <= 1e-4), then as its ``bench`` loop through the CLI with
+   acc rel-L2 <= 1e-4) and ``band_rows_t`` equal to its twin, then as its ``bench`` loop through the CLI with
    its K1/K2 counted from 0: ms/step, rebins, ``truncated_ranges`` (0 in
    every step), window, sub frame and the peak allocated memory printed,
    every value finite.
@@ -234,7 +237,9 @@ tile's tensor-core flops over 495 TFLOP/s TF32, or the floor ladder's
 lane instructions, K + 2 a tested lane-row, over the card's 128 lanes a
 clock a SM (``tools/probe_dma_floor.py``'s ``ladder_ops`` and
 ``issue_ms``, the tool's own count), and the PyTorch call that
-computes the same function as ``library_ms``), and last ``{"ok": true,
+computes the same function as ``library_ms``; under ``counters``, the
+counter kernel ``band_rows_t``'s launches in the main paths, 0), and last
+``{"ok": true,
 "device": {...}}``.  With no CUDA device it exits 1 before printing any result.
 On every exit it stops the resource tracker that the spawned ranks started,
 so no process of the script outlives it (every rank pool and spawn of
@@ -470,6 +475,26 @@ def sublane_rows(cfg, p, m: int) -> tuple[float, dict]:
             band_rows_per_lane(cfg, p.cid, p.cell_start, m))
 
 
+def rows_tested_vs_twin(cfg, p, m: int, label: str) -> int:
+    """The counter kernel ``band_rows_t`` (the lane-rows a band sweep of the
+    self rows tests: ``sweeps.rows_tested``) on ``p``'s bins over ``m``
+    candidate rows, equal to its twin (32 times ``walk_stats.band_sums``'
+    warp union) exactly, and counted once; returns its lane-rows."""
+    from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
+
+    before = sw.band_rows_t.launches
+    got = int(sw.band_rows_t(cfg, p.cid, p.cell_start, m))
+    want = int(sw.band_rows_t_plain(cfg, p.cid, p.cell_start, m))
+    launched = sw.band_rows_t.launches - before
+    print(f"[{label}] band_rows_t: {got} lane-rows a band sweep, twin "
+          f"{want}, equal={got == want}, {got / p.cid.shape[0]:.2f} a self "
+          f"row; launched {launched}")
+    check(got == want > 0, f"{label}: band_rows_t {got} == twin {want}")
+    check(launched == int(p.cid.is_cuda),
+          f"{label}: band_rows_t launched {launched} times in one call")
+    return got
+
+
 def exact_vs_twins(cfg, p, label: str):
     """Exact K1 and K2, the band walks, against their twins and against the
     block-walk kernels on the same card tensors, which must give counts, rho
@@ -495,6 +520,7 @@ def exact_vs_twins(cfg, p, label: str):
             p.wc, p.cid, None, "force_kernel_t")}
     band_vs_block(p, *sublane_rows(cfg, p, p.pos_s.shape[0]), block,
                   (nc_k, rho_k, acc_k), label)
+    rows_tested_vs_twin(cfg, p, p.pos_s.shape[0], label)
     errs = {"density_band_t": agree(label, "density_band_t", rho_k, rho_p,
                                     (nc_k, nc_p)),
             "force_band_t": agree(label, "force_band_t", acc_k, acc_p,
@@ -606,6 +632,7 @@ def capped_vs_twins(cfg, p, label: str):
     band_vs_block(p, *sublane_rows(cfg, p, p.sub_perm.shape[0]),
                   {name: block[name] for name in pair},
                   (nc_k, rho_k, acc_k), label)
+    rows_tested_vs_twin(cfg, p, p.sub_perm.shape[0], label)
     check(bool(torch.equal(sub_bk, sub_k)),
           f"{label}: pre-pass wrapper == its launch")
     fused_vs_block(label, n_kept, (sub_k, sub_nk),
@@ -2781,9 +2808,12 @@ def tenm_vs_twins(dev, name: str) -> dict:
     check(fin, f"{label}: K1 and K2 outputs finite")
     errs = {k1: agree(label, k1, rho_k, rho_p, (nc_k, nc_p)),
             k2: agree(label, k2, acc_k, acc_p, bar=ACC_BAR)}
-    out = dict(errs=errs, kernels_s=t_kernels,
-               twins_s=time.perf_counter() - t0 - t_kernels,
-               peak_gb=peak_gb(dev), window_t=cfg.pallas_window_t,
+    t_twins, peak = time.perf_counter() - t0 - t_kernels, peak_gb(dev)
+    del rho_p, nc_p, acc_p
+    rows = rows_tested_vs_twin(cfg, p, p.pos_s.shape[0] if p.sub_perm is None
+                               else p.sub_perm.shape[0], label)
+    out = dict(errs=errs, rows_tested=rows, kernels_s=t_kernels,
+               twins_s=t_twins, peak_gb=peak, window_t=cfg.pallas_window_t,
                capped_sub_len=cfg.capped_sub_len)
     print(f"[{label}] state, prepare_t and kernels {out['kernels_s']:.1f} s, "
           f"twins {out['twins_s']:.1f} s, peak allocated "
@@ -3010,8 +3040,9 @@ def main() -> int:
               f" lane={int(lane[2].overflow_cells)}")
     del cl, sub, lane, st
 
-    # 10. the main paths, counted (the block walks too: no path runs them)
-    launches = {}
+    # 10. the main paths, counted (the block walks and the counter kernel
+    #     too: no path runs them unprofiled)
+    launches, counter_launches = {}, 0
     for path, (ov, names) in PATHS.items():
         lazy = path != "lane"
         reset_launches()
@@ -3040,6 +3071,10 @@ def main() -> int:
             check(counts[name] == total_steps, f"{path}: {name} launched "
                   f"{counts[name]} times in {total_steps} steps")
             launches.setdefault(name, counts[name])
+        rows = sw.band_rows_t.launches
+        check(rows == 0, f"{path}: band_rows_t launched {rows} times with "
+              "no profiler running")
+        counter_launches += rows
         check(len(r["truncated_ranges"]) == total_steps
               and max(r["truncated_ranges"]) == 0,
               f"{path}: truncated_ranges {r['truncated_ranges']}")
@@ -3409,7 +3444,10 @@ def main() -> int:
          "library_ms": times[name].get("library_ms"),
          **({"caller": k.caller} if k.caller else {}),
          **({"case": times[name]["case"]} if "case" in times[name] else {})}
-        for name, k in KERNELS.items()]}))
+        for name, k in KERNELS.items()],
+        # the counter kernel: its launches in the main paths (phase 10)
+        "counters": [{"name": "band_rows_t", "route": "cuda",
+                      "source": SOURCE_T, "launches": counter_launches}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

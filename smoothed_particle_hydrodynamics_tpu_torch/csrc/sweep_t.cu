@@ -792,6 +792,29 @@ int launch_force_band(const ForceBandArgs& a, void* stream) {
       force_band_t<kExcl>, a, stream);
 }
 
+// The counter sweeps.rows_tested (utils/trace.py): the lane-rows one band
+// kernel launch over these bands tests.  Per warp of the band kernels' grid,
+// 32 lanes times the sum over the rods of the rows of the union of its live
+// lanes' non-empty bands (the rows next_piece stages), added into *rows.
+__global__ void __launch_bounds__(kBandBlock)
+    band_rows_t(const int* cid, const int* cell_start, int n, int m,
+                int num_cells, int nx, int ny, unsigned long long* rows) {
+  const int i = blockIdx.x * kBandBlock + threadIdx.x;
+  const bool live = i < n;
+  const int ci = live ? cid[i] : 0;
+  unsigned long long sum = 0;
+  for (int r = 0; r < kRods; ++r) {
+    int a = 0, e = 0;
+    if (live)
+      band_rows(cell_start, ci, rod_delta(r, nx, ny), num_cells, m, a, e);
+    const bool some = a < e;
+    const int lo = __reduce_min_sync(kFullMask, some ? a : INT_MAX);
+    const int hi = __reduce_max_sync(kFullMask, some ? e : 0);
+    if (lo < hi) sum += static_cast<unsigned long long>(hi - lo);
+  }
+  if ((threadIdx.x & 31) == 0 && sum) atomicAdd(rows, 32ull * sum);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1076,6 +1099,17 @@ int sph_fused_band_t(const float* pos, const float* vel, const float* mass,
   a.visc_norm = visc_norm;
   return launch_band<kFusedPiece, kForceWords<kExclSrc>>(fused_band_t, a,
                                                          stream);
+}
+
+// Adds the lane-rows of band_rows_t to *rows (a zeroed 64-bit counter).
+int sph_band_rows_t(const int* cid, const int* cell_start, int n, int m,
+                    int num_cells, int nx, int ny, unsigned long long* rows,
+                    void* stream) {
+  const int nblocks = (n + kBandBlock - 1) / kBandBlock;
+  if (nblocks > 0)
+    band_rows_t<<<nblocks, kBandBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+        cid, cell_start, n, m, num_cells, nx, ny, rows);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* sph_error_string(int code) {

@@ -14,6 +14,14 @@ are gathered fresh every step.
 
 The JAX package decides inside the compiled step with ``lax.cond``; here
 the decision is one host read of the drift test per step.
+
+While a ``torch.profiler`` session runs, ``lazy_step`` records the spans of
+``utils/trace.py`` that tile it: ``driver.step`` around
+``driver.drift_read`` (the drift test and its host read), on a rebin
+``binning.prepare`` and ``trace.rows_tested``, ``sweeps.sorted``
+(``sweeps_sorted``), ``integrate.kdk`` and ``diagnostics.step``.  Each
+bin made while recording keeps ``sweeps_t.band_rows_t``'s lane-rows, which
+the sweeps count (``sweeps.rows_tested``) at each band sweep over the bin.
 """
 
 from __future__ import annotations
@@ -25,10 +33,11 @@ import torch
 from ..config import SphConfig, _f32
 from ..state import (ParticleState, StepDiagnostics, make_step_diagnostics,
                      stack_diagnostics)
+from ..utils import trace
 from .grid import inverse_order, unsort_stacked
 from .integrate import kdk_integrate
-from .sweeps_t import (SUB_FIELDS, PreparedT, prepare_t, sweeps_sorted,
-                       truncated_ranges)
+from .sweeps_t import (SUB_FIELDS, PreparedT, band_rows_t, prepare_t,
+                       sweeps_sorted, truncated_ranges)
 
 
 class LazyCarry(NamedTuple):
@@ -52,6 +61,9 @@ class LazyCarry(NamedTuple):
     # frozen with the bins: [num_cells + 1] i32 cell starts of the
     # candidates (exact: the sorted frame; capped: the sub frame)
     cell_start: torch.Tensor | None = None
+    # binned while recording (utils/trace.py): 0-d i64 lane-rows that one
+    # band sweep over these bins tests
+    rows_tested: torch.Tensor | None = None
 
 
 def skin_half(cfg: SphConfig) -> float:
@@ -81,16 +93,25 @@ def _bin(cfg: SphConfig, state: ParticleState, order: torch.Tensor | None,
          steps_since: int, rebin_count: int) -> LazyCarry:
     """Sort ``state`` and build fresh tables; ``order`` is the permutation
     already applied to ``state`` (None for the caller's own order)."""
-    p = prepare_t(cfg, state)
-    sorted_state = state._replace(
-        position=p.pos_s, velocity=p.vel_s, mass=p.mass_s,
-        density=torch.zeros_like(p.mass_s),
-        acceleration=torch.zeros_like(p.pos_s),
-        neighbor_count=torch.zeros_like(p.cid))
-    return LazyCarry(sorted_state, p.order if order is None else order[p.order],
-                     p.pos_s, p.cid, p.ws, p.wc, steps_since, rebin_count,
-                     cell_start=p.cell_start,
-                     **{k: getattr(p, k) for k in SUB_FIELDS})
+    dev = state.position.device
+    with trace.span("binning.prepare", dev):
+        p = prepare_t(cfg, state)
+        sorted_state = state._replace(
+            position=p.pos_s, velocity=p.vel_s, mass=p.mass_s,
+            density=torch.zeros_like(p.mass_s),
+            acceleration=torch.zeros_like(p.pos_s),
+            neighbor_count=torch.zeros_like(p.cid))
+        carry = LazyCarry(sorted_state,
+                          p.order if order is None else order[p.order],
+                          p.pos_s, p.cid, p.ws, p.wc, steps_since, rebin_count,
+                          cell_start=p.cell_start,
+                          **{k: getattr(p, k) for k in SUB_FIELDS})
+    if trace.recording():
+        with trace.span("trace.rows_tested", dev), trace.hidden():
+            m = (p.pos_s if p.sub_perm is None else p.sub_perm).shape[0]
+            carry = carry._replace(
+                rows_tested=band_rows_t(cfg, p.cid, p.cell_start, m))
+    return carry
 
 
 def init_lazy(cfg: SphConfig, state: ParticleState) -> LazyCarry:
@@ -106,24 +127,33 @@ def lazy_step(cfg: SphConfig, carry: LazyCarry
     The drift test is float32, as in the JAX package, so both rebin on the
     same steps.
     """
-    spread = drift_spread(carry.state.position, carry.pos_bin)
-    if bool(spread > _f32(2.0 * skin_half(cfg))):
-        carry = _bin(cfg, carry.state, carry.order, 0, carry.rebin_count + 1)
-    else:
-        carry = carry._replace(steps_since=carry.steps_since + 1)
+    dev = carry.state.position.device
+    with trace.span("driver.step", dev):
+        with trace.span("driver.drift_read", dev):
+            spread = drift_spread(carry.state.position, carry.pos_bin)
+            rebin = bool(spread > _f32(2.0 * skin_half(cfg)))
+        if rebin:
+            carry = _bin(cfg, carry.state, carry.order, 0,
+                         carry.rebin_count + 1)
+        else:
+            carry = carry._replace(steps_since=carry.steps_since + 1)
 
-    st = carry.state
-    p = PreparedT(order=carry.order, pos_s=st.position, vel_s=st.velocity,
-                  mass_s=st.mass, cid=carry.cid, ws=carry.ws, wc=carry.wc,
-                  cell_start=carry.cell_start,
-                  **{k: getattr(carry, k) for k in SUB_FIELDS})
-    acc_s, rho_s, ncount_s = sweeps_sorted(cfg, p)
-    st = st._replace(density=rho_s, neighbor_count=ncount_s)
-    new_state, tally = kdk_integrate(cfg, st, acc_s)
-    # the sublane frame has no per-cell capacity: no cell overflows
-    zero = torch.zeros((), dtype=torch.int32, device=ncount_s.device)
-    return carry._replace(state=new_state), make_step_diagnostics(
-        tally, ncount_s, zero, truncated_ranges(p))
+        st = carry.state
+        p = PreparedT(order=carry.order, pos_s=st.position, vel_s=st.velocity,
+                      mass_s=st.mass, cid=carry.cid, ws=carry.ws, wc=carry.wc,
+                      cell_start=carry.cell_start,
+                      rows_tested=carry.rows_tested,
+                      **{k: getattr(carry, k) for k in SUB_FIELDS})
+        acc_s, rho_s, ncount_s = sweeps_sorted(cfg, p)
+        st = st._replace(density=rho_s, neighbor_count=ncount_s)
+        with trace.span("integrate.kdk", dev):
+            new_state, tally = kdk_integrate(cfg, st, acc_s)
+        with trace.span("diagnostics.step", dev):
+            # the sublane frame has no per-cell capacity: no cell overflows
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            diags = make_step_diagnostics(tally, ncount_s, zero,
+                                          truncated_ranges(p))
+    return carry._replace(state=new_state), diags
 
 
 def unsort_carry(carry: LazyCarry) -> ParticleState:

@@ -25,7 +25,9 @@ Each kernel has a wrapper and a plain PyTorch twin here:
 * ``force_t`` (exact) and ``force_capped_t`` -> ``force_band_t<Excl>``,
   replacing ``_force_kernel_t``; twin ``force_t_plain``;
 * ``fused_t`` -> ``fused_band_t``, replacing ``_fused_kernel_t``; twin
-  ``fused_t_plain``.
+  ``fused_t_plain``;
+* ``band_rows_t`` -> ``band_rows_t``, the counter ``sweeps.rows_tested``
+  (``utils/trace.py``; no TPU counterpart); twin ``band_rows_t_plain``.
 
 Every kernel walks per-lane cell bands: self row i tests, for each rod,
 only the candidate rows of the cells its own cid mask accepts, one
@@ -81,7 +83,7 @@ import torch.nn.functional as F
 
 from ..config import SphConfig, _f32
 from ..state import ParticleState
-from ..utils import build
+from ..utils import build, trace, walk_stats
 from . import physics
 from .celllist import CellListAux
 from .grid import (NO_CELL, RODS, cell_coords, inverse_order, linear_cell_id,
@@ -99,6 +101,9 @@ NRODS = len(RODS)
 TAIL_CID = NO_CELL
 # pair elements per twin chunk ([blocks, b, s_t] tensors), bounding its memory
 _PAIR_BUDGET = 1 << 25
+# The counter of the lane-rows the self band sweeps test (``band_rows_t``),
+# counted by the sweeps that launch them while recording (utils/trace.py).
+ROWS_TESTED = "sweeps.rows_tested"
 # Self-exclusion modes of the density and force kernels (csrc/sweep_t.cu):
 # candidate row vs self row, candidate src vs self row, src vs src.
 EXCL_ROW, EXCL_SRC, EXCL_SRC_SRC = 0, 1, 2
@@ -166,6 +171,9 @@ class PreparedT(NamedTuple):
     # sorted frame (n at the end); capped, of the sub frame (its kept rows
     # within S at the end, so no band reaches the tail)
     cell_start: torch.Tensor | None = None
+    # set while recording (utils/trace.py): 0-d i64 lane-rows that one band
+    # sweep of the self rows over these bins tests (``band_rows_t``)
+    rows_tested: torch.Tensor | None = None
 
 
 SUB_FIELDS = ("sub_perm", "cand_cid", "wm_sub", "sub_dropped", "ws_sub",
@@ -638,6 +646,8 @@ def _kernels() -> ctypes.CDLL:
     lib.sph_force_band_t.restype = i
     lib.sph_fused_band_t.argtypes = [p] * 10 + [i] * 7 + [f] * 11 + [p]
     lib.sph_fused_band_t.restype = i
+    lib.sph_band_rows_t.argtypes = [p] * 2 + [i] * 5 + [p] * 2
+    lib.sph_band_rows_t.restype = i
     lib.sph_error_string.argtypes = [i]
     lib.sph_error_string.restype = ctypes.c_char_p
     return lib
@@ -956,8 +966,40 @@ def fused_t(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
     return out
 
 
+def band_rows_t(cfg: SphConfig, cid: torch.Tensor, cell_start: torch.Tensor,
+                m: int) -> torch.Tensor:
+    """The lane-rows one band kernel launch tests over the bands of the
+    self cids ``cid`` in the candidates' table ``cell_start`` of ``m``
+    rows: per warp, 32 lanes times the sum over the 9 rods of the rows of
+    the union of its lanes' bands (the walk ``csrc/band_walk.cuh``
+    stages), summed over the warps; a 0-d int64 tensor on ``cid``'s
+    device, read nowhere here.  The counter ``sweeps.rows_tested`` of
+    ``utils/trace.py``."""
+    if _use_plain(cid):
+        return band_rows_t_plain(cfg, cid, cell_start, m)
+    n, dev = cid.shape[0], cid.device
+    _check(dev, cid=(cid, torch.int32, (n,)),
+           cell_start=(cell_start, torch.int32, (cfg.num_cells + 1,)))
+    rows = torch.zeros((), dtype=torch.int64, device=dev)
+    lib = _kernels()
+    err = lib.sph_band_rows_t(cid.data_ptr(), cell_start.data_ptr(), n, m,
+                              cfg.num_cells, cfg.grid_nx, cfg.grid_ny,
+                              rows.data_ptr(), _stream(dev))
+    _raise_on(lib, err, "band_rows_t")
+    band_rows_t.launches += 1
+    return rows
+
+
+def band_rows_t_plain(cfg: SphConfig, cid: torch.Tensor,
+                      cell_start: torch.Tensor, m: int) -> torch.Tensor:
+    """``band_rows_t``'s twin: 32 times ``walk_stats.band_sums``' warp
+    union of the same bands."""
+    return walk_stats.WARP * walk_stats.band_sums(
+        *band_ranges(cfg, cid, cell_start), m)["warp_union"]
+
+
 WRAPPERS = (density_t, density_capped_t, density_pre_t, force_t,
-            force_capped_t, fused_t)
+            force_capped_t, fused_t, band_rows_t)
 for _w in WRAPPERS:
     _w.launches = 0
 # the block walks' launches, by launcher (no step path may launch one)
@@ -979,6 +1021,7 @@ def gather_sub_pv(p: PreparedT) -> tuple[torch.Tensor, torch.Tensor]:
 def density_sweep_t(cfg: SphConfig, p: PreparedT, pv_sub=None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """(rho_s, ncount_s) in sorted order."""
+    trace.count(ROWS_TESTED, p.rows_tested)
     if not cfg.capped_candidates:
         return density_t(cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc,
                          p.cell_start)
@@ -993,6 +1036,7 @@ def force_sweep_t(cfg: SphConfig, p: PreparedT, rho_s: torch.Tensor,
     """acc_s [N, 3] in sorted order (hydro only; gravity/CFL by the caller).
     Capped: the candidates' densities are ``rho_s`` at their sorted rows,
     their masses the reweighted ``wm_sub``."""
+    trace.count(ROWS_TESTED, p.rows_tested)
     if not cfg.capped_candidates:
         cand = fused_cand_cols(cfg, p.pos_s, p.vel_s, rho_s, p.mass_s)
         return force_t(cfg, p.pos_s, p.vel_s, rho_s, cand, p.cid, p.ws, p.wc,
@@ -1016,6 +1060,7 @@ def fused_sweep_t(cfg: SphConfig, p: PreparedT, rho_sub: torch.Tensor,
                   pv_sub) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One fused pass: (acc_s hydro-only, rho_s, ncount_s) for all N, the
     candidates' pressures from the pre-pass densities ``rho_sub``."""
+    trace.count(ROWS_TESTED, p.rows_tested)
     cand = fused_cand_cols(cfg, pv_sub[0], pv_sub[1], rho_sub, p.wm_sub)
     return fused_t(cfg, p.pos_s, p.vel_s, p.mass_s, p.cid, p.ws, p.wc, cand,
                    p.cand_cid, p.sub_perm, p.cell_start)
@@ -1023,20 +1068,22 @@ def fused_sweep_t(cfg: SphConfig, p: PreparedT, rho_sub: torch.Tensor,
 
 def sweeps_sorted(cfg: SphConfig, p: PreparedT
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The sweeps + gravity + CFL clamp, all in the sorted frame.  Capped
-    mode with ``capped_fused`` runs the pre-pass and the fused pass instead
-    of the two full sweeps."""
-    pv_sub = gather_sub_pv(p) if cfg.capped_candidates else None
-    if cfg.capped_candidates and cfg.capped_fused:
-        rho_sub = density_sub_t(cfg, p, pv_sub)
-        acc_s, rho_s, ncount_s = fused_sweep_t(cfg, p, rho_sub, pv_sub)
-    else:
-        rho_s, ncount_s = density_sweep_t(cfg, p, pv_sub)
-        acc_s = force_sweep_t(cfg, p, rho_s, pv_sub)
-    acc_s = acc_s + physics.central_gravity(cfg, p.pos_s)
-    acc_s = acc_s + torch.tensor(cfg.gravity, dtype=torch.float32,
-                                 device=acc_s.device)
-    return physics.cfl_clamp(cfg, acc_s), rho_s, ncount_s
+    """The sweeps + gravity + CFL clamp, all in the sorted frame, in the
+    span ``sweeps.sorted`` (``utils/trace.py``).  Capped mode with
+    ``capped_fused`` runs the pre-pass and the fused pass instead of the two
+    full sweeps."""
+    with trace.span("sweeps.sorted", p.pos_s.device):
+        pv_sub = gather_sub_pv(p) if cfg.capped_candidates else None
+        if cfg.capped_candidates and cfg.capped_fused:
+            rho_sub = density_sub_t(cfg, p, pv_sub)
+            acc_s, rho_s, ncount_s = fused_sweep_t(cfg, p, rho_sub, pv_sub)
+        else:
+            rho_s, ncount_s = density_sweep_t(cfg, p, pv_sub)
+            acc_s = force_sweep_t(cfg, p, rho_s, pv_sub)
+        acc_s = acc_s + physics.central_gravity(cfg, p.pos_s)
+        acc_s = acc_s + torch.tensor(cfg.gravity, dtype=torch.float32,
+                                     device=acc_s.device)
+        return physics.cfl_clamp(cfg, acc_s), rho_s, ncount_s
 
 
 def truncated_ranges(p: PreparedT) -> torch.Tensor:

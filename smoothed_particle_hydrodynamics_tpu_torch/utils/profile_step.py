@@ -9,6 +9,11 @@ steps each), then traces ``--steps`` more steps after a warmup and prints
 one JSON line: the untraced ms/step of every run, the traced ms/step, the
 device's busy ms per step (the sum of its kernels' times) and busy share,
 the top kernels' device ms per step, and the host-side aten ops per step.
+The port's own spans (``utils/trace.py``, recorded while the profiler
+runs) join the trace on the profiler's clock: per span, its host ms and
+stream ms a step, and the idle gaps between device operations a step put
+down to the innermost span around their midpoint, all of them and those
+that fall between the host's top-level events (the driver's Python).
 The loop is the one ``run`` and ``bench`` pick (``uses_lazy``) unless
 ``--eager``; ``--partition slab`` profiles the distributed slab step on a
 one-rank NCCL group instead (``run_slab_benchmark``'s splash run).  The
@@ -20,12 +25,15 @@ host ops are also listed by name (the most frequent, per step).
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import sys
 import time
 
 import torch
 from torch.autograd import DeviceType
+
+from . import trace
 
 
 def profile(scene: str, overrides: dict, backend: str, lazy: bool,
@@ -100,6 +108,8 @@ def _trace(run, steps: int, top: int) -> dict:
             host[e.name] = host.get(e.name, 0) + 1
     host_ops = sum(host.values())
     host_top = sorted(host, key=host.get, reverse=True)[:top]
+    spans = span_report(trace.take(), prof.events(), steps,
+                        prof.profiler.kineto_results.trace_start_ns())
     return {
         "traced_ms_per_step": wall * 1e3 / steps,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
@@ -108,6 +118,51 @@ def _trace(run, steps: int, top: int) -> dict:
         "top_kernel_calls_per_step": {k: calls[k] / steps for k in names},
         "host_aten_ops_per_step": host_ops / steps,
         "top_host_ops_per_step": {k: host[k] / steps for k in host_top},
+        **spans,
+    }
+
+
+def span_report(taken: dict, events, steps: int, origin_ns: int) -> dict:
+    """The spans of ``trace.take()`` joined with the profiler's ``events``
+    (whose times are µs from ``origin_ns``, the trace start): per span name
+    its host ms and stream ms a step (None off the card), the idle gaps a
+    step by span, all of them and those between top-level host events, and
+    the counters."""
+    host, stream = {}, {}
+    for s in taken["spans"]:
+        a, e = s["host_ns"]
+        host[s["name"]] = host.get(s["name"], 0.0) + (e - a) * 1e-6 / steps
+        if s["stream_ms"] is not None:
+            a, e = s["stream_ms"]
+            stream[s["name"]] = stream.get(s["name"], 0.0) + (e - a) / steps
+    device, tops = [], []
+    for e in events:
+        span = (e.time_range.start * 1e-6, e.time_range.end * 1e-6)
+        if e.device_type == DeviceType.CUDA:
+            device.append(span)
+        elif e.device_type == DeviceType.CPU and e.cpu_parent is None:
+            tops.append(span)
+    tops.sort()
+    starts = [a for a, _ in tops]
+
+    def between(t: float) -> bool:
+        i = bisect.bisect_right(starts, t) - 1
+        return i < 0 or tops[i][1] < t
+
+    def per_step(gaps: dict) -> dict:
+        return {k: v * 1e3 / steps for k, v in
+                sorted(gaps.items(), key=lambda kv: -kv[1])}
+
+    spans = taken["spans"]
+    return {
+        "span_host_ms_per_step": host,
+        "span_stream_ms_per_step": stream,
+        "idle_ms_per_step_by_span": per_step(
+            trace.gaps_by_span(device, spans, origin_ns)),
+        "idle_between_host_events_ms_per_step_by_span": per_step(
+            trace.gaps_by_span(device, spans, origin_ns, keep=between)),
+        "counters": taken["counts"],
+        "spans_dropped": taken["dropped"],
     }
 
 

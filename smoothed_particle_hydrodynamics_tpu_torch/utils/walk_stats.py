@@ -15,7 +15,10 @@ kernels' ``slab_band_rows_per_lane`` and ``slab_sub_band_rows_per_lane``;
 the fused path's sub-frame pre-pass, both walks, ``prepass_rows``), with
 the mean neighbor count.
 ``corner_state`` builds the 4-slab frame on which a slab table over the raw
-extended frame would test dead rows.
+extended frame would test dead rows.  ``band_sums`` is ``band_stats`` left
+on the device, with no host read; 32 times its ``warp_union`` is the
+twin of the counter kernel ``sweeps_t.band_rows_t`` (``sweeps.rows_tested``
+of ``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -42,15 +45,13 @@ def sublane_rows_per_thread(cfg, p, m: int) -> float:
                  / (p.wc.numel() // 9))
 
 
-def band_stats(a: torch.Tensor, e: torch.Tensor, m: int) -> dict:
-    """Rows a band kernel tests per self row, from its bands [a, e) ([n, 9],
-    empty where e <= a, all rows below ``m``), summed over the 9 rods:
-    ``mean`` over the rows; ``warp_max``, the mean over warps (32
-    consecutive rows) of the sum over rods of their longest lane band (the
-    rows a warp steps through); ``warp_union``, the same mean of the rows of
-    the union [min a, max e) of the warp's non-empty bands, per rod."""
+def band_sums(a: torch.Tensor, e: torch.Tensor, m: int) -> dict:
+    """``band_stats``' sums, left on the bands' device (no host read): 0-d
+    int64 tensors ``rows`` (over the rows), ``warp_max`` and ``warp_union``
+    (over the warps), beside the counts ``n`` of rows and ``warps``."""
     n = a.shape[0]
-    pad = (0, 0, 0, -(-n // WARP) * WARP - n)
+    warps = -(-n // WARP)
+    pad = (0, 0, 0, warps * WARP - n)
 
     def per_warp(x, value=0):
         return F.pad(x, pad, value=value).view(-1, WARP, x.shape[1])
@@ -60,9 +61,26 @@ def band_stats(a: torch.Tensor, e: torch.Tensor, m: int) -> dict:
     lo = per_warp(torch.where(some, a, big), big).amin(1)
     hi = per_warp(torch.where(some, e, 0)).amax(1)
     longest = per_warp((e - a).clamp(min=0)).amax(1)
-    return {"mean": (e - a).clamp(min=0).sum(1).double().mean().item(),
-            "warp_max": longest.sum(1).double().mean().item(),
-            "warp_union": (hi - lo).clamp(min=0).sum(1).double().mean().item()}
+    return {"rows": (e - a).clamp(min=0).sum(), "warp_max": longest.sum(),
+            "warp_union": (hi - lo).clamp(min=0).sum(), "n": n,
+            "warps": warps}
+
+
+def band_stats(a: torch.Tensor, e: torch.Tensor, m: int) -> dict:
+    """Rows a band kernel tests per self row, from its bands [a, e) ([n, 9],
+    empty where e <= a, all rows below ``m``), summed over the 9 rods:
+    ``mean`` over the rows; ``warp_max``, the mean over warps (32
+    consecutive rows) of the sum over rods of their longest lane band (the
+    rows a warp steps through); ``warp_union``, the same mean of the rows of
+    the union [min a, max e) of the warp's non-empty bands, per rod."""
+    s = band_sums(a, e, m)
+
+    def mean(total, k):
+        return total.item() / k if k else float("nan")
+
+    return {"mean": mean(s["rows"], s["n"]),
+            "warp_max": mean(s["warp_max"], s["warps"]),
+            "warp_union": mean(s["warp_union"], s["warps"])}
 
 
 def band_rows_per_lane(cfg, cid, cell_start, m: int) -> dict:
