@@ -6,8 +6,8 @@
 Phases (every failed check raises, and the script exits nonzero):
 
 1. build the kernels (``csrc/sweep_t.cu``, ``csrc/sweep_lane.cu``,
-   ``csrc/probes.cu``, ``csrc/floor_t.cu``: ``LIBRARIES``) with nvcc, one
-   process per source, started together;
+   ``csrc/probes.cu``, ``csrc/floor_t.cu``, ``csrc/integrate_t.cu``:
+   ``LIBRARIES``) with nvcc, one process per source, started together;
    print the build time and ptxas's register/spill report;
 2. exact mode, 32k splash: K1 and K2, the per-lane band walks
    (``density_band_t``, ``force_band_t``), against their plain PyTorch twins
@@ -61,7 +61,8 @@ Phases (every failed check raises, and the script exits nonzero):
    exact, capped two-pass and capped fused (bench.py's ``capped_k4`` row:
    block 256, window and sub-frame length derived), then the 1M lane splash
    eager (rebinned every step) for 3 + 20 steps.  Each kernel of a path
-   must have launched once per step, no block walk of ``ops/sweeps_t.py``
+   must have launched once per step, the integrator's kernel
+   ``integrate_t`` too, no block walk of ``ops/sweeps_t.py``
    (``density_kernel_t``, ``force_kernel_t``, ``fused_kernel_t``) and no
    ``band_rows_t`` (no profiler records) on any path, no step may drop
    candidates
@@ -224,7 +225,17 @@ Phases (every failed check raises, and the script exits nonzero):
    acc rel-L2 <= 1e-4) and ``band_rows_t`` equal to its twin, then as its ``bench`` loop through the CLI with
    its K1/K2 counted from 0: ms/step, rebins, ``truncated_ranges`` (0 in
    every step), window, sub frame and the peak allocated memory printed,
-   every value finite.
+   every value finite;
+21. the integrator's kernel (``integrate_phase``; ``csrc/integrate_t.cu``,
+   no TPU kernel: the JAX integrator is plain ``jnp``) against its twin
+   ``kdk_integrate_plain`` on the first lazy-step input of the benchmark's
+   1M splash and 10M dam break (``INTEGRATE``), at their settings and with
+   the gravity kick and a central mass: positions and velocities
+   bit-equal (a NaN against a NaN counted equal), each tally term at most
+   twice the twin's distance from the float64 sum of the twin's terms or
+   one float32 ulp of it, two calls' tallies bit-equal; then the kernel's
+   and the twin's times (queued CUDA events) beside the bound, 64 B a row
+   at the HBM rate.
 
 It then prints the card's name and power limit, one JSON line of kernel
 records (time, twin time, launches, error, and the bound: the larger of the
@@ -238,7 +249,9 @@ lane instructions, K + 2 a tested lane-row, over the card's 128 lanes a
 clock a SM (``tools/probe_dma_floor.py``'s ``ladder_ops`` and
 ``issue_ms``, the tool's own count), and the PyTorch call that
 computes the same function as ``library_ms``; under ``counters``, the
-counter kernel ``band_rows_t``'s launches in the main paths, 0), and last
+counter kernel ``band_rows_t``'s launches in the main paths, 0; under
+``integrate``, the integrator's kernel's launches in the 1M exact path and
+its times at 1M and 10M beside its bound), and last
 ``{"ok": true,
 "device": {...}}``.  With no CUDA device it exits 1 before printing any result.
 On every exit it stops the resource tracker that the spawned ranks started,
@@ -287,8 +300,9 @@ SOURCE_T = f"{PKG}/csrc/sweep_t.cu"
 SOURCE_LANE = f"{PKG}/csrc/sweep_lane.cu"
 SOURCE_PROBES = f"{PKG}/csrc/probes.cu"
 SOURCE_FLOOR = f"{PKG}/csrc/floor_t.cu"
+SOURCE_INTEGRATE = f"{PKG}/csrc/integrate_t.cu"
 # the CUDA sources, one library each (utils/build.py)
-LIBRARIES = ("sweep_t", "sweep_lane", "probes", "floor_t")
+LIBRARIES = ("sweep_t", "sweep_lane", "probes", "floor_t", "integrate_t")
 TPU_T = "smoothed_particle_hydrodynamics_tpu/ops/pallas_step_t.py"
 TPU_LANE = "smoothed_particle_hydrodynamics_tpu/ops/pallas_step.py"
 TPU_SLABS = "smoothed_particle_hydrodynamics_tpu/parallel/slabs.py"
@@ -390,8 +404,8 @@ SLAB_PATHS = {
 
 
 def _modules() -> dict:
-    from smoothed_particle_hydrodynamics_tpu_torch.ops import (sweeps_lane,
-                                                               sweeps_t)
+    from smoothed_particle_hydrodynamics_tpu_torch.ops import (
+        integrate, sweeps_lane, sweeps_t)
     from smoothed_particle_hydrodynamics_tpu_torch.parallel import (
         slab_sweeps)
     from smoothed_particle_hydrodynamics_tpu_torch.tools import (
@@ -399,7 +413,7 @@ def _modules() -> dict:
 
     return {"t": sweeps_t, "lane": sweeps_lane, "slab": slab_sweeps,
             "vpu": probe_vpu_ops, "gather": probe_gather, "mxu": probe_mxu,
-            "floor": probe_dma_floor}
+            "floor": probe_dma_floor, "integrate": integrate}
 
 
 def _module(name: str):
@@ -2878,6 +2892,149 @@ def tenm_phase(dev) -> dict:
     return out
 
 
+# phase 21: the integrator's kernel (csrc/integrate_t.cu, no TPU kernel: the
+# JAX integrator is plain jnp) against its twin on the first lazy-step input
+# of the benchmark's two cells, at their settings (no closing kick, the box,
+# G M = 0), and on the same input with the gravity kick and a central mass
+INTEGRATE = {"splash_1m": ("splash", MAIN),
+             "dam_break_10m": TENM["dam_break_10m"][:2]}
+# bytes a row must move: x, v, a, m read (40 B), x, v written (24 B)
+INTEGRATE_ROW_BYTES = 64
+# where the twin's tally term equals the float64 sum exactly, the kernel's
+# may be this far from it, relative; elsewhere twice the twin's distance or
+# one float32 ulp of the sum, whichever is larger: the kernel rounds its
+# float64 sum to float32 once, so an exact kernel may sit half an ulp off
+# where the twin's float32 sum happened to land nearer
+TALLY_EXACT_BAR = 1e-6
+TALLY_TERMS = ("KE", "PE", "Lx", "Ly", "Lz", "|L|")
+
+
+def integrate_inputs(dev, name: str):
+    """(cfg, state, acceleration) of ``INTEGRATE[name]``'s first lazy step:
+    the sorted state ``init_lazy`` bins, with the density and counts of its
+    sweeps, and the acceleration ``sweeps_sorted`` gives it."""
+    from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
+    from smoothed_particle_hydrodynamics_tpu_torch.state import ParticleState
+    from smoothed_particle_hydrodynamics_tpu_torch.utils.benchmark import (
+        resolve_scene)
+
+    scene, ov = INTEGRATE[name]
+    cfg, state = resolve_scene(scene, dev, ov, backend="pallas")
+    p = sw.prepare_t(cfg, state)
+    del state
+    acc, rho, ncount = sw.sweeps_sorted(cfg, p)
+    return cfg, ParticleState(p.pos_s, p.vel_s, p.mass_s, rho,
+                              torch.zeros_like(p.pos_s), ncount), acc
+
+
+def rows_differ(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Elements whose float32 bits differ, a NaN against a NaN counted
+    equal (a NaN's payload carries no value)."""
+    same = (a.view(torch.int32) == b.view(torch.int32)) | (
+        torch.isnan(a) & torch.isnan(b))
+    return int((~same).sum())
+
+
+def tally_errors(cfg, kernel: torch.Tensor, twin: torch.Tensor,
+                 terms: torch.Tensor) -> dict:
+    """Per tally term (``TALLY_TERMS``): the kernel's and the twin's
+    distance from ``terms``' float64 sum, and whether the kernel's is at
+    most twice the twin's or one float32 ulp of the sum
+    (``TALLY_EXACT_BAR`` relative where the twin's is 0; both NaN where the
+    sum is NaN, equal where it is infinite)."""
+    s = terms.sum(0)
+    ref = [s[0], -s[1], s[2], s[3], s[4],
+           torch.zeros_like(s[0]) if cfg.compat else s[2:5].norm()]
+    out = {}
+    for j, name in enumerate(TALLY_TERMS):
+        r, k, t = float(ref[j]), float(kernel[j]), float(twin[j])
+        dk, dt = abs(k - r), abs(t - r)
+        if math.isnan(r) or math.isinf(r):
+            ok = (math.isnan(k) and math.isnan(t)) if math.isnan(r) else (
+                k == r)
+        elif dt == 0.0:
+            ok = dk <= TALLY_EXACT_BAR * abs(r)
+        else:
+            ok = dk <= max(2.0 * dt, float(np.spacing(np.float32(abs(r)))))
+        out[name] = dict(ref=r, kernel=k, twin=t, kernel_dist=dk,
+                         twin_dist=dt, ok=ok)
+    return out
+
+
+def integrate_vs_twin(label: str, cfg, state, acc) -> dict:
+    """``integrate_t`` against ``kdk_integrate_plain`` on the same input:
+    positions and velocities bit-equal, each tally term within
+    ``tally_errors``' bar, and a second call's tally bit-equal to the
+    first's."""
+    from smoothed_particle_hydrodynamics_tpu_torch.ops.integrate import (
+        integrate_t, kdk_integrate_plain, tally_terms)
+
+    def vec(t):
+        return torch.stack([t.kinetic, t.potential, *t.l_vec,
+                            t.angular_momentum])
+
+    new, t1 = integrate_t(cfg, state, acc)
+    _, t2 = integrate_t(cfg, state, acc)
+    twin, tt = kdk_integrate_plain(cfg, state, acc)
+    k1, k2 = vec(t1), vec(t2)
+    pos_diff = rows_differ(new.position, twin.position)
+    vel_diff = rows_differ(new.velocity, twin.velocity)
+    errs = tally_errors(cfg, k1, vec(tt), tally_terms(
+        cfg, twin.position, twin.velocity, state.mass).double())
+    det = rows_differ(k1, k2) == 0
+    print(f"[integrate {label}] n={state.n} kick={cfg.second_kick} "
+          f"boundary={cfg.boundary} compat={cfg.compat}: position elements "
+          f"differing {pos_diff}, velocity {vel_diff}; tally kernel/twin "
+          "distance from the f64 sum: " + ", ".join(
+              f"{k} {e['kernel_dist']:.3e}/{e['twin_dist']:.3e}"
+              for k, e in errs.items()) + f"; two calls' tallies equal {det}")
+    check(pos_diff == 0, f"{label}: positions bit-equal to the twin")
+    check(vel_diff == 0, f"{label}: velocities bit-equal to the twin")
+    for k, e in errs.items():
+        check(e["ok"], f"{label}: tally {k} {e}")
+    check(det, f"{label}: two calls' tallies bit-equal")
+    return dict(position_differ=pos_diff, velocity_differ=vel_diff,
+                tally=errs)
+
+
+def integrate_phase(dev) -> dict:
+    """Phase 21: the integrator's kernel against its twin on each
+    ``INTEGRATE`` input (the cell's settings, then the gravity kick with a
+    central mass), then its time and the twin's (queued CUDA events) beside
+    its bound, ``INTEGRATE_ROW_BYTES`` a row at the HBM rate."""
+    from smoothed_particle_hydrodynamics_tpu_torch.ops.integrate import (
+        integrate_t, kdk_integrate_plain)
+
+    t_phase = time.perf_counter()
+    out = {}
+    for name in INTEGRATE:
+        reset_peak(dev)
+        cfg, st, acc = integrate_inputs(dev, name)
+        grav = cfg.replace(second_kick="gravity", central_mass=1.0)
+        rec = dict(cell=integrate_vs_twin(name, cfg, st, acc),
+                   gravity=integrate_vs_twin(f"{name} gravity", grav, st,
+                                             acc))
+        launches = integrate_t.launches
+        rec.update(
+            n=st.n,
+            ms=time_ms(lambda: integrate_t(cfg, st, acc), iters=20,
+                       warmup=3),
+            plain_ms=time_ms(lambda: kdk_integrate_plain(cfg, st, acc),
+                             iters=5, warmup=1),
+            bound_ms=INTEGRATE_ROW_BYTES * st.n / HBM_BYTES_PER_S * 1e3,
+            peak_gb=peak_gb(dev))
+        check(integrate_t.launches > launches, f"{name}: integrate_t timed")
+        print(f"[integrate {name}] kernel {rec['ms']:.4f} ms, twin "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"(bytes: {INTEGRATE_ROW_BYTES} B a row), "
+              f"{rec['bound_ms'] / rec['ms']:.0%} of it; peak allocated "
+              f"{rec['peak_gb']:.3f} GB")
+        out[name] = rec
+        del st, acc
+    print(f"[p21] phase 21 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -3071,6 +3228,10 @@ def main() -> int:
             check(counts[name] == total_steps, f"{path}: {name} launched "
                   f"{counts[name]} times in {total_steps} steps")
             launches.setdefault(name, counts[name])
+        kdk = _modules()["integrate"].integrate_t.launches
+        check(kdk == total_steps, f"{path}: integrate_t launched {kdk} "
+              f"times in {total_steps} steps")
+        launches.setdefault("integrate_t", kdk)
         rows = sw.band_rows_t.launches
         check(rows == 0, f"{path}: band_rows_t launched {rows} times with "
               "no profiler running")
@@ -3103,6 +3264,7 @@ def main() -> int:
     wall = time.perf_counter() - w0
     counts = {name: wrapper(name).launches
               for name in ("density_band_t", "force_band_t")}
+    counts["integrate_t"] = _modules()["integrate"].integrate_t.launches
     finite = bool(torch.isfinite(final.position).all()
                   and torch.isfinite(final.velocity).all()
                   and torch.isfinite(d.kinetic_energy).all())
@@ -3430,6 +3592,9 @@ def main() -> int:
     #     the bench loops
     tenm_phase(dev)
 
+    # 21. the integrator's kernel against its twin at 1M and 10M, timed
+    integ = integrate_phase(dev)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
@@ -3447,7 +3612,15 @@ def main() -> int:
         for name, k in KERNELS.items()],
         # the counter kernel: its launches in the main paths (phase 10)
         "counters": [{"name": "band_rows_t", "route": "cuda",
-                      "source": SOURCE_T, "launches": counter_launches}]}))
+                      "source": SOURCE_T, "launches": counter_launches}],
+        # the integrator's kernel (no TPU kernel): its launches in the 1M
+        # exact path (phase 10), its times at each size (phase 21)
+        "integrate": [{"name": "integrate_t", "route": "cuda",
+                       "source": SOURCE_INTEGRATE, "replaces": None,
+                       "launches": launches["integrate_t"], "case": name,
+                       "n": r["n"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                       "bound_ms": r["bound_ms"], "bound_by": "bytes"}
+                      for name, r in integ.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

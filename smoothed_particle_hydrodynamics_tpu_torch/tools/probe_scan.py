@@ -25,12 +25,12 @@ reports whether it passed the rebin threshold.
 
 Capture.  ``torch.tensor(values, device=cuda)`` copies from pageable host
 memory and synchronizes, which a capture refuses; the step makes its
-config vectors so (``sweeps_sorted``'s gravity, ``central_gravity``'s and
-the tally's centre, ``reflect_boundary``'s box).  ``DeviceConstants`` serves
-them, inside the capture, from one tensor each made by the warm-up run
-before it; the step's code is unchanged.  Nothing else in the frozen step
-reads the card from the host.  With ``--device cpu`` the K steps run as a
-loop, labelled host.
+config vectors so (``sweeps_sorted``'s gravity and ``central_gravity``'s
+centre; the integrator's kernel takes its box and centre as arguments).
+``DeviceConstants`` serves them, inside the capture, from one tensor each
+made by the warm-up run before it; the step's code is unchanged.  Nothing
+else in the frozen step reads the card from the host.  With ``--device
+cpu`` the K steps run as a loop, labelled host.
 """
 
 from __future__ import annotations

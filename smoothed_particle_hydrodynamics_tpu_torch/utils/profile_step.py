@@ -13,7 +13,10 @@ The port's own spans (``utils/trace.py``, recorded while the profiler
 runs) join the trace on the profiler's clock: per span, its host ms and
 stream ms a step, and the idle gaps between device operations a step put
 down to the innermost span around their midpoint, all of them and those
-that fall between the host's top-level events (the driver's Python).
+that fall between the host's top-level events (the driver's Python).  The
+counters are printed with them, and ``integrate_fused_share``, the rows
+the integrator's kernel integrated over N x steps (1.0 when it took every
+step).
 The loop is the one ``run`` and ``bench`` pick (``uses_lazy``) unless
 ``--eager``; ``--partition slab`` profiles the distributed slab step on a
 one-rank NCCL group instead (``run_slab_benchmark``'s splash run).  The
@@ -57,7 +60,19 @@ def profile(scene: str, overrides: dict, backend: str, lazy: bool,
 
         def run():
             return drive_loop(cfg, state, steps, backend=backend)
-    return _trace(run, steps, top)
+    rec = _trace(run, steps, top)
+    rec["integrate_fused_share"] = fused_share(rec["counters"], state.n,
+                                               steps)
+    return rec
+
+
+def fused_share(counters: dict, n: int, steps: int) -> float:
+    """The counter ``integrate.fused_rows`` (the rows the integrator's
+    kernel integrated while the profiler ran) over ``n`` x ``steps``: 1.0
+    when every step integrated every row in the kernel, 0.0 on the CPU."""
+    from ..ops.integrate import FUSED_ROWS
+
+    return counters.get(FUSED_ROWS, {"total": 0.0})["total"] / (n * steps)
 
 
 def profile_slab(overrides: dict, steps: int, warmup: int,

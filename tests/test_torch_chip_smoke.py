@@ -325,3 +325,73 @@ def test_phase20_tenm_checks(smoke, monkeypatch, capsys):
     text = capsys.readouterr().out
     assert text.count("counts_equal=True") == 2
     assert "[p20] phase 20 took" in text
+
+
+def test_phase21_integrate_checks(smoke, monkeypatch, capsys):
+    """Phase 21 on the CPU at 4,096 particles, ``integrate_t``'s launcher
+    writing the twin's results (the kernel runs only on the card)."""
+    import torch
+
+    from smoothed_particle_hydrodynamics_tpu_torch.ops import integrate
+
+    cs, dev = smoke
+    calls = []
+
+    def launch(cfg, state, acc, pos, vel, partials, tally, blocks):
+        new, t = integrate.kdk_integrate_plain(cfg, state, acc)
+        pos.copy_(new.position)
+        vel.copy_(new.velocity)
+        tally.copy_(torch.stack([t.kinetic, t.potential, *t.l_vec,
+                                 t.angular_momentum]))
+        calls.append(blocks)
+
+    monkeypatch.setattr(integrate, "_launch", launch)
+    monkeypatch.setattr(integrate, "_grid_cap", lambda index: 3)
+    monkeypatch.setattr(cs, "time_ms", lambda fn, iters=1, warmup=0: (
+        fn(), 1.0)[1])
+    grid = dict(num_particles=4096, grid_nx=16, grid_ny=16, grid_nz=16)
+    monkeypatch.setattr(cs, "INTEGRATE", {
+        name: (scene, dict(ov, **grid))
+        for name, (scene, ov) in cs.INTEGRATE.items()})
+    out = cs.integrate_phase(dev)
+    assert set(out) == {"splash_1m", "dam_break_10m"}
+    for r in out.values():
+        assert r["n"] == 4096 and r["ms"] == r["plain_ms"] == 1.0
+        assert r["bound_ms"] == 64 * 4096 / 3.35e12 * 1e3
+        for case in ("cell", "gravity"):
+            assert r[case]["position_differ"] == 0
+            assert all(e["ok"] for e in r[case]["tally"].values())
+    # two calls a comparison, two comparisons and one timed call a case
+    assert calls == [3] * 10
+    text = capsys.readouterr().out
+    assert text.count("two calls' tallies equal True") == 4
+    assert "[p21] phase 21 took" in text
+
+
+def test_phase21_tally_bar(smoke):
+    """A kernel tally term is held to twice the twin's distance from the
+    float64 sum, or to 1e-6 relative where the twin's is 0."""
+    import torch
+
+    from smoothed_particle_hydrodynamics_tpu_torch.config import SphConfig
+
+    cs, _ = smoke
+    terms = torch.tensor([[1.0, 2.0, 3.0, 0.0, 4.0]], dtype=torch.float64)
+    ref = torch.tensor([1.0, -2.0, 3.0, 0.0, 4.0, 5.0], dtype=torch.float64)
+
+    def errs(kernel, twin, cfg=SphConfig()):
+        return cs.tally_errors(cfg, ref + torch.tensor(kernel).double(),
+                               ref + torch.tensor(twin).double(), terms)
+
+    zero = [0.0] * 6
+    assert all(e["ok"] and e["twin_dist"] == 0
+               for e in errs(zero, zero).values())
+    twin = [0, 0, 1e-3, 0, 0, 0]
+    assert errs([0, 1e-6, 2e-3, 0, 0, 0], twin)["Lx"]["ok"]
+    assert errs([0, 1e-6, 2e-3, 0, 0, 0], twin)["PE"]["ok"]
+    assert not errs([0, 3e-6, 0, 0, 0, 0], twin)["PE"]["ok"]
+    assert not errs([0, 0, 3e-3, 0, 0, 0], twin)["Lx"]["ok"]
+    assert not errs([0, 0, 1e-3, 0, 0, 0], zero)["Lx"]["ok"]
+    compat = cs.tally_errors(SphConfig(compat=True), torch.zeros(6),
+                             torch.zeros(6), terms)["|L|"]
+    assert compat["ref"] == 0.0 and compat["ok"]
