@@ -5,7 +5,8 @@ This is the one module of the benchmark that imports the port
 (``smoothed_particle_hydrodynamics_tpu_torch``).  It takes from it the
 configuration type, the settings that ``run`` resolves, the driver
 (``ops.lazy.drive_loop_lazy``) and the host read of a block's diagnostics
-(``utils.diagnostics.host_diagnostics``), and nothing else.
+(``utils.diagnostics.host_diagnostics``), and nothing else; in capped mode
+it also watches the driver's binnings (``BinFrames``).
 """
 
 from __future__ import annotations
@@ -88,11 +89,64 @@ def before(state: ParticleState, carry) -> dict:
             "order": carry.order.clone()}
 
 
-def after(carry) -> dict:
+class BinFrames:
+    """Capped mode: the frame that each binning of the lazy driver sorted.
+
+    The kept set hashes each particle's row in the frame that the bins were
+    built from, and the carry keeps only the composed order.  While this
+    context is open in capped mode, ``lazy._bin(cfg, state, order, ...)``
+    is wrapped to remember, for the carry it built last, the ``order`` it
+    was given: the original id of each row of ``state`` (None: the
+    caller's own order).  That tensor already exists, so the watch adds no
+    device work; it holds it until the next binning.  In exact mode the
+    context does nothing.
+    """
+
+    def __init__(self, cfg: SphConfig):
+        self.capped = bool(cfg.capped_candidates)
+        self._last = None
+
+    def __enter__(self) -> "BinFrames":
+        if self.capped:
+            self._inner = lazy._bin
+            lazy._bin = self._bin
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.capped:
+            lazy._bin = self._inner
+        self._last = None
+
+    def _bin(self, cfg, state, order, *args):
+        carry = self._inner(cfg, state, order, *args)
+        self._last = (carry.order, order)
+        return carry
+
+    def of(self, carry) -> torch.Tensor:
+        """A copy of the original id of each row of the frame that
+        ``carry``'s bins were built from."""
+        built, frame = self._last or (None, None)
+        if built is not carry.order:
+            raise RuntimeError("the carry's bins are not the driver's "
+                               "latest binning")
+        if frame is None:
+            return torch.arange(built.shape[0], device=built.device)
+        return frame.clone()
+
+
+def after(carry, frames: BinFrames) -> dict:
     """A copy of what a step produced: its neighbor counts, densities and
     accelerations, the positions and velocities it ends with, and the
-    original particle id of each row."""
+    original particle id of each row; in capped mode (``frames``) also the
+    bins its sweeps used: the positions they were built from (``bin_pos``,
+    in the carry's frame) and the frame they sorted (``bin_from``).  A step
+    that rebins does so before its sweeps, so the carry it returns holds
+    them."""
     st = carry.state
-    return {"count": st.neighbor_count.clone(), "rho": st.density.clone(),
-            "acc": st.acceleration.clone(), "pos": st.position.clone(),
-            "vel": st.velocity.clone(), "order": carry.order.clone()}
+    out = {"count": st.neighbor_count.clone(), "rho": st.density.clone(),
+           "acc": st.acceleration.clone(), "pos": st.position.clone(),
+           "vel": st.velocity.clone(), "order": carry.order.clone()}
+    if frames.capped:
+        out["bin_pos"] = carry.pos_bin.clone()
+        out["bin_from"] = frames.of(carry)
+    return out

@@ -17,6 +17,21 @@ come from ``spec.constants`` of the configuration file's numbers.
 ``d^2`` is formed as ``(dx*dx + dy*dy) + dz*dz``, one rounding per
 operation, as the specification's float32 arithmetic does, so the pair
 test ``d^2 < h^2`` decides each pair on the same bits.
+
+Capped mode (``capped_candidates`` K_c > 0, the "Subsets" rule): every
+particle is a self row, but the candidates of its sums are only the kept
+particles, at most K_c of each cell of the step's bins (``kept_set``).
+Which are kept follows from the bins alone: the positions they were built
+from and each particle's row in the frame they sorted.  Like the state a
+step starts from, they are the program's state, which the caller hands
+over; the kept set, the weights and the sums are worked out here.  A
+particle's self term keeps its own mass; a candidate's mass
+is scaled by occupancy / kept when ``capped_reweight`` is set; the force
+reads each candidate's own density.  The program finds a step's pairs
+through its frozen bins and its bounded sub frame; here they are every kept
+particle within h at the step's positions.  So the one departure: no row
+bound (``capped_sub_len``).  Kept rows beyond it are the program's counted
+loss (a failed step), and read here as count differences.
 """
 
 from __future__ import annotations
@@ -31,9 +46,12 @@ PAIR_BUDGET = 1 << 24
 
 
 class _Grid:
-    """Particles sorted by cell of a grid with edges of at least h."""
+    """Particles sorted by cell of a grid with edges of at least h, and
+    the candidates of their sums by cell: every particle, or with ``kept``
+    ([N] bool, the callers' order) the kept ones."""
 
-    def __init__(self, c: dict, pos: torch.Tensor):
+    def __init__(self, c: dict, pos: torch.Tensor,
+                 kept: torch.Tensor | None = None):
         dev = pos.device
         # a margin over h: a pair within h never spans two cell edges
         self.dims = [max(int(b / (c["h"] * (1 + 1e-6))), 1) for b in c["box"]]
@@ -45,6 +63,11 @@ class _Grid:
         cid = self._cid(coords)
         self.order = torch.sort(cid, stable=True).indices
         self.coords = coords[self.order]
+        # the candidates' rows of the sorted frame (None: every row)
+        self.cand = None
+        if kept is not None:
+            self.cand = torch.nonzero(kept[self.order]).squeeze(1)
+            cid = cid[kept]
         ncells = self.dims[0] * self.dims[1] * self.dims[2]
         counts = torch.bincount(cid, minlength=ncells)
         self.end = counts.cumsum(0)
@@ -65,9 +88,9 @@ class _Grid:
 
     def pairs(self, xyz, lo: int, hi: int, h2: float):
         """For self rows [lo, hi) of the sorted frame and each neighbor
-        cell: (rows [R, L] of the cell's particles, mask of the pairs
-        within h, dx, dy, dz, d^2), each [R, L], the offsets candidate
-        minus self."""
+        cell: (rows [R, L] of the sorted frame of the cell's candidates,
+        mask of the pairs within h, dx, dy, dz, d^2), each [R, L], the
+        offsets candidate minus self."""
         dev = xyz[0].device
         own = torch.arange(lo, hi, device=dev)
         ci = self.coords[lo:hi]
@@ -85,6 +108,8 @@ class _Grid:
             rows = a[:, None] + torch.arange(width, device=dev)
             valid = rows < e[:, None]
             rows = torch.where(valid, rows, 0)
+            if self.cand is not None:
+                rows = self.cand[rows]
             dx, dy, dz = (x[rows] - s for x, s in zip(xyz, xi))
             d2 = dx * dx + dy * dy + dz * dz
             mask = valid & (rows != own[:, None]) & (d2 < h2)
@@ -120,25 +145,78 @@ def _reflect(c: dict, old_pos, new_pos, new_vel):
     return torch.minimum(torch.clamp(pos, min=0.0), box), vel
 
 
+def kept_set(c: dict, bin_pos: torch.Tensor, bin_row: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Capped mode: (kept [N] bool, weight [N] float32) in the callers'
+    order, from the step's bins: ``bin_pos`` [N, 3] float32, the positions
+    they were built from, and ``bin_row`` [N], each particle's row in the
+    frame they sorted.
+
+    A particle's cell is floor(x * f32(1/cell)) in float32 per axis,
+    clamped into the grid, and (z*ny + y)*nx + x; its key the 31-bit Knuth
+    hash of its row, (row * 2654435769) mod 2^31.  Within each cell the
+    particles rank by the key's top ``hash_bits`` bits where an int32
+    spares 8 or more beside the cell id, else by the whole key, ties by
+    row; rank < K_c is kept.  With ``capped_reweight`` a particle's weight
+    is its cell's occupancy / min(occupancy, K_c), else 1."""
+    dev = bin_pos.device
+    k_c = c["k_c"]
+    nx, ny, nz = c["grid"]
+    inv = torch.tensor(c["inv_cell"], dtype=torch.float32, device=dev)
+    hi = torch.tensor([nx - 1, ny - 1, nz - 1], device=dev)
+    xyz = torch.floor(bin_pos.float() * inv).long()
+    xyz = torch.minimum(xyz.clamp(min=0), hi)
+    cell = (xyz[:, 2] * ny + xyz[:, 1]) * nx + xyz[:, 0]
+    row = bin_row.long()
+    key = (row * 2654435769) % (1 << 31)
+    if c["hash_bits"] >= 8:
+        key = key >> (31 - c["hash_bits"])
+    # stable sorts, the least significant key first: row, key, cell
+    o = torch.argsort(row)
+    o = o[torch.sort(key[o], stable=True).indices]
+    o = o[torch.sort(cell[o], stable=True).indices]
+    _, occ = torch.unique_consecutive(cell[o], return_counts=True)
+    first = torch.repeat_interleave(occ.cumsum(0) - occ, occ)
+    rank = torch.empty_like(row)
+    rank[o] = torch.arange(row.shape[0], device=dev) - first
+    each = torch.empty_like(row)
+    each[o] = torch.repeat_interleave(occ, occ)
+    if c["capped_reweight"]:
+        weight = each.float() / each.clamp(max=k_c).float()
+    else:
+        weight = torch.ones(row.shape[0], device=dev)
+    return rank < k_c, weight
+
+
 def step(c: dict, pos: torch.Tensor, vel: torch.Tensor, mass: torch.Tensor,
-         dtype: torch.dtype = torch.float32) -> dict:
+         dtype: torch.dtype = torch.float32, bins: dict | None = None
+         ) -> dict:
     """One step from (pos [N, 3], vel [N, 3], mass [N]) of the
     configuration whose constants are ``c``: the neighbor counts, the
     densities and accelerations at ``pos``, and the positions and
-    velocities after the step, all in the callers' particle order."""
+    velocities after the step, all in the callers' particle order.  In
+    capped mode ``bins`` holds ``pos`` and ``row``, ``kept_set``'s
+    ``bin_pos`` and ``bin_row``, in the callers' order."""
+    kept = weight = None
+    if c["k_c"]:
+        if bins is None:
+            raise ValueError("capped mode: the step needs its bins")
+        kept, weight = kept_set(c, bins["pos"], bins["row"])
     pos, vel, mass = pos.to(dtype), vel.to(dtype), mass.to(dtype)
-    grid = _Grid(c, pos)
+    grid = _Grid(c, pos, kept)
     o = grid.order
     xyz = [pos[o, a].contiguous() for a in range(3)]
     uvw = [vel[o, a].contiguous() for a in range(3)]
     m = mass[o]
+    # the candidates' masses: reweighted in capped mode
+    mc = m if weight is None else (mass * weight.to(dtype))[o]
     n = m.shape[0]
     rho = torch.zeros(n, dtype=dtype, device=pos.device)
     count = torch.zeros(n, dtype=torch.int32, device=pos.device)
     for lo, hi in grid.chunks():
         for rows, mask, _, _, _, d2 in grid.pairs(xyz, lo, hi, c["h2"]):
             t = c["h_s2"] - d2 * c["scale2"]
-            w = m[rows] * (c["poly6"] * t * t * t)
+            w = mc[rows] * (c["poly6"] * t * t * t)
             rho[lo:hi] += torch.where(mask, w, 0.0).sum(-1)
             count[lo:hi] += mask.sum(-1, dtype=torch.int32)
     if c["self_density"]:
@@ -153,7 +231,7 @@ def step(c: dict, pos: torch.Tensor, vel: torch.Tensor, mass: torch.Tensor,
         for rows, mask, dx, dy, dz, d2 in grid.pairs(xyz, lo, hi, c["h2"]):
             d = torch.sqrt(d2) * c["scale"]
             hd = torch.where(mask, c["h_s"] - d, 0.0)
-            mj = m[rows]
+            mj = mc[rows]
             center = torch.where(mask, hd * hd * mj
                                  * (pw[lo:hi, None] + pw[rows]), 0.0)
             q = center / (d + c["eps"]) * c["scale"]

@@ -88,7 +88,9 @@ def check_steps(config: dict, sink: list, mass: torch.Tensor,
     """The reference's reading of each checked step, consuming ``sink``:
     the step's outputs against the reference from the state it started
     from, all in the original particle order; with ``control``, also the
-    reference in bfloat16 put in the program's place."""
+    reference in bfloat16 put in the program's place.  In capped mode both
+    are handed the bins the step used: at a solve's first step its initial
+    state in the original order, else the step's copies of them."""
     c = spec.constants(config["sph"])
     readings, controls = [], []
     while sink:
@@ -96,12 +98,19 @@ def check_steps(config: dict, sink: list, mass: torch.Tensor,
         pre, post = s["before"], s["after"]
         x0 = _unsort(pre["pos"], pre["order"])
         v0 = _unsort(pre["vel"], pre["order"])
-        ref = reference.step(c, x0, v0, mass)
+        bins = None
+        if "bin_pos" in post:
+            ids = torch.arange(x0.shape[0], device=x0.device)
+            bins = ({"pos": x0, "row": ids} if s["step"] == 0 else
+                    {"pos": _unsort(post["bin_pos"], post["order"]),
+                     "row": _unsort(ids, post["bin_from"])})
+        ref = reference.step(c, x0, v0, mass, bins=bins)
         out = {k: _unsort(post[k], post["order"])
                for k in ("count", "rho", "acc", "pos", "vel")}
         readings.append(compare.step_numbers(out, ref, c["h"]))
         if control:
-            low = reference.step(c, x0, v0, mass, dtype=torch.bfloat16)
+            low = reference.step(c, x0, v0, mass, dtype=torch.bfloat16,
+                                 bins=bins)
             controls.append(compare.step_numbers(low, ref, c["h"]))
     return readings, controls
 

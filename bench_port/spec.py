@@ -27,6 +27,7 @@ def constants(sph: dict) -> dict:
     h_s = f32(h * scale)
     box = tuple(f32(cell * d) for d in dims)
     soft = sph.get("softening")
+    num_cells = dims[0] * dims[1] * dims[2]
     return {
         "n": int(sph["num_particles"]),
         "h": h,
@@ -55,4 +56,11 @@ def constants(sph: dict) -> dict:
         "second_kick": sph["second_kick"],
         "particle_mass": float(sph["particle_mass"]),
         "steps": int(round(sph["total_time"] / sph["dt"])),
+        # capped mode (K_c > 0): the kept set's rule, on the bins' grid
+        "k_c": int(sph["capped_candidates"]),
+        "capped_reweight": bool(sph["capped_reweight"]),
+        "grid": dims,
+        "inv_cell": f32(1.0 / cell),
+        # the low bits an int32 spares beside the cell id
+        "hash_bits": 31 - max((num_cells - 1).bit_length(), 1),
     }

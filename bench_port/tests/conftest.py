@@ -24,19 +24,19 @@ def pytest_configure(config):
 
 
 def make_tiny(root: Path, n: int = 3000, steps: int = 30, block: int = 3,
-              checked: int = 10) -> tuple[Path, Path]:
+              checked: int = 10, **sph) -> tuple[Path, Path]:
     """A checkout under ``root`` holding the harness, BENCHMARK.json and
-    one tiny cell: the 1M splash's settings at ``n`` particles on a 16^3
-    grid, the drop released just over the pool so that it strikes it
-    within the solve, ``steps`` steps a solve in blocks of ``block``,
-    ``checked`` checked steps in its first solve."""
+    one tiny cell: the 1M splash's settings, with ``sph``'s on top, at
+    ``n`` particles on a 16^3 grid, the drop released just over the pool
+    so that it strikes it within the solve, ``steps`` steps a solve in
+    blocks of ``block``, ``checked`` checked steps in its first solve."""
     here = root / "bench_port"
     shutil.copytree(HERE, here, ignore=shutil.ignore_patterns(
         "tests", "__pycache__"))
     config = json.loads((HERE / "configs" / "splash_1m_exact.json")
                         .read_text())
     config["sph"].update(num_particles=n, grid_nx=16, grid_ny=16, grid_nz=16,
-                         total_time=steps * config["sph"]["dt"])
+                         total_time=steps * config["sph"]["dt"], **sph)
     config["initial"]["drop_height"] = 0.2
     (here / "configs" / "tiny.json").write_text(json.dumps(config))
     (here / "traffic" / "tiny.json").write_text(json.dumps(

@@ -11,7 +11,8 @@ The steps whose outputs the reference checks are drawn from the seed
 before the window opens: a block that holds one runs as up to three
 chained calls of the driver (the steps before it, the step, the steps
 after), and the state before that step and what it produced are copied on
-the device.  Nothing else differs from the other blocks.
+the device (in capped mode with the bins it used, ``port.BinFrames``).
+Nothing else differs from the other blocks.
 """
 
 from __future__ import annotations
@@ -56,34 +57,35 @@ def solve(cfg, init, steps: int, block: int, dev: torch.device,
     state, carry = port.fresh(init), None
     done = b = failed = 0
     block_ms, neighbor_mean = [], []
-    while done < steps:
-        n = min(block, steps - done)
-        t0 = time.perf_counter()
-        j = checks.get((index, b))
-        if j is None:
-            carry, diags = port.advance(cfg, state, carry, n)
-        else:
-            parts = []
-            if j:
-                carry, d = port.advance(cfg, state, carry, j)
+    with port.BinFrames(cfg) as frames:
+        while done < steps:
+            n = min(block, steps - done)
+            t0 = time.perf_counter()
+            j = checks.get((index, b))
+            if j is None:
+                carry, diags = port.advance(cfg, state, carry, n)
+            else:
+                parts = []
+                if j:
+                    carry, d = port.advance(cfg, state, carry, j)
+                    parts.append(d)
+                pre = port.before(state, carry)
+                carry, d = port.advance(cfg, state, carry, 1)
                 parts.append(d)
-            pre = port.before(state, carry)
-            carry, d = port.advance(cfg, state, carry, 1)
-            parts.append(d)
-            sink.append({"solve": index, "step": done + j, "before": pre,
-                         "after": port.after(carry)})
-            if n - j - 1:
-                carry, d = port.advance(cfg, state, carry, n - j - 1)
-                parts.append(d)
-            diags = port.concat(parts)
-        sync(dev)
-        block_ms.append((time.perf_counter() - t0) * 1e3 / n)
-        state = None  # the carry holds the solve from here on
-        host = port.read_block(diags)
-        failed += port.failed_steps(host)
-        neighbor_mean.extend(np.asarray(host["neighbor_mean"]).tolist())
-        done += n
-        b += 1
+                sink.append({"solve": index, "step": done + j, "before": pre,
+                             "after": port.after(carry, frames)})
+                if n - j - 1:
+                    carry, d = port.advance(cfg, state, carry, n - j - 1)
+                    parts.append(d)
+                diags = port.concat(parts)
+            sync(dev)
+            block_ms.append((time.perf_counter() - t0) * 1e3 / n)
+            state = None  # the carry holds the solve from here on
+            host = port.read_block(diags)
+            failed += port.failed_steps(host)
+            neighbor_mean.extend(np.asarray(host["neighbor_mean"]).tolist())
+            done += n
+            b += 1
     return {"block_ms": block_ms, "failed": failed,
             "rebins": port.rebins(carry), "neighbor_mean": neighbor_mean}
 
