@@ -21,7 +21,13 @@ While a ``torch.profiler`` session runs, ``lazy_step`` records the spans of
 ``binning.prepare`` and ``trace.rows_tested``, ``sweeps.sorted``
 (``sweeps_sorted``), ``integrate.kdk`` and ``diagnostics.step``.  Each
 bin made while recording keeps ``sweeps_t.band_rows_t``'s lane-rows, which
-the sweeps count (``sweeps.rows_tested``) at each band sweep over the bin.
+the sweeps count (``sweeps.rows_tested``) at each band sweep over the bin,
+and in capped mode ``sweeps_t.kept_rows_t``'s kept rows, which each step
+counts once (``capped.kept_rows``).  In capped mode ``binning.prepare`` is
+tiled by ``binning.sort`` (cell ids, the (cell, hash) sort, the sorted
+fields), ``binning.capped_sub`` (the sub frame) and ``binning.tables`` (the
+window tables, the cell starts, the carry), and ``sweeps.sorted`` by its
+own children (``sweeps_t.sweeps_sorted``); in exact mode both are leaves.
 """
 
 from __future__ import annotations
@@ -36,8 +42,9 @@ from ..state import (ParticleState, StepDiagnostics, make_step_diagnostics,
 from ..utils import trace
 from .grid import inverse_order, unsort_stacked
 from .integrate import kdk_integrate
-from .sweeps_t import (SUB_FIELDS, PreparedT, band_rows_t, prepare_t,
-                       sweeps_sorted, truncated_ranges)
+from .sweeps_t import (SUB_FIELDS, PreparedT, band_rows_t, capped_span,
+                       kept_rows_t, sort_frame_t, sub_frame_t, sweeps_sorted,
+                       tables_t, truncated_ranges)
 
 
 class LazyCarry(NamedTuple):
@@ -62,8 +69,13 @@ class LazyCarry(NamedTuple):
     # candidates (exact: the sorted frame; capped: the sub frame)
     cell_start: torch.Tensor | None = None
     # binned while recording (utils/trace.py): 0-d i64 lane-rows that one
-    # band sweep over these bins tests
+    # band sweep over these bins tests; capped, 0-d i64 kept rows
     rows_tested: torch.Tensor | None = None
+    kept_rows: torch.Tensor | None = None
+    # capped mode only: [N] i64 original id of each row of the frame these
+    # bins sorted, which the kept set hashes (None: the caller's own order,
+    # as after ``init_lazy``)
+    bin_from: torch.Tensor | None = None
 
 
 def skin_half(cfg: SphConfig) -> float:
@@ -91,26 +103,35 @@ def _validate(cfg: SphConfig) -> None:
 
 def _bin(cfg: SphConfig, state: ParticleState, order: torch.Tensor | None,
          steps_since: int, rebin_count: int) -> LazyCarry:
-    """Sort ``state`` and build fresh tables; ``order`` is the permutation
-    already applied to ``state`` (None for the caller's own order)."""
+    """Sort ``state`` and build fresh tables (``sweeps_t.prepare_t``'s
+    phases); ``order`` is the permutation already applied to ``state``
+    (None for the caller's own order)."""
     dev = state.position.device
+    capped = bool(cfg.capped_candidates)
     with trace.span("binning.prepare", dev):
-        p = prepare_t(cfg, state)
-        sorted_state = state._replace(
-            position=p.pos_s, velocity=p.vel_s, mass=p.mass_s,
-            density=torch.zeros_like(p.mass_s),
-            acceleration=torch.zeros_like(p.pos_s),
-            neighbor_count=torch.zeros_like(p.cid))
-        carry = LazyCarry(sorted_state,
-                          p.order if order is None else order[p.order],
-                          p.pos_s, p.cid, p.ws, p.wc, steps_since, rebin_count,
-                          cell_start=p.cell_start,
-                          **{k: getattr(p, k) for k in SUB_FIELDS})
+        with capped_span(cfg, "binning.sort", dev):
+            f = sort_frame_t(cfg, state)
+        with capped_span(cfg, "binning.capped_sub", dev):
+            sub, cid_search = sub_frame_t(cfg, f)
+        with capped_span(cfg, "binning.tables", dev):
+            p = tables_t(cfg, f, sub, cid_search)
+            sorted_state = state._replace(
+                position=p.pos_s, velocity=p.vel_s, mass=p.mass_s,
+                density=torch.zeros_like(p.mass_s),
+                acceleration=torch.zeros_like(p.pos_s),
+                neighbor_count=torch.zeros_like(p.cid))
+            carry = LazyCarry(sorted_state,
+                              p.order if order is None else order[p.order],
+                              p.pos_s, p.cid, p.ws, p.wc, steps_since,
+                              rebin_count, cell_start=p.cell_start,
+                              bin_from=order if capped else None,
+                              **{k: getattr(p, k) for k in SUB_FIELDS})
     if trace.recording():
         with trace.span("trace.rows_tested", dev), trace.hidden():
             m = (p.pos_s if p.sub_perm is None else p.sub_perm).shape[0]
             carry = carry._replace(
-                rows_tested=band_rows_t(cfg, p.cid, p.cell_start, m))
+                rows_tested=band_rows_t(cfg, p.cid, p.cell_start, m),
+                kept_rows=kept_rows_t(cfg, p) if capped else None)
     return carry
 
 
@@ -143,6 +164,7 @@ def lazy_step(cfg: SphConfig, carry: LazyCarry
                       mass_s=st.mass, cid=carry.cid, ws=carry.ws, wc=carry.wc,
                       cell_start=carry.cell_start,
                       rows_tested=carry.rows_tested,
+                      kept_rows=carry.kept_rows,
                       **{k: getattr(carry, k) for k in SUB_FIELDS})
         acc_s, rho_s, ncount_s = sweeps_sorted(cfg, p)
         st = st._replace(density=rho_s, neighbor_count=ncount_s)

@@ -73,6 +73,7 @@ the same at every G.  The block-walk kernels take G = 1 tables only.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import NamedTuple
@@ -104,6 +105,10 @@ _PAIR_BUDGET = 1 << 25
 # The counter of the lane-rows the self band sweeps test (``band_rows_t``),
 # counted by the sweeps that launch them while recording (utils/trace.py).
 ROWS_TESTED = "sweeps.rows_tested"
+# The counter of the kept rows of the bins a capped step uses
+# (``kept_rows_t``), counted once a step by ``sweeps_sorted``.
+KEPT_ROWS = "capped.kept_rows"
+_NO_SPAN = contextlib.nullcontext()
 # Self-exclusion modes of the density and force kernels (csrc/sweep_t.cu):
 # candidate row vs self row, candidate src vs self row, src vs src.
 EXCL_ROW, EXCL_SRC, EXCL_SRC_SRC = 0, 1, 2
@@ -174,6 +179,9 @@ class PreparedT(NamedTuple):
     # set while recording (utils/trace.py): 0-d i64 lane-rows that one band
     # sweep of the self rows over these bins tests (``band_rows_t``)
     rows_tested: torch.Tensor | None = None
+    # set while recording in capped mode: 0-d i64 kept rows of these bins
+    # (``kept_rows_t``)
+    kept_rows: torch.Tensor | None = None
 
 
 SUB_FIELDS = ("sub_perm", "cand_cid", "wm_sub", "sub_dropped", "ws_sub",
@@ -373,17 +381,21 @@ def derive_window_t(cfg: SphConfig, state: ParticleState,
     return max(-(-w // SUB) * SUB, 64)
 
 
-def prepare_t(cfg: SphConfig, state: ParticleState) -> PreparedT:
-    """Binning + stable sort + per-block window tables + the candidates'
-    cell-start table (+ the sub frame in capped mode).
+class SortedFrame(NamedTuple):
+    """``sort_frame_t``'s result: the first phase of ``prepare_t``."""
 
-    The sorts are stable, as the JAX package's pair sorts are, so ``order``,
-    the sorted frame and (capped) the kept set match it exactly.
-    """
+    cid: torch.Tensor      # [N] i32 sorted cell ids
+    order: torch.Tensor    # [N] i64 sorted row -> original index
+    pos_s: torch.Tensor    # [N, 3] sorted
+    vel_s: torch.Tensor    # [N, 3] sorted
+    mass_s: torch.Tensor   # [N] sorted
+
+
+def sort_frame_t(cfg: SphConfig, state: ParticleState) -> SortedFrame:
+    """``prepare_t``'s sort: cell ids, the stable (capped: (cell, hash))
+    sort and the sorted fields, gathered as one [N, 7] stack that is freed
+    here."""
     _validate(cfg)
-    n = state.n
-    b = _blane(cfg)
-    nblocks = -(-n // b)
     cid = linear_cell_id(cfg, cell_coords(cfg, state.position))
     if cfg.capped_candidates:
         cid_sorted, order = _capped_order(cid, _hash_bits(cfg))
@@ -391,11 +403,29 @@ def prepare_t(cfg: SphConfig, state: ParticleState) -> PreparedT:
         cid_sorted, order = torch.sort(cid, stable=True)
     stacked = torch.cat([state.position, state.velocity, state.mass[:, None]],
                         dim=1)[order]
-    mass_s = stacked[:, 6].contiguous()
-    sub, cid_search, n_cand = {}, cid_sorted, n
-    if cfg.capped_candidates:
-        sub, cid_search = _sub_frame(cfg, cid_sorted, mass_s)
-        n_cand = sub_len(cfg, n)
+    return SortedFrame(cid_sorted, order, stacked[:, 0:3].contiguous(),
+                       stacked[:, 3:6].contiguous(),
+                       stacked[:, 6].contiguous())
+
+
+def sub_frame_t(cfg: SphConfig, f: SortedFrame
+                ) -> tuple[dict, torch.Tensor]:
+    """``prepare_t``'s sub frame: ``_sub_frame``'s fields and the cids the
+    windows search; exact mode, none and the sorted cids."""
+    if not cfg.capped_candidates:
+        return {}, f.cid
+    return _sub_frame(cfg, f.cid, f.mass_s)
+
+
+def tables_t(cfg: SphConfig, f: SortedFrame, sub: dict,
+             cid_search: torch.Tensor) -> PreparedT:
+    """``prepare_t``'s tables: the window tables and the candidates' cell
+    starts over the sorted frame ``f`` and the sub frame ``sub``."""
+    n = f.cid.shape[0]
+    b = _blane(cfg)
+    nblocks = -(-n // b)
+    n_cand = sub_len(cfg, n) if cfg.capped_candidates else n
+    cid_sorted, sub = f.cid, dict(sub)
     ws, wc, cum = _block_windows_t(
         cfg, cid_sorted, nblocks, cfg.pallas_window_t, n,
         _n_pad(cfg, n_cand), cid_search)
@@ -407,10 +437,22 @@ def prepare_t(cfg: SphConfig, state: ParticleState) -> PreparedT:
         sub["ws_sub"], sub["wc_sub"], _ = _block_windows_t(
             cfg, cid_search, -(-n_cand // b), cfg.pallas_window_t, n_cand,
             _n_pad(cfg, n_cand), cid_search)
-    return PreparedT(order=order, pos_s=stacked[:, 0:3].contiguous(),
-                     vel_s=stacked[:, 3:6].contiguous(), mass_s=mass_s,
-                     cid=cid_sorted.contiguous(), ws=ws, wc=wc,
-                     cell_start=cell_start, **sub)
+    return PreparedT(order=f.order, pos_s=f.pos_s, vel_s=f.vel_s,
+                     mass_s=f.mass_s, cid=cid_sorted.contiguous(), ws=ws,
+                     wc=wc, cell_start=cell_start, **sub)
+
+
+def prepare_t(cfg: SphConfig, state: ParticleState) -> PreparedT:
+    """Binning + stable sort + per-block window tables + the candidates'
+    cell-start table (+ the sub frame in capped mode): ``sort_frame_t``,
+    ``sub_frame_t`` and ``tables_t`` in turn (``lazy._bin`` times each in
+    capped mode).
+
+    The sorts are stable, as the JAX package's pair sorts are, so ``order``,
+    the sorted frame and (capped) the kept set match it exactly.
+    """
+    f = sort_frame_t(cfg, state)
+    return tables_t(cfg, f, *sub_frame_t(cfg, f))
 
 
 def fused_cand_cols(cfg: SphConfig, pos_c: torch.Tensor, vel_c: torch.Tensor,
@@ -990,6 +1032,20 @@ def band_rows_t(cfg: SphConfig, cid: torch.Tensor, cell_start: torch.Tensor,
     return rows
 
 
+def kept_rows_t(cfg: SphConfig, p: PreparedT) -> torch.Tensor:
+    """The kept rows of a capped frame's bins, those within the sub frame
+    (its cell starts' last entry) and those dropped past it: ``_sub_frame``'s
+    kept count, as a 0-d int64 tensor on the frame's device.  The counter
+    ``capped.kept_rows`` of ``utils/trace.py``."""
+    return p.cell_start[cfg.num_cells].long() + p.sub_dropped
+
+
+def capped_span(cfg: SphConfig, name: str, dev: torch.device):
+    """``trace.span(name, dev)`` in capped mode; in exact mode no span, so
+    its ``binning.prepare`` and ``sweeps.sorted`` stay leaves."""
+    return trace.span(name, dev) if cfg.capped_candidates else _NO_SPAN
+
+
 def band_rows_t_plain(cfg: SphConfig, cid: torch.Tensor,
                       cell_start: torch.Tensor, m: int) -> torch.Tensor:
     """``band_rows_t``'s twin: 32 times ``walk_stats.band_sums``' warp
@@ -1025,10 +1081,14 @@ def density_sweep_t(cfg: SphConfig, p: PreparedT, pv_sub=None
     if not cfg.capped_candidates:
         return density_t(cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc,
                          p.cell_start)
-    pos_c, _ = gather_sub_pv(p) if pv_sub is None else pv_sub
-    return density_capped_t(cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc,
-                            pos_c, p.wm_sub, p.cand_cid, p.sub_perm,
-                            p.cell_start)
+    dev = p.pos_s.device
+    if pv_sub is None:
+        with trace.span("sweeps.capped_gather", dev):
+            pv_sub = gather_sub_pv(p)
+    with trace.span("sweeps.walks", dev):
+        return density_capped_t(cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc,
+                                pv_sub[0], p.wm_sub, p.cand_cid, p.sub_perm,
+                                p.cell_start)
 
 
 def force_sweep_t(cfg: SphConfig, p: PreparedT, rho_s: torch.Tensor,
@@ -1041,19 +1101,27 @@ def force_sweep_t(cfg: SphConfig, p: PreparedT, rho_s: torch.Tensor,
         cand = fused_cand_cols(cfg, p.pos_s, p.vel_s, rho_s, p.mass_s)
         return force_t(cfg, p.pos_s, p.vel_s, rho_s, cand, p.cid, p.ws, p.wc,
                        p.cell_start)
-    pos_c, vel_c = gather_sub_pv(p) if pv_sub is None else pv_sub
-    cand = fused_cand_cols(cfg, pos_c, vel_c, rho_s[p.sub_perm], p.wm_sub)
-    return force_capped_t(cfg, p.pos_s, p.vel_s, rho_s, cand, p.cid, p.ws,
-                          p.wc, p.cand_cid, p.sub_perm, p.cell_start)
+    dev = p.pos_s.device
+    with trace.span("sweeps.capped_gather", dev):
+        pos_c, vel_c = gather_sub_pv(p) if pv_sub is None else pv_sub
+        cand = fused_cand_cols(cfg, pos_c, vel_c, rho_s[p.sub_perm],
+                               p.wm_sub)
+    with trace.span("sweeps.walks", dev):
+        return force_capped_t(cfg, p.pos_s, p.vel_s, rho_s, cand, p.cid,
+                              p.ws, p.wc, p.cand_cid, p.sub_perm,
+                              p.cell_start)
 
 
 def density_sub_t(cfg: SphConfig, p: PreparedT, pv_sub) -> torch.Tensor:
     """Fused-path pre-pass: capped density [S] of the sub-frame rows only
     (the candidates' pressures are its only consumer).  Tail rows
     [n_kept, S) get values no pair ever reads: no band reaches them."""
-    return density_pre_t(cfg, pv_sub[0], p.mass_s[p.sub_perm], p.wm_sub,
-                         p.cand_cid, p.sub_perm, p.ws_sub, p.wc_sub,
-                         p.cell_start)
+    dev = p.pos_s.device
+    with trace.span("sweeps.capped_gather", dev):
+        mass_sub = p.mass_s[p.sub_perm]
+    with trace.span("sweeps.walks", dev):
+        return density_pre_t(cfg, pv_sub[0], mass_sub, p.wm_sub, p.cand_cid,
+                             p.sub_perm, p.ws_sub, p.wc_sub, p.cell_start)
 
 
 def fused_sweep_t(cfg: SphConfig, p: PreparedT, rho_sub: torch.Tensor,
@@ -1061,9 +1129,12 @@ def fused_sweep_t(cfg: SphConfig, p: PreparedT, rho_sub: torch.Tensor,
     """One fused pass: (acc_s hydro-only, rho_s, ncount_s) for all N, the
     candidates' pressures from the pre-pass densities ``rho_sub``."""
     trace.count(ROWS_TESTED, p.rows_tested)
-    cand = fused_cand_cols(cfg, pv_sub[0], pv_sub[1], rho_sub, p.wm_sub)
-    return fused_t(cfg, p.pos_s, p.vel_s, p.mass_s, p.cid, p.ws, p.wc, cand,
-                   p.cand_cid, p.sub_perm, p.cell_start)
+    dev = p.pos_s.device
+    with trace.span("sweeps.capped_gather", dev):
+        cand = fused_cand_cols(cfg, pv_sub[0], pv_sub[1], rho_sub, p.wm_sub)
+    with trace.span("sweeps.walks", dev):
+        return fused_t(cfg, p.pos_s, p.vel_s, p.mass_s, p.cid, p.ws, p.wc,
+                       cand, p.cand_cid, p.sub_perm, p.cell_start)
 
 
 def sweeps_sorted(cfg: SphConfig, p: PreparedT
@@ -1071,19 +1142,31 @@ def sweeps_sorted(cfg: SphConfig, p: PreparedT
     """The sweeps + gravity + CFL clamp, all in the sorted frame, in the
     span ``sweeps.sorted`` (``utils/trace.py``).  Capped mode with
     ``capped_fused`` runs the pre-pass and the fused pass instead of the two
-    full sweeps."""
-    with trace.span("sweeps.sorted", p.pos_s.device):
-        pv_sub = gather_sub_pv(p) if cfg.capped_candidates else None
+    full sweeps.
+
+    In capped mode the span's children tile it: ``sweeps.capped_gather``
+    (the sub frame's rows gathered, its candidate columns built),
+    ``sweeps.walks`` (each band walk) and ``sweeps.body`` (gravity and the
+    CFL clamp); and the step counts ``capped.kept_rows`` once.  In exact
+    mode ``sweeps.sorted`` has no children."""
+    dev = p.pos_s.device
+    with trace.span("sweeps.sorted", dev):
+        pv_sub = None
+        if cfg.capped_candidates:
+            trace.count(KEPT_ROWS, p.kept_rows)
+            with trace.span("sweeps.capped_gather", dev):
+                pv_sub = gather_sub_pv(p)
         if cfg.capped_candidates and cfg.capped_fused:
             rho_sub = density_sub_t(cfg, p, pv_sub)
             acc_s, rho_s, ncount_s = fused_sweep_t(cfg, p, rho_sub, pv_sub)
         else:
             rho_s, ncount_s = density_sweep_t(cfg, p, pv_sub)
             acc_s = force_sweep_t(cfg, p, rho_s, pv_sub)
-        acc_s = acc_s + physics.central_gravity(cfg, p.pos_s)
-        acc_s = acc_s + torch.tensor(cfg.gravity, dtype=torch.float32,
-                                     device=acc_s.device)
-        return physics.cfl_clamp(cfg, acc_s), rho_s, ncount_s
+        with capped_span(cfg, "sweeps.body", dev):
+            acc_s = acc_s + physics.central_gravity(cfg, p.pos_s)
+            acc_s = acc_s + torch.tensor(cfg.gravity, dtype=torch.float32,
+                                         device=acc_s.device)
+            return physics.cfl_clamp(cfg, acc_s), rho_s, ncount_s
 
 
 def truncated_ranges(p: PreparedT) -> torch.Tensor:

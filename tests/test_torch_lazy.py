@@ -105,6 +105,32 @@ def test_forced_rebin_on_drift():
     assert carry.rebin_count == base + 1 and carry.steps_since == 0
 
 
+@pytest.mark.parametrize("capped", [False, True], ids=["exact", "capped"])
+def test_bin_from_is_the_frame_the_bins_sorted(capped):
+    """``LazyCarry.bin_from``: None after ``init_lazy`` (the caller's own
+    order) and in exact mode; in capped mode, after a forced rebin, the
+    previous carry's ``order`` itself (no copy), kept while the bins are
+    frozen."""
+    kw = dict(capped_candidates=4, pallas_window_t=128) if capped else {}
+    _, _, tc, ts = _scenes(**kw)
+    carry = tlazy.init_lazy(tc, ts)
+    assert carry.bin_from is None
+    kick = torch.zeros_like(carry.state.position)
+    kick[0, 0] = tlazy.skin_half(tc) * 2.5
+    prev = carry._replace(state=carry.state._replace(
+        position=carry.state.position + kick))
+    carry, _ = tlazy.lazy_step(tc, prev)
+    assert carry.rebin_count == 1 and carry.steps_since == 0
+    if not capped:
+        assert carry.bin_from is None
+        return
+    assert carry.bin_from is prev.order
+    assert not torch.equal(carry.order, prev.order)
+    frozen = carry._replace(pos_bin=carry.state.position)
+    after, _ = tlazy.lazy_step(tc, frozen)
+    assert after.steps_since == 1 and after.bin_from is prev.order
+
+
 def test_unsort_carry_round_trip():
     _, _, tc, ts = _scenes()
     ts = ts._replace(mass=torch.arange(1, ts.n + 1, dtype=torch.float32))

@@ -9,8 +9,12 @@ among the profiler's events, whose top-level aten ops are those of a run
 with recording suppressed.  ``sweeps.rows_tested`` is ``walk_stats``'
 count of the same bins, counted once by each band sweep over them (K1
 and K2, or the fused path's K3); ``sweeps_t.band_rows_t``'s plain twin is
-``band_stats``' warp union on exact and capped frames.  The stream
-intervals and the counter's kernel need a card.
+``band_stats``' warp union on exact and capped frames.  In capped mode
+(a 6-step solve, a rebin forced at step 4) ``binning.prepare`` and
+``sweeps.sorted`` are tiled by their children, the exact solve's span tree
+is unchanged, and ``capped.kept_rows`` is ``_sub_frame``'s kept count of
+each step's bins, counted once a step.  The stream intervals and the
+counter's kernel need a card.
 """
 
 from types import SimpleNamespace
@@ -21,7 +25,8 @@ import torch
 from smoothed_particle_hydrodynamics_tpu_torch.models import make_scene
 from smoothed_particle_hydrodynamics_tpu_torch.ops import lazy
 from smoothed_particle_hydrodynamics_tpu_torch.ops.sweeps_t import (
-    ROWS_TESTED, band_ranges, band_rows_t, band_rows_t_plain, prepare_t)
+    KEPT_ROWS, ROWS_TESTED, _run_rank_occ, band_ranges, band_rows_t,
+    band_rows_t_plain, capped_span, prepare_t)
 from smoothed_particle_hydrodynamics_tpu_torch.utils import trace, walk_stats
 from smoothed_particle_hydrodynamics_tpu_torch.utils.benchmark import (
     resolve_sweep_settings)
@@ -203,6 +208,162 @@ def test_each_band_sweep_counts_its_bins_rows(kw, sweeps):
     c = trace.take()["counts"][ROWS_TESTED]
     assert c["times"] == sweeps * steps
     assert c["total"] == want > 0
+
+
+CAPPED_KIDS = {
+    "binning.prepare": {"binning.sort", "binning.capped_sub",
+                        "binning.tables"},
+    "sweeps.sorted": {"sweeps.capped_gather", "sweeps.walks", "sweeps.body"}}
+FORCED = 4   # the capped solve's forced rebin, before this step's sweeps
+
+
+def _capped_solve(steps=6):
+    """The capped lazy solve of the 768-particle splash, a rebin forced at
+    step ``FORCED`` (one row's bin position moved far off): the carry after
+    each step."""
+    kw = dict(SPLASH, **CAPPED)
+    cfg, st = make_scene("splash", device="cpu", **kw)
+    cfg = resolve_sweep_settings(cfg, st, kw)
+    carry = lazy.init_lazy(cfg, st)
+    carries = [carry]
+    for k in range(steps):
+        if k == FORCED:
+            far = carry.pos_bin.clone()
+            far[0] += 4.0 * cfg.cell_size
+            carry = carry._replace(pos_bin=far)
+        carry, _ = lazy.lazy_step(cfg, carry)
+        carries.append(carry)
+    return cfg, carries
+
+
+@pytest.fixture(scope="module")
+def profiled_capped():
+    trace.take()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        cfg, carries = _capped_solve()
+    got = trace.take()
+    return (cfg, carries, prof.events(), got,
+            prof.profiler.kineto_results.trace_start_ns())
+
+
+def test_a_profiled_capped_solve_tiles_binning_and_sweeps(profiled_capped):
+    """Capped mode: ``binning.prepare`` holds ``binning.sort``,
+    ``binning.capped_sub`` and ``binning.tables`` in that order, and
+    ``sweeps.sorted`` the gathers, the walks and the body (K1's gather, K1,
+    K2's gather and columns, K2, gravity and CFL); every aten event inside
+    either lies inside one of its children, and every child holds some."""
+    _, carries, events, got, origin = profiled_capped
+    spans = got["spans"]
+    assert got["dropped"] == 0
+    assert carries[FORCED + 1].rebin_count > carries[FORCED].rebin_count
+    names = {s["name"] for s in spans}
+    assert names == (CHILDREN | {"driver.step"}
+                     | set().union(*CAPPED_KIDS.values()))
+    kids = {}
+    for i, s in enumerate(spans):
+        if s["parent"] in CAPPED_KIDS:
+            assert spans[s["up"]]["name"] == s["parent"]
+            assert s["step"] == spans[s["up"]]["step"]
+            kids.setdefault(s["up"], []).append(s["name"])
+    prepares = [i for i, s in enumerate(spans)
+                if s["name"] == "binning.prepare"]
+    sweeps = [i for i, s in enumerate(spans) if s["name"] == "sweeps.sorted"]
+    assert len(prepares) == 1 + carries[-1].rebin_count
+    assert len(sweeps) == len(carries) - 1
+    for i in prepares:
+        assert kids[i] == ["binning.sort", "binning.capped_sub",
+                           "binning.tables"]
+    for i in sweeps:
+        assert kids[i] == ["sweeps.capped_gather", "sweeps.walks",
+                           "sweeps.capped_gather", "sweeps.walks",
+                           "sweeps.body"]
+
+    def us(s):
+        return ((s["host_ns"][0] - origin) * 1e-3,
+                (s["host_ns"][1] - origin) * 1e-3)
+
+    held = {i: 0 for i in range(len(spans))}
+    for e in _aten(events):
+        a, b = e.time_range.start, e.time_range.end
+        for i, s in enumerate(spans):
+            lo, hi = us(s)
+            assert not (a < lo < b or a < hi < b), (e.name, s["name"])
+            if lo <= a and b <= hi:
+                held[i] += 1
+        for i in prepares + sweeps:
+            lo, hi = us(spans[i])
+            if lo <= a and b <= hi:
+                assert any(us(spans[j])[0] <= a and b <= us(spans[j])[1]
+                           for j, s in enumerate(spans) if s["up"] == i), \
+                    (e.name, spans[i]["name"])
+    for i, s in enumerate(spans):
+        if s["parent"] in CAPPED_KIDS:
+            assert held[i] > 0, s["name"]
+
+
+def test_capped_spans_add_no_profiler_event_and_keep_the_host_ops(
+        profiled_capped, monkeypatch):
+    """The capped spans and the kept-rows counter's work (hidden) leave the
+    profiler's top-level aten ops those of the solve not recording."""
+    _, _, events, got, _ = profiled_capped
+    assert not {s["name"] for s in got["spans"]} & {e.name for e in events}
+    monkeypatch.setattr(trace, "_profiler",
+                        SimpleNamespace(_is_profiler_enabled=False))
+    trace.take()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _, carries = _capped_solve()
+    assert trace.take() == {"spans": [], "counts": {}, "dropped": 0}
+    assert all(c.kept_rows is None and c.rows_tested is None
+               for c in carries)
+    assert ([e.name for e in _aten(prof.events())]
+            == [e.name for e in _aten(events)])
+
+
+def test_kept_rows_is_the_sub_frame_s_kept_count(profiled_capped):
+    """``capped.kept_rows``: each step counts once the kept rows of the
+    bins it used, ``_sub_frame``'s ``keep.sum()`` of the same bins."""
+    cfg, carries, _, got, _ = profiled_capped
+    want = 0
+    for c in carries[1:]:
+        rank, _ = _run_rank_occ(c.cid)
+        kept = int((rank < cfg.capped_candidates).sum())
+        assert c.kept_rows.dtype == torch.int64 and c.kept_rows.dim() == 0
+        assert int(c.kept_rows) == kept > 0
+        want += kept
+    assert got["counts"][KEPT_ROWS] == {"total": float(want),
+                                        "times": len(carries) - 1}
+
+
+def test_a_profiled_exact_solve_keeps_its_span_tree(profiled):
+    """Exact mode: the span names of the tracing's first design, no span
+    under ``binning.prepare`` or ``sweeps.sorted``, and no kept-rows
+    count."""
+    _, carries, _, got, _ = profiled
+    spans = got["spans"]
+    assert {s["name"] for s in spans} == CHILDREN | {"driver.step"}
+    assert {s["parent"] for s in spans} == {None, "driver.step"}
+    assert set(got["counts"]) == {ROWS_TESTED}
+    assert all(c.kept_rows is None and c.bin_from is None for c in carries)
+
+
+def test_off_records_nothing_in_capped_mode(monkeypatch):
+    """Unprofiled, the capped spans and counter record nothing and make no
+    CUDA call; no carry keeps a count."""
+    def no_cuda(*a, **k):
+        raise AssertionError("a CUDA call while not recording")
+
+    for name in ("Event", "current_stream", "synchronize"):
+        monkeypatch.setattr(torch.cuda, name, no_cuda)
+    trace.take()
+    assert not trace.recording()
+    cfg, carries = _capped_solve()
+    assert all(c.kept_rows is None and c.rows_tested is None
+               for c in carries)
+    assert capped_span(cfg, "sweeps.walks", torch.device("cuda")) \
+        is trace.span("x", None)
+    assert trace.take() == {"spans": [], "counts": {}, "dropped": 0}
 
 
 def _frame(capped, n, device="cpu"):
