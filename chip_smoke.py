@@ -6,8 +6,9 @@
 Phases (every failed check raises, and the script exits nonzero):
 
 1. build the kernels (``csrc/sweep_t.cu``, ``csrc/sweep_lane.cu``,
-   ``csrc/probes.cu``, ``csrc/floor_t.cu``, ``csrc/integrate_t.cu``:
-   ``LIBRARIES``) with nvcc, one process per source, started together;
+   ``csrc/probes.cu``, ``csrc/floor_t.cu``, ``csrc/integrate_t.cu``,
+   ``csrc/cand_cols_t.cu``: ``LIBRARIES``) with nvcc, one process per
+   source, started together;
    print the build time and ptxas's register/spill report;
 2. exact mode, 32k splash: K1 and K2, the per-lane band walks
    (``density_band_t``, ``force_band_t``), against their plain PyTorch twins
@@ -62,16 +63,18 @@ Phases (every failed check raises, and the script exits nonzero):
    block 256, window and sub-frame length derived), then the 1M lane splash
    eager (rebinned every step) for 3 + 20 steps.  Each kernel of a path
    must have launched once per step, the integrator's kernel
-   ``integrate_t`` too, no block walk of ``ops/sweeps_t.py``
-   (``density_kernel_t``, ``force_kernel_t``, ``fused_kernel_t``) and no
-   ``band_rows_t`` (no profiler records) on any path, no step may drop
-   candidates
+   ``integrate_t`` too, and K2's (K3's) candidate columns' kernel
+   ``cand_cols_t`` on the lazy paths (none on the lane path), no block
+   walk of ``ops/sweeps_t.py`` (``density_kernel_t``, ``force_kernel_t``,
+   ``fused_kernel_t``) and no ``band_rows_t`` (no profiler records) on any
+   path, no step may drop candidates
    (``truncated_ranges`` 0) and the final state must be finite; after the
    capped run, one lazy step from the same state, capped and exact, must
    give densities whose means agree within 1 %.  Last, the
    32k disk runs 100 steps under the lazy sublane driver (central gravity,
    ``second_kick="gravity"``), printing KE, PE and |L| at the start and
-   the end, with a finite state;
+   the end, with a finite state, each of its kernels (``cand_cols_t``
+   too) launched once a step;
 11. the distributed slab engine's six kernel callers (``parallel/
    slab_sweeps.py``: exact K1/K2, the band walks ``density_band_t`` and
    ``force_band_t`` over the live rows of a rank's extended frame; capped
@@ -115,7 +118,8 @@ Phases (every failed check raises, and the script exits nonzero):
 14. the slab main paths, launch counters reset just before each:
    ``run_slab_benchmark`` on the 1M splash at world size 1 (NCCL group of
    one), exact, capped (K_c 4, 256-row blocks) and capped fused, 3 warmup +
-   20 timed steps: each kernel of a path launched once per step, no block
+   20 timed steps: each kernel of a path launched once per step,
+   ``cand_cols_t`` too, no block
    walk launched, no counted loss, a finite state; then
    the single-chip lazy step and the slab step
    in turns (single, slab, slab, single), exact, printing ms/step each;
@@ -235,7 +239,18 @@ Phases (every failed check raises, and the script exits nonzero):
    twice the twin's distance from the float64 sum of the twin's terms or
    one float32 ulp of it, two calls' tallies bit-equal; then the kernel's
    and the twin's times (queued CUDA events) beside the bound, 64 B a row
-   at the HBM rate.
+   at the HBM rate;
+22. K2's candidate columns (``cand_phase``; ``csrc/cand_cols_t.cu``, no
+   TPU kernel: XLA fuses the JAX ``fused_cand_cols``) against their twin
+   ``fused_cand_cols_plain`` on the first step's K2 input of the
+   benchmark's 1M splash, 10M dam break and 10M capped splash (``CAND``;
+   capped, the indexed instance through ``sub_perm``, and the gathered
+   rows unindexed) and on the 1M one-rank slab frame's row-strided column
+   views: every column bit-equal (a NaN against a NaN counted equal); the
+   kernel's and the twin's times (queued CUDA events) beside the bound,
+   68 B a row (indexed: the sectors the index touches) at the HBM rate;
+   then ``cand_fused_share`` 1.0 in a profiled lazy solve of each of the
+   four configurations (``utils/profile_step``).
 
 It then prints the card's name and power limit, one JSON line of kernel
 records (time, twin time, launches, error, and the bound: the larger of the
@@ -251,7 +266,11 @@ clock a SM (``tools/probe_dma_floor.py``'s ``ladder_ops`` and
 computes the same function as ``library_ms``; under ``counters``, the
 counter kernel ``band_rows_t``'s launches in the main paths, 0; under
 ``integrate``, the integrator's kernel's launches in the 1M exact path and
-its times at 1M and 10M beside its bound), and last
+its times at 1M and 10M beside its bound; under ``cand_cols``, the
+candidate columns' kernel's launches in the main path of each input's
+mode (``CAND_PATH``; phases 10 and 14: once a step on every lazy path,
+none on the lane path), its times at each input beside its bound and the
+profiled solve's ``cand_fused_share``), and last
 ``{"ok": true,
 "device": {...}}``.  With no CUDA device it exits 1 before printing any result.
 On every exit it stops the resource tracker that the spawned ranks started,
@@ -301,8 +320,10 @@ SOURCE_LANE = f"{PKG}/csrc/sweep_lane.cu"
 SOURCE_PROBES = f"{PKG}/csrc/probes.cu"
 SOURCE_FLOOR = f"{PKG}/csrc/floor_t.cu"
 SOURCE_INTEGRATE = f"{PKG}/csrc/integrate_t.cu"
+SOURCE_CAND = f"{PKG}/csrc/cand_cols_t.cu"
 # the CUDA sources, one library each (utils/build.py)
-LIBRARIES = ("sweep_t", "sweep_lane", "probes", "floor_t", "integrate_t")
+LIBRARIES = ("sweep_t", "sweep_lane", "probes", "floor_t", "integrate_t",
+             "cand_cols_t")
 TPU_T = "smoothed_particle_hydrodynamics_tpu/ops/pallas_step_t.py"
 TPU_LANE = "smoothed_particle_hydrodynamics_tpu/ops/pallas_step.py"
 TPU_SLABS = "smoothed_particle_hydrodynamics_tpu/parallel/slabs.py"
@@ -3035,6 +3056,180 @@ def integrate_phase(dev) -> dict:
     return out
 
 
+# phase 22: K2's candidate columns (csrc/cand_cols_t.cu, no TPU kernel: XLA
+# fuses the JAX fused_cand_cols) against their twin on the first step's K2
+# input of the benchmark's three cells, and on a one-rank slab frame's
+# column views; then a profiled lazy solve of each configuration
+CAND = {"splash_1m": ("splash", MAIN),
+        "dam_break_10m": TENM["dam_break_10m"][:2],
+        "capped_k4_10m": TENM["capped_k4_10m"][:2]}
+# bytes a row must move: x, v, rho, m read (32 B), 9 columns written (36 B);
+# indexed, the 32-byte sectors of x, v and rho the index touches instead
+CAND_ROW_BYTES = 68
+# the main path (phases 10 and 14) whose launches of cand_cols_t each
+# input's record in the kernels line reports
+CAND_PATH = {"splash_1m": "exact", "dam_break_10m": "exact",
+             "capped_k4_10m": "capped", "slab_1m": "slab exact"}
+CAND_PROFILE_STEPS, CAND_PROFILE_WARMUP = 5, 2
+CAND_SLAB_N = MAIN["num_particles"]
+
+
+def cand_inputs(dev, name: str):
+    """(cfg, (pos, vel, rho, mass), index) of ``CAND[name]``'s first K2
+    columns: the frame ``prepare_t`` sorts, K1's densities, the sorted
+    masses (exact) or the sub frame's reweighted ones and ``sub_perm``
+    (capped)."""
+    from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
+    from smoothed_particle_hydrodynamics_tpu_torch.utils.benchmark import (
+        resolve_scene)
+
+    scene, ov = CAND[name]
+    cfg, state = resolve_scene(scene, dev, ov, backend="pallas")
+    p = sw.prepare_t(cfg, state)
+    del state
+    rho, _ = sw.density_sweep_t(cfg, p)
+    if cfg.capped_candidates:
+        return cfg, (p.pos_s, p.vel_s, rho, p.wm_sub), p.sub_perm
+    return cfg, (p.pos_s, p.vel_s, rho, p.mass_s), None
+
+
+def cand_twin(cfg, pos, vel, rho, mass, index=None) -> torch.Tensor:
+    """The twin's columns of the same candidates (gathered first where
+    ``index`` is given)."""
+    from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
+
+    if index is not None:
+        rows = index.long()
+        pos, vel, rho = pos[rows], vel[rows], rho[rows]
+    return sw.fused_cand_cols_plain(cfg, pos, vel, rho, mass)
+
+
+def cand_vs_twin(label: str, cfg, pos, vel, rho, mass, index=None) -> int:
+    """``cand_cols_t`` (``fused_cand_cols`` on the card) against its twin
+    on the same inputs: every column bit-equal (a NaN against a NaN counted
+    equal); returns the elements that differ."""
+    from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
+
+    launches = sw.cand_cols_t.launches
+    kernel = sw.cand_cols_t(cfg, pos, vel, rho, mass, index)
+    twin = cand_twin(cfg, pos, vel, rho, mass, index)
+    diff = rows_differ(kernel, twin)
+    print(f"[cand {label}] m={mass.shape[0]} indexed={index is not None} "
+          f"strides pos {pos.stride()} rho {rho.stride()} mass "
+          f"{mass.stride()}: elements differing {diff}")
+    check(kernel.shape == twin.shape, f"{label}: columns [M, 9]")
+    check(sw.cand_cols_t.launches == launches + (mass.shape[0] > 0),
+          f"{label}: cand_cols_t launched")
+    check(diff == 0, f"{label}: columns bit-equal to the twin")
+    return diff
+
+
+def cand_bytes(pos, vel, rho, mass, index=None) -> int:
+    """Bytes the pass must move: ``CAND_ROW_BYTES`` a row; indexed, the
+    32-byte sectors of ``pos``, ``vel`` and ``rho`` whose rows the index
+    names, its own 4 B and the mass's 4 B a row, and 36 B written a row."""
+    m = mass.shape[0]
+    if index is None:
+        return CAND_ROW_BYTES * m
+    rows = index.long()
+
+    def sectors(t: torch.Tensor, width: int) -> int:
+        first = rows * (t.stride(0) * 4) + t.data_ptr() % 32
+        return int(torch.unique(torch.cat(
+            [first // 32, (first + 4 * width - 1) // 32])).numel())
+
+    return 32 * (sectors(pos, 3) + sectors(vel, 3) + sectors(rho, 1)) \
+        + 44 * m
+
+
+def cand_timed(label: str, cfg, args: tuple, index=None) -> dict:
+    """The kernel's and the twin's ms (queued CUDA events) and the bound,
+    ``cand_bytes`` at the HBM rate."""
+    from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
+
+    rec = dict(
+        m=args[3].shape[0],
+        ms=time_ms(lambda: sw.cand_cols_t(cfg, *args, index), iters=20,
+                   warmup=3),
+        plain_ms=time_ms(lambda: cand_twin(cfg, *args, index), iters=5,
+                         warmup=1),
+        bound_ms=cand_bytes(*args, index) / HBM_BYTES_PER_S * 1e3)
+    gathers = "" if index is None else " (with its gathers)"
+    print(f"[cand {label}] kernel {rec['ms']:.4f} ms, twin "
+          f"{rec['plain_ms']:.4f} ms{gathers}, "
+          f"bound {rec['bound_ms']:.4f} ms (bytes), "
+          f"{rec['bound_ms'] / rec['ms']:.0%} of it")
+    return rec
+
+
+def cand_slab_inputs(dev):
+    """The one-rank slab frame's force columns (``CAND_SLAB_N``
+    particles) as the exact slab force passes them
+    (``slab_sweeps.force_local_args``): row-strided views of the frame's
+    store and a density a row."""
+    from smoothed_particle_hydrodynamics_tpu_torch.parallel import (
+        slab_sweeps as ss, slabs)
+    from smoothed_particle_hydrodynamics_tpu_torch.parallel.comm import (
+        local_group)
+    from smoothed_particle_hydrodynamics_tpu_torch.utils.benchmark import (
+        slab_setup)
+
+    cfg, st, zsplit, caps, sub_len = slab_setup(CAND_SLAB_N, SLAB,
+                                                SLAB_HEADROOM, dev)
+    sub_len = slabs.frame_sub_len(cfg, "pallas", caps[0], caps[1], sub_len)
+    with local_group(dev) as grp:
+        carry = slabs.init_lazy_slab(
+            cfg, grp, slabs.distribute(cfg, st, grp, caps[0], zsplit),
+            caps[0], "pallas", sub_len)
+        frame = slabs.prepare_frame(cfg, grp, *caps, "pallas", zsplit, True,
+                                    sub_len, carry)
+    ext = frame.ext
+    g = torch.Generator(device=dev).manual_seed(22)
+    rho = 0.5 + 1.5 * torch.rand(ext.shape[0], generator=g, device=dev)
+    return cfg, (ext[:, 0:3], ext[:, 3:6], rho, ext[:, ss._MASS])
+
+
+def cand_phase(dev) -> dict:
+    """Phase 22: the candidate columns' kernel against its twin on each
+    ``CAND`` input and on the slab frame's views, each timed beside its
+    bound, then ``cand_fused_share`` of a profiled lazy solve of each
+    configuration (1.0: the kernel built every column)."""
+    from smoothed_particle_hydrodynamics_tpu_torch.utils import profile_step
+
+    t_phase = time.perf_counter()
+    out = {}
+    for name in CAND:
+        reset_peak(dev)
+        cfg, args, index = cand_inputs(dev, name)
+        rec = dict(differ=cand_vs_twin(name, cfg, *args, index))
+        if index is not None:
+            rec["differ_exact"] = cand_vs_twin(f"{name} unindexed", cfg,
+                                               *(a[index.long()] for a in
+                                                 args[:3]), args[3])
+        rec.update(cand_timed(name, cfg, args, index), peak_gb=peak_gb(dev))
+        out[name] = rec
+        del args, index
+    cfg, args = cand_slab_inputs(dev)
+    out["slab_1m"] = dict(differ=cand_vs_twin("slab_1m", cfg, *args),
+                          **cand_timed("slab_1m", cfg, args))
+    del args
+    shares = {}
+    for name, (scene, ov) in CAND.items():
+        reset_peak(dev)
+        shares[name] = profile_step.profile(
+            scene, ov, "pallas", True, CAND_PROFILE_STEPS,
+            CAND_PROFILE_WARMUP)["cand_fused_share"]
+    shares["slab_1m"] = profile_step.profile_slab(
+        dict(SLAB, num_particles=CAND_SLAB_N), CAND_PROFILE_STEPS,
+        CAND_PROFILE_WARMUP)["cand_fused_share"]
+    for name, share in shares.items():
+        print(f"[cand {name}] profiled lazy solve: cand_fused_share {share}")
+        check(share == 1.0, f"{name}: the kernel built every column")
+        out[name]["cand_fused_share"] = share
+    print(f"[p22] phase 22 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -3199,7 +3394,7 @@ def main() -> int:
 
     # 10. the main paths, counted (the block walks and the counter kernel
     #     too: no path runs them unprofiled)
-    launches, counter_launches = {}, 0
+    launches, counter_launches, cand_launches = {}, 0, {}
     for path, (ov, names) in PATHS.items():
         lazy = path != "lane"
         reset_launches()
@@ -3232,6 +3427,12 @@ def main() -> int:
         check(kdk == total_steps, f"{path}: integrate_t launched {kdk} "
               f"times in {total_steps} steps")
         launches.setdefault("integrate_t", kdk)
+        # K2's candidate columns: one launch a step on the sublane paths
+        cols = sw.cand_cols_t.launches
+        want = 0 if path == "lane" else total_steps
+        check(cols == want, f"{path}: cand_cols_t launched {cols} times in "
+              f"{total_steps} steps, want {want}")
+        cand_launches[path] = cols
         rows = sw.band_rows_t.launches
         check(rows == 0, f"{path}: band_rows_t launched {rows} times with "
               "no profiler running")
@@ -3265,6 +3466,7 @@ def main() -> int:
     counts = {name: wrapper(name).launches
               for name in ("density_band_t", "force_band_t")}
     counts["integrate_t"] = _modules()["integrate"].integrate_t.launches
+    counts["cand_cols_t"] = sw.cand_cols_t.launches
     finite = bool(torch.isfinite(final.position).all()
                   and torch.isfinite(final.velocity).all()
                   and torch.isfinite(d.kinetic_energy).all())
@@ -3509,6 +3711,10 @@ def main() -> int:
             check(counts[name] == total_steps, f"{path}: {name} launched "
                   f"{counts[name]} times in {total_steps} steps")
             launches[name] = counts[name]
+        cols = sw.cand_cols_t.launches
+        check(cols == total_steps, f"{path}: cand_cols_t launched {cols} "
+              f"times in {total_steps} steps")
+        cand_launches[path] = cols
         no_block_walk(path, block_walks)
         for k in ("truncated_ranges", "halo_dropped_steps",
                   "migration_dropped_steps"):
@@ -3595,6 +3801,10 @@ def main() -> int:
     # 21. the integrator's kernel against its twin at 1M and 10M, timed
     integ = integrate_phase(dev)
 
+    # 22. K2's candidate columns against their twin in the three cells and
+    #     on a slab frame, timed; the share of a profiled solve's columns
+    cand = cand_phase(dev)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
@@ -3620,7 +3830,18 @@ def main() -> int:
                        "launches": launches["integrate_t"], "case": name,
                        "n": r["n"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                        "bound_ms": r["bound_ms"], "bound_by": "bytes"}
-                      for name, r in integ.items()]}))
+                      for name, r in integ.items()],
+        # K2's candidate columns (no TPU kernel): its launches in the main
+        # path of each input's mode (phases 10 and 14), its times at each
+        # input (phase 22)
+        "cand_cols": [{"name": "cand_cols_t", "route": "cuda",
+                       "source": SOURCE_CAND, "replaces": None,
+                       "launches": cand_launches[CAND_PATH[name]],
+                       "case": name, "m": r["m"], "ms": r["ms"],
+                       "plain_ms": r["plain_ms"],
+                       "bound_ms": r["bound_ms"], "bound_by": "bytes",
+                       "cand_fused_share": r["cand_fused_share"]}
+                      for name, r in cand.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

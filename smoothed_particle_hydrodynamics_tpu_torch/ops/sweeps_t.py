@@ -27,7 +27,11 @@ Each kernel has a wrapper and a plain PyTorch twin here:
 * ``fused_t`` -> ``fused_band_t``, replacing ``_fused_kernel_t``; twin
   ``fused_t_plain``;
 * ``band_rows_t`` -> ``band_rows_t``, the counter ``sweeps.rows_tested``
-  (``utils/trace.py``; no TPU counterpart); twin ``band_rows_t_plain``.
+  (``utils/trace.py``; no TPU counterpart); twin ``band_rows_t_plain``;
+* ``fused_cand_cols`` -> ``cand_cols_t`` (``csrc/cand_cols_t.cu``), K2's
+  and K3's [M, 9] candidate columns in one pass, the capped gather through
+  ``sub_perm`` folded in (no TPU kernel: XLA fuses the JAX package's
+  ``fused_cand_cols``); twin ``fused_cand_cols_plain``.
 
 Every kernel walks per-lane cell bands: self row i tests, for each rod,
 only the candidate rows of the cells its own cid mask accepts, one
@@ -108,6 +112,13 @@ ROWS_TESTED = "sweeps.rows_tested"
 # The counter of the kept rows of the bins a capped step uses
 # (``kept_rows_t``), counted once a step by ``sweeps_sorted``.
 KEPT_ROWS = "capped.kept_rows"
+# The counters of the candidate rows ``fused_cand_cols`` built, on any path,
+# and of those the kernel ``cand_cols_t`` built (utils/trace.py).
+CAND_ROWS = "sweeps.cand_rows"
+CAND_ROWS_FUSED = "sweeps.cand_rows_fused"
+# Rows a tile (= threads a block) and blocks an SM of ``cand_cols_t``'s
+# persistent grid (csrc/cand_cols_t.cu: kTile, the launch bounds).
+CAND_TILE, CAND_BLOCKS_PER_SM = 256, 8
 _NO_SPAN = contextlib.nullcontext()
 # Self-exclusion modes of the density and force kernels (csrc/sweep_t.cu):
 # candidate row vs self row, candidate src vs self row, src vs src.
@@ -456,11 +467,33 @@ def prepare_t(cfg: SphConfig, state: ParticleState) -> PreparedT:
 
 
 def fused_cand_cols(cfg: SphConfig, pos_c: torch.Tensor, vel_c: torch.Tensor,
-                    rho_c: torch.Tensor, m_c: torch.Tensor) -> torch.Tensor:
+                    rho_c: torch.Tensor, m_c: torch.Tensor,
+                    index: torch.Tensor | None = None) -> torch.Tensor:
     """[M, 9] force candidate columns: x y z, rimj*vx rimj*vy rimj*vz, rimj,
     mj, mj*pwj with rimj = mj/rhoj and pwj = pj/rhoj^2 (the JAX package's
     lanes 0:3, 4:8, 9, 10; its ones, cid and src lanes serve the MXU and the
-    capped mode, whose cids and srcs ride in their own int32 arrays here)."""
+    capped mode, whose cids and srcs ride in their own int32 arrays here).
+
+    With ``index`` (int32 [M]) candidate s takes its position, velocity and
+    density from row ``index[s]`` of ``pos_c``, ``vel_c`` and ``rho_c`` and
+    its mass from ``m_c[s]``: the capped sub frame's gather folded in.  On
+    CPU tensors the twin ``fused_cand_cols_plain`` (after the gather), on
+    the card the kernel ``cand_cols_t``, bit-equal to it.  Counts M in
+    ``sweeps.cand_rows`` while recording (``utils/trace.py``)."""
+    trace.count(CAND_ROWS, m_c.shape[0])
+    if not _use_plain(m_c):
+        return cand_cols_t(cfg, pos_c, vel_c, rho_c, m_c, index)
+    if index is not None:
+        rows = index.long()
+        pos_c, vel_c, rho_c = pos_c[rows], vel_c[rows], rho_c[rows]
+    return fused_cand_cols_plain(cfg, pos_c, vel_c, rho_c, m_c)
+
+
+def fused_cand_cols_plain(cfg: SphConfig, pos_c: torch.Tensor,
+                          vel_c: torch.Tensor, rho_c: torch.Tensor,
+                          m_c: torch.Tensor) -> torch.Tensor:
+    """``fused_cand_cols``' twin: the columns as PyTorch ops, row s from
+    row s of each input."""
     rhoj_inv = physics.safe_inv(rho_c)
     p_j = physics.pressure_from_density(cfg, rho_c)
     rimj = rhoj_inv * m_c
@@ -1032,6 +1065,95 @@ def band_rows_t(cfg: SphConfig, cid: torch.Tensor, cell_start: torch.Tensor,
     return rows
 
 
+@functools.cache
+def _cand_kernels() -> ctypes.CDLL:
+    """Build (first use) and bind ``csrc/cand_cols_t.cu``."""
+    lib = build.load_library("cand_cols_t")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.sph_cand_cols_t.argtypes = ([p] * 6 + [ctypes.c_longlong] * 4
+                                    + [i] * 2 + [f] * 2 + [p])
+    lib.sph_cand_cols_t.restype = i
+    lib.sph_error_string.argtypes = [i]
+    lib.sph_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _cand_grid_cap(index: int) -> int:
+    """Blocks of ``cand_cols_t``'s persistent grid on card ``index``."""
+    return CAND_BLOCKS_PER_SM * torch.cuda.get_device_properties(
+        index).multi_processor_count
+
+
+def _cand_checks(dev: torch.device, pos_c, vel_c, rho_c, m_c, index) -> int:
+    """The candidate count M, once the inputs are what ``cand_cols_t``
+    takes: float32 masses [M] and, over R rows (M without ``index``),
+    positions and velocities [R, 3] whose last stride is 1 and densities
+    [R], at any row stride; ``index`` a contiguous int32 [M]; all on
+    ``dev``.  Raises ValueError otherwise."""
+    def need(ok: bool, name: str, t: torch.Tensor, what: str) -> None:
+        if not ok:
+            raise ValueError(
+                f"{name}: need {what} on {dev}; got {t.dtype} "
+                f"{tuple(t.shape)} with strides {t.stride()} on {t.device}")
+
+    need(m_c.dtype == torch.float32 and m_c.dim() == 1 and m_c.device == dev,
+         "m_c", m_c, "a float32 [M] tensor")
+    m = m_c.shape[0]
+    rows = m
+    if index is not None:
+        _check(dev, index=(index, torch.int32, (m,)))
+        rows = pos_c.shape[0] if pos_c.dim() == 2 else -1
+    for name, t in (("pos_c", pos_c), ("vel_c", vel_c)):
+        need(t.dtype == torch.float32 and tuple(t.shape) == (rows, 3)
+             and t.device == dev and t.stride(1) == 1, name, t,
+             f"a float32 [{rows}, 3] tensor whose last stride is 1")
+    need(rho_c.dtype == torch.float32 and tuple(rho_c.shape) == (rows,)
+         and rho_c.device == dev, "rho_c", rho_c,
+         f"a float32 [{rows}] tensor")
+    return m
+
+
+def cand_blocks(m: int, cap: int) -> int:
+    """Blocks of ``cand_cols_t``'s grid over ``m`` rows: one a tile of
+    ``CAND_TILE`` rows up to ``cap``, each walking the tiles in a
+    grid-stride loop."""
+    return min(-(-m // CAND_TILE), cap)
+
+
+def _launch_cand_cols(cfg: SphConfig, pos_c, vel_c, rho_c, m_c, index,
+                      out) -> None:
+    """Launch ``cand_cols_t`` over ``out``'s rows (at least one) on the
+    current stream."""
+    lib = _cand_kernels()
+    m, dev = out.shape[0], out.device
+    err = lib.sph_cand_cols_t(
+        pos_c.data_ptr(), vel_c.data_ptr(), rho_c.data_ptr(), m_c.data_ptr(),
+        _ptr(index), out.data_ptr(), pos_c.stride(0), vel_c.stride(0),
+        rho_c.stride(0), m_c.stride(0), m,
+        cand_blocks(m, _cand_grid_cap(dev.index or 0)), _f32(cfg.rho0),
+        _f32(cfg.stiffness), _stream(dev))
+    _raise_on(lib, err, "cand_cols_t")
+
+
+def cand_cols_t(cfg: SphConfig, pos_c: torch.Tensor, vel_c: torch.Tensor,
+                rho_c: torch.Tensor, m_c: torch.Tensor,
+                index: torch.Tensor | None = None) -> torch.Tensor:
+    """``fused_cand_cols`` on the card: one pass of the kernel
+    ``cand_cols_t`` into a new [M, 9] tensor, the indexed instance where
+    ``index`` is given, the arguments checked first.  Each launch counts M
+    in ``sweeps.cand_rows_fused`` while recording; no rows launch
+    nothing."""
+    dev = m_c.device
+    m = _cand_checks(dev, pos_c, vel_c, rho_c, m_c, index)
+    out = torch.empty(m, 9, dtype=torch.float32, device=dev)
+    if m:
+        _launch_cand_cols(cfg, pos_c, vel_c, rho_c, m_c, index, out)
+        cand_cols_t.launches += 1
+        trace.count(CAND_ROWS_FUSED, m)
+    return out
+
+
 def kept_rows_t(cfg: SphConfig, p: PreparedT) -> torch.Tensor:
     """The kept rows of a capped frame's bins, those within the sub frame
     (its cell starts' last entry) and those dropped past it: ``_sub_frame``'s
@@ -1055,7 +1177,7 @@ def band_rows_t_plain(cfg: SphConfig, cid: torch.Tensor,
 
 
 WRAPPERS = (density_t, density_capped_t, density_pre_t, force_t,
-            force_capped_t, fused_t, band_rows_t)
+            force_capped_t, fused_t, band_rows_t, cand_cols_t)
 for _w in WRAPPERS:
     _w.launches = 0
 # the block walks' launches, by launcher (no step path may launch one)
@@ -1074,28 +1196,29 @@ def gather_sub_pv(p: PreparedT) -> tuple[torch.Tensor, torch.Tensor]:
     return p.pos_s[p.sub_perm], p.vel_s[p.sub_perm]
 
 
-def density_sweep_t(cfg: SphConfig, p: PreparedT, pv_sub=None
+def density_sweep_t(cfg: SphConfig, p: PreparedT
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(rho_s, ncount_s) in sorted order."""
+    """(rho_s, ncount_s) in sorted order; capped, over the sub frame's
+    positions, gathered here (K2 gathers its own rows)."""
     trace.count(ROWS_TESTED, p.rows_tested)
     if not cfg.capped_candidates:
         return density_t(cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc,
                          p.cell_start)
     dev = p.pos_s.device
-    if pv_sub is None:
-        with trace.span("sweeps.capped_gather", dev):
-            pv_sub = gather_sub_pv(p)
+    with trace.span("sweeps.capped_gather", dev):
+        pos_sub = p.pos_s[p.sub_perm]
     with trace.span("sweeps.walks", dev):
         return density_capped_t(cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc,
-                                pv_sub[0], p.wm_sub, p.cand_cid, p.sub_perm,
+                                pos_sub, p.wm_sub, p.cand_cid, p.sub_perm,
                                 p.cell_start)
 
 
-def force_sweep_t(cfg: SphConfig, p: PreparedT, rho_s: torch.Tensor,
-                  pv_sub=None) -> torch.Tensor:
+def force_sweep_t(cfg: SphConfig, p: PreparedT, rho_s: torch.Tensor
+                  ) -> torch.Tensor:
     """acc_s [N, 3] in sorted order (hydro only; gravity/CFL by the caller).
-    Capped: the candidates' densities are ``rho_s`` at their sorted rows,
-    their masses the reweighted ``wm_sub``."""
+    Capped: the candidates are the sorted rows ``sub_perm`` names, their
+    positions, velocities and densities gathered by ``fused_cand_cols``
+    itself, their masses the reweighted ``wm_sub``."""
     trace.count(ROWS_TESTED, p.rows_tested)
     if not cfg.capped_candidates:
         cand = fused_cand_cols(cfg, p.pos_s, p.vel_s, rho_s, p.mass_s)
@@ -1103,9 +1226,8 @@ def force_sweep_t(cfg: SphConfig, p: PreparedT, rho_s: torch.Tensor,
                        p.cell_start)
     dev = p.pos_s.device
     with trace.span("sweeps.capped_gather", dev):
-        pos_c, vel_c = gather_sub_pv(p) if pv_sub is None else pv_sub
-        cand = fused_cand_cols(cfg, pos_c, vel_c, rho_s[p.sub_perm],
-                               p.wm_sub)
+        cand = fused_cand_cols(cfg, p.pos_s, p.vel_s, rho_s, p.wm_sub,
+                               index=p.sub_perm)
     with trace.span("sweeps.walks", dev):
         return force_capped_t(cfg, p.pos_s, p.vel_s, rho_s, cand, p.cid,
                               p.ws, p.wc, p.cand_cid, p.sub_perm,
@@ -1145,23 +1267,23 @@ def sweeps_sorted(cfg: SphConfig, p: PreparedT
     full sweeps.
 
     In capped mode the span's children tile it: ``sweeps.capped_gather``
-    (the sub frame's rows gathered, its candidate columns built),
+    (the sub frame's positions gathered for K1, and velocities too for the
+    fused path; the candidate columns built),
     ``sweeps.walks`` (each band walk) and ``sweeps.body`` (gravity and the
     CFL clamp); and the step counts ``capped.kept_rows`` once.  In exact
     mode ``sweeps.sorted`` has no children."""
     dev = p.pos_s.device
     with trace.span("sweeps.sorted", dev):
-        pv_sub = None
         if cfg.capped_candidates:
             trace.count(KEPT_ROWS, p.kept_rows)
+        if cfg.capped_candidates and cfg.capped_fused:
             with trace.span("sweeps.capped_gather", dev):
                 pv_sub = gather_sub_pv(p)
-        if cfg.capped_candidates and cfg.capped_fused:
             rho_sub = density_sub_t(cfg, p, pv_sub)
             acc_s, rho_s, ncount_s = fused_sweep_t(cfg, p, rho_sub, pv_sub)
         else:
-            rho_s, ncount_s = density_sweep_t(cfg, p, pv_sub)
-            acc_s = force_sweep_t(cfg, p, rho_s, pv_sub)
+            rho_s, ncount_s = density_sweep_t(cfg, p)
+            acc_s = force_sweep_t(cfg, p, rho_s)
         with capped_span(cfg, "sweeps.body", dev):
             acc_s = acc_s + physics.central_gravity(cfg, p.pos_s)
             acc_s = acc_s + torch.tensor(cfg.gravity, dtype=torch.float32,

@@ -290,8 +290,8 @@ def test_capped_launch_refuses_a_missing_table(kernel, monkeypatch):
                 cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc, pos_c, p.wm_sub,
                 p.cand_cid, p.sub_perm, None)
         else:
-            cand = sweeps_t.fused_cand_cols(cfg, pos_c, vel_c,
-                                            p.mass_s[p.sub_perm], p.wm_sub)
+            cand = sweeps_t.fused_cand_cols_plain(
+                cfg, pos_c, vel_c, p.mass_s[p.sub_perm], p.wm_sub)
             sweeps_t.force_capped_t(
                 cfg, p.pos_s, p.vel_s, p.mass_s, cand, p.cid, p.ws, p.wc,
                 p.cand_cid, p.sub_perm, None)

@@ -395,3 +395,59 @@ def test_phase21_tally_bar(smoke):
     compat = cs.tally_errors(SphConfig(compat=True), torch.zeros(6),
                              torch.zeros(6), terms)["|L|"]
     assert compat["ref"] == 0.0 and compat["ok"]
+
+
+def test_phase22_cand_checks(smoke, monkeypatch, capsys):
+    """Phase 22 on the CPU at 4,096 particles (the slab frame on a 16^3
+    grid), ``cand_cols_t``'s launcher writing the twin's columns (the
+    kernel runs only on the card) and the profiled solves stood in."""
+    from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
+    from smoothed_particle_hydrodynamics_tpu_torch.utils import profile_step
+
+    cs, dev = smoke
+    calls, profiled = [], []
+
+    def launch(cfg, pos, vel, rho, mass, index, out):
+        if index is not None:
+            rows = index.long()
+            pos, vel, rho = pos[rows], vel[rows], rho[rows]
+        out.copy_(sw.fused_cand_cols_plain(cfg, pos, vel, rho, mass))
+        calls.append(index is not None)
+
+    monkeypatch.setattr(sw, "_launch_cand_cols", launch)
+    monkeypatch.setattr(cs, "time_ms", lambda fn, iters=1, warmup=0: (
+        fn(), 1.0)[1])
+    monkeypatch.setattr(profile_step, "profile", lambda *a: (
+        profiled.append(a[:2]), {"cand_fused_share": 1.0})[1])
+    monkeypatch.setattr(profile_step, "profile_slab", lambda ov, *a: (
+        profiled.append(("slab", ov)), {"cand_fused_share": 1.0})[1])
+    grid = dict(num_particles=4096, grid_nx=16, grid_ny=16, grid_nz=16)
+    monkeypatch.setattr(cs, "CAND", {
+        name: (scene, dict(ov, **grid))
+        for name, (scene, ov) in cs.CAND.items()})
+    monkeypatch.setattr(cs, "CAND_SLAB_N", 4096)
+    monkeypatch.setattr(cs, "SLAB", dict(cs.SLAB, grid_nx=16, grid_ny=16,
+                                         grid_nz=16))
+    out = cs.cand_phase(dev)
+    assert set(out) == {"splash_1m", "dam_break_10m", "capped_k4_10m",
+                        "slab_1m"}
+    for name, r in out.items():
+        assert r["differ"] == 0 and r["cand_fused_share"] == 1.0
+        assert r["ms"] == r["plain_ms"] == 1.0
+    for name in ("splash_1m", "dam_break_10m"):
+        assert out[name]["m"] == 4096
+        assert out[name]["bound_ms"] == 68 * 4096 / 3.35e12 * 1e3
+    capped = out["capped_k4_10m"]
+    assert capped["differ_exact"] == 0 and 0 < capped["m"] < 4096
+    # gathered sectors of x, v and rho at most all of them, 44 B a row more
+    assert capped["bound_ms"] <= (4096 * 28 + 44 * capped["m"] + 96) \
+        / 3.35e12 * 1e3
+    # a comparison and a timed call a case; the capped case's unindexed
+    # comparison
+    assert calls == [False, False, False, False, True, False, True, False,
+                     False]
+    assert [a[0] for a in profiled] == ["splash", "dam_break_10m", "splash",
+                                        "slab"]
+    text = capsys.readouterr().out
+    assert text.count("elements differing 0") == 5
+    assert "[p22] phase 22 took" in text

@@ -201,13 +201,23 @@ def _walk_fused(cfg, pos_s, vel_s, mass_s, cid, cell_start, cand, cand_src,
     return tuple(torch.cat(x) for x in zip(*out))
 
 
+def _twin_cand_cols(cfg, pos_c, vel_c, rho_c, m_c, index, out):
+    """``sw._launch_cand_cols`` on the CPU: the twin's columns."""
+    if index is not None:
+        rows = index.long()
+        pos_c, vel_c, rho_c = pos_c[rows], vel_c[rows], rho_c[rows]
+    out.copy_(sw.fused_cand_cols_plain(cfg, pos_c, vel_c, rho_c, m_c))
+
+
 def _band_path(monkeypatch, *modules):
     """Force the kernel path for CPU tensors, with the walks in place of
-    the launches."""
+    the launches (and the twin's candidate columns in place of
+    ``cand_cols_t``'s)."""
     for mod in modules:
         monkeypatch.setattr(mod, "_use_plain", lambda x: False)
     monkeypatch.setattr(sw, "_launch_density_band", _walk_prepass)
     monkeypatch.setattr(sw, "_launch_fused_band", _walk_fused)
+    monkeypatch.setattr(sw, "_launch_cand_cols", _twin_cand_cols)
 
 
 def _self_term(cfg, mass) -> torch.Tensor:
@@ -304,7 +314,8 @@ def test_card_call_refuses_a_missing_table(prepared, kernel, monkeypatch):
             sw.density_pre_t(cfg, pos_c, p.mass_s[p.sub_perm], p.wm_sub,
                              p.cand_cid, p.sub_perm, p.ws_sub, p.wc_sub, None)
         else:
-            cand = sw.fused_cand_cols(cfg, pos_c, vel_c, p.wm_sub, p.wm_sub)
+            cand = sw.fused_cand_cols_plain(cfg, pos_c, vel_c, p.wm_sub,
+                                            p.wm_sub)
             sw.fused_t(cfg, p.pos_s, p.vel_s, p.mass_s, p.cid, p.ws, p.wc,
                        cand, p.cand_cid, p.sub_perm, None)
     assert sw.density_pre_t.launches == sw.fused_t.launches == 0
