@@ -12,47 +12,38 @@ Phases (every failed check raises, and the script exits nonzero):
    print the build time and ptxas's register/spill report;
 2. exact mode, 32k splash: K1 and K2, the per-lane band walks
    (``density_band_t``, ``force_band_t``), against their plain PyTorch twins
-   on the card (neighbor counts equal, rho rel-L2 <= 1e-6, acc rel-L2 <=
-   1e-4) and against the block-walk kernels (``density_kernel_t`` and
-   ``force_kernel_t`` with ``EXCL_ROW``) on the same tensors: counts, rho
-   and acc bit-equal; the counter kernel ``band_rows_t`` (the lane-rows
-   of a band sweep, ``sweeps.rows_tested``) equal to its twin, 32 times
+   on the card, which walk the same bands on the same arguments (neighbor
+   counts equal, rho rel-L2 <= 1e-6, acc rel-L2 <= 1e-4); two launches of
+   each on the same tensors bit-equal (the walk is deterministic); the
+   counter kernel ``band_rows_t`` (the lane-rows of a band sweep,
+   ``sweeps.rows_tested``) equal to its twin, 32 times
    ``walk_stats.band_sums``' warp union, exactly;
 3. exact mode, 4096-particle splash: the kernel-backed step quantities
    against the O(N^2) pairwise oracle, with the same bars;
 4. exact mode, 1M splash shapes: the same checks at the main path's
-   shapes, the rows tested per lane (band mean and max over a warp) beside
-   the block window's rows per thread, and the kernel, block-walk and twin
-   times (CUDA events);
+   shapes, the rows tested per lane (band mean, max over a warp, warp
+   union), and the kernel and twin times (CUDA events);
 5. capped mode (K_c = 4), 32k splash: capped K1 and K2, the per-lane band
    walks over the sub frame (``density_band_t<capped>``,
    ``force_band_t<capped>``), the fused path's pre-pass K1 and K3, band
    walks over the same table (``density_band_t<prepass>``,
-   ``fused_band_t``), against their twins, and against the block-walk
-   kernels on the same tensors: capped K1 and K2 against
-   ``density_kernel_t``/``force_kernel_t`` with ``EXCL_SRC`` and K3 against
-   ``fused_kernel_t`` (counts, rho and acc bit-equal on every row), the
-   pre-pass against ``density_kernel_t`` with ``EXCL_SRC_SRC`` (rho and
-   counts bit-equal on the kept sub rows; the tail rows count 0); K3's rho
-   and counts bit-equal to capped K1's; the pre-pass's rows per thread and
-   lane; ``band_rows_t`` over the sub frame's table equal to its twin;
+   ``fused_band_t``), against their twins (the pre-pass on the kept sub
+   rows; its tail rows count 0), each launched twice bit-equal; K3's rho
+   and counts bit-equal to capped K1's; the pre-pass's rows per lane;
+   ``band_rows_t`` over the sub frame's table equal to its twin;
 6. capped mode, 4096-particle splash with a keep-all cap (K_c = the largest
    cell occupancy), two-pass and fused, against the pairwise oracle;
 7. capped mode, 1M splash shapes: the same checks, the rows tested per
-   lane beside the block window's rows per thread, the kernel and twin
-   times, the four capped band walks and their block walks timed in turns,
-   and the capped density mean over the exact one on the same state in
-   (0.99, 1.01) (the sampling is unbiased);
+   lane, the kernel and twin times, and the capped density mean over the
+   exact one on the same state in (0.99, 1.01) (the sampling is unbiased);
 8. lane layout, 32k packed splash with 128-row windows (multi-chunk) and the
    1M lane splash shapes (window 512): the per-lane band walks
-   ``density_band_lane`` and ``force_band_lane`` against their twins and,
-   on the same tensors, bit-equal to the block walks ``density_kernel_lane``
-   and ``force_kernel_lane`` (counts, rho, acc); then a clamped case (a few
-   16^3-grid cells each holding more than 127 windows of rows, so
-   ``truncated_ranges`` > 0), bit-equal to the block walks; the rows tested
-   per lane at 1M (band mean, max over a warp, warp union) beside the block
-   walk's rows per thread, kernel and twin times, and the band and block
-   walks timed in turns;
+   ``density_band_lane`` and ``force_band_lane`` against their twins, each
+   launched twice bit-equal; then a clamped case (a few 16^3-grid cells
+   each holding more than 127 windows of rows, so ``truncated_ranges`` >
+   0), launched twice bit-equal; the rows tested per lane at 1M (band mean,
+   max over a warp, warp union) beside the block window's rows per thread,
+   kernel and twin times;
 9. backend parity: ``run_parity_check`` on the 32k disk (sublane kernels
    against the cell-list sweeps), then lane against cell-list and lane
    against sublane on the same states of the 32k disk and the 100k dam
@@ -64,10 +55,9 @@ Phases (every failed check raises, and the script exits nonzero):
    eager (rebinned every step) for 3 + 20 steps.  Each kernel of a path
    must have launched once per step, the integrator's kernel
    ``integrate_t`` too, and K2's (K3's) candidate columns' kernel
-   ``cand_cols_t`` on the lazy paths (none on the lane path), no block
-   walk of ``ops/sweeps_t.py`` (``density_kernel_t``, ``force_kernel_t``,
-   ``fused_kernel_t``) and no ``band_rows_t`` (no profiler records) on any
-   path, no step may drop candidates
+   ``cand_cols_t`` on the lazy paths (none on the lane path), and no
+   ``band_rows_t`` (no profiler records) on any path, no step may drop
+   candidates
    (``truncated_ranges`` 0) and the final state must be finite; after the
    capped run, one lazy step from the same state, capped and exact, must
    give densities whose means agree within 1 %.  Last, the
@@ -85,25 +75,19 @@ Phases (every failed check raises, and the script exits nonzero):
    the 1M splash at world size 1 (bench.py's ``slab_1dev`` and
    ``slab_capped_k4`` geometry: occupancy split, caps at headroom 1.05,
    window derived, K_c 4 on 256-row blocks): counts equal, rho rel-L2 <=
-   1e-6, acc rel-L2 <= 1e-4 (the exact pair on the live rows), every row
-   finite; kernel and twin times with their bounds.  The exact band walks
-   also against the ``EXCL_ROW`` block walks over the raw frame on the
-   same tensors: counts, rho and acc bit-equal on the live rows, the dead
-   rows 0; the capped ones against the ``EXCL_SRC`` block walks over the
-   sub frame: bit-equal on every own row; the fused pair against its block
-   walks (``EXCL_SRC_SRC`` and ``fused_kernel_t``): the pre-pass bit-equal
-   on the kept rows, K3 on every own row; rows tested per lane (band mean,
-   max over a warp, warp union) beside the block walk's per thread and
-   equal to the single-chip band walks' on the same state (capped: the
-   same cell-start table too); band and block walks timed in turns (the
-   exact band kernels launched on the live rows the wrappers gather, so
-   time and bound are the kernels').  Then the engine's 4 ranks
-   (``spawn_ranks``, gloo, all on cuda:0, each with its own
-   ``prepare_frame``) on a box whose rank-1 corner cells are populated and
-   whose ranks 0 and 2 hold fewer rows than ``h_cap``
-   (``walk_stats.corner_state``): the same bit-equalities on every rank,
-   exact, capped and fused, and the rows a table over the raw frame would
-   test on rank 1;
+   1e-6, acc rel-L2 <= 1e-4 (the exact pair on the live rows, the
+   pre-pass on the kept rows), every row finite, the dead rows 0, each
+   kernel launched twice bit-equal; kernel and twin times with their
+   bounds (the exact band kernels launched on the live rows the wrappers
+   gather, so time and bound are the kernels'); rows tested per lane (band
+   mean, max over a warp, warp union) equal to the single-chip band walks'
+   on the same state (capped: the same cell-start table too).  Then the
+   engine's 4 ranks (``spawn_ranks``, gloo, all on cuda:0, each with its
+   own ``prepare_frame``) on a box whose rank-1 corner cells are populated
+   and whose ranks 0 and 2 hold fewer rows than ``h_cap``
+   (``walk_stats.corner_state``): the same checks on every rank, exact,
+   capped and fused, and the rows a table over the raw frame would test on
+   rank 1;
 12. the slab engine at world size 1 (an NCCL group of one rank) against the
    single-chip lazy step, one step from the same 1M splash state, exact and
    capped: neighbor mean, max and min equal to the single-chip counts', KE
@@ -119,8 +103,7 @@ Phases (every failed check raises, and the script exits nonzero):
    ``run_slab_benchmark`` on the 1M splash at world size 1 (NCCL group of
    one), exact, capped (K_c 4, 256-row blocks) and capped fused, 3 warmup +
    20 timed steps: each kernel of a path launched once per step,
-   ``cand_cols_t`` too, no block
-   walk launched, no counted loss, a finite state; then
+   ``cand_cols_t`` too, no counted loss, a finite state; then
    the single-chip lazy step and the slab step
    in turns (single, slab, slab, single), exact, printing ms/step each;
 15. the hardware probes (``tools/probe_{vpu_ops,gather,mxu}.py``, no step
@@ -166,10 +149,10 @@ Phases (every failed check raises, and the script exits nonzero):
    --live-term`` on the 32k disk's lazy path (K1/K2 counted, the GIF, the
    live PNG, one repaint a block) and ``render`` of phase 16's checkpoint,
    its PNG equal to the CPU's; the exact 1M lazy splash at
-   ``pallas_groups`` 1, 2, 4 (window tables on the card bit-equal to the
-   CPU's, counts, rho, acc, positions and velocities bit-equal to G = 1,
-   K1/K2 counted), the band kernels against the G = 2 twins on the 32k
-   splash, the one-rank slab exact step at G = 2 bit-equal to G = 1, and
+   ``pallas_groups`` 1, 2, 4 (the sort and cell starts on the card
+   bit-equal to the CPU's, counts, rho, acc, positions and velocities
+   bit-equal to G = 1, K1/K2 counted), the band kernels against their
+   twins at G = 2 on the 32k splash, the one-rank slab exact step at G = 2 bit-equal to G = 1, and
    ms/step at G = 1, 2, 4 in turns; compat mode on the 32k exact-IC disk
    (step-0 neighbor ids, counts and stored distances bit-equal to the
    CPU's, 10 compat steps: counts equal, positions rel-L2 <= 1e-6, acc
@@ -182,8 +165,8 @@ Phases (every failed check raises, and the script exits nonzero):
    cells), exact, capped (K_c 4) and fused, 20 steps in blocks of 10 with
    ``--rebalance-threshold 1.5`` and ``--checkpoint-every 10``, then
    ``--resume`` of the fused run for 10 more: on every rank each slab
-   kernel of the mode launched once a step and nothing else (no block
-   walk), reported by the ranks as their pool closes; ``diagnostics.jsonl``
+   kernel of the mode launched once a step and nothing else, reported by
+   the ranks as their pool closes; ``diagnostics.jsonl``
    with no counted loss, a finite ``final_state.npz`` holding every
    particle once, the exact run's band tables with live halo rows on both
    inner sides, ``run.json``'s ranks and comm backend; the exact run and a
@@ -249,8 +232,8 @@ Phases (every failed check raises, and the script exits nonzero):
    views: every column bit-equal (a NaN against a NaN counted equal); the
    kernel's and the twin's times (queued CUDA events) beside the bound,
    68 B a row (indexed: the sectors the index touches) at the HBM rate;
-   then ``cand_fused_share`` 1.0 in a profiled lazy solve of each of the
-   four configurations (``utils/profile_step``).
+   then the kernel launched once a step in a counted 5-step solve of each
+   of the four configurations.
 
 It then prints the card's name and power limit, one JSON line of kernel
 records (time, twin time, launches, error, and the bound: the larger of the
@@ -269,8 +252,8 @@ counter kernel ``band_rows_t``'s launches in the main paths, 0; under
 its times at 1M and 10M beside its bound; under ``cand_cols``, the
 candidate columns' kernel's launches in the main path of each input's
 mode (``CAND_PATH``; phases 10 and 14: once a step on every lazy path,
-none on the lane path), its times at each input beside its bound and the
-profiled solve's ``cand_fused_share``), and last
+none on the lane path), its times at each input beside its bound and its
+launches in the counted solve), and last
 ``{"ok": true,
 "device": {...}}``.  With no CUDA device it exits 1 before printing any result.
 On every exit it stops the resource tracker that the spawned ranks started,
@@ -449,8 +432,6 @@ def reset_launches() -> None:
     for mod in _modules().values():
         for w in mod.WRAPPERS:
             w.launches = 0
-    walks = _modules()["t"].BLOCK_WALK_LAUNCHES
-    walks.update(dict.fromkeys(walks, 0))
 
 
 def check(ok: bool, what: str) -> None:
@@ -479,35 +460,27 @@ def agree(label: str, name: str, kernel, twin, counts=None, bar=RHO_BAR
     return max_abs(kernel, twin)
 
 
-def band_vs_block(p, window: float, band: dict, block: dict,
-                  band_out: tuple, label: str) -> None:
-    """Print the rows each walk tests (``window``: the block walk's per
-    thread; ``band``: per lane, mean, max over a warp, warp union, from
-    ``utils/walk_stats.py``), and check the band kernels' (counts, rho, acc)
-    bit-equal to the block-walk kernels' on the same tensors (``block``:
-    kernel name -> launch)."""
-    (rho_b, nc_b), acc_b = (f() for f in block.values())
-    torch.cuda.synchronize()
-    print(f"[{label}] max_wc={p.wc.max().item()} rows tested per thread: "
-          f"block window {window:.1f}, band mean {band['mean']:.1f}, band "
-          f"max over a warp {band['warp_max']:.1f}, warp union "
+def band_rows(label: str, band: dict) -> None:
+    """Print the rows a band kernel tests per lane (``band``: mean, max over
+    a warp, warp union, from ``utils/walk_stats.py``)."""
+    print(f"[{label}] rows tested per lane: band mean {band['mean']:.1f}, "
+          f"band max over a warp {band['warp_max']:.1f}, warp union "
           f"{band['warp_union']:.1f}")
-    nc_k, rho_k, acc_k = band_out
-    bits = (bool(torch.equal(nc_b, nc_k)), bool(torch.equal(rho_b, rho_k)),
-            bool(torch.equal(acc_b, acc_k)))
-    print(f"[{label}] band kernels vs block-walk kernels on the same tensors:"
-          f" counts, rho, acc bit-equal={bits}")
-    check(all(bits), f"{label}: band walk vs block walk bit-equal {bits}")
 
 
-def sublane_rows(cfg, p, m: int) -> tuple[float, dict]:
-    """The sublane block walk's rows per thread and the band kernels' rows
-    per lane over the m candidate rows."""
-    from smoothed_particle_hydrodynamics_tpu_torch.utils.walk_stats import (
-        band_rows_per_lane, sublane_rows_per_thread)
-
-    return (sublane_rows_per_thread(cfg, p, m),
-            band_rows_per_lane(cfg, p.cid, p.cell_start, m))
+def deterministic(label: str, launches: dict) -> None:
+    """Launch each kernel (``launches``: kernel name -> launch) twice on the
+    same tensors: every output of the two launches bit-equal, so the walk
+    sums its pairs in one order."""
+    bits = {}
+    for name, launch in launches.items():
+        a, b = launch(), launch()
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        bits[name] = all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+    torch.cuda.synchronize()
+    print(f"[{label}] two launches on the same tensors bit-equal: {bits}")
+    check(all(bits.values()), f"{label}: band walks deterministic {bits}")
 
 
 def rows_tested_vs_twin(cfg, p, m: int, label: str) -> int:
@@ -531,150 +504,104 @@ def rows_tested_vs_twin(cfg, p, m: int, label: str) -> int:
 
 
 def exact_vs_twins(cfg, p, label: str):
-    """Exact K1 and K2, the band walks, against their twins and against the
-    block-walk kernels on the same card tensors, which must give counts, rho
-    and acc bit-equal to the band kernels'.  Returns the max abs errors, the
-    kernel and twin arguments and the tensors each kernel reads (for timing
-    and its bound), the pairs within h each kernel sums, and the block
-    walk's launches by kernel name."""
+    """Exact K1 and K2, the band walks, against their twins on the same
+    card tensors (the twins take the kernels' arguments), each launched
+    twice bit-equal.  Returns the max abs errors, the kernel and twin
+    arguments and the tensors each kernel reads (for timing and its bound)
+    and the pairs within h each kernel sums."""
     from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
+    from smoothed_particle_hydrodynamics_tpu_torch.utils.walk_stats import (
+        band_rows_per_lane)
 
-    args_d = (cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc, p.cell_start)
+    n = p.pos_s.shape[0]
+    args_d = (cfg, p.pos_s, p.mass_s, p.cid, p.cell_start)
+    twin_d = (*args_d, p.pos_s, p.mass_s)
     rho_k, nc_k = sw.density_t(*args_d)
-    rho_p, nc_p = sw.density_t_plain(*args_d[:-1])
+    rho_p, nc_p = sw.density_t_plain(*twin_d)
     cand = sw.fused_cand_cols(cfg, p.pos_s, p.vel_s, rho_k, p.mass_s)
-    args_f = (cfg, p.pos_s, p.vel_s, rho_k, cand, p.cid, p.ws, p.wc,
-              p.cell_start)
-    acc_k, acc_p = sw.force_t(*args_f), sw.force_t_plain(*args_f[:-1])
-    block = {
-        "density_band_t": lambda: sw._launch_density(
-            cfg, sw.EXCL_ROW, p.pos_s, p.mass_s, p.cid, p.ws, p.wc, p.pos_s,
-            p.mass_s, p.cid, None, None, "density_kernel_t"),
-        "force_band_t": lambda: sw._launch_force(
-            cfg, sw.EXCL_ROW, p.pos_s, p.vel_s, rho_k, cand, p.cid, p.ws,
-            p.wc, p.cid, None, "force_kernel_t")}
-    band_vs_block(p, *sublane_rows(cfg, p, p.pos_s.shape[0]), block,
-                  (nc_k, rho_k, acc_k), label)
-    rows_tested_vs_twin(cfg, p, p.pos_s.shape[0], label)
+    args_f = (cfg, p.pos_s, p.vel_s, rho_k, cand, p.cid, p.cell_start)
+    acc_k, acc_p = sw.force_t(*args_f), sw.force_t_plain(*args_f)
+    band_rows(label, band_rows_per_lane(cfg, p.cid, p.cell_start, n))
+    deterministic(label, {"density_band_t": lambda: sw.density_t(*args_d),
+                          "force_band_t": lambda: sw.force_t(*args_f)})
+    rows_tested_vs_twin(cfg, p, n, label)
     errs = {"density_band_t": agree(label, "density_band_t", rho_k, rho_p,
                                     (nc_k, nc_p)),
             "force_band_t": agree(label, "force_band_t", acc_k, acc_p,
                                   bar=ACC_BAR)}
     pairs = int(nc_k.sum())
     args = {"density_band_t": args_d, "force_band_t": args_f}
-    twin_args = {name: a[:-1] for name, a in args.items()}
+    twin_args = {"density_band_t": twin_d, "force_band_t": args_f}
     # the sums need the rows and cids only: cell_start is the kernels' own
     # index, of which they read just the entries next to occupied cells
     reads = {"density_band_t": (p.pos_s, p.mass_s, p.cid),
              "force_band_t": (p.pos_s, p.vel_s, rho_k, cand, p.cid)}
     return (errs, (args, twin_args, reads),
-            {"density_band_t": pairs, "force_band_t": pairs}, block)
+            {"density_band_t": pairs, "force_band_t": pairs})
 
 
-def fused_vs_block(label: str, kept: int, pre_band: tuple, pre_block: tuple,
-                   k3_band: tuple, k3_block: tuple, rows: tuple) -> None:
-    """The fused pair's band walks against their block walks on the same
-    card tensors: the pre-pass's (rho, counts) bit-equal on the ``kept``
-    sub rows (the tail rows' bands are empty: they get the self term and
-    count 0, the block walk what their windows hold), K3's (acc, rho,
-    counts) on every row.  ``rows``: the pre-pass block walk's rows per
-    thread and its band's ``band_stats`` (``walk_stats.prepass_rows``)."""
-    window, band = rows
-    print(f"[{label}] pre-pass rows tested per thread: block window "
-          f"{window:.1f}, band mean {band['mean']:.1f}, band max over a warp "
-          f"{band['warp_max']:.1f}, warp union {band['warp_union']:.1f}")
-    k = slice(0, kept)
-    pre = tuple(bool(torch.equal(a[k], b[k]))
-                for a, b in zip(pre_band, pre_block))
-    tail = not pre_band[1][kept:].any()
-    k3 = tuple(bool(torch.equal(a, b)) for a, b in zip(k3_band, k3_block))
-    print(f"[{label}] band walks vs block walks on the same tensors: pre-pass "
-          f"rho, counts bit-equal on the kept rows={pre} (tail rows count 0="
-          f"{tail}); K3 acc, rho, counts bit-equal={k3}")
-    check(all(pre) and tail, f"{label}: pre-pass band vs block walk {pre}")
-    check(all(k3), f"{label}: K3 band vs block walk bit-equal {k3}")
+def tail_rows(label: str, kept: int, counts: torch.Tensor) -> None:
+    """The pre-pass's unkept tail rows (past ``kept``) walk empty bands:
+    count 0 on every one."""
+    tail = not counts[kept:].any()
+    print(f"[{label}] pre-pass tail rows count 0: {tail}")
+    check(tail, f"{label}: pre-pass tail rows count 0")
 
 
 def capped_vs_twins(cfg, p, label: str):
     """The four capped kernels, all band walks over the sub frame's table,
-    against their twins on the same card tensors and against the block-walk
-    kernels (capped K1/K2 and K3 bit-equal on every row, the pre-pass on
-    the kept rows), and K3's rho/counts against capped K1's (bit-equal).
+    against their twins on the same card tensors (the twins take the
+    kernels' arguments), each launched twice bit-equal, the pre-pass's tail
+    rows counting 0, and K3's rho/counts against capped K1's (bit-equal).
     Returns the max abs errors, the kernel and twin arguments and the
-    tensors each kernel reads (for timing and its bound), the pairs within
-    h each kernel sums, and the block walk's launches by kernel name."""
+    tensors each kernel reads (for timing and its bound) and the pairs
+    within h each kernel sums."""
     from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
     from smoothed_particle_hydrodynamics_tpu_torch.utils.walk_stats import (
-        prepass_rows)
+        band_rows_per_lane, prepass_rows)
 
     pos_c, vel_c = sw.gather_sub_pv(p)
     mass_c = p.mass_s[p.sub_perm]
+    s_len = p.sub_perm.shape[0]
     n_kept = int((p.cand_cid >= 0).sum())
-    print(f"[{label}] window={cfg.pallas_window_t} block={cfg.pallas_block_t} "
-          f"S={p.sub_perm.shape[0]} kept={n_kept} "
-          f"sub_dropped={int(p.sub_dropped)} max_wc={p.wc.max().item()} "
-          f"max_wc_sub={p.wc_sub.max().item()}")
+    print(f"[{label}] block={cfg.pallas_block_t} S={s_len} kept={n_kept} "
+          f"sub_dropped={int(p.sub_dropped)}")
     args = {
-        "density_band_t<capped>": (cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc,
-                                   pos_c, p.wm_sub, p.cand_cid, p.sub_perm,
-                                   p.cell_start),
+        "density_band_t<capped>": (cfg, p.pos_s, p.mass_s, p.cid,
+                                   p.cell_start, pos_c, p.wm_sub, p.sub_perm),
         "density_band_t<prepass>": (cfg, pos_c, mass_c, p.wm_sub, p.cand_cid,
-                                    p.sub_perm, p.ws_sub, p.wc_sub,
-                                    p.cell_start),
+                                    p.sub_perm, p.cell_start),
     }
     rho_k, nc_k = sw.density_capped_t(*args["density_band_t<capped>"])
-    rho_p, nc_p = sw.density_t_plain(*args["density_band_t<capped>"][:-1])
+    rho_p, nc_p = sw.density_t_plain(*args["density_band_t<capped>"])
     sub_k = sw.density_pre_t(*args["density_band_t<prepass>"])
-    # the pre-pass band walk's and twin's counts: their launches direct
+    # the pre-pass band walk's and twin's counts: the walk's own arguments
+    pre = sw._pre_args(*args["density_band_t<prepass>"])
     sub_bk, sub_nk = sw._launch_density_band(
-        cfg, pos_c, mass_c, p.cand_cid, p.cell_start, pos_c, p.wm_sub,
-        p.sub_perm, "density_band_t<prepass>", self_src=p.sub_perm)
-    sub_p, sub_nc = sw.density_t_plain(
-        cfg, pos_c, mass_c, p.cand_cid, p.ws_sub, p.wc_sub, pos_c, p.wm_sub,
-        p.cand_cid, p.sub_perm, p.sub_perm)
+        *pre, kernel="density_band_t<prepass>")
+    sub_p, sub_nc = sw.density_t_plain(*pre)
     # the force candidates' densities: rho at their sorted rows (two-pass)
     # or the pre-pass output (fused)
     cand_2 = sw.fused_cand_cols(cfg, pos_c, vel_c, rho_k[p.sub_perm], p.wm_sub)
     cand_f = sw.fused_cand_cols(cfg, pos_c, vel_c, sub_k, p.wm_sub)
     args["force_band_t<capped>"] = (cfg, p.pos_s, p.vel_s, rho_k, cand_2,
-                                    p.cid, p.ws, p.wc, p.cand_cid,
-                                    p.sub_perm, p.cell_start)
-    args["fused_band_t"] = (cfg, p.pos_s, p.vel_s, p.mass_s, p.cid, p.ws,
-                            p.wc, cand_f, p.cand_cid, p.sub_perm,
-                            p.cell_start)
+                                    p.cid, p.cell_start, p.sub_perm)
+    args["fused_band_t"] = (cfg, p.pos_s, p.vel_s, p.mass_s, p.cid,
+                            p.cell_start, cand_f, p.sub_perm)
     acc_k = sw.force_capped_t(*args["force_band_t<capped>"])
-    acc_p = sw.force_t_plain(*args["force_band_t<capped>"][:-1])
-    fused_k = sw.fused_t(*args["fused_band_t"])
-    facc_k, frho_k, fnc_k = fused_k
-    facc_p, frho_p, fnc_p = sw.fused_t_plain(*args["fused_band_t"][:-1])
+    acc_p = sw.force_t_plain(*args["force_band_t<capped>"])
+    facc_k, frho_k, fnc_k = sw.fused_t(*args["fused_band_t"])
+    facc_p, frho_p, fnc_p = sw.fused_t_plain(*args["fused_band_t"])
     torch.cuda.synchronize()
-    block = {
-        "density_band_t<capped>": lambda: sw._launch_density(
-            cfg, sw.EXCL_SRC, p.pos_s, p.mass_s, p.cid, p.ws, p.wc, pos_c,
-            p.wm_sub, p.cand_cid, p.sub_perm, None,
-            "density_kernel_t<capped>"),
-        "force_band_t<capped>": lambda: sw._launch_force(
-            cfg, sw.EXCL_SRC, p.pos_s, p.vel_s, rho_k, cand_2, p.cid, p.ws,
-            p.wc, p.cand_cid, p.sub_perm, "force_kernel_t<capped>"),
-        "density_band_t<prepass>": lambda: sw._launch_density(
-            cfg, sw.EXCL_SRC_SRC, pos_c, mass_c, p.cand_cid, p.ws_sub,
-            p.wc_sub, pos_c, p.wm_sub, p.cand_cid, p.sub_perm, p.sub_perm,
-            "density_kernel_t<prepass>"),
-        "fused_band_t": lambda: sw._launch_fused(
-            cfg, p.pos_s, p.vel_s, p.mass_s, p.cid, p.ws, p.wc, cand_f,
-            p.cand_cid, p.sub_perm, "fused_kernel_t")}
-    pair = ("density_band_t<capped>", "force_band_t<capped>")
-    band_vs_block(p, *sublane_rows(cfg, p, p.sub_perm.shape[0]),
-                  {name: block[name] for name in pair},
-                  (nc_k, rho_k, acc_k), label)
-    rows_tested_vs_twin(cfg, p, p.sub_perm.shape[0], label)
+    band_rows(label, band_rows_per_lane(cfg, p.cid, p.cell_start, s_len))
+    band_rows(f"{label} pre-pass", prepass_rows(cfg, p.cand_cid,
+                                                p.cell_start))
+    deterministic(label, {name: lambda name=name, a=a: wrapper(name)(*a)
+                          for name, a in args.items()})
+    rows_tested_vs_twin(cfg, p, s_len, label)
     check(bool(torch.equal(sub_bk, sub_k)),
           f"{label}: pre-pass wrapper == its launch")
-    fused_vs_block(label, n_kept, (sub_k, sub_nk),
-                   block["density_band_t<prepass>"](), fused_k,
-                   block["fused_band_t"](),
-                   prepass_rows(cfg, p.cand_cid, p.ws_sub, p.wc_sub,
-                                p.cell_start))
+    tail_rows(label, n_kept, sub_nk)
     errs = {
         "density_band_t<capped>": agree(label, "density_band_t<capped>",
                                         rho_k, rho_p, (nc_k, nc_p)),
@@ -701,7 +628,6 @@ def capped_vs_twins(cfg, p, label: str):
              "force_band_t<capped>": capped,
              "density_band_t<prepass>": int(sub_nk[:n_kept].sum()),
              "fused_band_t": int(fnc_k.sum())}
-    twin_args = {name: args[name][:-1] for name in block}
     # the band sums need the rows, the self cids and the candidates' src
     # rows: cell_start is the kernels' own index (as for the exact walks)
     # and the candidates' cids are not read; the pre-pass's self rows are
@@ -715,17 +641,16 @@ def capped_vs_twins(cfg, p, label: str):
                                          p.sub_perm),
              "fused_band_t": (p.pos_s, p.vel_s, p.mass_s, p.cid, cand_f,
                               p.sub_perm)}
-    return errs, (args, twin_args, reads), pairs, block
+    return errs, (args, args, reads), pairs
 
 
 def lane_vs_twins(cfg, st, label: str, twins: bool = True):
-    """The lane band kernels on the card against the block-walk kernels on
-    the same tensors, which must give counts, rho and acc bit-equal, and
-    (``twins``) against their twins, with no chunk cut by the 127 clamp.
-    Returns the max abs errors, the kernel and twin arguments and the
-    tensors each kernel reads (for timing and its bound), the pairs within
-    h each kernel sums, and the block walk's launches by kernel name; or,
-    without ``twins``, the chunks the clamp cut."""
+    """The lane band kernels on the card, each launched twice bit-equal on
+    the same tensors, and (``twins``) against their twins, with no chunk
+    cut by the 127 clamp.  Returns the max abs errors, the kernel and twin
+    arguments and the tensors each kernel reads (for timing and its bound)
+    and the pairs within h each kernel sums; or, without ``twins``, the
+    chunks the clamp cut."""
     from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_lane as sl
     from smoothed_particle_hydrodynamics_tpu_torch.utils.walk_stats import (
         lane_band_rows_per_lane, lane_rows_per_thread)
@@ -740,12 +665,11 @@ def lane_vs_twins(cfg, st, label: str, twins: bool = True):
     torch.cuda.synchronize()
     truncated = int(p.truncated_ranges)
     print(f"[{label}] n={n} window={cfg.pallas_window} "
-          f"block={cfg.pallas_block_rows} truncated={truncated}")
-    block = {"density_band_lane": lambda: sl.density_lane_block(*args_d[:-1]),
-             "force_band_lane": lambda: sl.force_lane_block(*args_f[:-1])}
-    band_vs_block(p, lane_rows_per_thread(cfg, p),
-                  lane_band_rows_per_lane(cfg, p), block,
-                  (nc_k, rho_k, acc_k), label)
+          f"block={cfg.pallas_block_rows} truncated={truncated}; block window"
+          f" {lane_rows_per_thread(cfg, p):.1f} rows per thread")
+    band_rows(label, lane_band_rows_per_lane(cfg, p))
+    deterministic(label, {"density_band_lane": lambda: sl.density_lane(
+        *args_d), "force_band_lane": lambda: sl.force_lane(*args_f)})
     if not twins:
         return truncated
     check(truncated == 0, f"{label}: no chunk clamped")
@@ -761,7 +685,7 @@ def lane_vs_twins(cfg, st, label: str, twins: bool = True):
     # the kernels' own index (as for the sublane band walks)
     twin_args = {name: a[:-1] for name, a in args.items()}
     return (errs, (args, twin_args, twin_args),
-            {"density_band_lane": pairs, "force_band_lane": pairs}, block)
+            {"density_band_lane": pairs, "force_band_lane": pairs})
 
 
 def clamped_lane_state(dev, cells: int = 3, per_cell: int = 17_000):
@@ -793,76 +717,48 @@ def finite(label: str, name: str, *outs) -> None:
               f"{label}: {name} output finite on every row")
 
 
-def slab_exact_vs_block(cfg, group, frame, caps, label: str):
+def slab_exact_vs_twins(cfg, group, frame, caps, label: str):
     """The slab engine's exact K1/K2, the band walks over the live rows of
-    one rank's frame (``slabs.prepare_frame``), against their twins and
-    against the ``EXCL_ROW`` block walks over the raw frame on the same
-    card tensors: on the live own rows counts, rho and acc bit-equal to the
-    block walks' and within the bars of the twins'; the dead rows 0 (the
-    twins and block walks count dead rows within h of each other); every
-    row finite.  The halo rows' densities come from the neighbours
-    (``exchange_rho`` on ``group``).  Prints the rows tested per lane beside
-    the block walk's per thread.  Returns the max abs errors, the wrapper
-    arguments, the pairs within h, the band kernels' launches on the
-    gathered live rows and the tensors each reads (for its time and bound:
-    each live row once), the block walks' launches, both by kernel name, and
-    the band statistics."""
-    from types import SimpleNamespace
-
+    one rank's frame (``slabs.prepare_frame``), against their twins on the
+    same card tensors (the twins take the kernels' arguments): on the live
+    own rows within the bars; the dead rows 0; every row finite; each
+    launched twice bit-equal.  The halo rows' densities come from the
+    neighbours (``exchange_rho`` on ``group``).  Prints the rows tested per
+    lane.  Returns the max abs errors, the wrapper arguments, the pairs
+    within h, the band kernels' launches on the gathered live rows and the
+    tensors each reads (for its time and bound: each live row once), both
+    by kernel name, and the band statistics."""
     from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
     from smoothed_particle_hydrodynamics_tpu_torch.parallel import (
         slab_sweeps as ss, slabs)
     from smoothed_particle_hydrodynamics_tpu_torch.utils.walk_stats import (
-        slab_band_rows_per_lane, sublane_rows_per_thread)
+        slab_band_rows_per_lane)
 
     p_cap, h_cap, _ = caps
-    ext, cid, f = frame.ext, frame.cid_ext, frame
+    ext, f = frame.ext, frame
     cnt = f.count
-    ws, wc, band = f.tabs
+    band, = f.tabs
     print(f"[{label}] p_cap={p_cap} h_cap={h_cap} count={cnt} "
-          f"window={cfg.pallas_window_t} block={sw._blane(cfg)} "
-          f"max_wc={wc.max().item()} live rows {band.rows.shape[0]} "
+          f"block={sw._blane(cfg)} live rows {band.rows.shape[0]} "
           f"(left halo {band.nl}, right halo {band.nr})")
     n_d, n_f = "density_band_t[slab]", "force_band_t[slab]"
-    args = {n_d: ss.density_local_args(cfg, ext, cid, ws, wc, h_cap, p_cap,
-                                       band)}
+    args = {n_d: ss.density_local_args(cfg, ext, h_cap, p_cap, band)}
     rho_k, nc_k = ss.density_ext(*args[n_d])
     rho_p, nc_p = ss.density_ext_plain(*args[n_d])
     rho_e = slabs.exchange_rho(group, rho_k, cnt, h_cap)
-    args[n_f] = ss.force_local_args(cfg, ext, cid, rho_e, rho_k, ws, wc,
-                                    h_cap, p_cap, band)
+    args[n_f] = ss.force_local_args(cfg, ext, rho_e, rho_k, h_cap, p_cap,
+                                    band)
     acc_k, acc_p = ss.force_ext(*args[n_f]), ss.force_ext_plain(*args[n_f])
-    _, pos_l, mass_l, cid_l = args[n_d][:4]
+    _, pos_l, mass_l = args[n_d][:3]
     _, _, vel_l, _, cand = args[n_f][:5]
-    cpos, cmass = ext[:, 0:3].contiguous(), ext[:, 6].contiguous()
-    block = {
-        n_d: lambda: sw._launch_density(
-            cfg, sw.EXCL_ROW, pos_l, mass_l, cid_l, ws, wc, cpos, cmass, cid,
-            None, None, "density_kernel_t[slab]", h_cap),
-        n_f: lambda: sw._launch_force(
-            cfg, sw.EXCL_ROW, pos_l, vel_l, rho_k, cand, cid_l, ws, wc, cid,
-            None, "force_kernel_t[slab]", h_cap)}
-    (rho_b, nc_b), acc_b = (fn() for fn in block.values())
     torch.cuda.synchronize()
     finite(label, n_d, rho_k, nc_k)
     finite(label, n_f, acc_k)
     live = slice(0, cnt)
-    nlive = -(-cnt // sw._blane(cfg)) * 9
-    window = sublane_rows_per_thread(
-        cfg, SimpleNamespace(ws=ws[:nlive], wc=wc[:nlive]), ext.shape[0])
     stats = slab_band_rows_per_lane(cfg, band, cnt)
-    print(f"[{label}] rows tested per thread (live blocks): block window "
-          f"{window:.1f}, band mean {stats['mean']:.1f}, band max over a "
-          f"warp {stats['warp_max']:.1f}, warp union "
-          f"{stats['warp_union']:.1f}")
-    bits = (bool(torch.equal(nc_b[live], nc_k[live])),
-            bool(torch.equal(rho_b[live], rho_k[live])),
-            bool(torch.equal(acc_b[live], acc_k[live])))
+    band_rows(label, stats)
     dead = not (nc_k[cnt:].any() or rho_k[cnt:].any() or acc_k[cnt:].any())
-    print(f"[{label}] band kernels vs EXCL_ROW block walks over the raw "
-          f"frame on the same tensors: live rows counts, rho, acc bit-equal="
-          f"{bits}; dead rows 0={dead}")
-    check(all(bits), f"{label}: band walk vs block walk bit-equal {bits}")
+    print(f"[{label}] dead rows 0={dead}")
     check(dead, f"{label}: dead rows write 0")
     errs = {n_d: agree(label, f"{n_d} (live rows)", rho_k[live], rho_p[live],
                        (nc_k[live], nc_p[live])),
@@ -878,25 +774,24 @@ def slab_exact_vs_block(cfg, group, frame, caps, label: str):
     bands = {
         n_d: lambda: sw._launch_density_band(
             cfg, pos_l, mass_l, band.cid, band.cell_start, pos_c, mass_c,
-            None, n_d, band.nl),
+            None, band.nl, kernel=n_d),
         n_f: lambda: sw._launch_force_band(
             cfg, pos_l, vel_l, rho_k, cand_c, band.cid, band.cell_start, None,
-            n_f, band.nl)}
+            band.nl, kernel=n_f)}
+    deterministic(label, bands)
     reads = {n_d: (band.cid, pos_c, mass_c),
              n_f: (vel_l, rho_k, band.cid, cand_c)}
-    return (errs, args, {n_d: pairs, n_f: pairs}, (bands, reads), block,
-            stats)
+    return errs, args, {n_d: pairs, n_f: pairs}, (bands, reads), stats
 
 
 def corner_rank(group, job: dict) -> dict:
     """On one rank of ``spawn_ranks``: its frame of ``job``'s state at the
     first step, built by the engine (``slabs.prepare_frame``), its exact
-    band walks held against the twins and the block walks
-    (``slab_exact_vs_block``), and, on rank 1, the rows a table over the
-    raw frame would test; then its capped frame of the same state
-    (``job["capped"]``: config, caps, sub-frame length; fused, so the frame
-    holds both pairs' tables), its capped band walks held the same way
-    (``slab_capped_vs_block``) and its fused pair against its block walks
+    band walks held against the twins (``slab_exact_vs_twins``), and, on
+    rank 1, the rows a table over the raw frame would test; then its capped
+    frame of the same state (``job["capped"]``: config, caps, sub-frame
+    length; fused), its capped band walks held the same way
+    (``slab_capped_vs_twins``) and its fused pair
     (``slab_fused_vs_twins``).  Returns the rank's count, live halo rows,
     band statistics (exact and capped) and (rank 1) its last cell's rows
     and the raw table's statistics."""
@@ -914,9 +809,9 @@ def corner_rank(group, job: dict) -> dict:
     frame = slabs.prepare_frame(cfg, group, *caps, "pallas", zs, True, 0,
                                 carry)
     d = group.rank
-    stats = slab_exact_vs_block(cfg, group, frame, caps,
+    stats = slab_exact_vs_twins(cfg, group, frame, caps,
                                 f"slab corner rank {d}")[-1]
-    band = frame.tabs[2]
+    band, = frame.tabs
     out = dict(count=frame.count, nl=band.nl, nr=band.nr, stats=stats)
     if d == 1:
         nxny = cfg.grid_nx * cfg.grid_ny
@@ -934,7 +829,7 @@ def corner_rank(group, job: dict) -> dict:
         cap["caps"][0], "pallas", cap["sub_len"])
     frame = slabs.prepare_frame(cap["cfg"], group, *cap["caps"], "pallas", zs,
                                 True, cap["sub_len"], carry)
-    out["capped_stats"] = slab_capped_vs_block(
+    out["capped_stats"] = slab_capped_vs_twins(
         cap["cfg"], group, frame, cap["caps"],
         f"slab corner rank {d} capped")[-1]
     slab_fused_vs_twins(cap["cfg"], group, frame, cap["caps"],
@@ -942,78 +837,55 @@ def corner_rank(group, job: dict) -> dict:
     return out
 
 
-def slab_capped_vs_block(cfg, group, frame, caps, label: str):
+def slab_capped_vs_twins(cfg, group, frame, caps, label: str):
     """The slab engine's capped K1/K2, the band walks over the sub frame's
     table (``SubBand``) of one rank's frame (``slabs.prepare_frame``),
-    against their twins and against the ``EXCL_SRC`` block walks over the
-    same sub frame on the same card tensors: counts, rho and acc bit-equal
-    on every own row (the dead rows 0 on both) and within the bars of the
-    twins'; every row finite.  The halo rows' densities come from the
-    neighbours (``exchange_rho`` on ``group``).  Prints the rows tested per
-    lane beside the block walk's per thread.  Returns the max abs errors,
-    the wrapper arguments, the pairs within h, the tensors each band kernel
-    reads (for its bound: each row once, not the table), the block walks'
-    launches, all by kernel name, and the band statistics."""
-    from types import SimpleNamespace
-
+    against their twins on the same card tensors (the twins take the
+    kernels' arguments): within the bars on every own row, the dead rows 0,
+    every row finite, each launched twice bit-equal.  The halo rows'
+    densities come from the neighbours (``exchange_rho`` on ``group``).
+    Prints the rows tested per lane.  Returns the max abs errors, the
+    wrapper arguments, the pairs within h, the tensors each band kernel
+    reads (for its bound: each row once, not the table), all by kernel
+    name, and the band statistics."""
     from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
     from smoothed_particle_hydrodynamics_tpu_torch.parallel import (
         slab_sweeps as ss, slabs)
     from smoothed_particle_hydrodynamics_tpu_torch.utils.walk_stats import (
-        slab_sub_band_rows_per_lane, sublane_rows_per_thread)
+        slab_sub_band_rows_per_lane)
 
     p_cap, h_cap, _ = caps
-    ext, cid, cnt = frame.ext, frame.cid_ext, frame.count
-    ws, wc, sub_src, cand_cid, w_sub, sub_dropped, band = frame.tabs[:7]
+    ext, cnt = frame.ext, frame.count
+    sub_src, cand_cid, w_sub, sub_dropped, band = frame.tabs
     s_len = sub_src.shape[0]
     n_kept = int(band.cell_start[-1])
     print(f"[{label}] p_cap={p_cap} h_cap={h_cap} count={cnt} "
-          f"window={cfg.pallas_window_t} block={sw._blane(cfg)} "
-          f"max_wc={wc.max().item()} S={s_len} kept={n_kept} "
+          f"block={sw._blane(cfg)} S={s_len} kept={n_kept} "
           f"sub_dropped={int(sub_dropped)}")
     check(n_kept == int((cand_cid >= 0).sum()),
           f"{label}: the table's kept count is the sub frame's")
     n_d, n_f = "density_band_t<capped>[slab]", "force_band_t<capped>[slab]"
     g8 = ext[sub_src.long()]
     args = {n_d: ss.density_local_capped_args(
-        cfg, ext, g8, cid, ws, wc, sub_src, cand_cid, w_sub, h_cap, p_cap,
-        band)}
+        cfg, ext, g8, sub_src, w_sub, h_cap, p_cap, band)}
     rho_k, nc_k = ss.density_ext_capped(*args[n_d])
     rho_p, nc_p = ss.density_ext_capped_plain(*args[n_d])
     rho_e = slabs.exchange_rho(group, rho_k, cnt, h_cap)
     args[n_f] = ss.force_local_capped_args(
-        cfg, ext, g8, cid, rho_e, rho_k, ws, wc, sub_src, cand_cid, w_sub,
-        h_cap, p_cap, band)
+        cfg, ext, g8, rho_e, rho_k, sub_src, w_sub, h_cap, p_cap, band)
     acc_k, acc_p = ss.force_ext_capped(*args[n_f]), ss.force_ext_capped_plain(
         *args[n_f])
-    _, pos_l, mass_l, cid_l, _, _, cpos, cmass = args[n_d][:8]
+    _, pos_l, mass_l, cpos, cmass = args[n_d][:5]
     _, _, vel_l, _, cand = args[n_f][:5]
-    block = {
-        n_d: lambda: sw._launch_density(
-            cfg, sw.EXCL_SRC, pos_l, mass_l, cid_l, ws, wc, cpos, cmass,
-            cand_cid, sub_src, None, "density_kernel_t<capped>[slab]", h_cap),
-        n_f: lambda: sw._launch_force(
-            cfg, sw.EXCL_SRC, pos_l, vel_l, rho_k, cand, cid_l, ws, wc,
-            cand_cid, sub_src, "force_kernel_t<capped>[slab]", h_cap)}
-    (rho_b, nc_b), acc_b = (fn() for fn in block.values())
     torch.cuda.synchronize()
     finite(label, n_d, rho_k, nc_k)
     finite(label, n_f, acc_k)
-    nlive = -(-cnt // sw._blane(cfg)) * 9
-    window = sublane_rows_per_thread(
-        cfg, SimpleNamespace(ws=ws[:nlive], wc=wc[:nlive]), s_len)
     stats = slab_sub_band_rows_per_lane(cfg, band, cnt)
-    print(f"[{label}] rows tested per thread (live blocks): block window "
-          f"{window:.1f}, band mean {stats['mean']:.1f}, band max over a "
-          f"warp {stats['warp_max']:.1f}, warp union "
-          f"{stats['warp_union']:.1f}")
-    bits = (bool(torch.equal(nc_b, nc_k)), bool(torch.equal(rho_b, rho_k)),
-            bool(torch.equal(acc_b, acc_k)))
+    band_rows(label, stats)
+    deterministic(label, {n: lambda n=n: wrapper(n)(*args[n])
+                          for n in (n_d, n_f)})
     dead = not (nc_k[cnt:].any() or rho_k[cnt:].any() or acc_k[cnt:].any())
-    print(f"[{label}] band kernels vs EXCL_SRC block walks over the sub "
-          f"frame on the same tensors: every own row counts, rho, acc "
-          f"bit-equal={bits}; dead rows 0={dead}")
-    check(all(bits), f"{label}: band walk vs block walk bit-equal {bits}")
+    print(f"[{label}] dead rows 0={dead}")
     check(dead, f"{label}: dead rows write 0")
     errs = {n_d: agree(label, n_d, rho_k, rho_p, (nc_k, nc_p)),
             n_f: agree(label, n_f, acc_k, acc_p, bar=ACC_BAR)}
@@ -1023,22 +895,20 @@ def slab_capped_vs_block(cfg, group, frame, caps, label: str):
     # each once, and, as elsewhere, not cell_start, the kernels' own index
     reads = {n_d: (pos_l, mass_l, band.cid, cpos, cmass, sub_src),
              n_f: (pos_l, vel_l, rho_k, band.cid, cand, sub_src)}
-    return errs, args, {n_d: pairs, n_f: pairs}, reads, block, stats
+    return errs, args, {n_d: pairs, n_f: pairs}, reads, stats
 
 
 def slab_fused_vs_twins(cfg, group, frame, caps, label: str):
     """The slab engine's fused pair, the sub-frame pre-pass K1 and K3, band
     walks over the sub frame's table (``SubBand``), against their twins on
-    one rank's frame (``slabs.prepare_frame`` with ``capped_fused``, which
-    holds the pre-pass tables) and against their block walks on the same
-    card tensors: the pre-pass bit-equal on the kept rows, K3 on every own
-    row (the dead rows 0 on both).  Every output row of K3, dead ones
+    one rank's frame (``slabs.prepare_frame`` with ``capped_fused``) on the
+    same card tensors, each launched twice bit-equal, the pre-pass's tail
+    rows counting 0 and K3's dead rows 0.  Every output row of K3, dead ones
     included, and every kept pre-pass row must be finite.  The halo rows'
     pre-pass densities come from the neighbours (``exchange_rho`` on
     ``group``).  Returns the max abs errors, the arguments used (for
-    timing), the pairs within h each kernel sums, the tensors each reads
-    (for its bound: each row once, not the table) and the block walks'
-    launches, all by kernel name."""
+    timing), the pairs within h each kernel sums and the tensors each reads
+    (for its bound: each row once, not the table), all by kernel name."""
     from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
     from smoothed_particle_hydrodynamics_tpu_torch.parallel import (
         slab_sweeps as ss, slabs)
@@ -1046,49 +916,38 @@ def slab_fused_vs_twins(cfg, group, frame, caps, label: str):
         prepass_rows)
 
     p_cap, h_cap, _ = caps
-    ext, cid, f = frame.ext, frame.cid_ext, frame
-    ws, wc, sub_src, cand_cid, w_sub, _, band, ws_s, wc_s = f.tabs
+    ext, f = frame.ext, frame
+    sub_src, cand_cid, w_sub, _, band = f.tabs
     n_kept = int((cand_cid >= 0).sum())
-    print(f"[{label}] fused: max_wc_sub={wc_s.max().item()}")
     g8 = ext[sub_src.long()]
     names = ("density_band_t<prepass>[slab]", "fused_band_t[slab]")
     args = {names[0]: ss.density_sub_local_args(cfg, g8, sub_src, cand_cid,
-                                                w_sub, ws_s, wc_s, band)}
+                                                w_sub, band)}
     sub_k = ss.density_sub_pre(*args[names[0]])
     _, pos_sub, mass_sub, wm_sub, cid_sub, src_sub = args[names[0]][:6]
-    sub_bk, sub_nk = sw._launch_density_band(
-        cfg, pos_sub, mass_sub, cid_sub, band.cell_start, pos_sub, wm_sub,
-        src_sub, names[0], self_src=src_sub)
+    pre = sw._pre_args(cfg, pos_sub, mass_sub, wm_sub, cid_sub, src_sub,
+                       band.cell_start)
+    sub_bk, sub_nk = sw._launch_density_band(*pre, kernel=names[0])
     # density_sub_pre_plain's own call, keeping the counts
-    sub_p, sub_nc = sw.density_t_plain(cfg, pos_sub, mass_sub, cid_sub,
-                                       ws_s, wc_s, pos_sub, wm_sub,
-                                       cid_sub, src_sub, src_sub)
+    sub_p, sub_nc = sw.density_t_plain(*pre)
     rho_cand, w_cand = slabs.fused_candidates(slabs.exchange_rho(
         group, slabs.scatter_sub_rho(sub_k, sub_src, cand_cid, h_cap, p_cap),
         f.count, h_cap), sub_src, w_sub)
     args[names[1]] = ss.fused_local_capped_args(
-        cfg, ext, g8, cid, rho_cand, ws, wc, sub_src, cand_cid, w_cand, h_cap,
-        p_cap, band)
-    fused_k = ss.fused_ext(*args[names[1]])
-    facc_k, frho_k, fnc_k = fused_k
+        cfg, ext, g8, rho_cand, sub_src, w_cand, h_cap, p_cap, band)
+    facc_k, frho_k, fnc_k = ss.fused_ext(*args[names[1]])
     facc_p, frho_p, fnc_p = ss.fused_ext_plain(*args[names[1]])
-    _, pos_l, vel_l, mass_l, cid_l, _, _, cand = args[names[1]][:8]
-    block = {
-        names[0]: lambda: sw._launch_density(
-            cfg, sw.EXCL_SRC_SRC, pos_sub, mass_sub, cid_sub, ws_s, wc_s,
-            pos_sub, wm_sub, cid_sub, src_sub, src_sub,
-            "density_kernel_t<prepass>[slab]"),
-        names[1]: lambda: sw._launch_fused(
-            cfg, pos_l, vel_l, mass_l, cid_l, ws, wc, cand, cand_cid, sub_src,
-            "fused_kernel_t[slab]", h_cap)}
+    _, pos_l, vel_l, mass_l, cand = args[names[1]][:5]
     torch.cuda.synchronize()
     finite(label, names[0], sub_k[:n_kept])
     finite(label, names[1], facc_k, frho_k, fnc_k)
     check(bool(torch.equal(sub_bk, sub_k)),
           f"{label}: pre-pass wrapper == its launch")
-    fused_vs_block(label, n_kept, (sub_k, sub_nk), block[names[0]](),
-                   fused_k, block[names[1]](),
-                   prepass_rows(cfg, cid_sub, ws_s, wc_s, band.cell_start))
+    band_rows(f"{label} pre-pass", prepass_rows(cfg, cid_sub,
+                                                band.cell_start))
+    deterministic(label, {n: lambda n=n: wrapper(n)(*args[n])
+                          for n in names})
+    tail_rows(label, n_kept, sub_nk)
     cnt = f.count
     dead = not (fnc_k[cnt:].any() or frho_k[cnt:].any()
                 or facc_k[cnt:].any())
@@ -1109,39 +968,7 @@ def slab_fused_vs_twins(cfg, group, frame, caps, label: str):
     reads = {names[0]: (pos_sub, mass_sub, wm_sub, cid_sub, src_sub),
              names[1]: (pos_l, vel_l, mass_l, band.cid, cand, sub_src)}
     return (errs, args, {names[0]: int(sub_nk[:n_kept].sum()),
-                         names[1]: int(fnc_k.sum())}, reads, block)
-
-
-def block_walk_launches() -> dict:
-    """The launches since ``reset_launches`` of ops/sweeps_t.py's block
-    walks (density_kernel_t, every Excl; force_kernel_t; fused_kernel_t;
-    the band walks' reference only), by launcher: no step path may run
-    one."""
-    return dict(_modules()["t"].BLOCK_WALK_LAUNCHES)
-
-
-def no_block_walk(path: str, counts: dict) -> None:
-    print(f"[main {path}] block-walk launches: "
-          + ", ".join(f"{k.removeprefix('_launch_')} {v}"
-                      for k, v in counts.items()))
-    check(not any(counts.values()), f"{path}: no block walk {counts}")
-
-
-def walks_in_turns(args: dict, block: dict, label: str,
-                   bands: dict | None = None) -> None:
-    """Time each band kernel and its block walk (``block``: kernel name ->
-    launch) in turns (band, block, block, band) by CUDA events at the given
-    arguments (or, where ``bands`` names its launch, by that launch)."""
-    for name, launch in block.items():
-        fns = {"band walk": (bands or {}).get(
-                   name, lambda name=name: wrapper(name)(*args[name])),
-               "block walk": launch}
-        ms = {w: [] for w in fns}
-        for w in [*fns, *reversed(fns)]:
-            ms[w].append(time_ms(fns[w], iters=10, warmup=1))
-        print(f"[{label}] {name} in turns (CUDA events, ms per launch): "
-              + "; ".join(f"{w} {' '.join(f'{t:.4f}' for t in ts)}"
-                          for w, ts in ms.items()))
+                         names[1]: int(fnc_k.sum())}, reads)
 
 
 def io_bytes(args: tuple, out) -> int:
@@ -1586,7 +1413,6 @@ def cli_phase(dev, keep: str | None = None) -> None:
         rc, _ = cli(["run", "--out", d1, "--checkpoint-every",
                      str(CLI_EVERY), "--checkpoint-dir", ck, "--quiet"])
         wall = time.perf_counter() - w0
-        block_walks = block_walk_launches()
         counts = {name: wrapper(name).launches
                   for name in ("density_band_t", "force_band_t")}
         check(rc == 0, f"cli disk run exit {rc}")
@@ -1598,7 +1424,6 @@ def cli_phase(dev, keep: str | None = None) -> None:
               f"{meta['device']}) in {wall:.3f} s with its outputs; median "
               f"{statistics.median(r['step_ms'] for r in rows):.4f} ms/step "
               f"(diagnostics.jsonl); launches {counts}")
-        no_block_walk("cli disk", block_walks)
         for name, c in counts.items():
             check(c >= CLI_STEPS, f"cli disk: {name} launched {c} times")
         check(cfg.num_steps + 1 == CLI_STEPS and meta["lazy"]
@@ -1819,10 +1644,8 @@ def cli_render_checks(dev, root: str, ckpt: str | None) -> None:
     rc, text = cli(["run", *CLI_RENDER, "--out", out, "--live", live,
                     "--live-term", "--quiet"])
     wall = time.perf_counter() - t0
-    block_walks = block_walk_launches()
     counts = {name: wrapper(name).launches
               for name in ("density_band_t", "force_band_t")}
-    no_block_walk("cli render", block_walks)
     gif = f"{out}/sph_anim.gif"
     want = CLI_RENDER_STEPS // CLI_RENDER_EVERY
     frames = (want if os.path.isfile(gif)
@@ -1857,11 +1680,11 @@ def cli_render_checks(dev, root: str, ckpt: str | None) -> None:
 
 
 def groups_checks(dev) -> None:
-    """Lane groups: the exact 1M lazy splash at G = 1, 2, 4 (tables on the
-    card bit-equal to the CPU's, step quantities bit-equal across G, K1/K2
-    counted); the band kernels at G = 2 against the G = 2 twins on the 32k
-    splash; the one-rank slab exact step at G = 2 bit-equal to G = 1;
-    ms/step at G = 1, 2, 4 in turns."""
+    """Lane groups: the exact 1M lazy splash at G = 1, 2, 4 (the sort and
+    cell-start table on the card bit-equal to the CPU's, step quantities
+    bit-equal across G, K1/K2 counted); the band kernels at G = 2 against
+    their twins on the 32k splash; the one-rank slab exact step at G = 2
+    bit-equal to G = 1; ms/step at G = 1, 2, 4 in turns."""
     from smoothed_particle_hydrodynamics_tpu_torch.models import make_scene
     from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
     from smoothed_particle_hydrodynamics_tpu_torch.ops.lazy import (
@@ -1876,21 +1699,18 @@ def groups_checks(dev) -> None:
 
     cfg, st = make_scene("splash", device=dev, **MAIN)
     host = ParticleState(*(t.cpu() for t in st))
-    outs, sizes = {}, {}
+    outs = {}
     for g in GROUPS:
         cg = cfg.replace(pallas_groups=g)
         p, q = sw.prepare_t(cg, st), sw.prepare_t(cg, host)
-        for f in ("order", "cid", "ws", "wc", "cell_start"):
+        for f in ("order", "cid", "cell_start"):
             check(torch.equal(getattr(p, f).cpu(), getattr(q, f)),
                   f"groups G={g}: prepare_t {f} card != CPU")
-        sizes[g] = p.ws.numel()
         del p, q
         reset_launches()
         out, _ = drive_loop_lazy(cg, st, GROUP_STEPS)
-        block_walks = block_walk_launches()
         counts = {name: wrapper(name).launches
                   for name in ("density_band_t", "force_band_t")}
-        no_block_walk(f"groups G={g}", block_walks)
         check(all(c == GROUP_STEPS for c in counts.values()),
               f"groups G={g}: launches {counts}")
         outs[g] = out
@@ -1900,26 +1720,23 @@ def groups_checks(dev) -> None:
             check(torch.equal(getattr(outs[g], f), getattr(outs[1], f)),
                   f"groups: {f} at G={g} != G=1")
     print(f"[groups] exact 1M lazy splash, {GROUP_STEPS} steps at G = "
-          f"{GROUPS}: window tables on the card bit-equal to the CPU's "
-          f"({sizes} entries); counts, rho, acc, positions and velocities "
+          f"{GROUPS}: order, cell ids and cell starts on the card bit-equal "
+          f"to the CPU's; counts, rho, acc, positions and velocities "
           f"bit-equal to G=1; K1/K2 launched once a step")
     del outs, host
 
-    # the band kernels against the G = 2 twins, 32k splash
+    # the band kernels against their twins at G = 2, 32k splash
     cfg, st = make_scene("splash", device=dev, num_particles=32768,
                          cell_size_factor=1.25, pallas_window_t=64,
                          grid_nx=32, grid_ny=32, grid_nz=32, pallas_groups=2)
     p = sw.prepare_t(cfg, st)
-    rho_k, nc_k = sw.density_t(cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc,
-                               p.cell_start)
-    rho_p, nc_p = sw.density_t_plain(cfg, p.pos_s, p.mass_s, p.cid, p.ws,
-                                     p.wc)
+    args = (cfg, p.pos_s, p.mass_s, p.cid, p.cell_start)
+    rho_k, nc_k = sw.density_t(*args)
+    rho_p, nc_p = sw.density_t_plain(*args, p.pos_s, p.mass_s)
     agree("groups 32k G=2", "density_band_t", rho_k, rho_p, (nc_k, nc_p))
     cand = sw.fused_cand_cols(cfg, p.pos_s, p.vel_s, rho_p, p.mass_s)
-    acc_k = sw.force_t(cfg, p.pos_s, p.vel_s, rho_p, cand, p.cid, p.ws, p.wc,
-                       p.cell_start)
-    acc_p = sw.force_t_plain(cfg, p.pos_s, p.vel_s, rho_p, cand, p.cid, p.ws,
-                             p.wc)
+    args = (cfg, p.pos_s, p.vel_s, rho_p, cand, p.cid, p.cell_start)
+    acc_k, acc_p = sw.force_t(*args), sw.force_t_plain(*args)
     agree("groups 32k G=2", "force_band_t", acc_k, acc_p, bar=ACC_BAR)
 
     # the slab engine at world size 1, exact, G = 2 against G = 1
@@ -2181,8 +1998,7 @@ def dev_run(dev, label: str, argv: list[str], out: str, steps: int,
     """One ``run --devices`` through the CLI in this process: exit 0, the
     losses 0 on every row, a finite final state holding every particle,
     and each of ``names`` launched once a step on every rank (no other
-    slab kernel and no block walk).  Returns the rows, the rank reports
-    and stdout."""
+    slab kernel).  Returns the rows, the rank reports and stdout."""
     from smoothed_particle_hydrodynamics_tpu_torch.parallel import make_mesh
 
     reset_launches()
@@ -2808,37 +2624,39 @@ def tenm_vs_twins(dev, name: str) -> dict:
     label = f"10M {name}"
     if cfg.capped_candidates:
         pos_c, vel_c = sw.gather_sub_pv(p)
-        args_d = (cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc, pos_c, p.wm_sub,
-                  p.cand_cid, p.sub_perm, p.cell_start)
+        args_d = (cfg, p.pos_s, p.mass_s, p.cid, p.cell_start, pos_c,
+                  p.wm_sub, p.sub_perm)
+        twin_d = args_d
         rho_k, nc_k = sw.density_capped_t(*args_d)
         cand = sw.fused_cand_cols(cfg, pos_c, vel_c, rho_k[p.sub_perm],
                                   p.wm_sub)
-        args_f = (cfg, p.pos_s, p.vel_s, rho_k, cand, p.cid, p.ws, p.wc,
-                  p.cand_cid, p.sub_perm, p.cell_start)
+        args_f = (cfg, p.pos_s, p.vel_s, rho_k, cand, p.cid, p.cell_start,
+                  p.sub_perm)
         acc_k = sw.force_capped_t(*args_f)
         frame = (f"sub frame {p.sub_perm.shape[0]} rows, kept "
                  f"{int((p.cand_cid >= 0).sum())}, sub_dropped "
                  f"{int(p.sub_dropped)}")
         check(int(p.sub_dropped) == 0, f"{label}: sub_dropped 0")
     else:
-        args_d = (cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc, p.cell_start)
+        args_d = (cfg, p.pos_s, p.mass_s, p.cid, p.cell_start)
+        twin_d = (*args_d, p.pos_s, p.mass_s)
         rho_k, nc_k = sw.density_t(*args_d)
         cand = sw.fused_cand_cols(cfg, p.pos_s, p.vel_s, rho_k, p.mass_s)
-        args_f = (cfg, p.pos_s, p.vel_s, rho_k, cand, p.cid, p.ws, p.wc,
-                  p.cell_start)
+        args_f = (cfg, p.pos_s, p.vel_s, rho_k, cand, p.cid, p.cell_start)
         acc_k = sw.force_t(*args_f)
         frame = "no sub frame (exact)"
     torch.cuda.synchronize()
     t_kernels = time.perf_counter() - t0
-    rho_p, nc_p = sw.density_t_plain(*args_d[:-1])
-    acc_p = sw.force_t_plain(*args_f[:-1])
+    rho_p, nc_p = sw.density_t_plain(*twin_d)
+    acc_p = sw.force_t_plain(*args_f)
     torch.cuda.synchronize()
-    widest = int(p.wc.view(-1, sw.NRODS).sum(1).argmax())
+    a, e = sw.band_ranges(cfg, p.cid, p.cell_start)
+    widest = int((e - a).clamp(min=0).max())
     print(f"[{label}] n={p.pos_s.shape[0]} grid {cfg.grid_nx}x{cfg.grid_ny}"
           f"x{cfg.grid_nz} window={cfg.pallas_window_t} "
           f"block={cfg.pallas_block_t} capped_sub_len={cfg.capped_sub_len} "
-          f"{frame}; max_wc={int(p.wc.max())} (widest block {widest} of "
-          f"{p.wc.numel() // sw.NRODS}); twins over all rows")
+          f"{frame}; widest band {widest} rows; twins over all rows")
+    del a, e
     fin = all(bool(torch.isfinite(x).all()) for x in (rho_k, acc_k))
     check(fin, f"{label}: K1 and K2 outputs finite")
     errs = {k1: agree(label, k1, rho_k, rho_p, (nc_k, nc_p)),
@@ -3070,7 +2888,7 @@ CAND_ROW_BYTES = 68
 # input's record in the kernels line reports
 CAND_PATH = {"splash_1m": "exact", "dam_break_10m": "exact",
              "capped_k4_10m": "capped", "slab_1m": "slab exact"}
-CAND_PROFILE_STEPS, CAND_PROFILE_WARMUP = 5, 2
+CAND_STEPS = 5      # steps of each counted solve
 CAND_SLAB_N = MAIN["num_particles"]
 
 
@@ -3189,13 +3007,40 @@ def cand_slab_inputs(dev):
     return cfg, (ext[:, 0:3], ext[:, 3:6], rho, ext[:, ss._MASS])
 
 
+def cand_solve_launches(dev, name: str) -> int:
+    """``cand_cols_t``'s launches, counted from 0, in ``CAND_STEPS`` lazy
+    steps of ``CAND[name]``'s solve (``slab_1m``: one-rank slab steps of
+    the 1M splash)."""
+    from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
+    from smoothed_particle_hydrodynamics_tpu_torch.ops.lazy import (
+        drive_loop_lazy)
+    from smoothed_particle_hydrodynamics_tpu_torch.parallel import slabs
+    from smoothed_particle_hydrodynamics_tpu_torch.parallel.comm import (
+        local_group)
+    from smoothed_particle_hydrodynamics_tpu_torch.utils.benchmark import (
+        resolve_scene, slab_setup)
+
+    if name == "slab_1m":
+        cfg, st, zsplit, caps, sub_len = slab_setup(
+            CAND_SLAB_N, SLAB, SLAB_HEADROOM, dev)
+        reset_launches()
+        with local_group(dev) as grp:
+            slabs.run_slab_steps(grp, cfg, st, caps, zsplit, CAND_STEPS,
+                                 sweeps="pallas", sub_len=sub_len)
+    else:
+        scene, ov = CAND[name]
+        cfg, st = resolve_scene(scene, dev, ov, backend="pallas")
+        reset_launches()
+        drive_loop_lazy(cfg, st, CAND_STEPS, collect_diags=False)
+    torch.cuda.synchronize()
+    return sw.cand_cols_t.launches
+
+
 def cand_phase(dev) -> dict:
     """Phase 22: the candidate columns' kernel against its twin on each
     ``CAND`` input and on the slab frame's views, each timed beside its
-    bound, then ``cand_fused_share`` of a profiled lazy solve of each
-    configuration (1.0: the kernel built every column)."""
-    from smoothed_particle_hydrodynamics_tpu_torch.utils import profile_step
-
+    bound, then its launches in a counted solve of each configuration
+    (once a step: the kernel built every step's columns)."""
     t_phase = time.perf_counter()
     out = {}
     for name in CAND:
@@ -3213,19 +3058,14 @@ def cand_phase(dev) -> dict:
     out["slab_1m"] = dict(differ=cand_vs_twin("slab_1m", cfg, *args),
                           **cand_timed("slab_1m", cfg, args))
     del args
-    shares = {}
-    for name, (scene, ov) in CAND.items():
+    for name in out:
         reset_peak(dev)
-        shares[name] = profile_step.profile(
-            scene, ov, "pallas", True, CAND_PROFILE_STEPS,
-            CAND_PROFILE_WARMUP)["cand_fused_share"]
-    shares["slab_1m"] = profile_step.profile_slab(
-        dict(SLAB, num_particles=CAND_SLAB_N), CAND_PROFILE_STEPS,
-        CAND_PROFILE_WARMUP)["cand_fused_share"]
-    for name, share in shares.items():
-        print(f"[cand {name}] profiled lazy solve: cand_fused_share {share}")
-        check(share == 1.0, f"{name}: the kernel built every column")
-        out[name]["cand_fused_share"] = share
+        n = cand_solve_launches(dev, name)
+        print(f"[cand {name}] counted solve: cand_cols_t launched {n} times "
+              f"in {CAND_STEPS} steps")
+        check(n == CAND_STEPS, f"{name}: the kernel built every step's "
+              f"columns ({n} launches in {CAND_STEPS} steps)")
+        out[name]["solve_launches"] = n
     print(f"[p22] phase 22 took {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -3293,9 +3133,8 @@ def main() -> int:
                      pallas_window_t=64, grid_nx=16, grid_ny=16, grid_nz=16,
                      gravity=(0.0, 0.0, 0.0))
 
-    # 2. exact kernels vs twins and vs the block walk, 32k splash (packed
-    #    pool: 32^3 grid of 1.25h cells; 64-row windows so multi-chunk block
-    #    walks are exercised)
+    # 2. exact kernels vs twins, 32k splash (packed pool: 32^3 grid of
+    #    1.25h cells)
     cfg, st = make_scene("splash", device=dev, num_particles=32768, **small)
     exact_vs_twins(cfg, sw.prepare_t(cfg, st), "exact 32k")
 
@@ -3304,13 +3143,12 @@ def main() -> int:
     oracle("exact 4096", cfg, st)
 
     # 4. the exact main path's shapes: agreement and times, the band kernels
-    #    vs the block walk (in turns) and vs their twins
+    #    vs their twins
     cfg, st = make_scene("splash", device=dev, **MAIN)
-    errs, (args, twin_args, reads), pairs, block = exact_vs_twins(
+    errs, (args, twin_args, reads), pairs = exact_vs_twins(
         cfg, sw.prepare_t(cfg, st), "exact 1M")
     times = timed(args, pairs, twin_args, reads)
-    walks_in_turns(args, block, "exact 1M")
-    del args, twin_args, reads, block
+    del args, twin_args, reads
 
     # 5. capped kernels vs twins, 32k splash (derived sub frame, with tail)
     ov = dict(small, num_particles=32768, capped_candidates=4,
@@ -3332,12 +3170,11 @@ def main() -> int:
     cfg, st = make_scene("splash", device=dev, **FUSED)
     cfg = resolve_sweep_settings(cfg, st, FUSED)
     p = sw.prepare_t(cfg, st)
-    capped_errs, (args, twin_args, reads), capped_pairs, block = \
+    capped_errs, (args, twin_args, reads), capped_pairs = \
         capped_vs_twins(cfg, p, "capped 1M")
     errs.update(capped_errs)
     pairs.update(capped_pairs)
     times.update(timed(args, capped_pairs, twin_args, reads))
-    walks_in_turns(args, block, "capped 1M")
     exact = cfg.replace(capped_candidates=0)
     rho_e = sw.density_sweep_t(exact, sw.prepare_t(exact, st))[0]
     rho_c = sw.density_sweep_t(cfg.replace(capped_fused=False), p)[0]
@@ -3345,12 +3182,11 @@ def main() -> int:
     print(f"[capped 1M] capped rho mean / exact rho mean on the same state: "
           f"{ratio:.6f}")
     check(0.99 < ratio < 1.01, f"capped density unbiased: ratio {ratio}")
-    del p, args, twin_args, reads, block, st, rho_e, rho_c
+    del p, args, twin_args, reads, st, rho_e, rho_c
 
-    # 8. lane band kernels vs twins and vs the block walk: a 32k packed
-    #    splash with 128-row windows (multi-chunk walks), a frame whose
-    #    windows the 127-chunk clamp cuts, then the lane main path's 1M
-    #    shapes, timed, and band and block walks in turns
+    # 8. lane band kernels vs twins: a 32k packed splash with 128-row
+    #    windows (multi-chunk), a frame whose windows the 127-chunk clamp
+    #    cuts, then the lane main path's 1M shapes, timed
     cfg, st = make_scene("splash", device=dev, num_particles=32768,
                          grid_nx=32, grid_ny=32, grid_nz=32,
                          pallas_layout="lane", pallas_window=128)
@@ -3359,13 +3195,12 @@ def main() -> int:
     cut = lane_vs_twins(cfg, st, "lane clamped", twins=False)
     check(cut > 0, f"lane clamped: the 127 clamp cut chunks ({cut})")
     cfg, st = make_scene("splash", device=dev, **LANE)
-    lane_errs, (args, twin_args, reads), lane_pairs, block = lane_vs_twins(
+    lane_errs, (args, twin_args, reads), lane_pairs = lane_vs_twins(
         cfg, st, "lane 1M")
     errs.update(lane_errs)
     pairs.update(lane_pairs)
     times.update(timed(args, lane_pairs, twin_args, reads))
-    walks_in_turns(args, block, "lane 1M")
-    del args, twin_args, reads, block, st
+    del args, twin_args, reads, st
     for name, t in times.items():
         print(f"[1M] {name}: kernel {t['ms']:.4f} ms, plain twin "
               f"{t['plain_ms']:.4f} ms, bound {t['bound_ms'] * 1e3:.3f} us "
@@ -3392,8 +3227,8 @@ def main() -> int:
               f" lane={int(lane[2].overflow_cells)}")
     del cl, sub, lane, st
 
-    # 10. the main paths, counted (the block walks and the counter kernel
-    #     too: no path runs them unprofiled)
+    # 10. the main paths, counted (the counter kernel too: no path runs it
+    #     unprofiled)
     launches, counter_launches, cand_launches = {}, 0, {}
     for path, (ov, names) in PATHS.items():
         lazy = path != "lane"
@@ -3401,8 +3236,6 @@ def main() -> int:
         r = run_benchmark(scene="splash", lazy=lazy, steps=STEPS,
                           warmup=WARMUP, overrides=ov, device="cuda",
                           backend="pallas")
-        block_walks = block_walk_launches()
-        no_block_walk(path, block_walks)
         counts = {name: wrapper(name).launches for name in KERNELS}
         total_steps = r["warmup_steps"] + r["steps"]
         print(f"[main {path}] 1M splash {'lazy' if lazy else 'eager'} "
@@ -3485,12 +3318,8 @@ def main() -> int:
     check(finite, "disk: positions, velocities and KE finite")
 
     # 11. the slab callers' kernels vs their twins at the 1M slab shapes
-    #     (world size 1: both halos are inert chain ends here); the exact
-    #     band walks also vs the EXCL_ROW block walks over the raw frame,
-    #     bit-equal on the live rows, the capped ones vs the EXCL_SRC block
-    #     walks over the sub frame, bit-equal on every own row, both timed
-    #     in turns, with rows per lane equal to the single-chip band walks'
-    #     on the same state
+    #     (world size 1: both halos are inert chain ends here), with rows
+    #     per lane equal to the single-chip band walks' on the same state
     for label, ov in (("slab exact 1M", SLAB), ("slab capped 1M", SLAB_FUSED)):
         cfg, st, zsplit, caps, sub_len = slab_setup(
             1_000_000, ov, SLAB_HEADROOM, dev)
@@ -3503,31 +3332,28 @@ def main() -> int:
             frame = slabs.prepare_frame(cfg, grp, *caps, "pallas", zsplit,
                                         True, sub_len, carry)
             if cfg.capped_candidates:
-                slab_errs, args, slab_pairs, reads, block, stats = \
-                    slab_capped_vs_block(cfg, grp, frame, caps, label)
+                slab_errs, args, slab_pairs, reads, stats = \
+                    slab_capped_vs_twins(cfg, grp, frame, caps, label)
                 times.update(timed(args, slab_pairs, reads=reads))
-                walks_in_turns(args, block, label)
                 # the sub frame keeps each cell's single-chip count
                 p1 = sw.prepare_t(cfg, st)
-                same_table = bool(torch.equal(frame.tabs[6].cell_start,
+                same_table = bool(torch.equal(frame.tabs[-1].cell_start,
                                               p1.cell_start))
-                del args, reads, block
-                fused_errs, args, fused_pairs, reads, block = \
+                del args, reads
+                fused_errs, args, fused_pairs, reads = \
                     slab_fused_vs_twins(cfg, grp, frame, caps, label)
                 slab_errs.update(fused_errs)
                 slab_pairs.update(fused_pairs)
                 times.update(timed(args, fused_pairs, reads=reads))
-                walks_in_turns(args, block, label)
-                del reads, block
+                del reads
             else:
-                slab_errs, args, slab_pairs, bands, block, stats = \
-                    slab_exact_vs_block(cfg, grp, frame, caps, label)
+                slab_errs, args, slab_pairs, bands, stats = \
+                    slab_exact_vs_twins(cfg, grp, frame, caps, label)
                 times.update(timed(args, slab_pairs, reads=bands[1],
                                    launch=bands[0]))
-                walks_in_turns(args, block, label, bands[0])
                 p1 = sw.prepare_t(cfg, st)
                 same_table = True
-                del block, bands
+                del bands
             single = band_rows_per_lane(cfg, p1.cid, p1.cell_start, st.n)
             print(f"[{label}] single-chip band walks on the same state: "
                   f"mean {single['mean']:.1f}, max over a warp "
@@ -3545,7 +3371,7 @@ def main() -> int:
     # a frame where the trap of a table over the raw frame shows: the 4
     # ranks of the engine (gloo, all on this card) on a box whose rank-1
     # corner cells are populated and whose ranks 0 and 2 hold fewer rows
-    # than h_cap; every rank held bit-equal
+    # than h_cap; every rank held to its twins
     cfg, _ = make_scene("dam_break", device="cpu", num_particles=4096,
                         grid_nx=32, grid_ny=32, grid_nz=32,
                         pallas_window_t=128)
@@ -3684,14 +3510,12 @@ def main() -> int:
               f"ranks {label}: both ranks populated")
         del st, runs
 
-    # 14. the slab main paths, counted (the block walks too: no slab path
-    #     may run them); then single-chip and slab in turns
+    # 14. the slab main paths, counted; then single-chip and slab in turns
     for path, (ov, names) in SLAB_PATHS.items():
         reset_launches()
         r = run_slab_benchmark(n=1_000_000, steps=STEPS, warmup=WARMUP,
                                headroom=SLAB_HEADROOM, overrides=ov,
                                device="cuda")
-        block_walks = block_walk_launches()
         counts = {name: wrapper(name).launches for name in KERNELS}
         total_steps = r["warmup_steps"] + r["steps"]
         print(f"[main {path}] 1M splash, one rank ({r['device']}): "
@@ -3715,7 +3539,6 @@ def main() -> int:
         check(cols == total_steps, f"{path}: cand_cols_t launched {cols} "
               f"times in {total_steps} steps")
         cand_launches[path] = cols
-        no_block_walk(path, block_walks)
         for k in ("truncated_ranges", "halo_dropped_steps",
                   "migration_dropped_steps"):
             check(len(r[k]) == total_steps and max(r[k]) == 0,
@@ -3840,7 +3663,7 @@ def main() -> int:
                        "case": name, "m": r["m"], "ms": r["ms"],
                        "plain_ms": r["plain_ms"],
                        "bound_ms": r["bound_ms"], "bound_by": "bytes",
-                       "cand_fused_share": r["cand_fused_share"]}
+                       "solve_launches": r["solve_launches"]}
                       for name, r in cand.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,12 @@ The whole scene is one frozen dataclass with the same fields as the JAX
 ``SphConfig`` and the same float32-faithful derived constants, so a config
 built here and one built there with the same fields give bit-equal
 ``poly6_norm``, ``h2``, ``cell_size`` and the rest.  Fields that only tune
-the TPU kernels (``pallas_*`` window and block widths) keep their names: the
-port's sweeps read ``pallas_window_t`` and ``pallas_block_t`` for the same
-window tables.
+the TPU kernels (``pallas_*`` window and block widths) keep their names and
+their validation.  ``pallas_window_t``, ``pallas_block_t`` and
+``pallas_groups`` shape no sublane sweep on one GPU (its kernels walk cell
+bands); the lane layout's tables read ``pallas_window`` and
+``pallas_block_rows``, and the slab engine rounds its capacities to
+``pallas_block_t`` and requires ``pallas_window_t`` > 0.
 
 Units follow the astrophysical fork: km/s, pc, M_sun, Myr.
 """

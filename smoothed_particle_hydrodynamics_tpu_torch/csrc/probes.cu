@@ -126,7 +126,7 @@ __device__ __forceinline__ float chain_op(float v, float zero) {
   } else if constexpr (Op == kSelect) {
     return v > 1.0f ? v * 0.9999f : v;
   } else if constexpr (Op == kCenterNow) {
-    // the operators of K2's center term (csrc/sweep_t.cu force_kernel_t:
+    // the operators of K2's center term (csrc/sweep_t.cu force_pair:
     // d = sqrtf(d2) * scale, then num / (d + eps) * scale)
     const float d = sqrtf(v) * kScale;
     const float hd = kH - d;

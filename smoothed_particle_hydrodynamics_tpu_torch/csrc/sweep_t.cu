@@ -2,26 +2,26 @@
 // (sm_90a).  Plain C interface, loaded with ctypes by
 // smoothed_particle_hydrodynamics_tpu_torch/ops/sweeps_t.py, whose
 // density_t_plain / force_t_plain / fused_t_plain are the PyTorch versions of
-// the same sums.
+// the same sums over the same bands.
 //
 // Replaces, in smoothed_particle_hydrodynamics_tpu/ops/pallas_step_t.py:
-//   K1 density_band_t, K2 force_band_t <- _density_kernel_t and
-//      _force_kernel_t, exact and capped, and the fused path's sub-frame
-//      pre-pass (_density_kernel_t with self_src_row=5: density_band_t
+//   K1 density_band_t, K2 force_band_t <- its density and force kernels
+//      (:293 and :360), exact and capped, and the fused path's sub-frame
+//      pre-pass (the density kernel with self_src_row=5: density_band_t
 //      <kExclSrcSrc>), on one device (the lazy paths) and in the slab
 //      engine: per-lane band walks, see their section;
-//   K3 fused_band_t <- _fused_kernel_t (capped only), the same band walk.
-// The block walks density_kernel_t<Excl>, force_kernel_t<Excl> and
-// fused_kernel_t stay as their bit-equality reference.
+//   K3 fused_band_t <- its fused kernel (:497, capped only), the same band
+//      walk.
 //
 // What they compute.  Particles are sorted by linear cell id
-// (z*ny + y)*nx + x, so each of the 9 (dy, dz) stencil rods of a block of b
-// consecutive sorted SELF rows is one contiguous row window
-// [ws, ws + wc*s_t) of the CANDIDATE frame (the window tables of
-// _block_windows_t).  In exact mode both frames are the sorted particles; in
-// capped ("Subsets") mode the candidates are the sub frame: at most K_c
-// hash-chosen particles of each cell, compacted to the front, so windows
-// span extent*K_c rows instead of extent*occupancy.  A pair (i, j) counts when
+// (z*ny + y)*nx + x.  The TPU kernels walk, for each of the 9 (dy, dz)
+// stencil rods of a block of sorted SELF rows, one contiguous row window of
+// the CANDIDATE frame and mask it by cell id; here each self row walks only
+// the candidate rows that mask admits (its cell bands, below).  In exact mode
+// both frames are the sorted particles; in capped ("Subsets") mode the
+// candidates are the sub frame: at most K_c hash-chosen particles of each
+// cell, compacted to the front, so a band spans 3 cells x K_c rows at most.
+// A pair (i, j) counts when
 //     |cid_j - cid_i - delta_rod| <= 1  and  id_j != own_i  and  d^2 < h^2,
 // with d^2 in world coordinates and the self-exclusion ids of the Excl mode.
 // K1 sums rho_i = sum m_j poly6(d) and the neighbor count (plus the self term
@@ -35,33 +35,17 @@
 // c1 = (h-d)^2/(d+eps) scale m_j and c2 = the same with m_j pw_j, combined
 // after the walk as pw_i P1 + P2 (the direct-sum form of the TPU kernel's
 // block-relative MXU dots).  The candidates' pw_j come from the pre-pass.
-//
-// Design.  One CUDA block per block of b sorted self rows, one thread per
-// row.  For each rod the block walks the window in tiles of b rows: every
-// thread stages one candidate row into shared memory, then every thread tests
-// the whole tile against its own particle and sums in registers.  The TPU
-// kernels' DMA double-buffering, 128-lane row padding, per-block reference
-// point and MXU reductions are not carried over: the window walk is bounded
-// by the candidate count instead of padding rows, and the sums are direct
-// per-pair sums (acc then differs from the TPU's only by reassociation).
-// Cell ids and source rows are int32 (the TPU kernels carry them as f32,
-// exact only below 2^24).
+// The TPU kernels' 128-lane row padding, per-block reference point and MXU
+// reductions are not carried over: the sums are direct per-pair sums (acc
+// then differs from the TPU's only by reassociation).  Cell ids and source
+// rows are int32 (the TPU kernels carry them as f32, exact only below 2^24).
 //
 // Self rows and candidates may be two frames.  A self row's own id is
 // self_base + i: 0 on the single-chip path, where self row i is candidate
-// row i; h_cap in the distributed slab engine, whose candidates are the
-// extended frame [left halo | own slab | right halo] and whose self rows are
-// the own slab (the TPU kernels' block_base, parallel/slabs.py:571).
-//
-// What bounds it.  The instruction rate of the pair tests: every thread
-// tests 9 windows of about (block extent + 2 cells) rows, of which a few
-// percent are neighbors, so most of the instruction stream is the d^2 and cid
-// mask of rejected pairs.  Candidate loads are small next to that (each tile
-// row is read once per block and reused by b threads from shared memory).
-// Capped mode cuts the rows tested per particle by the window shrink; K3 also
-// saves K1's whole pass over the full frame for the price of a pre-pass over
-// the sub frame only.  The band kernels below cut them by walking each row's
-// own bands.
+// row i; in the distributed slab engine, whose self rows are the own slab
+// of the extended frame [left halo | own slab | right halo], the offset of
+// the own slab in the candidates (the TPU kernels' block_base,
+// parallel/slabs.py:571).
 //
 // Rounding.  d^2 and t = h_scaled^2 - d^2 * scale^2 are formed with
 // explicitly rounded intrinsics (no FMA contraction), so the mask sees the
@@ -93,329 +77,27 @@ __device__ __forceinline__ float dist2(float dx, float dy, float dz) {
                    __fmul_rn(dz, dz));
 }
 
-// |cid_j - cid_i - delta| <= 1, in wrapping unsigned arithmetic: a capped sub
-// frame's tail rows carry cell id -2^30, whose difference to any cell lands
-// far outside the band instead of overflowing.
-__device__ __forceinline__ bool in_band(int cid_j, int cid_i, int delta) {
-  const unsigned dc = static_cast<unsigned>(cid_j) -
-                      static_cast<unsigned>(cid_i) -
-                      static_cast<unsigned>(delta) + 1u;
-  return dc <= 2u;
-}
-
-struct DensityArgs {
-  const float* pos;    // [n, 3] self positions
-  const float* mass;   // [n] self masses (the self term)
-  const int* cid;      // [n] self cell ids (frozen between rebins)
-  const int* src;      // [n] self full-frame rows (kExclSrcSrc only)
-  const float* cpos;   // [m, 3] candidate positions
-  const float* cmass;  // [m] candidate masses (capped: reweighted)
-  const int* ccid;     // [m] candidate cell ids
-  const int* csrc;     // [m] candidate full-frame rows (not kExclRow)
-  const int* ws;       // [nblocks * 9] window starts into the candidates
-  const int* wc;       // [nblocks * 9] window chunk counts
-  float* rho;          // [n] out
-  int* ncount;         // [n] out
-  int n, m, s_t, nx, ny, include_self;
-  int self_base;       // own id of self row i: self_base + i (not kExclSrcSrc)
-  float h2, h_scaled2, scale2, poly6;
-};
-
-template <int kExcl>
-__global__ void density_kernel_t(DensityArgs a) {
-  extern __shared__ float smem[];
-  const int b = blockDim.x;
-  float* sx = smem;
-  float* sy = sx + b;
-  float* sz = sy + b;
-  float* sm = sz + b;
-  int* sc = reinterpret_cast<int*>(sm + b);
-  int* ss = sc + b;  // candidate src (not staged for kExclRow)
-
-  const int tid = threadIdx.x;
-  const int blk = blockIdx.x;
-  const int i = blk * b + tid;
-  const bool live = i < a.n;
-  float xi = 0.f, yi = 0.f, zi = 0.f;
-  int ci = 0;
-  int own = a.self_base + i;
-  if (live) {
-    xi = a.pos[3 * i];
-    yi = a.pos[3 * i + 1];
-    zi = a.pos[3 * i + 2];
-    ci = a.cid[i];
-    if (kExcl == kExclSrcSrc) own = a.src[i];
-  }
-  float rho = 0.f;
-  int count = 0;
-  for (int r = 0; r < kRods; ++r) {
-    const int delta = rod_delta(r, a.nx, a.ny);
-    const int start = a.ws[blk * kRods + r];
-    const int stop = min(start + a.wc[blk * kRods + r] * a.s_t, a.m);
-    for (int t0 = start; t0 < stop; t0 += b) {
-      const int j = t0 + tid;
-      if (j < stop) {
-        sx[tid] = a.cpos[3 * j];
-        sy[tid] = a.cpos[3 * j + 1];
-        sz[tid] = a.cpos[3 * j + 2];
-        sm[tid] = a.cmass[j];
-        sc[tid] = a.ccid[j];
-        if (kExcl != kExclRow) ss[tid] = a.csrc[j];
-      }
-      __syncthreads();
-      const int len = min(b, stop - t0);
-      if (live) {
-        for (int k = 0; k < len; ++k) {
-          const float d2 = dist2(sx[k] - xi, sy[k] - yi, sz[k] - zi);
-          const int id = kExcl == kExclRow ? t0 + k : ss[k];
-          if (in_band(sc[k], ci, delta) && id != own && d2 < a.h2) {
-            const float t = __fsub_rn(a.h_scaled2, __fmul_rn(d2, a.scale2));
-            const float w3 = a.poly6 * t * t * t;
-            rho += sm[k] * w3;
-            ++count;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-  if (live) {
-    if (a.include_self) {
-      const float h2s = a.h_scaled2;
-      rho += a.mass[i] * a.poly6 * h2s * h2s * h2s;
-    }
-    a.rho[i] = rho;
-    a.ncount[i] = count;
-  }
-}
-
-struct ForceArgs {
-  const float* pos;   // [n, 3] self positions
-  const float* vel;   // [n, 3] self velocities
-  const float* rho;   // [n] self densities from K1
-  const int* cid;     // [n] self cell ids
-  const float* cand;  // [m, kForceCols] candidate columns (fused_cand_cols)
-  const int* ccid;    // [m] candidate cell ids
-  const int* csrc;    // [m] candidate full-frame rows (kExclSrc only)
-  const int* ws;      // [nblocks * 9]
-  const int* wc;      // [nblocks * 9]
-  float* acc;         // [n, 3] out: hydro acceleration
-  int n, m, s_t, nx, ny;
-  int self_base;      // own id of self row i: self_base + i
-  float h2, h, scale, eps, stiffness, rho0, viscosity, visc_norm;
-};
-
-template <int kExcl>
-__global__ void force_kernel_t(ForceArgs a) {
-  extern __shared__ float smem[];
-  const int b = blockDim.x;
-  float* sf = smem;  // column c of the tile at sf[c * b + row]
-  int* sc = reinterpret_cast<int*>(smem + kForceCols * b);
-  int* ss = sc + b;
-
-  const int tid = threadIdx.x;
-  const int blk = blockIdx.x;
-  const int i = blk * b + tid;
-  const bool live = i < a.n;
-  float xi = 0.f, yi = 0.f, zi = 0.f, vxi = 0.f, vyi = 0.f, vzi = 0.f;
-  float rhoi = 1.f;
-  int ci = 0;
-  if (live) {
-    xi = a.pos[3 * i];
-    yi = a.pos[3 * i + 1];
-    zi = a.pos[3 * i + 2];
-    vxi = a.vel[3 * i];
-    vyi = a.vel[3 * i + 1];
-    vzi = a.vel[3 * i + 2];
-    rhoi = a.rho[i];
-    ci = a.cid[i];
-  }
-  const int own = a.self_base + i;
-  const float rhoi_inv = 1.f / (rhoi > 0.f ? rhoi : 1.f);
-  const float pw_i = (rhoi - a.rho0) * a.stiffness * rhoi_inv * rhoi_inv;
-
-  float ax = 0.f, ay = 0.f, az = 0.f, vx = 0.f, vy = 0.f, vz = 0.f;
-  for (int r = 0; r < kRods; ++r) {
-    const int delta = rod_delta(r, a.nx, a.ny);
-    const int start = a.ws[blk * kRods + r];
-    const int stop = min(start + a.wc[blk * kRods + r] * a.s_t, a.m);
-    for (int t0 = start; t0 < stop; t0 += b) {
-      const int j = t0 + tid;
-      if (j < stop) {
-        const float* row = a.cand + static_cast<long long>(j) * kForceCols;
-        for (int c = 0; c < kForceCols; ++c) sf[c * b + tid] = row[c];
-        sc[tid] = a.ccid[j];
-        if (kExcl != kExclRow) ss[tid] = a.csrc[j];
-      }
-      __syncthreads();
-      const int len = min(b, stop - t0);
-      if (live) {
-        for (int k = 0; k < len; ++k) {
-          const float dx = sf[k] - xi;
-          const float dy = sf[b + k] - yi;
-          const float dz = sf[2 * b + k] - zi;
-          const float d2 = dist2(dx, dy, dz);
-          const int id = kExcl == kExclRow ? t0 + k : ss[k];
-          if (in_band(sc[k], ci, delta) && id != own && d2 < a.h2) {
-            const float d = sqrtf(d2) * a.scale;
-            const float hd = a.h - d;
-            const float num = (hd * hd) * (sf[7 * b + k] * pw_i + sf[8 * b + k]);
-            const float center = num / (d + a.eps) * a.scale;
-            ax -= dx * center;
-            ay -= dy * center;
-            az -= dz * center;
-            const float rim = sf[6 * b + k];
-            vx += (sf[3 * b + k] - vxi * rim) * hd;
-            vy += (sf[4 * b + k] - vyi * rim) * hd;
-            vz += (sf[5 * b + k] - vzi * rim) * hd;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-  if (live) {
-    const float mu_rhoi = a.viscosity * rhoi_inv;
-    a.acc[3 * i] = mu_rhoi * vx * a.visc_norm + ax * a.visc_norm;
-    a.acc[3 * i + 1] = mu_rhoi * vy * a.visc_norm + ay * a.visc_norm;
-    a.acc[3 * i + 2] = mu_rhoi * vz * a.visc_norm + az * a.visc_norm;
-  }
-}
-
-struct FusedArgs {
-  const float* pos;   // [n, 3] self positions
-  const float* vel;   // [n, 3] self velocities
-  const float* mass;  // [n] self masses (the self term)
-  const int* cid;     // [n] self cell ids
-  const float* cand;  // [m, kForceCols] sub-frame candidate columns
-  const int* ccid;    // [m] candidate cell ids
-  const int* csrc;    // [m] candidate full-frame rows
-  const int* ws;      // [nblocks * 9]
-  const int* wc;      // [nblocks * 9]
-  float* acc;         // [n, 3] out: hydro acceleration
-  float* rho;         // [n] out
-  int* ncount;        // [n] out
-  int n, m, s_t, nx, ny, include_self;
-  int self_base;      // own id of self row i: self_base + i
-  float h2, h_scaled2, scale2, poly6;
-  float h, scale, eps, stiffness, rho0, viscosity, visc_norm;
-};
-
-__global__ void fused_kernel_t(FusedArgs a) {
-  extern __shared__ float smem[];
-  const int b = blockDim.x;
-  float* sf = smem;  // column c of the tile at sf[c * b + row]
-  int* sc = reinterpret_cast<int*>(smem + kForceCols * b);
-  int* ss = sc + b;
-
-  const int tid = threadIdx.x;
-  const int blk = blockIdx.x;
-  const int i = blk * b + tid;
-  const bool live = i < a.n;
-  const int own = a.self_base + i;
-  float xi = 0.f, yi = 0.f, zi = 0.f, vxi = 0.f, vyi = 0.f, vzi = 0.f;
-  int ci = 0;
-  if (live) {
-    xi = a.pos[3 * i];
-    yi = a.pos[3 * i + 1];
-    zi = a.pos[3 * i + 2];
-    vxi = a.vel[3 * i];
-    vyi = a.vel[3 * i + 1];
-    vzi = a.vel[3 * i + 2];
-    ci = a.cid[i];
-  }
-  float rho = 0.f;
-  int count = 0;
-  float p1x = 0.f, p1y = 0.f, p1z = 0.f, p2x = 0.f, p2y = 0.f, p2z = 0.f;
-  float vx = 0.f, vy = 0.f, vz = 0.f;
-  for (int r = 0; r < kRods; ++r) {
-    const int delta = rod_delta(r, a.nx, a.ny);
-    const int start = a.ws[blk * kRods + r];
-    const int stop = min(start + a.wc[blk * kRods + r] * a.s_t, a.m);
-    for (int t0 = start; t0 < stop; t0 += b) {
-      const int j = t0 + tid;
-      if (j < stop) {
-        const float* row = a.cand + static_cast<long long>(j) * kForceCols;
-        for (int c = 0; c < kForceCols; ++c) sf[c * b + tid] = row[c];
-        sc[tid] = a.ccid[j];
-        ss[tid] = a.csrc[j];
-      }
-      __syncthreads();
-      const int len = min(b, stop - t0);
-      if (live) {
-        for (int k = 0; k < len; ++k) {
-          const float dx = sf[k] - xi;
-          const float dy = sf[b + k] - yi;
-          const float dz = sf[2 * b + k] - zi;
-          const float d2 = dist2(dx, dy, dz);
-          if (in_band(sc[k], ci, delta) && ss[k] != own && d2 < a.h2) {
-            // density part: K1's op sequence, so rho and count equal its bits
-            const float mj = sf[7 * b + k];
-            const float t = __fsub_rn(a.h_scaled2, __fmul_rn(d2, a.scale2));
-            const float w3 = a.poly6 * t * t * t;
-            rho += mj * w3;
-            ++count;
-            const float d = sqrtf(d2) * a.scale;
-            const float hd = a.h - d;
-            const float hd2inv = (hd * hd) / (d + a.eps) * a.scale;
-            const float c1 = hd2inv * mj;
-            const float c2 = hd2inv * sf[8 * b + k];
-            p1x -= dx * c1;
-            p1y -= dy * c1;
-            p1z -= dz * c1;
-            p2x -= dx * c2;
-            p2y -= dy * c2;
-            p2z -= dz * c2;
-            const float rim = sf[6 * b + k];
-            vx += (sf[3 * b + k] - vxi * rim) * hd;
-            vy += (sf[4 * b + k] - vyi * rim) * hd;
-            vz += (sf[5 * b + k] - vzi * rim) * hd;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-  if (live) {
-    if (a.include_self) {
-      const float h2s = a.h_scaled2;
-      rho += a.mass[i] * a.poly6 * h2s * h2s * h2s;
-    }
-    const float rhoi_inv = 1.f / (rho > 0.f ? rho : 1.f);
-    const float pw_i = (rho - a.rho0) * a.stiffness * rhoi_inv * rhoi_inv;
-    const float mu_rhoi = a.viscosity * rhoi_inv;
-    a.acc[3 * i] = mu_rhoi * vx * a.visc_norm + (pw_i * p1x + p2x) * a.visc_norm;
-    a.acc[3 * i + 1] =
-        mu_rhoi * vy * a.visc_norm + (pw_i * p1y + p2y) * a.visc_norm;
-    a.acc[3 * i + 2] =
-        mu_rhoi * vz * a.visc_norm + (pw_i * p1z + p2z) * a.visc_norm;
-    a.rho[i] = rho;
-    a.ncount[i] = count;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // K1, K2 and K3 as per-lane band walks: density_band_t and force_band_t,
 // exact (kExclRow) and capped (kExclSrc), the fused path's pre-pass
 // density_band_t<kExclSrcSrc> and K3 fused_band_t, the single-device lazy
 // paths' kernels and the slab engine's.
 //
-// Replace _density_kernel_t (pallas_step_t.py:293, capped :321, pre-pass
-// :1090), _force_kernel_t (:360, capped :403) and _fused_kernel_t (:497) in
-// place of the block walks above; in the slab engine, the callers of
+// Replace pallas_step_t.py's density kernel (:293, capped :321, pre-pass
+// :1090), force kernel (:360, capped :403) and fused kernel (:497); in the
+// slab engine, the callers of
 // _slab_chunked_call (parallel/slabs.py:494, :588, :663, :704, :750, :792).
 //
 // The fused path's two kernels walk the capped sub frame's table too.  K3's
 // self rows, candidates and exclusion are capped K2's (the sorted frame, or
 // the own slab with self_base = h_cap, over the sub frame's fused_cand_cols
 // and src rows); it sums K1's rho and count and K2's split pressure and
-// viscosity terms in fused_kernel_t's op order, so rho and the counts also
-// equal capped K1's band walk's on the same tensors.  The pre-pass's self
+// viscosity terms in one op order (K1's for rho and the counts, which thus
+// equal capped K1's band walk's on the same tensors).  The pre-pass's self
 // rows are the sub frame itself: self row i's own id is its src row src[i]
 // (kExclSrcSrc), and its unkept tail rows carry self cid TAIL_CID = -2^30,
-// whose bands are all empty, so they write the self term and count 0 (the
-// block walk gives them whatever their block's windows hold; no pair reads
-// a tail row's density).
+// whose bands are all empty, so they write the self term and count 0 (no
+// pair reads a tail row's density).
 //
 // The slab engine's candidates are the LIVE rows of a rank's extended frame
 // [left halo | own slab | right halo], compacted in order (the chain ends'
@@ -432,23 +114,22 @@ __global__ void fused_kernel_t(FusedArgs a) {
 //
 // The candidate frame is sorted by cell id (exact: the sorted particles;
 // capped: the sub frame, whose kept rows come first in cid order), so the
-// candidates of self row i that pass the block walk's cid mask for rod
+// candidates of self row i that pass the cid mask for rod
 // delta, |cid_j - cid_i - delta| <= 1, are one contiguous range: rows
 // [cell_start[ci+delta-1], cell_start[ci+delta+2]) of the candidates'
 // cell-start table (cell_start[c] = first candidate row of cell c,
 // cell_start[num_cells] = the candidates in cells: n exact, the kept rows
 // within the sub frame capped, so its tail rows are in no band).  That
-// range lies inside the block's rod window, so walking it in increasing row
-// order sums the same pairs in the same order as the block walk: rho, the
-// counts and acc equal density_kernel_t's and force_kernel_t's bit for bit
-// (same op sequence, --fmad=false).  The pair test is left with the
+// range is exactly the rows of the TPU kernels' block rod window that pass
+// the mask, in the window's order (the CPU tests check this against the JAX
+// package's window tables).  The pair test is left with the
 // self-exclusion (j != self_base + i exact, csrc[j] != self_base + i capped)
 // and d^2 < h^2; the cid load and mask are gone.
 //
 // What bounds them.  Still the instructions of rejected-pair tests (a few
-// percent of the tested rows are pairs within h), but each lane now tests
-// only its own band: at the 1M splash ~350 rows per particle exact against
-// ~2100 for the block walk, and at most 9 x 3 cells x K_c rows capped.  A
+// percent of the tested rows are pairs within h), but each lane tests only
+// its own band: at the 1M splash ~350 rows per particle exact against ~2100
+// in its block's rod windows, and at most 9 x 3 cells x K_c rows capped.  A
 // warp walks rod by rod; the union of its lanes' bands is staged into a
 // warp-private shared-memory buffer with cp.async (coalesced, one word per
 // lane per copy), the next piece landing while the current one is tested
@@ -460,11 +141,12 @@ __global__ void fused_kernel_t(FusedArgs a) {
 // right), and the ~28 pairs of ~350 rows leave no dense product for them;
 // rows are 16-40 B at per-warp starts, which fits cp.async, not TMA.  On an
 // H100 at the 1M splash the exact staged walk took 0.36 ms (K1) and 0.66 ms
-// (K2) against the block walk's 1.87 and 2.60, and against 0.38 and 0.72
-// for lanes reading their band rows straight from global memory with __ldg
-// (rows shared by a warp broadcast from L1), so the staged walk is kept.
-// Capped, the walk took 0.147 ms (K1) and 0.241 ms (K2) against the block
-// walk's 1.03 and 1.33, testing ~95 rows per lane against ~1030.
+// (K2) against 1.87 and 2.60 for a one-thread-per-row walk of whole block
+// windows through shared memory, and against 0.38 and 0.72 for lanes
+// reading their band rows straight from global memory with __ldg (rows
+// shared by a warp broadcast from L1), so the staged walk is kept.  Capped,
+// the walk took 0.147 ms (K1) and 0.241 ms (K2) against the window walk's
+// 1.03 and 1.33, testing ~95 rows per lane against ~1030.
 //
 // The walk (band_rows, Piece, next_piece, stage_rows, band_walk) and its
 // constants live in band_walk.cuh, which csrc/floor_t.cu's floor probe
@@ -505,7 +187,7 @@ struct DensityBandArgs {
   float h2, h_scaled2, scale2, poly6;
 };
 
-// Density sum of a pair within h, density_kernel_t's op sequence.
+// Density sum of a pair within h: K1's op sequence, which K3 repeats.
 __device__ __forceinline__ void density_add(const DensityBandArgs& a,
                                             float d2, float mj, float& rho,
                                             int& count) {
@@ -585,7 +267,7 @@ struct ForceSums {
 };
 
 // Force pair term on candidate row c (its kForceCols columns),
-// force_kernel_t's op sequence; d2 and dx dy dz already formed.
+// d2 and dx dy dz already formed.
 __device__ __forceinline__ void force_pair(const ForceBandArgs& a,
                                            const float* c, float dx, float dy,
                                            float dz, float d2, float pw_i,
@@ -685,8 +367,8 @@ struct FusedSums {
   float p1x, p1y, p1z, p2x, p2y, p2z, vx, vy, vz;
 };
 
-// K3 over the sub frame's bands: fused_kernel_t's pair term and epilogue
-// (same op order) on the pairs of capped K2's bands.  It carries 11
+// K3 over the sub frame's bands: K1's density term and the split pressure
+// and viscosity terms on the pairs of capped K2's bands.  It carries 11
 // accumulators against K2's 6.
 __global__ void __launch_bounds__(kBandBlock) fused_band_t(FusedBandArgs a) {
   // a slot: the kForceCols columns (row-major), then the src rows
@@ -822,152 +504,7 @@ extern "C" {
 // Each entry point launches one kernel on `stream` (a cudaStream_t) and
 // returns cudaGetLastError(): nonzero when the launch was refused.  Pointers
 // a mode does not read (src, csrc) may be null.
-int sph_density_t(const float* pos, const float* mass, const int* cid,
-                  const int* src, const float* cpos, const float* cmass,
-                  const int* ccid, const int* csrc, const int* ws,
-                  const int* wc, float* rho, int* ncount, int n, int m,
-                  int block, int s_t, int nx, int ny, int include_self,
-                  int excl, int self_base, float h2, float h_scaled2,
-                  float scale2, float poly6, void* stream) {
-  DensityArgs a;
-  a.pos = pos;
-  a.mass = mass;
-  a.cid = cid;
-  a.src = src;
-  a.cpos = cpos;
-  a.cmass = cmass;
-  a.ccid = ccid;
-  a.csrc = csrc;
-  a.ws = ws;
-  a.wc = wc;
-  a.rho = rho;
-  a.ncount = ncount;
-  a.n = n;
-  a.m = m;
-  a.s_t = s_t;
-  a.nx = nx;
-  a.ny = ny;
-  a.include_self = include_self;
-  a.self_base = self_base;
-  a.h2 = h2;
-  a.h_scaled2 = h_scaled2;
-  a.scale2 = scale2;
-  a.poly6 = poly6;
-  const int nblocks = (n + block - 1) / block;
-  const size_t smem = static_cast<size_t>(block) * 6 * sizeof(float);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (excl) {
-    case kExclRow:
-      density_kernel_t<kExclRow><<<nblocks, block, smem, s>>>(a);
-      break;
-    case kExclSrc:
-      density_kernel_t<kExclSrc><<<nblocks, block, smem, s>>>(a);
-      break;
-    case kExclSrcSrc:
-      density_kernel_t<kExclSrcSrc><<<nblocks, block, smem, s>>>(a);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-int sph_force_t(const float* pos, const float* vel, const float* rho,
-                const int* cid, const float* cand, const int* ccid,
-                const int* csrc, const int* ws, const int* wc, float* acc,
-                int n, int m, int block, int s_t, int nx, int ny, int excl,
-                int self_base, float h2, float h, float scale, float eps,
-                float stiffness, float rho0, float viscosity, float visc_norm,
-                void* stream) {
-  ForceArgs a;
-  a.pos = pos;
-  a.vel = vel;
-  a.rho = rho;
-  a.cid = cid;
-  a.cand = cand;
-  a.ccid = ccid;
-  a.csrc = csrc;
-  a.ws = ws;
-  a.wc = wc;
-  a.acc = acc;
-  a.n = n;
-  a.m = m;
-  a.s_t = s_t;
-  a.nx = nx;
-  a.ny = ny;
-  a.self_base = self_base;
-  a.h2 = h2;
-  a.h = h;
-  a.scale = scale;
-  a.eps = eps;
-  a.stiffness = stiffness;
-  a.rho0 = rho0;
-  a.viscosity = viscosity;
-  a.visc_norm = visc_norm;
-  const int nblocks = (n + block - 1) / block;
-  const size_t smem =
-      static_cast<size_t>(block) * (kForceCols + 2) * sizeof(float);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (excl) {
-    case kExclRow:
-      force_kernel_t<kExclRow><<<nblocks, block, smem, s>>>(a);
-      break;
-    case kExclSrc:
-      force_kernel_t<kExclSrc><<<nblocks, block, smem, s>>>(a);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-int sph_fused_t(const float* pos, const float* vel, const float* mass,
-                const int* cid, const float* cand, const int* ccid,
-                const int* csrc, const int* ws, const int* wc, float* acc,
-                float* rho, int* ncount, int n, int m, int block, int s_t,
-                int nx, int ny, int include_self, int self_base, float h2,
-                float h_scaled2, float scale2, float poly6, float h,
-                float scale, float eps, float stiffness, float rho0,
-                float viscosity, float visc_norm, void* stream) {
-  FusedArgs a;
-  a.pos = pos;
-  a.vel = vel;
-  a.mass = mass;
-  a.cid = cid;
-  a.cand = cand;
-  a.ccid = ccid;
-  a.csrc = csrc;
-  a.ws = ws;
-  a.wc = wc;
-  a.acc = acc;
-  a.rho = rho;
-  a.ncount = ncount;
-  a.n = n;
-  a.m = m;
-  a.s_t = s_t;
-  a.nx = nx;
-  a.ny = ny;
-  a.include_self = include_self;
-  a.self_base = self_base;
-  a.h2 = h2;
-  a.h_scaled2 = h_scaled2;
-  a.scale2 = scale2;
-  a.poly6 = poly6;
-  a.h = h;
-  a.scale = scale;
-  a.eps = eps;
-  a.stiffness = stiffness;
-  a.rho0 = rho0;
-  a.viscosity = viscosity;
-  a.visc_norm = visc_norm;
-  const int nblocks = (n + block - 1) / block;
-  const size_t smem =
-      static_cast<size_t>(block) * (kForceCols + 2) * sizeof(float);
-  fused_kernel_t<<<nblocks, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      a);
-  return static_cast<int>(cudaGetLastError());
-}
-
+//
 // The band walks: self rows [n] over m candidates sorted by cell id, with
 // cell_start the candidates' [num_cells + 1] cell-start table.  excl
 // kExclRow: the candidates are the self rows (cpos = pos, cmass = mass,

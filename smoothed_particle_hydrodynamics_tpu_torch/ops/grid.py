@@ -4,7 +4,7 @@
 Linear cell id ``(z*ny + y)*nx + x`` with positions clamped into the grid.
 Cells adjacent in x are adjacent in sorted order, so each (dy, dz) stencil
 rod of the 27-cell neighborhood is one contiguous row range of the sorted
-frame: the property the sweeps' window tables are built on.
+frame: the property the sweeps' cell bands and window tables are built on.
 """
 
 from __future__ import annotations

@@ -14,9 +14,7 @@ of the CUDA kernel ``integrate_t`` (``csrc/integrate_t.cu``, built from
 source on first use) and the one-block sum of its tally partials, or
 raises; any other device raises.  The kernel's positions and velocities
 equal the twin's on the card bit for bit; its tally sums in float64, the
-twin's in float32.  ``integrate_t.launches``
-counts its calls, and while ``torch.profiler`` records, each call counts
-its rows in the counter ``integrate.fused_rows`` (``utils/trace.py``).
+twin's in float32.  ``integrate_t.launches`` counts its calls.
 """
 
 from __future__ import annotations
@@ -29,15 +27,13 @@ import torch
 
 from ..config import SphConfig, _f32
 from ..state import ParticleState
-from ..utils import build, trace
+from ..utils import build
 from .launch import check as _check
 from .launch import raise_on as _raise_on
 from .launch import stream as _stream
 from .launch import use_plain as _use_plain
 from .physics import central_gravity
 
-# The counter of the rows the kernel integrated (utils/trace.py).
-FUSED_ROWS = "integrate.fused_rows"
 # Threads a block, blocks an SM of the persistent grid, and tally partials a
 # block (csrc/integrate_t.cu: kThreads, the launch bounds, kTerms).
 THREADS, BLOCKS_PER_SM, TERMS = 256, 4, 5
@@ -146,7 +142,6 @@ def integrate_t(cfg: SphConfig, state: ParticleState,
                                device=dev)
         _launch(cfg, state, acceleration, pos, vel, partials, tally, blocks)
         integrate_t.launches += 1
-        trace.count(FUSED_ROWS, n)
     else:
         tally = torch.zeros(6, dtype=torch.float32, device=dev)
     new_state = state._replace(position=pos, velocity=vel,

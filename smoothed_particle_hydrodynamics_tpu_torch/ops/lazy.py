@@ -2,14 +2,14 @@
 
 Counterpart of ``smoothed_particle_hydrodynamics_tpu/ops/lazy.py``; its
 module docstring derives the bound.  In short: the state lives in the
-sorted frame, and the window tables, the candidates' cell-start table and
-the cell ids stay frozen between rebins.  The kernels' pair mask tests
+sorted frame, and the candidates' cell-start table and the cell ids stay
+frozen between rebins.  The kernels' pair mask tests
 current distances, so frozen bins change only which candidates are
 considered, and they still cover every true pair while the per-axis
 displacement spread since binning stays within ``cell_size - h``.  ``lazy_step`` checks that bound against the positions
 the sweeps are about to use and rebuilds first when it would be broken.
-In capped mode the sub frame (kept set, reweighted masses, its window
-and cell-start tables) is frozen and rebuilt with the bins; its positions and velocities
+In capped mode the sub frame (kept set, reweighted masses, its cell-start
+table) is frozen and rebuilt with the bins; its positions and velocities
 are gathered fresh every step.
 
 The JAX package decides inside the compiled step with ``lax.cond``; here
@@ -26,7 +26,7 @@ and in capped mode ``sweeps_t.kept_rows_t``'s kept rows, which each step
 counts once (``capped.kept_rows``).  In capped mode ``binning.prepare`` is
 tiled by ``binning.sort`` (cell ids, the (cell, hash) sort, the sorted
 fields), ``binning.capped_sub`` (the sub frame) and ``binning.tables`` (the
-window tables, the cell starts, the carry), and ``sweeps.sorted`` by its
+cell starts, the carry), and ``sweeps.sorted`` by its
 own children (``sweeps_t.sweeps_sorted``); in exact mode both are leaves.
 """
 
@@ -54,8 +54,6 @@ class LazyCarry(NamedTuple):
     order: torch.Tensor     # [N] i64: state[i] == initial_state[order[i]]
     pos_bin: torch.Tensor   # [N, 3] sorted-frame positions at bin time
     cid: torch.Tensor       # [N] i32 frozen cell ids
-    ws: torch.Tensor        # [nblocks*G*9] i32 frozen window starts
-    wc: torch.Tensor        # [nblocks*G*9] i32 frozen chunk counts
     steps_since: int        # steps since the last rebin
     rebin_count: int        # rebins so far (the initial binning excluded)
     # capped mode only (None otherwise), frozen with the bins:
@@ -63,8 +61,6 @@ class LazyCarry(NamedTuple):
     cand_cid: torch.Tensor | None = None     # [S] i32 sub cids
     wm_sub: torch.Tensor | None = None       # [S] reweighted cand masses
     sub_dropped: torch.Tensor | None = None  # i32 kept rows beyond S
-    ws_sub: torch.Tensor | None = None       # fused: sub-block windows
-    wc_sub: torch.Tensor | None = None       # fused: sub-block chunk counts
     # frozen with the bins: [num_cells + 1] i32 cell starts of the
     # candidates (exact: the sorted frame; capped: the sub frame)
     cell_start: torch.Tensor | None = None
@@ -122,7 +118,7 @@ def _bin(cfg: SphConfig, state: ParticleState, order: torch.Tensor | None,
                 neighbor_count=torch.zeros_like(p.cid))
             carry = LazyCarry(sorted_state,
                               p.order if order is None else order[p.order],
-                              p.pos_s, p.cid, p.ws, p.wc, steps_since,
+                              p.pos_s, p.cid, steps_since,
                               rebin_count, cell_start=p.cell_start,
                               bin_from=order if capped else None,
                               **{k: getattr(p, k) for k in SUB_FIELDS})
@@ -161,7 +157,7 @@ def lazy_step(cfg: SphConfig, carry: LazyCarry
 
         st = carry.state
         p = PreparedT(order=carry.order, pos_s=st.position, vel_s=st.velocity,
-                      mass_s=st.mass, cid=carry.cid, ws=carry.ws, wc=carry.wc,
+                      mass_s=st.mass, cid=carry.cid,
                       cell_start=carry.cell_start,
                       rows_tested=carry.rows_tested,
                       kept_rows=carry.kept_rows,

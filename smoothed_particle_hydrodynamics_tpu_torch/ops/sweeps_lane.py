@@ -26,10 +26,7 @@ inside the window) in the twins' order.  A wrapper given CPU tensors
 computes with the twin; given CUDA tensors it launches the band kernel
 (built from source on first use) or raises, a missing or misshaped table
 included.  ``<wrapper>.launches`` counts kernel launches: one each per
-step.  ``density_lane_block``/``force_lane_block`` launch the block walks
-the band kernels replaced (``density_kernel_lane``, ``force_kernel_lane``),
-which no step path runs: the band kernels' bit-equality reference on the
-card.
+step.
 
 The window table is the JAX package's, value for value, with its limits:
 starts align down to 128 rows and clip to ``n_pad - window``; chunk counts
@@ -62,13 +59,22 @@ from . import physics
 from .celllist import CellListAux
 from .grid import NO_CELL, RODS, build_grid, rod_deltas, unsort
 from .launch import check, raise_on, stream, use_plain
-from .sweeps_t import LANE, _round_up, _self_rows
+from .sweeps_t import LANE
 
 CHUNK_CLAMP = 127  # most chunks a (block, rod) window walks
 DENSITY_COLS = 4   # x y z m, then the cid row
 FORCE_COLS = 8     # x y z vx vy vz m rho, then the cid row
 # pair elements per twin chunk ([blocks, b, window] tensors)
 _PAIR_BUDGET = 1 << 25
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _self_rows(x: torch.Tensor, nblocks: int, b: int) -> torch.Tensor:
+    """[n] -> [nblocks, b, 1], zero-padded: one row per block lane."""
+    return F.pad(x, (0, nblocks * b - x.shape[0])).view(nblocks, b, 1)
 
 
 def n_pad(cfg: SphConfig, n: int) -> int:
@@ -325,9 +331,9 @@ def _kernels() -> ctypes.CDLL:
     """Build (first use) and bind ``csrc/sweep_lane.cu``."""
     lib = build.load_library("sweep_lane")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sph_density_lane.argtypes = [p] * 6 + [i] * 9 + [f] * 4 + [p]
+    lib.sph_density_lane.argtypes = [p] * 6 + [i] * 8 + [f] * 4 + [p]
     lib.sph_density_lane.restype = i
-    lib.sph_force_lane.argtypes = [p] * 5 + [i] * 8 + [f] * 8 + [p]
+    lib.sph_force_lane.argtypes = [p] * 5 + [i] * 7 + [f] * 8 + [p]
     lib.sph_force_lane.restype = i
     lib.sph_error_string.argtypes = [i]
     lib.sph_error_string.restype = ctypes.c_char_p
@@ -347,49 +353,6 @@ def _table_spec(cfg: SphConfig, cell_start) -> dict:
     return dict(cell_start=(cell_start, torch.int32, (cfg.num_cells + 1,)))
 
 
-def _launch_density(cfg: SphConfig, fields, ws, wc, n: int, cell_start,
-                    kernel: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """One density launch: the band walk over ``cell_start``, or the block
-    walk when it is None."""
-    dev = fields.device
-    check(dev, **_specs(cfg, fields, DENSITY_COLS + 1, ws, wc, n),
-          **({} if cell_start is None else _table_spec(cfg, cell_start)))
-    rho = torch.empty(n, dtype=torch.float32, device=dev)
-    ncount = torch.empty(n, dtype=torch.int32, device=dev)
-    lib = _kernels()
-    err = lib.sph_density_lane(
-        fields.data_ptr(), ws.data_ptr(), wc.data_ptr(),
-        None if cell_start is None else cell_start.data_ptr(),
-        rho.data_ptr(), ncount.data_ptr(), n, fields.shape[1],
-        cfg.pallas_block_rows, cfg.pallas_window, cfg.grid_nx, cfg.grid_ny,
-        cfg.num_cells, int(cfg.include_self_density),
-        int(cell_start is not None), cfg.h2, cfg.h_scaled2,
-        _f32(cfg.sim_scale * cfg.sim_scale), cfg.poly6_norm, stream(dev))
-    raise_on(lib, err, kernel)
-    return rho, ncount
-
-
-def _launch_force(cfg: SphConfig, fields, ws, wc, n: int, cell_start,
-                  kernel: str) -> torch.Tensor:
-    """One force launch: the band walk over ``cell_start``, or the block
-    walk when it is None."""
-    dev = fields.device
-    check(dev, **_specs(cfg, fields, FORCE_COLS + 1, ws, wc, n),
-          **({} if cell_start is None else _table_spec(cfg, cell_start)))
-    acc = torch.empty(n, 3, dtype=torch.float32, device=dev)
-    lib = _kernels()
-    err = lib.sph_force_lane(
-        fields.data_ptr(), ws.data_ptr(), wc.data_ptr(),
-        None if cell_start is None else cell_start.data_ptr(),
-        acc.data_ptr(), n, fields.shape[1], cfg.pallas_block_rows,
-        cfg.pallas_window, cfg.grid_nx, cfg.grid_ny, cfg.num_cells,
-        int(cell_start is not None), cfg.h2, cfg.h_scaled, _f32(cfg.sim_scale),
-        _f32(cfg.pressure_softening), _f32(cfg.stiffness), _f32(cfg.rho0),
-        _f32(cfg.viscosity), cfg.visc_lap_norm, stream(dev))
-    raise_on(lib, err, kernel)
-    return acc
-
-
 def density_lane(cfg: SphConfig, fields: torch.Tensor, ws: torch.Tensor,
                  wc: torch.Tensor, n: int,
                  cell_start: torch.Tensor | None = None
@@ -400,11 +363,21 @@ def density_lane(cfg: SphConfig, fields: torch.Tensor, ws: torch.Tensor,
     the twin the block windows (``ws``, ``wc``)."""
     if use_plain(fields):
         return density_lane_plain(cfg, fields, ws, wc, n)
-    _table_spec(cfg, cell_start)  # no table raises: never the block walk
-    out = _launch_density(cfg, fields, ws, wc, n, cell_start,
-                          "density_band_lane")
+    dev = fields.device
+    check(dev, **_specs(cfg, fields, DENSITY_COLS + 1, ws, wc, n),
+          **_table_spec(cfg, cell_start))
+    rho = torch.empty(n, dtype=torch.float32, device=dev)
+    ncount = torch.empty(n, dtype=torch.int32, device=dev)
+    lib = _kernels()
+    err = lib.sph_density_lane(
+        fields.data_ptr(), ws.data_ptr(), wc.data_ptr(), cell_start.data_ptr(),
+        rho.data_ptr(), ncount.data_ptr(), n, fields.shape[1],
+        cfg.pallas_block_rows, cfg.pallas_window, cfg.grid_nx, cfg.grid_ny,
+        cfg.num_cells, int(cfg.include_self_density), cfg.h2, cfg.h_scaled2,
+        _f32(cfg.sim_scale * cfg.sim_scale), cfg.poly6_norm, stream(dev))
+    raise_on(lib, err, "density_band_lane")
     density_lane.launches += 1
-    return out
+    return rho, ncount
 
 
 def force_lane(cfg: SphConfig, fields: torch.Tensor, ws: torch.Tensor,
@@ -415,27 +388,21 @@ def force_lane(cfg: SphConfig, fields: torch.Tensor, ws: torch.Tensor,
     (``cell_start``, required on the card), the twin the block windows."""
     if use_plain(fields):
         return force_lane_plain(cfg, fields, ws, wc, n)
-    _table_spec(cfg, cell_start)  # no table raises: never the block walk
-    out = _launch_force(cfg, fields, ws, wc, n, cell_start, "force_band_lane")
+    dev = fields.device
+    check(dev, **_specs(cfg, fields, FORCE_COLS + 1, ws, wc, n),
+          **_table_spec(cfg, cell_start))
+    acc = torch.empty(n, 3, dtype=torch.float32, device=dev)
+    lib = _kernels()
+    err = lib.sph_force_lane(
+        fields.data_ptr(), ws.data_ptr(), wc.data_ptr(), cell_start.data_ptr(),
+        acc.data_ptr(), n, fields.shape[1], cfg.pallas_block_rows,
+        cfg.pallas_window, cfg.grid_nx, cfg.grid_ny, cfg.num_cells, cfg.h2,
+        cfg.h_scaled, _f32(cfg.sim_scale), _f32(cfg.pressure_softening),
+        _f32(cfg.stiffness), _f32(cfg.rho0), _f32(cfg.viscosity),
+        cfg.visc_lap_norm, stream(dev))
+    raise_on(lib, err, "force_band_lane")
     force_lane.launches += 1
-    return out
-
-
-def density_lane_block(cfg: SphConfig, fields: torch.Tensor,
-                       ws: torch.Tensor, wc: torch.Tensor, n: int
-                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The block walk ``density_kernel_lane`` on CUDA tensors: the band
-    kernel's bit-equality reference and "before" time (``chip_smoke.py``);
-    no step path launches it and it counts no launches."""
-    return _launch_density(cfg, fields, ws, wc, n, None,
-                           "density_kernel_lane")
-
-
-def force_lane_block(cfg: SphConfig, fields: torch.Tensor, ws: torch.Tensor,
-                     wc: torch.Tensor, n: int) -> torch.Tensor:
-    """The block walk ``force_kernel_lane`` on CUDA tensors (as
-    ``density_lane_block``)."""
-    return _launch_force(cfg, fields, ws, wc, n, None, "force_kernel_lane")
+    return acc
 
 
 WRAPPERS = (density_lane, force_lane)

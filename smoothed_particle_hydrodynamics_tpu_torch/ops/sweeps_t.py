@@ -1,16 +1,15 @@
 """Neighbor sweeps on the cell-sorted frame, exact and capped.
 
 Counterpart of ``smoothed_particle_hydrodynamics_tpu/ops/pallas_step_t.py``.
-``prepare_t`` bins and sorts the particles and builds the per-(block, rod)
-window tables and the candidates' cell-start table; ``sweeps_sorted`` runs
-the sweeps over them.
+``prepare_t`` bins and sorts the particles and builds the candidates'
+cell-start table; ``sweeps_sorted`` runs the sweeps over them.
 
 Capped ("Subsets") mode, ``cfg.capped_candidates = K_c``: the candidates of
 every pair sum come from a SUB FRAME holding at most K_c particles of each
 cell (the K_c lowest by a position-free hash, so an unbiased subsample),
 compacted to the front and bounded to ``capped_sub_len`` rows; the self rows
-stay the full sorted frame.  Windows are built over the sub frame's cids, so
-a rod window spans extent*K_c rows instead of extent*occupancy.
+stay the full sorted frame.  The cell-start table is the sub frame's, so a
+band spans at most 3 cells x K_c rows instead of 3 cells' occupancy.
 ``capped_reweight`` scales kept masses by occupancy/kept so densities stay
 unbiased.  ``capped_fused`` replaces the two sweeps by a density pre-pass
 over the sub frame (the candidates' pressures) and one fused pass.
@@ -19,12 +18,12 @@ Each kernel has a wrapper and a plain PyTorch twin here:
 
 * ``density_t`` (exact), ``density_capped_t`` (capped) and
   ``density_pre_t`` (the fused path's sub-frame pre-pass) -> CUDA kernel
-  ``density_band_t<Excl>`` (``csrc/sweep_t.cu``), replacing
-  ``_density_kernel_t``; twins ``density_t_plain`` and
-  ``density_pre_t_plain``;
+  ``density_band_t<Excl>`` (``csrc/sweep_t.cu``), replacing the JAX
+  package's density kernel; twins ``density_t_plain`` and (the pre-pass on
+  the wrapper's own arguments) ``density_pre_t_plain``;
 * ``force_t`` (exact) and ``force_capped_t`` -> ``force_band_t<Excl>``,
-  replacing ``_force_kernel_t``; twin ``force_t_plain``;
-* ``fused_t`` -> ``fused_band_t``, replacing ``_fused_kernel_t``; twin
+  replacing its force kernel; twin ``force_t_plain``;
+* ``fused_t`` -> ``fused_band_t``, replacing its fused kernel; twin
   ``fused_t_plain``;
 * ``band_rows_t`` -> ``band_rows_t``, the counter ``sweeps.rows_tested``
   (``utils/trace.py``; no TPU counterpart); twin ``band_rows_t_plain``;
@@ -33,19 +32,18 @@ Each kernel has a wrapper and a plain PyTorch twin here:
   ``sub_perm`` folded in (no TPU kernel: XLA fuses the JAX package's
   ``fused_cand_cols``); twin ``fused_cand_cols_plain``.
 
-Every kernel walks per-lane cell bands: self row i tests, for each rod,
-only the candidate rows of the cells its own cid mask accepts, one
-contiguous range of the candidates' cell-start table (``band_ranges``: the
-sorted frame's exact, the sub frame's capped and fused), instead of its
-block's whole rod window.  The range holds exactly the window rows that
-pass the mask, so the band kernels sum the same pairs in the same order as
-the block-walk kernels (``density_kernel_t``/``force_kernel_t`` with
-``EXCL_ROW``, ``EXCL_SRC`` or ``EXCL_SRC_SRC``, and ``fused_kernel_t``,
-which ``chip_smoke.py`` runs as their reference) and equal them bit for
-bit; their twins are the block-walk twins.  The pre-pass's unkept tail
-rows (self cid ``TAIL_CID``) have empty bands: the kernel gives them the
-self term and count 0, where the block walk and its twin give them what
-their block's windows hold; no pair reads a tail row's density.
+Every sweep walks per-lane cell bands: self row i tests, for each rod, only
+the candidate rows of the cells its own cid mask accepts, one contiguous
+range of the candidates' cell-start table (``band_ranges``: the sorted
+frame's exact, the sub frame's capped and fused).  The JAX kernels walk
+each block's whole rod window instead; a band holds exactly the rows of
+that window that pass the mask, in the window's order (the CPU tests hold
+the bands to the JAX package's own window tables).  A twin walks the same
+bands with the same pair mask and terms as its kernel, taking the same
+arguments; it sums each band chunk with PyTorch reductions, so its sums
+differ from the kernel's by reassociation only.  The pre-pass's unkept tail
+rows (self cid ``TAIL_CID``) have empty bands: they get the self term and
+count 0; no pair reads a tail row's density.
 
 A wrapper given CPU tensors computes with the twin; given CUDA tensors it
 launches the kernel (built from source on first use) or raises; any other
@@ -54,25 +52,20 @@ device raises.  ``<wrapper>.launches`` counts kernel launches.
 The twins and launch helpers also take ``self_base``: self row i's own id
 (the one self-exclusion compares) is ``self_base + i``.  The wrappers here
 pass 0; the distributed slab engine (``parallel/slab_sweeps.py``) passes
-the left-halo width to the block walks and the twins (its self rows sit at
-that offset in the extended candidate frame) and the live left-halo rows
-to the band walks (which sweep the frame's live rows only).
+the live left-halo rows (exact: its candidates are the extended frame's
+live rows) or the left-halo width (capped: the sub frame's src rows index
+the extended frame).
 
 Differences from the JAX package: cell ids and source rows are int32 (the
 TPU kernels carry f32, exact below 2^24 cells and, in capped mode, 2^24
-particles), window walks stop at the candidate count instead of reading
-padded rows, the sub frame's unkept tail rows get cell id ``TAIL_CID``
-instead of -10, and the force sums are direct per-pair sums (no per-block
-reference point, no MXU reduction), so accelerations differ from the TPU's
-by reassociation only.
+particles), the sweeps walk bands instead of padded windows, the sub
+frame's unkept tail rows get cell id ``TAIL_CID`` instead of -10, and the
+force sums are direct per-pair sums (no per-block reference point, no MXU
+reduction), so accelerations differ from the TPU's by reassociation only.
 
-Lane groups (``pallas_groups`` G in {2, 4}, exact mode only): each block's
-rows split into G groups of consecutive rows, each with its own rod windows,
-so the window tables are laid out (block, group, rod), as the JAX
-package's; the twins walk each group's windows for that group's rows.  The
-band kernels read no window table, so on the card G changes only the size
-of the tables ``prepare_t`` builds, and the step's counts, rho and acc are
-the same at every G.  The block-walk kernels take G = 1 tables only.
+``pallas_groups``, ``pallas_block_t`` and ``pallas_window_t`` shape the JAX
+package's window tables, which no sweep here reads: they are validated as
+there and change nothing on this path.
 """
 
 from __future__ import annotations
@@ -98,13 +91,14 @@ from .launch import raise_on as _raise_on
 from .launch import stream as _stream
 from .launch import use_plain as _use_plain
 
-SUB = 8      # window starts align down to this many rows
-LANE = 128   # padded-frame granule of the JAX package's window tables
+SUB = 8      # pallas_window_t is a multiple of this many rows
+LANE = 128   # the JAX package's row granule: the default pallas_block_t
 NRODS = len(RODS)
 # Cell id of the sub frame's tail rows (unkept particles beyond the kept
 # count).
 TAIL_CID = NO_CELL
-# pair elements per twin chunk ([blocks, b, s_t] tensors), bounding its memory
+# pair elements per twin chunk ([rows, band rows] tensors), bounding its
+# memory
 _PAIR_BUDGET = 1 << 25
 # The counter of the lane-rows the self band sweeps test (``band_rows_t``),
 # counted by the sweeps that launch them while recording (utils/trace.py).
@@ -112,10 +106,6 @@ ROWS_TESTED = "sweeps.rows_tested"
 # The counter of the kept rows of the bins a capped step uses
 # (``kept_rows_t``), counted once a step by ``sweeps_sorted``.
 KEPT_ROWS = "capped.kept_rows"
-# The counters of the candidate rows ``fused_cand_cols`` built, on any path,
-# and of those the kernel ``cand_cols_t`` built (utils/trace.py).
-CAND_ROWS = "sweeps.cand_rows"
-CAND_ROWS_FUSED = "sweeps.cand_rows_fused"
 # Rows a tile (= threads a block) and blocks an SM of ``cand_cols_t``'s
 # persistent grid (csrc/cand_cols_t.cu: kTile, the launch bounds).
 CAND_TILE, CAND_BLOCKS_PER_SM = 256, 8
@@ -128,17 +118,6 @@ EXCL_ROW, EXCL_SRC, EXCL_SRC_SRC = 0, 1, 2
 def _blane(cfg: SphConfig) -> int:
     """Sorted particles per block (one CUDA block, one JAX grid step)."""
     return cfg.pallas_block_t or LANE
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def _n_pad(cfg: SphConfig, rows: int) -> int:
-    """The JAX package's padded length of a candidate frame of ``rows``
-    rows: window starts clip to ``_n_pad - window`` exactly as there, so the
-    tables compare equal."""
-    return _round_up(rows + cfg.pallas_window_t, LANE)
 
 
 def _validate(cfg: SphConfig) -> None:
@@ -163,11 +142,10 @@ def _validate(cfg: SphConfig) -> None:
 
 
 class PreparedT(NamedTuple):
-    """Sorted fields + window tables shared by the sweeps.
+    """Sorted fields + the candidates' cell-start table shared by the sweeps.
 
     The optional fields exist only in capped mode (``sub_*`` and the sub
-    frame's reweighted masses), and for ``ws_sub``/``wc_sub`` only with
-    ``capped_fused``.  ``prepare_t`` always sets ``cell_start``.
+    frame's reweighted masses).  ``prepare_t`` always sets ``cell_start``.
     """
 
     order: torch.Tensor    # [N] i64: sorted row -> original index
@@ -175,14 +153,10 @@ class PreparedT(NamedTuple):
     vel_s: torch.Tensor    # [N, 3] sorted
     mass_s: torch.Tensor   # [N] sorted
     cid: torch.Tensor      # [N] i32 sorted cell ids
-    ws: torch.Tensor       # [nblocks*G*9] i32 window starts
-    wc: torch.Tensor       # [nblocks*G*9] i32 window chunk counts
     sub_perm: torch.Tensor | None = None     # [S] i32 sub row -> sorted row
     cand_cid: torch.Tensor | None = None     # [S] i32 sub cids (TAIL_CID tail)
     wm_sub: torch.Tensor | None = None       # [S] f32 reweighted cand mass
     sub_dropped: torch.Tensor | None = None  # i32: kept rows beyond S
-    ws_sub: torch.Tensor | None = None       # fused: sub-block window starts
-    wc_sub: torch.Tensor | None = None       # fused: sub-block chunk counts
     # [num_cells + 1] i32, first candidate row of each cell: exact, of the
     # sorted frame (n at the end); capped, of the sub frame (its kept rows
     # within S at the end, so no band reaches the tail)
@@ -195,58 +169,18 @@ class PreparedT(NamedTuple):
     kept_rows: torch.Tensor | None = None
 
 
-SUB_FIELDS = ("sub_perm", "cand_cid", "wm_sub", "sub_dropped", "ws_sub",
-              "wc_sub")
+SUB_FIELDS = ("sub_perm", "cand_cid", "wm_sub", "sub_dropped")
 
 
-def _groups(cfg: SphConfig, n: int) -> tuple[int, int]:
-    """(window groups, rows per group) of a sweep of ``n`` self rows: each
-    block of ``pallas_block_t`` rows is ``pallas_groups`` groups of
-    consecutive rows, each with its own rod windows."""
-    g = cfg.pallas_groups
-    return -(-n // _blane(cfg)) * g, _blane(cfg) // g
-
-
-def _block_windows_t(cfg: SphConfig, cid_sorted: torch.Tensor, nblocks: int,
-                     window: int, n: int, n_pad: int,
-                     cid_search: torch.Tensor | None = None
-                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per (block, group, rod): 8-aligned window start + chunk count of
-    ``window`` rows, flattened in (block, group, rod) order
-    ([nblocks * G * 9]), and the cell-start table of
-    ``cid_search`` ([num_cells + 2] i64: its first row of each cell, its
-    row count below ``num_cells`` and then its whole count at the end).
-
-    A group's rod window spans the cells from (first cid + delta - 1) to
-    (last cid + delta + 1) of its rows of ``cid_sorted`` (the self rows; a
-    group is the whole block at G = 1), looked up in
-    one bincount + cumsum of ``cid_search`` (the candidate rows, default the
-    same).  Search cids >= num_cells (the capped sub frame's tail) land in a
-    bucket no window reaches.  Any superset of the true window gives the
-    same sums (the kernels' cid mask rejects the extra rows), so the GPU
-    walks the rows ``[ws, ws + wc*window)`` directly.
-    """
-    if cid_search is None:
-        cid_search = cid_sorted
-    b = _blane(cfg)
-    last = cfg.num_cells - 1
-    deltas = torch.tensor(rod_deltas(cfg), dtype=torch.int64,
-                          device=cid_sorted.device)
-    blocks = F.pad(cid_sorted.long(), (0, nblocks * b - n),
-                   value=last).view(nblocks * cfg.pallas_groups, -1)
-    lo = (blocks[:, :1] + deltas - 1).clamp(0, last)
-    hi = (blocks[:, -1:] + deltas + 1).clamp(0, last)
+def cell_start_t(cfg: SphConfig, cid_search: torch.Tensor) -> torch.Tensor:
+    """[num_cells + 1] i32: the first row of each cell in the ascending
+    candidate cids ``cid_search``, its last entry the rows in cells, from
+    one bincount + cumsum.  Search cids >= num_cells (the capped sub frame's
+    tail) land in a bucket past the table, so no band reaches them."""
     counts = torch.bincount(cid_search.long().clamp(0, cfg.num_cells),
                             minlength=cfg.num_cells + 1)
     cum = F.pad(counts.cumsum(0), (1, 0))
-    w_start = cum[lo]
-    w_end = cum[hi + 1]
-    w_start = (w_start & ~(SUB - 1)).clamp(0, max(n_pad - window, 0))
-    w_len = (w_end - w_start).clamp(min=0)
-    w_chunks = torch.where(w_len > 0, -(-w_len // window),
-                           torch.zeros_like(w_len))
-    return (w_start.to(torch.int32).reshape(-1),
-            w_chunks.to(torch.int32).reshape(-1), cum)
+    return cum[:cfg.num_cells + 1].to(torch.int32)
 
 
 def band_ranges(cfg: SphConfig, cid: torch.Tensor, cell_start: torch.Tensor
@@ -331,7 +265,8 @@ def derive_sub_len(cfg: SphConfig, state: ParticleState,
 def _sub_frame(cfg: SphConfig, cid_sorted: torch.Tensor, mass_s: torch.Tensor
                ) -> tuple[dict, torch.Tensor]:
     """The capped sub frame of a (cell, hash)-sorted frame: its PreparedT
-    fields and the cids its windows search (tail rows at num_cells)."""
+    fields and the cids its cell-start table searches (tail rows at
+    num_cells)."""
     n = cid_sorted.shape[0]
     k_c = cfg.capped_candidates
     rank, occ = _run_rank_occ(cid_sorted)
@@ -422,7 +357,7 @@ def sort_frame_t(cfg: SphConfig, state: ParticleState) -> SortedFrame:
 def sub_frame_t(cfg: SphConfig, f: SortedFrame
                 ) -> tuple[dict, torch.Tensor]:
     """``prepare_t``'s sub frame: ``_sub_frame``'s fields and the cids the
-    windows search; exact mode, none and the sorted cids."""
+    cell-start table searches; exact mode, none and the sorted cids."""
     if not cfg.capped_candidates:
         return {}, f.cid
     return _sub_frame(cfg, f.cid, f.mass_s)
@@ -430,32 +365,17 @@ def sub_frame_t(cfg: SphConfig, f: SortedFrame
 
 def tables_t(cfg: SphConfig, f: SortedFrame, sub: dict,
              cid_search: torch.Tensor) -> PreparedT:
-    """``prepare_t``'s tables: the window tables and the candidates' cell
-    starts over the sorted frame ``f`` and the sub frame ``sub``."""
-    n = f.cid.shape[0]
-    b = _blane(cfg)
-    nblocks = -(-n // b)
-    n_cand = sub_len(cfg, n) if cfg.capped_candidates else n
-    cid_sorted, sub = f.cid, dict(sub)
-    ws, wc, cum = _block_windows_t(
-        cfg, cid_sorted, nblocks, cfg.pallas_window_t, n,
-        _n_pad(cfg, n_cand), cid_search)
-    # the candidates' cell starts: the sorted frame's, or the sub frame's
-    # (its tail rows counted at num_cells, past the table's last entry)
-    cell_start = cum[:cfg.num_cells + 1].to(torch.int32)
-    if cfg.capped_candidates and cfg.capped_fused:
-        # the pre-pass sweeps the sub frame FROM the sub frame
-        sub["ws_sub"], sub["wc_sub"], _ = _block_windows_t(
-            cfg, cid_search, -(-n_cand // b), cfg.pallas_window_t, n_cand,
-            _n_pad(cfg, n_cand), cid_search)
+    """``prepare_t``'s table: the candidates' cell starts over the sorted
+    frame ``f``, or over the sub frame ``sub`` (its tail rows counted at
+    num_cells, past the table's last entry)."""
     return PreparedT(order=f.order, pos_s=f.pos_s, vel_s=f.vel_s,
-                     mass_s=f.mass_s, cid=cid_sorted.contiguous(), ws=ws,
-                     wc=wc, cell_start=cell_start, **sub)
+                     mass_s=f.mass_s, cid=f.cid.contiguous(),
+                     cell_start=cell_start_t(cfg, cid_search), **sub)
 
 
 def prepare_t(cfg: SphConfig, state: ParticleState) -> PreparedT:
-    """Binning + stable sort + per-block window tables + the candidates'
-    cell-start table (+ the sub frame in capped mode): ``sort_frame_t``,
+    """Binning + stable sort + the candidates' cell-start table (+ the sub
+    frame in capped mode): ``sort_frame_t``,
     ``sub_frame_t`` and ``tables_t`` in turn (``lazy._bin`` times each in
     capped mode).
 
@@ -478,9 +398,7 @@ def fused_cand_cols(cfg: SphConfig, pos_c: torch.Tensor, vel_c: torch.Tensor,
     density from row ``index[s]`` of ``pos_c``, ``vel_c`` and ``rho_c`` and
     its mass from ``m_c[s]``: the capped sub frame's gather folded in.  On
     CPU tensors the twin ``fused_cand_cols_plain`` (after the gather), on
-    the card the kernel ``cand_cols_t``, bit-equal to it.  Counts M in
-    ``sweeps.cand_rows`` while recording (``utils/trace.py``)."""
-    trace.count(CAND_ROWS, m_c.shape[0])
+    the card the kernel ``cand_cols_t``, bit-equal to it."""
     if not _use_plain(m_c):
         return cand_cols_t(cfg, pos_c, vel_c, rho_c, m_c, index)
     if index is not None:
@@ -503,63 +421,58 @@ def fused_cand_cols_plain(cfg: SphConfig, pos_c: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch twins: the same window walk, mask and sums as tensor ops.
+# Plain PyTorch twins: the kernels' band walk, mask and sums as tensor ops.
 # ---------------------------------------------------------------------------
 
-def _window_chunks(cfg: SphConfig, n: int, m: int, ws: torch.Tensor,
-                   wc: torch.Tensor):
-    """Yield ``(blocks, rod, rows, valid)`` for every (group slice, rod,
-    chunk) visit of a sweep of ``n`` self rows over ``m`` candidate rows
-    (a group is a block at G = 1).  ``rows`` [nb, s_t] are the chunk's
-    candidate rows clamped into [0, m); ``valid`` marks rows inside the
-    group's window and the candidates."""
-    nblocks, b = _groups(cfg, n)
-    s = cfg.pallas_window_t
-    ws2 = ws.view(nblocks, NRODS).long()
-    wc2 = wc.view(nblocks, NRODS).long()
-    lane = torch.arange(s, device=ws.device)
-    step = max(1, _PAIR_BUDGET // (b * s))
-    for b0 in range(0, nblocks, step):
-        blocks = slice(b0, min(nblocks, b0 + step))
-        wmax = wc2[blocks].amax(0).tolist()
-        for r in range(NRODS):
-            for k in range(wmax[r]):
-                rows = ws2[blocks, r, None] + k * s + lane
-                valid = (k < wc2[blocks, r, None]) & (rows < m)
-                yield blocks, r, rows.clamp(max=m - 1), valid
+_NO_TABLE = ("the band sweeps need their candidates' cell-start table "
+             "(PreparedT.cell_start, or the slab frame's SlabBand.cell_start "
+             "or SubBand.cell_start)")
 
 
-def _self_rows(x: torch.Tensor, nblocks: int, b: int) -> torch.Tensor:
-    """[n] -> [nblocks, b, 1], zero-padded: one row per block lane."""
-    return F.pad(x, (0, nblocks * b - x.shape[0])).view(nblocks, b, 1)
+def _table(cell_start: torch.Tensor | None) -> torch.Tensor:
+    """``cell_start``, or a ValueError when it is missing: no sweep falls
+    back to a window walk."""
+    if cell_start is None:
+        raise ValueError(_NO_TABLE)
+    return cell_start
 
 
-def _pair_chunks(cfg: SphConfig, pos_s, cid, ws, wc, cand_pos, cand_cid,
-                 cand_src=None, self_src=None, self_base: int = 0):
-    """Yield ``(blocks, rows, dxyz, d2, mask)`` for every chunk visit: the
-    [nb, b, s_t] candidate-minus-self offsets, d^2 and pair mask
-    |cid_j - cid_i - delta| <= 1, id_j != own_i, d^2 < h^2.  The ids are
-    the candidate row vs ``self_base`` + the self row (``cand_src`` None),
-    the candidate's src vs the same, or src vs ``self_src``.  The leading
-    axis runs over window groups (``_groups``)."""
+def _band_chunks(cfg: SphConfig, pos_s, cid, cell_start, cand_pos,
+                 cand_src=None, self_base: int = 0, self_src=None):
+    """Yield ``(rows, cols, dxyz, d2, mask)`` for every chunk of the band
+    walk: ``rows`` a slice of the self rows, ``cols`` [r, L] the candidate
+    rows of their bands in one rod (band order, past a band's end clamped
+    into the candidates), the candidate-minus-self offsets, d^2 and the pair
+    mask: inside the band, id_j != own_i, d^2 < h^2.  The ids are the
+    candidate row vs ``self_base`` + the self row (``cand_src`` None), the
+    candidate's src vs the same, or src vs ``self_src``.  The bands are the
+    kernels' (``band_ranges``), so the cid mask holds by construction."""
     n, m = pos_s.shape[0], cand_pos.shape[0]
-    nblocks, b = _groups(cfg, n)
-    xyz = [_self_rows(pos_s[:, c], nblocks, b) for c in range(3)]
-    ci = _self_rows(cid, nblocks, b)
-    own = (torch.arange(self_base, self_base + nblocks * b,
-                        device=pos_s.device).view(nblocks, b, 1)
-           if self_src is None else _self_rows(self_src, nblocks, b))
-    deltas = rod_deltas(cfg)
-    for blocks, r, rows, valid in _window_chunks(cfg, n, m, ws, wc):
-        pj = cand_pos[rows]                                # [nb, s_t, 3]
-        dxyz = [pj[:, None, :, c] - xyz[c][blocks] for c in range(3)]
-        d2 = dxyz[0] * dxyz[0] + dxyz[1] * dxyz[1] + dxyz[2] * dxyz[2]
-        # two-sided, not abs(): a wrapped difference to TAIL_CID may be -2^31
-        dc = cand_cid[rows][:, None, :] - ci[blocks] - deltas[r]
-        idj = rows if cand_src is None else cand_src[rows]
-        mask = ((dc >= -1) & (dc <= 1) & (idj[:, None, :] != own[blocks])
-                & valid[:, None, :] & (d2 < cfg.h2))
-        yield blocks, rows, dxyz, d2, mask
+    a, e = band_ranges(cfg, cid, _table(cell_start))
+    length = (e - a).clamp(min=0)
+    widest = int(length.max()) if n and m else 0
+    if widest == 0:
+        return
+    dev = pos_s.device
+    own_all = (torch.arange(self_base, self_base + n, device=dev)
+               if self_src is None else self_src.long())
+    step = max(1, _PAIR_BUDGET // widest)
+    for r0 in range(0, n, step):
+        rows = slice(r0, min(n, r0 + step))
+        own = own_all[rows, None]
+        lmax = length[rows].amax(0).tolist()
+        for r in range(NRODS):
+            if not lmax[r]:
+                continue
+            k = torch.arange(lmax[r], device=dev)
+            valid = k < length[rows, r, None]
+            cols = (a[rows, r, None] + k).clamp(max=m - 1)
+            pj = cand_pos[cols]                            # [r, L, 3]
+            dxyz = [pj[..., c] - pos_s[rows, c, None] for c in range(3)]
+            d2 = dxyz[0] * dxyz[0] + dxyz[1] * dxyz[1] + dxyz[2] * dxyz[2]
+            idj = cols if cand_src is None else cand_src[cols]
+            mask = valid & (idj != own) & (d2 < cfg.h2)
+            yield rows, cols, dxyz, d2, mask
 
 
 def _density_terms(cfg: SphConfig, d2, mask, m_j):
@@ -573,131 +486,121 @@ def _density_terms(cfg: SphConfig, d2, mask, m_j):
 
 
 def density_t_plain(cfg: SphConfig, pos_s: torch.Tensor, mass_s: torch.Tensor,
-                    cid: torch.Tensor, ws: torch.Tensor, wc: torch.Tensor,
-                    cand_pos=None, cand_mass=None, cand_cid=None,
-                    cand_src=None, self_src=None, self_base: int = 0
+                    cid: torch.Tensor, cell_start: torch.Tensor | None,
+                    cand_pos: torch.Tensor, cand_mass: torch.Tensor,
+                    cand_src=None, self_base: int = 0, self_src=None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Twin of the density kernel: (rho [N] f32, ncount [N] i32).  The
-    candidates default to the self rows (exact mode)."""
-    if cand_pos is None:
-        cand_pos, cand_mass, cand_cid = pos_s, mass_s, cid
-    n = pos_s.shape[0]
-    nblocks, b = _groups(cfg, n)
-    rho = torch.zeros(nblocks, b, dtype=torch.float32, device=pos_s.device)
-    count = torch.zeros(nblocks, b, dtype=torch.int32, device=pos_s.device)
-    for blocks, rows, _, d2, mask in _pair_chunks(
-            cfg, pos_s, cid, ws, wc, cand_pos, cand_cid, cand_src, self_src,
-            self_base):
-        r_add, c_add = _density_terms(cfg, d2, mask, cand_mass[rows][:, None, :])
-        rho[blocks] += r_add
-        count[blocks] += c_add
-    return (physics.self_density(cfg, rho.view(-1)[:n], mass_s),
-            count.view(-1)[:n])
+    """Twin of the density kernel, on its arguments: (rho [N] f32, ncount
+    [N] i32) of the self rows over the candidates' bands."""
+    n, dev = pos_s.shape[0], pos_s.device
+    rho = torch.zeros(n, dtype=torch.float32, device=dev)
+    count = torch.zeros(n, dtype=torch.int32, device=dev)
+    for rows, cols, _, d2, mask in _band_chunks(
+            cfg, pos_s, cid, cell_start, cand_pos, cand_src, self_base,
+            self_src):
+        r_add, c_add = _density_terms(cfg, d2, mask, cand_mass[cols])
+        rho[rows] += r_add
+        count[rows] += c_add
+    return physics.self_density(cfg, rho, mass_s), count
 
 
 def density_pre_t_plain(cfg: SphConfig, pos_sub: torch.Tensor,
                         mass_sub: torch.Tensor, wm_sub: torch.Tensor,
                         cid_sub: torch.Tensor, src_sub: torch.Tensor,
-                        ws_sub: torch.Tensor, wc_sub: torch.Tensor
-                        ) -> torch.Tensor:
+                        cell_start: torch.Tensor | None) -> torch.Tensor:
     """Twin of the sub-frame pre-pass (``density_pre_t``): rho [S]."""
-    return density_t_plain(cfg, pos_sub, mass_sub, cid_sub, ws_sub, wc_sub,
-                           pos_sub, wm_sub, cid_sub, src_sub, src_sub)[0]
+    return density_t_plain(*_pre_args(cfg, pos_sub, mass_sub, wm_sub,
+                                      cid_sub, src_sub, cell_start))[0]
 
 
-def _force_setup(vel_s: torch.Tensor, nblocks: int, b: int):
-    vi = [_self_rows(vel_s[:, c], nblocks, b) for c in range(3)]
-    return vi, torch.zeros(6, nblocks, b, dtype=torch.float32,
-                           device=vel_s.device)
+def _pre_args(cfg, pos_sub, mass_sub, wm_sub, cid_sub, src_sub,
+              cell_start) -> tuple:
+    """The pre-pass's density-walk arguments: the sub frame over itself,
+    self rows with their true masses, candidates with the reweighted ones,
+    exclusion src vs src."""
+    return (cfg, pos_sub, mass_sub, cid_sub, cell_start, pos_sub, wm_sub,
+            src_sub, 0, src_sub)
+
+
+def _pair_force_terms(cfg: SphConfig, cj, d2, mask):
+    """One chunk's per-pair force factors: the candidate columns [r, L] of
+    ``cj`` and (h - d) masked to 0 off the pairs, d in simulation units."""
+    col = [cj[..., c] for c in range(9)]
+    d = torch.sqrt(d2) * _f32(cfg.sim_scale)
+    hd = torch.where(mask, cfg.h_scaled - d, torch.zeros_like(d2))
+    return col, d, hd
 
 
 def force_t_plain(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
                   rho_s: torch.Tensor, cand: torch.Tensor, cid: torch.Tensor,
-                  ws: torch.Tensor, wc: torch.Tensor, cand_cid=None,
-                  cand_src=None, self_base: int = 0) -> torch.Tensor:
-    """Twin of the force kernel: hydro acceleration [N, 3] f32.  ``cand``
-    is ``fused_cand_cols`` of the candidates (default: the self rows)."""
-    if cand_cid is None:
-        cand_cid = cid
-    n = pos_s.shape[0]
-    nblocks, b = _groups(cfg, n)
-    rhoi = F.pad(rho_s, (0, nblocks * b - n), value=1.0).view(nblocks, b, 1)
-    h = cfg.h_scaled
+                  cell_start: torch.Tensor | None, cand_src=None,
+                  self_base: int = 0) -> torch.Tensor:
+    """Twin of the force kernel, on its arguments: hydro acceleration
+    [N, 3] f32.  ``cand`` is ``fused_cand_cols`` of the candidates."""
+    n, dev = pos_s.shape[0], pos_s.device
     scale = _f32(cfg.sim_scale)
     eps = _f32(cfg.pressure_softening)
-    rhoi_inv = physics.safe_inv(rhoi)
-    pw_i = (rhoi - _f32(cfg.rho0)) * _f32(cfg.stiffness) * rhoi_inv * rhoi_inv
+    rhoi_inv = physics.safe_inv(rho_s)
+    pw_i = ((rho_s - _f32(cfg.rho0)) * _f32(cfg.stiffness) * rhoi_inv
+            * rhoi_inv)[:, None]
     # sums[0:3]: pressure sums (x, y, z); sums[3:6]: viscosity sums
-    vi, sums = _force_setup(vel_s, nblocks, b)
-    for blocks, rows, dxyz, d2, mask in _pair_chunks(
-            cfg, pos_s, cid, ws, wc, cand[:, 0:3], cand_cid, cand_src,
-            self_base=self_base):
-        cj = cand[rows]                                    # [nb, s_t, 9]
-        col = [cj[:, None, :, c] for c in range(9)]
+    sums = torch.zeros(6, n, dtype=torch.float32, device=dev)
+    for rows, cols, dxyz, d2, mask in _band_chunks(
+            cfg, pos_s, cid, cell_start, cand[:, 0:3], cand_src, self_base):
+        col, d, hd = _pair_force_terms(cfg, cand[cols], d2, mask)
         zero = torch.zeros_like(d2)
-        d = torch.sqrt(d2) * scale
-        hd = torch.where(mask, h - d, zero)
-        num = (hd * hd) * (col[7] * pw_i[blocks] + col[8])
+        num = (hd * hd) * (col[7] * pw_i[rows] + col[8])
         center = num / (d + eps) * scale
         for a in range(3):
-            sums[a, blocks] -= torch.where(mask, dxyz[a] * center, zero).sum(-1)
-            vis = (col[3 + a] - vi[a][blocks] * col[6]) * hd
-            sums[3 + a, blocks] += torch.where(mask, vis, zero).sum(-1)
-    mu_rhoi = _f32(cfg.viscosity) * rhoi_inv[..., 0]
+            sums[a, rows] -= torch.where(mask, dxyz[a] * center, zero).sum(-1)
+            vis = (col[3 + a] - vel_s[rows, a, None] * col[6]) * hd
+            sums[3 + a, rows] += torch.where(mask, vis, zero).sum(-1)
+    mu_rhoi = _f32(cfg.viscosity) * rhoi_inv
     norm = cfg.visc_lap_norm
-    acc = torch.stack([mu_rhoi * sums[3 + a] * norm + sums[a] * norm
-                       for a in range(3)], dim=-1)
-    return acc.view(-1, 3)[:n]
+    return torch.stack([mu_rhoi * sums[3 + a] * norm + sums[a] * norm
+                        for a in range(3)], dim=-1)
 
 
 def fused_t_plain(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
-                  mass_s: torch.Tensor, cid: torch.Tensor, ws: torch.Tensor,
-                  wc: torch.Tensor, cand: torch.Tensor, cand_cid: torch.Tensor,
+                  mass_s: torch.Tensor, cid: torch.Tensor,
+                  cell_start: torch.Tensor | None, cand: torch.Tensor,
                   cand_src: torch.Tensor, self_base: int = 0
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Twin of the fused kernel: (acc [N, 3], rho [N], ncount [N]) in one
-    walk over the sub-frame candidates ``cand`` (``fused_cand_cols`` with
-    the pre-pass densities).  The pressure sum is split into pw_i-free
-    P1 (m_j) and P2 (m_j pw_j) sums, combined with the walk's own rho."""
-    n = pos_s.shape[0]
-    nblocks, b = _groups(cfg, n)
-    dev = pos_s.device
-    h = cfg.h_scaled
+    """Twin of the fused kernel, on its arguments: (acc [N, 3], rho [N],
+    ncount [N]) in one walk over the sub-frame candidates ``cand``
+    (``fused_cand_cols`` with the pre-pass densities).  The pressure sum is
+    split into pw_i-free P1 (m_j) and P2 (m_j pw_j) sums, combined with the
+    walk's own rho."""
+    n, dev = pos_s.shape[0], pos_s.device
     scale = _f32(cfg.sim_scale)
     eps = _f32(cfg.pressure_softening)
-    rho = torch.zeros(nblocks, b, dtype=torch.float32, device=dev)
-    count = torch.zeros(nblocks, b, dtype=torch.int32, device=dev)
-    # sums[0:3]: P1, sums[3:6]: viscosity; p2[0:3]: P2
-    vi, sums = _force_setup(vel_s, nblocks, b)
-    p2 = torch.zeros(3, nblocks, b, dtype=torch.float32, device=dev)
-    for blocks, rows, dxyz, d2, mask in _pair_chunks(
-            cfg, pos_s, cid, ws, wc, cand[:, 0:3], cand_cid, cand_src,
-            self_base=self_base):
-        cj = cand[rows]
-        col = [cj[:, None, :, c] for c in range(9)]
+    rho = torch.zeros(n, dtype=torch.float32, device=dev)
+    count = torch.zeros(n, dtype=torch.int32, device=dev)
+    # sums[0:3]: P1, sums[3:6]: viscosity, sums[6:9]: P2
+    sums = torch.zeros(9, n, dtype=torch.float32, device=dev)
+    for rows, cols, dxyz, d2, mask in _band_chunks(
+            cfg, pos_s, cid, cell_start, cand[:, 0:3], cand_src, self_base):
+        col, d, hd = _pair_force_terms(cfg, cand[cols], d2, mask)
         r_add, c_add = _density_terms(cfg, d2, mask, col[7])
-        rho[blocks] += r_add
-        count[blocks] += c_add
+        rho[rows] += r_add
+        count[rows] += c_add
         zero = torch.zeros_like(d2)
-        d = torch.sqrt(d2) * scale
-        hd = torch.where(mask, h - d, zero)
         hd2inv = (hd * hd) / (d + eps) * scale
         c1, c2 = hd2inv * col[7], hd2inv * col[8]
         for a in range(3):
-            sums[a, blocks] -= torch.where(mask, dxyz[a] * c1, zero).sum(-1)
-            p2[a, blocks] -= torch.where(mask, dxyz[a] * c2, zero).sum(-1)
-            vis = (col[3 + a] - vi[a][blocks] * col[6]) * hd
-            sums[3 + a, blocks] += torch.where(mask, vis, zero).sum(-1)
-    rho = physics.self_density(cfg, rho.view(-1)[:n], mass_s)
+            sums[a, rows] -= torch.where(mask, dxyz[a] * c1, zero).sum(-1)
+            sums[6 + a, rows] -= torch.where(mask, dxyz[a] * c2, zero).sum(-1)
+            vis = (col[3 + a] - vel_s[rows, a, None] * col[6]) * hd
+            sums[3 + a, rows] += torch.where(mask, vis, zero).sum(-1)
+    rho = physics.self_density(cfg, rho, mass_s)
     rhoi_inv = physics.safe_inv(rho)
     pw_i = (rho - _f32(cfg.rho0)) * _f32(cfg.stiffness) * rhoi_inv * rhoi_inv
     mu_rhoi = _f32(cfg.viscosity) * rhoi_inv
     norm = cfg.visc_lap_norm
-    sums, p2 = sums.view(6, -1)[:, :n], p2.view(3, -1)[:, :n]
     acc = torch.stack([mu_rhoi * sums[3 + a] * norm
-                       + (pw_i * sums[a] + p2[a]) * norm
+                       + (pw_i * sums[a] + sums[6 + a]) * norm
                        for a in range(3)], dim=-1)
-    return acc, rho, count.view(-1)[:n]
+    return acc, rho, count
 
 
 # ---------------------------------------------------------------------------
@@ -709,12 +612,6 @@ def _kernels() -> ctypes.CDLL:
     """Build (first use) and bind ``csrc/sweep_t.cu``."""
     lib = build.load_library("sweep_t")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sph_density_t.argtypes = [p] * 12 + [i] * 9 + [f] * 4 + [p]
-    lib.sph_density_t.restype = i
-    lib.sph_force_t.argtypes = [p] * 10 + [i] * 8 + [f] * 8 + [p]
-    lib.sph_force_t.restype = i
-    lib.sph_fused_t.argtypes = [p] * 12 + [i] * 8 + [f] * 11 + [p]
-    lib.sph_fused_t.restype = i
     lib.sph_density_band_t.argtypes = [p] * 10 + [i] * 8 + [f] * 4 + [p]
     lib.sph_density_band_t.restype = i
     lib.sph_force_band_t.argtypes = [p] * 8 + [i] * 7 + [f] * 8 + [p]
@@ -732,73 +629,27 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def _self_specs(cfg: SphConfig, n: int, pos_s, cid, ws, wc) -> dict:
-    """The specs every sweep kernel shares: self positions and cids, and
-    the window tables of its self blocks."""
-    nt = -(-n // _blane(cfg)) * NRODS
-    return dict(pos_s=(pos_s, torch.float32, (n, 3)),
-                cid=(cid, torch.int32, (n,)),
-                ws=(ws, torch.int32, (nt,)), wc=(wc, torch.int32, (nt,)))
-
-
-def _cand_specs(m: int, cand_cid, cand_src) -> dict:
-    specs = dict(cand_cid=(cand_cid, torch.int32, (m,)))
-    if cand_src is not None:
-        specs["cand_src"] = (cand_src, torch.int32, (m,))
-    return specs
-
-
-def _launch_density(cfg: SphConfig, excl: int, pos_s, mass_s, cid, ws, wc,
-                    cand_pos, cand_mass, cand_cid, cand_src, self_src,
-                    kernel: str, self_base: int = 0):
-    n, m, dev = pos_s.shape[0], cand_pos.shape[0], pos_s.device
-    specs = dict(mass_s=(mass_s, torch.float32, (n,)),
-                 cand_pos=(cand_pos, torch.float32, (m, 3)),
-                 cand_mass=(cand_mass, torch.float32, (m,)),
-                 **_self_specs(cfg, n, pos_s, cid, ws, wc),
-                 **_cand_specs(m, cand_cid, cand_src))
-    if self_src is not None:
-        specs["self_src"] = (self_src, torch.int32, (n,))
-    _check(dev, **specs)
-    rho = torch.empty(n, dtype=torch.float32, device=dev)
-    ncount = torch.empty(n, dtype=torch.int32, device=dev)
-    lib = _kernels()
-    err = lib.sph_density_t(
-        pos_s.data_ptr(), mass_s.data_ptr(), cid.data_ptr(), _ptr(self_src),
-        cand_pos.data_ptr(), cand_mass.data_ptr(), cand_cid.data_ptr(),
-        _ptr(cand_src), ws.data_ptr(), wc.data_ptr(), rho.data_ptr(),
-        ncount.data_ptr(), n, m, _blane(cfg), cfg.pallas_window_t,
-        cfg.grid_nx, cfg.grid_ny, int(cfg.include_self_density), excl,
-        self_base, cfg.h2, cfg.h_scaled2, _f32(cfg.sim_scale * cfg.sim_scale),
-        cfg.poly6_norm, _stream(dev))
-    _raise_on(lib, err, kernel)
-    BLOCK_WALK_LAUNCHES["_launch_density"] += 1
-    return rho, ncount
-
-
 def _band_specs(cfg: SphConfig, n: int, m: int, pos_s, cid, cell_start,
                 cand_src) -> dict:
-    if cell_start is None:
-        raise ValueError("the band kernels need their candidates' cell-start "
-                         "table (PreparedT.cell_start, or the slab frame's "
-                         "SlabBand.cell_start or SubBand.cell_start)")
     specs = dict(pos_s=(pos_s, torch.float32, (n, 3)),
                  cid=(cid, torch.int32, (n,)),
-                 cell_start=(cell_start, torch.int32, (cfg.num_cells + 1,)))
+                 cell_start=(_table(cell_start), torch.int32,
+                             (cfg.num_cells + 1,)))
     if cand_src is not None:
         specs["cand_src"] = (cand_src, torch.int32, (m,))
     return specs
 
 
 def _launch_density_band(cfg: SphConfig, pos_s, mass_s, cid, cell_start,
-                         cand_pos, cand_mass, cand_src, kernel: str,
-                         self_base: int = 0, self_src=None):
+                         cand_pos, cand_mass, cand_src=None,
+                         self_base: int = 0, self_src=None, *, kernel: str):
     """K1 band walk of the self rows over candidates sorted by cell: the
     sorted particles over themselves (``cand_src`` None, exact), the live
     rows of a slab's extended frame (exact, self row i at ``self_base +
     i``), the capped sub frame (``cand_src`` its sorted rows) or, with
     ``self_src`` (the fused path's pre-pass), the sub frame over itself,
-    self row i's own id ``self_src[i]``."""
+    self row i's own id ``self_src[i]``.  ``density_t_plain``'s
+    arguments."""
     n, m, dev = pos_s.shape[0], cand_pos.shape[0], pos_s.device
     specs = _band_specs(cfg, n, m, pos_s, cid, cell_start, cand_src)
     if self_src is not None:
@@ -822,94 +673,13 @@ def _launch_density_band(cfg: SphConfig, pos_s, mass_s, cid, cell_start,
     return rho, ncount
 
 
-def density_t(cfg: SphConfig, pos_s: torch.Tensor, mass_s: torch.Tensor,
-              cid: torch.Tensor, ws: torch.Tensor, wc: torch.Tensor,
-              cell_start: torch.Tensor | None
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact mode: (rho [N] f32, ncount [N] i32) of the sorted particles,
-    their candidates the same sorted frame.  The kernel walks each row's
-    cell bands (``cell_start``), the twin its block's windows (``ws``,
-    ``wc``)."""
-    if _use_plain(pos_s):
-        return density_t_plain(cfg, pos_s, mass_s, cid, ws, wc)
-    out = _launch_density_band(cfg, pos_s, mass_s, cid, cell_start, pos_s,
-                               mass_s, None, "density_band_t")
-    density_t.launches += 1
-    return out
-
-
-def density_capped_t(cfg: SphConfig, pos_s: torch.Tensor,
-                     mass_s: torch.Tensor, cid: torch.Tensor,
-                     ws: torch.Tensor, wc: torch.Tensor,
-                     cand_pos: torch.Tensor, cand_mass: torch.Tensor,
-                     cand_cid: torch.Tensor, cand_src: torch.Tensor,
-                     cell_start: torch.Tensor | None
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Capped mode: (rho, ncount) of the sorted particles over the sub
-    frame's candidates; ``cand_src`` (the sub frame's sorted rows) excludes
-    each particle itself.  The kernel walks each row's cell bands of the sub
-    frame (``cell_start``), the twin its block's windows (``ws``, ``wc``)
-    with the sub frame's cids."""
-    if _use_plain(pos_s):
-        return density_t_plain(cfg, pos_s, mass_s, cid, ws, wc, cand_pos,
-                               cand_mass, cand_cid, cand_src)
-    out = _launch_density_band(cfg, pos_s, mass_s, cid, cell_start, cand_pos,
-                               cand_mass, cand_src, "density_band_t<capped>")
-    density_capped_t.launches += 1
-    return out
-
-
-def density_pre_t(cfg: SphConfig, pos_sub: torch.Tensor,
-                  mass_sub: torch.Tensor, wm_sub: torch.Tensor,
-                  cid_sub: torch.Tensor, src_sub: torch.Tensor,
-                  ws_sub: torch.Tensor, wc_sub: torch.Tensor,
-                  cell_start: torch.Tensor | None) -> torch.Tensor:
-    """Fused path's pre-pass: rho [S] of the sub-frame rows over the sub
-    frame itself.  Self rows carry the TRUE mass (the self term), the
-    candidates the reweighted ``wm_sub``; exclusion compares src with src.
-    The kernel walks each row's cell bands of the sub frame
-    (``cell_start``; the tail rows' ``TAIL_CID`` reaches none), the twin
-    its block's windows (``ws_sub``, ``wc_sub``)."""
-    if _use_plain(pos_sub):
-        return density_pre_t_plain(cfg, pos_sub, mass_sub, wm_sub, cid_sub,
-                                   src_sub, ws_sub, wc_sub)
-    rho, _ = _launch_density_band(cfg, pos_sub, mass_sub, cid_sub, cell_start,
-                                  pos_sub, wm_sub, src_sub,
-                                  "density_band_t<prepass>", self_src=src_sub)
-    density_pre_t.launches += 1
-    return rho
-
-
-def _launch_force(cfg: SphConfig, excl: int, pos_s, vel_s, rho_s, cand, cid,
-                  ws, wc, cand_cid, cand_src, kernel: str,
-                  self_base: int = 0) -> torch.Tensor:
-    n, m, dev = pos_s.shape[0], cand.shape[0], pos_s.device
-    _check(dev, vel_s=(vel_s, torch.float32, (n, 3)),
-           rho_s=(rho_s, torch.float32, (n,)),
-           cand=(cand, torch.float32, (m, 9)),
-           **_self_specs(cfg, n, pos_s, cid, ws, wc),
-           **_cand_specs(m, cand_cid, cand_src))
-    acc = torch.empty(n, 3, dtype=torch.float32, device=dev)
-    lib = _kernels()
-    err = lib.sph_force_t(
-        pos_s.data_ptr(), vel_s.data_ptr(), rho_s.data_ptr(), cid.data_ptr(),
-        cand.data_ptr(), cand_cid.data_ptr(), _ptr(cand_src), ws.data_ptr(),
-        wc.data_ptr(), acc.data_ptr(), n, m, _blane(cfg),
-        cfg.pallas_window_t, cfg.grid_nx, cfg.grid_ny, excl, self_base,
-        cfg.h2, cfg.h_scaled, _f32(cfg.sim_scale),
-        _f32(cfg.pressure_softening), _f32(cfg.stiffness), _f32(cfg.rho0),
-        _f32(cfg.viscosity), cfg.visc_lap_norm, _stream(dev))
-    _raise_on(lib, err, kernel)
-    BLOCK_WALK_LAUNCHES["_launch_force"] += 1
-    return acc
-
-
 def _launch_force_band(cfg: SphConfig, pos_s, vel_s, rho_s, cand, cid,
-                       cell_start, cand_src, kernel: str,
-                       self_base: int = 0) -> torch.Tensor:
+                       cell_start, cand_src=None, self_base: int = 0, *,
+                       kernel: str) -> torch.Tensor:
     """K2 band walk over candidates sorted by cell (``cand`` their
     ``fused_cand_cols``): the self rows (``cand_src`` None), a slab's live
-    extended-frame rows (``self_base`` as for K1) or the sub frame."""
+    extended-frame rows (``self_base`` as for K1) or the sub frame.
+    ``force_t_plain``'s arguments."""
     n, m, dev = pos_s.shape[0], cand.shape[0], pos_s.device
     _check(dev, vel_s=(vel_s, torch.float32, (n, 3)),
            rho_s=(rho_s, torch.float32, (n,)),
@@ -929,77 +699,14 @@ def _launch_force_band(cfg: SphConfig, pos_s, vel_s, rho_s, cand, cid,
     return acc
 
 
-def force_t(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
-            rho_s: torch.Tensor, cand: torch.Tensor, cid: torch.Tensor,
-            ws: torch.Tensor, wc: torch.Tensor,
-            cell_start: torch.Tensor | None) -> torch.Tensor:
-    """Exact mode: hydro acceleration [N, 3] f32 of the sorted particles;
-    ``cand`` is ``fused_cand_cols`` of the same sorted frame.  The kernel
-    walks cell bands (``cell_start``), the twin block windows."""
-    if _use_plain(pos_s):
-        return force_t_plain(cfg, pos_s, vel_s, rho_s, cand, cid, ws, wc)
-    acc = _launch_force_band(cfg, pos_s, vel_s, rho_s, cand, cid, cell_start,
-                             None, "force_band_t")
-    force_t.launches += 1
-    return acc
-
-
-def force_capped_t(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
-                   rho_s: torch.Tensor, cand: torch.Tensor, cid: torch.Tensor,
-                   ws: torch.Tensor, wc: torch.Tensor, cand_cid: torch.Tensor,
-                   cand_src: torch.Tensor, cell_start: torch.Tensor | None
-                   ) -> torch.Tensor:
-    """Capped mode: hydro acceleration [N, 3] over the sub frame's
-    candidates (``fused_cand_cols`` of the sub frame, reweighted masses).
-    The kernel walks the sub frame's cell bands (``cell_start``), the twin
-    block windows."""
-    if _use_plain(pos_s):
-        return force_t_plain(cfg, pos_s, vel_s, rho_s, cand, cid, ws, wc,
-                             cand_cid, cand_src)
-    acc = _launch_force_band(cfg, pos_s, vel_s, rho_s, cand, cid, cell_start,
-                             cand_src, "force_band_t<capped>")
-    force_capped_t.launches += 1
-    return acc
-
-
-def _launch_fused(cfg: SphConfig, pos_s, vel_s, mass_s, cid, ws, wc, cand,
-                  cand_cid, cand_src, kernel: str, self_base: int = 0
-                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The block walk ``fused_kernel_t``: ``fused_band_t``'s bit-equality
-    reference (``chip_smoke.py``); no step path launches it."""
-    n, m, dev = pos_s.shape[0], cand.shape[0], pos_s.device
-    _check(dev, vel_s=(vel_s, torch.float32, (n, 3)),
-           mass_s=(mass_s, torch.float32, (n,)),
-           cand=(cand, torch.float32, (m, 9)),
-           **_self_specs(cfg, n, pos_s, cid, ws, wc),
-           **_cand_specs(m, cand_cid, cand_src))
-    acc = torch.empty(n, 3, dtype=torch.float32, device=dev)
-    rho = torch.empty(n, dtype=torch.float32, device=dev)
-    ncount = torch.empty(n, dtype=torch.int32, device=dev)
-    lib = _kernels()
-    err = lib.sph_fused_t(
-        pos_s.data_ptr(), vel_s.data_ptr(), mass_s.data_ptr(), cid.data_ptr(),
-        cand.data_ptr(), cand_cid.data_ptr(), cand_src.data_ptr(),
-        ws.data_ptr(), wc.data_ptr(), acc.data_ptr(), rho.data_ptr(),
-        ncount.data_ptr(), n, m, _blane(cfg), cfg.pallas_window_t,
-        cfg.grid_nx, cfg.grid_ny, int(cfg.include_self_density), self_base,
-        cfg.h2, cfg.h_scaled2, _f32(cfg.sim_scale * cfg.sim_scale),
-        cfg.poly6_norm, cfg.h_scaled, _f32(cfg.sim_scale),
-        _f32(cfg.pressure_softening), _f32(cfg.stiffness), _f32(cfg.rho0),
-        _f32(cfg.viscosity), cfg.visc_lap_norm, _stream(dev))
-    _raise_on(lib, err, kernel)
-    BLOCK_WALK_LAUNCHES["_launch_fused"] += 1
-    return acc, rho, ncount
-
-
 def _launch_fused_band(cfg: SphConfig, pos_s, vel_s, mass_s, cid,
-                       cell_start, cand, cand_src, kernel: str,
-                       self_base: int = 0
+                       cell_start, cand, cand_src, self_base: int = 0, *,
+                       kernel: str
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K3 band walk over the sub frame (``cand`` its ``fused_cand_cols``
     with the pre-pass densities, ``cand_src`` its src rows): capped K2's
     self rows, bands and exclusion (self row i's own id ``self_base +
-    i``)."""
+    i``).  ``fused_t_plain``'s arguments."""
     n, m, dev = pos_s.shape[0], cand.shape[0], pos_s.device
     _check(dev, vel_s=(vel_s, torch.float32, (n, 3)),
            mass_s=(mass_s, torch.float32, (n,)),
@@ -1023,22 +730,89 @@ def _launch_fused_band(cfg: SphConfig, pos_s, vel_s, mass_s, cid,
     return acc, rho, ncount
 
 
+def sweep(wrapper, twin, launch, kernel: str, cfg: SphConfig, *args):
+    """``twin(cfg, *args)`` on CPU tensors, else ``launch(cfg, *args)`` of
+    ``kernel``, counted in ``wrapper.launches``: one argument list, the
+    device the only branch.  ``args[0]`` (the self positions) decides."""
+    if _use_plain(args[0]):
+        return twin(cfg, *args)
+    out = launch(cfg, *args, kernel=kernel)
+    wrapper.launches += 1
+    return out
+
+
+def density_t(cfg: SphConfig, pos_s: torch.Tensor, mass_s: torch.Tensor,
+              cid: torch.Tensor, cell_start: torch.Tensor | None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact mode: (rho [N] f32, ncount [N] i32) of the sorted particles,
+    their candidates the same sorted frame, over each row's cell bands
+    (``cell_start``)."""
+    return sweep(density_t, density_t_plain, _launch_density_band,
+                 "density_band_t", cfg, pos_s, mass_s, cid, cell_start, pos_s,
+                 mass_s)
+
+
+def density_capped_t(cfg: SphConfig, pos_s: torch.Tensor,
+                     mass_s: torch.Tensor, cid: torch.Tensor,
+                     cell_start: torch.Tensor | None, cand_pos: torch.Tensor,
+                     cand_mass: torch.Tensor, cand_src: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Capped mode: (rho, ncount) of the sorted particles over the sub
+    frame's candidates, each row's cell bands of the sub frame
+    (``cell_start``); ``cand_src`` (the sub frame's sorted rows) excludes
+    each particle itself."""
+    return sweep(density_capped_t, density_t_plain, _launch_density_band,
+                 "density_band_t<capped>", cfg, pos_s, mass_s, cid,
+                 cell_start, cand_pos, cand_mass, cand_src)
+
+
+def density_pre_t(cfg: SphConfig, pos_sub: torch.Tensor,
+                  mass_sub: torch.Tensor, wm_sub: torch.Tensor,
+                  cid_sub: torch.Tensor, src_sub: torch.Tensor,
+                  cell_start: torch.Tensor | None) -> torch.Tensor:
+    """Fused path's pre-pass: rho [S] of the sub-frame rows over the sub
+    frame itself, each row's cell bands of the sub frame (``cell_start``;
+    the tail rows' ``TAIL_CID`` reaches none).  Self rows carry the TRUE
+    mass (the self term), the candidates the reweighted ``wm_sub``;
+    exclusion compares src with src."""
+    return sweep(density_pre_t, density_t_plain, _launch_density_band,
+                 "density_band_t<prepass>", *_pre_args(
+                     cfg, pos_sub, mass_sub, wm_sub, cid_sub, src_sub,
+                     cell_start))[0]
+
+
+def force_t(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
+            rho_s: torch.Tensor, cand: torch.Tensor, cid: torch.Tensor,
+            cell_start: torch.Tensor | None) -> torch.Tensor:
+    """Exact mode: hydro acceleration [N, 3] f32 of the sorted particles
+    over their cell bands (``cell_start``); ``cand`` is ``fused_cand_cols``
+    of the same sorted frame."""
+    return sweep(force_t, force_t_plain, _launch_force_band, "force_band_t",
+                 cfg, pos_s, vel_s, rho_s, cand, cid, cell_start)
+
+
+def force_capped_t(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
+                   rho_s: torch.Tensor, cand: torch.Tensor, cid: torch.Tensor,
+                   cell_start: torch.Tensor | None, cand_src: torch.Tensor
+                   ) -> torch.Tensor:
+    """Capped mode: hydro acceleration [N, 3] over the sub frame's
+    candidates (``fused_cand_cols`` of the sub frame, reweighted masses),
+    each row's cell bands of the sub frame (``cell_start``)."""
+    return sweep(force_capped_t, force_t_plain, _launch_force_band,
+                 "force_band_t<capped>", cfg, pos_s, vel_s, rho_s, cand, cid,
+                 cell_start, cand_src)
+
+
 def fused_t(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
-            mass_s: torch.Tensor, cid: torch.Tensor, ws: torch.Tensor,
-            wc: torch.Tensor, cand: torch.Tensor, cand_cid: torch.Tensor,
-            cand_src: torch.Tensor, cell_start: torch.Tensor | None
+            mass_s: torch.Tensor, cid: torch.Tensor,
+            cell_start: torch.Tensor | None, cand: torch.Tensor,
+            cand_src: torch.Tensor
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused capped sweep: (acc [N, 3], rho [N], ncount [N]) in one pass
-    over the sub frame's candidates.  The kernel walks each row's cell
-    bands of the sub frame (``cell_start``), the twin its block's windows
-    (``ws``, ``wc``) with the sub frame's cids."""
-    if _use_plain(pos_s):
-        return fused_t_plain(cfg, pos_s, vel_s, mass_s, cid, ws, wc, cand,
-                             cand_cid, cand_src)
-    out = _launch_fused_band(cfg, pos_s, vel_s, mass_s, cid, cell_start, cand,
-                             cand_src, "fused_band_t")
-    fused_t.launches += 1
-    return out
+    over the sub frame's candidates, each row's cell bands of the sub frame
+    (``cell_start``)."""
+    return sweep(fused_t, fused_t_plain, _launch_fused_band, "fused_band_t",
+                 cfg, pos_s, vel_s, mass_s, cid, cell_start, cand, cand_src)
 
 
 def band_rows_t(cfg: SphConfig, cid: torch.Tensor, cell_start: torch.Tensor,
@@ -1141,8 +915,7 @@ def cand_cols_t(cfg: SphConfig, pos_c: torch.Tensor, vel_c: torch.Tensor,
                 index: torch.Tensor | None = None) -> torch.Tensor:
     """``fused_cand_cols`` on the card: one pass of the kernel
     ``cand_cols_t`` into a new [M, 9] tensor, the indexed instance where
-    ``index`` is given, the arguments checked first.  Each launch counts M
-    in ``sweeps.cand_rows_fused`` while recording; no rows launch
+    ``index`` is given, the arguments checked first; no rows launch
     nothing."""
     dev = m_c.device
     m = _cand_checks(dev, pos_c, vel_c, rho_c, m_c, index)
@@ -1150,7 +923,6 @@ def cand_cols_t(cfg: SphConfig, pos_c: torch.Tensor, vel_c: torch.Tensor,
     if m:
         _launch_cand_cols(cfg, pos_c, vel_c, rho_c, m_c, index, out)
         cand_cols_t.launches += 1
-        trace.count(CAND_ROWS_FUSED, m)
     return out
 
 
@@ -1180,9 +952,6 @@ WRAPPERS = (density_t, density_capped_t, density_pre_t, force_t,
             force_capped_t, fused_t, band_rows_t, cand_cols_t)
 for _w in WRAPPERS:
     _w.launches = 0
-# the block walks' launches, by launcher (no step path may launch one)
-BLOCK_WALK_LAUNCHES = dict.fromkeys(
-    ("_launch_density", "_launch_force", "_launch_fused"), 0)
 
 
 # ---------------------------------------------------------------------------
@@ -1202,15 +971,13 @@ def density_sweep_t(cfg: SphConfig, p: PreparedT
     positions, gathered here (K2 gathers its own rows)."""
     trace.count(ROWS_TESTED, p.rows_tested)
     if not cfg.capped_candidates:
-        return density_t(cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc,
-                         p.cell_start)
+        return density_t(cfg, p.pos_s, p.mass_s, p.cid, p.cell_start)
     dev = p.pos_s.device
     with trace.span("sweeps.capped_gather", dev):
         pos_sub = p.pos_s[p.sub_perm]
     with trace.span("sweeps.walks", dev):
-        return density_capped_t(cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc,
-                                pos_sub, p.wm_sub, p.cand_cid, p.sub_perm,
-                                p.cell_start)
+        return density_capped_t(cfg, p.pos_s, p.mass_s, p.cid, p.cell_start,
+                                pos_sub, p.wm_sub, p.sub_perm)
 
 
 def force_sweep_t(cfg: SphConfig, p: PreparedT, rho_s: torch.Tensor
@@ -1222,7 +989,7 @@ def force_sweep_t(cfg: SphConfig, p: PreparedT, rho_s: torch.Tensor
     trace.count(ROWS_TESTED, p.rows_tested)
     if not cfg.capped_candidates:
         cand = fused_cand_cols(cfg, p.pos_s, p.vel_s, rho_s, p.mass_s)
-        return force_t(cfg, p.pos_s, p.vel_s, rho_s, cand, p.cid, p.ws, p.wc,
+        return force_t(cfg, p.pos_s, p.vel_s, rho_s, cand, p.cid,
                        p.cell_start)
     dev = p.pos_s.device
     with trace.span("sweeps.capped_gather", dev):
@@ -1230,8 +997,7 @@ def force_sweep_t(cfg: SphConfig, p: PreparedT, rho_s: torch.Tensor
                                index=p.sub_perm)
     with trace.span("sweeps.walks", dev):
         return force_capped_t(cfg, p.pos_s, p.vel_s, rho_s, cand, p.cid,
-                              p.ws, p.wc, p.cand_cid, p.sub_perm,
-                              p.cell_start)
+                              p.cell_start, p.sub_perm)
 
 
 def density_sub_t(cfg: SphConfig, p: PreparedT, pv_sub) -> torch.Tensor:
@@ -1243,7 +1009,7 @@ def density_sub_t(cfg: SphConfig, p: PreparedT, pv_sub) -> torch.Tensor:
         mass_sub = p.mass_s[p.sub_perm]
     with trace.span("sweeps.walks", dev):
         return density_pre_t(cfg, pv_sub[0], mass_sub, p.wm_sub, p.cand_cid,
-                             p.sub_perm, p.ws_sub, p.wc_sub, p.cell_start)
+                             p.sub_perm, p.cell_start)
 
 
 def fused_sweep_t(cfg: SphConfig, p: PreparedT, rho_sub: torch.Tensor,
@@ -1255,8 +1021,8 @@ def fused_sweep_t(cfg: SphConfig, p: PreparedT, rho_sub: torch.Tensor,
     with trace.span("sweeps.capped_gather", dev):
         cand = fused_cand_cols(cfg, pv_sub[0], pv_sub[1], rho_sub, p.wm_sub)
     with trace.span("sweeps.walks", dev):
-        return fused_t(cfg, p.pos_s, p.vel_s, p.mass_s, p.cid, p.ws, p.wc,
-                       cand, p.cand_cid, p.sub_perm, p.cell_start)
+        return fused_t(cfg, p.pos_s, p.vel_s, p.mass_s, p.cid, p.cell_start,
+                       cand, p.sub_perm)
 
 
 def sweeps_sorted(cfg: SphConfig, p: PreparedT
@@ -1293,7 +1059,7 @@ def sweeps_sorted(cfg: SphConfig, p: PreparedT
 
 def truncated_ranges(p: PreparedT) -> torch.Tensor:
     """The step's counted candidate loss: capped kept rows beyond the sub
-    frame (0 in exact mode, whose windows are walked in full)."""
+    frame (0 in exact mode, whose bands are walked in full)."""
     if p.sub_dropped is not None:
         return p.sub_dropped
     return torch.zeros((), dtype=torch.int32, device=p.pos_s.device)

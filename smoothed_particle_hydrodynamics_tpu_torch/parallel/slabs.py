@@ -41,12 +41,11 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..config import SphConfig, _f32
 from ..ops import celllist
 from ..ops import sweeps_t as sw
-from ..ops.grid import NO_CELL, cell_coords, linear_cell_id, rod_deltas
+from ..ops.grid import NO_CELL, cell_coords, linear_cell_id
 from ..ops.integrate import kdk_integrate
 from ..ops.lazy import skin_half
 from ..state import (ParticleState, StepDiagnostics, diagnostics_rows,
@@ -251,89 +250,6 @@ def _local_ranges(cfg: SphConfig, cid_ext: torch.Tensor,
     return torch.stack(starts, dim=1), torch.stack(ends, dim=1)
 
 
-def _pallas_ext_pad(cfg: SphConfig, h_cap: int, p_cap: int) -> int:
-    """The JAX package's padded extended-frame length (window starts clip
-    to it minus the window, so the tables compare equal)."""
-    return sw._round_up(p_cap + 2 * h_cap + cfg.pallas_window_t, sw.LANE)
-
-
-def _rod_cells(cfg: SphConfig, cid_loc: torch.Tensor, nblocks: int
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per (block, group, rod): the first and last cell of the rod's window
-    (the group's first / last cid + the rod's offset -/+ 1, clipped to the
-    grid), int64 [nblocks * pallas_groups, 9]."""
-    last = cfg.num_cells - 1
-    deltas = torch.tensor(rod_deltas(cfg), dtype=torch.int64,
-                          device=cid_loc.device)
-    blocks = cid_loc.long().view(nblocks * cfg.pallas_groups, -1)
-    return ((blocks[:, :1] + deltas - 1).clamp(0, last),
-            (blocks[:, -1:] + deltas + 1).clamp(0, last))
-
-
-def _chunked(cfg: SphConfig, w_start: torch.Tensor, w_end: torch.Tensor,
-             n_pad: int, cnt, nblocks: int
-             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """8-aligned, clipped window starts and chunk counts; (block, group)
-    rows of a block whose first row is dead (>= ``cnt``) get none."""
-    window = cfg.pallas_window_t
-    w_start = (w_start & ~(sw.SUB - 1)).clamp(0, max(n_pad - window, 0))
-    w_len = (w_end - w_start).clamp(min=0)
-    w_chunks = torch.where(w_len > 0, -(-w_len // window), 0)
-    g = cfg.pallas_groups
-    first_row = (torch.arange(nblocks * g, device=w_start.device) // g
-                 * sw._blane(cfg))
-    live_block = (first_row < cnt)[:, None]
-    w_start = torch.where(live_block, w_start, 0)
-    w_chunks = torch.where(live_block, w_chunks, 0)
-    return (w_start.to(torch.int32).reshape(-1),
-            w_chunks.to(torch.int32).reshape(-1))
-
-
-def _pallas_tables(cfg: SphConfig, cid_loc: torch.Tensor,
-                   cid_ext: torch.Tensor, h_cap: int, p_cap: int, cnt: int,
-                   slab_hi: int, base: int | None = None,
-                   loc_cells: int | None = None
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Frozen per-(block, group, rod) window tables of the exact sweeps over the
-    extended frame, dead-row aware and plane-local (the JAX package's
-    ``_pallas_tables`` docstring derives them).
-
-    The histogram of candidate cids skips dead rows (``[cnt, p_cap)`` of
-    the slab, cid ``slab_hi - 1``), chain-end inert halo rows (cid < 0) and
-    rows outside the queryable cells ``[base, base + loc_cells)``; window
-    bounds add back, by position, the inert head (``n_head``), the rows
-    below the range (``n_low``) and the dead run for windows at or past the
-    slab's top cell (``n_dead``).
-    """
-    nxny = cfg.grid_nx * cfg.grid_ny
-    if base is None:
-        base = -nxny
-    if loc_cells is None:
-        loc_cells = (cfg.grid_nz + 2) * nxny
-    nblocks = p_cap // sw._blane(cfg)
-    lo_cell, hi_cell = _rod_cells(cfg, cid_loc, nblocks)
-    cid = cid_ext.long()
-    n_dead = p_cap - cnt
-    pos = torch.arange(cid.shape[0], device=cid.device)
-    dead = (pos >= h_cap + cnt) & (pos < h_cap + p_cap)
-    inert = dead | (cid < 0)
-    n_head = (cid[:h_cap] < 0).sum()
-    below = (cid >= 0) & (cid < base) & ~dead
-    n_low = below.sum()
-    out = inert | below | (cid >= base + loc_cells)
-    search = torch.where(out, loc_cells, (cid - base).clamp(0, loc_cells))
-    cum = F.pad(torch.bincount(search, minlength=loc_cells + 1).cumsum(0),
-                (1, 0))
-    li = (lo_cell - base).clamp(0, loc_cells - 1)
-    hi_i = (hi_cell + 1 - base).clamp(0, loc_cells)
-    head = n_head + n_low
-    w_start = head + cum[li] + torch.where(lo_cell >= slab_hi, n_dead, 0)
-    w_end = head + cum[hi_i] + torch.where(hi_cell + 1 >= slab_hi + 1,
-                                           n_dead, 0)
-    return _chunked(cfg, w_start, w_end, _pallas_ext_pad(cfg, h_cap, p_cap),
-                    cnt, nblocks)
-
-
 def _band_tables(cfg: SphConfig, ext: torch.Tensor, cid_ext: torch.Tensor,
                  cid_s: torch.Tensor, cnt: int, h_cap: int
                  ) -> ss.SlabBand:
@@ -377,10 +293,6 @@ def _sub_band(cfg: SphConfig, cid_search: torch.Tensor, cid_s: torch.Tensor,
     and no band reaches the tail) and the own cids with ``NO_CELL`` on the
     dead rows."""
     return ss.SubBand(_cell_start(cfg, cid_search), _own_cids(cid_s, cnt))
-
-
-def _sub_pad(cfg: SphConfig, sub_len: int) -> int:
-    return sw._round_up(sub_len + cfg.pallas_window_t, sw.LANE)
 
 
 def _capped_sub_frame(cfg: SphConfig, ext: torch.Tensor,
@@ -451,30 +363,6 @@ def _capped_sub_frame(cfg: SphConfig, ext: torch.Tensor,
     return sub_src, cand_cid, cid_search, w_sub, sub_dropped
 
 
-def _pallas_sub_tables(cfg: SphConfig, cid_loc: torch.Tensor,
-                       cid_search: torch.Tensor, sub_len: int, cnt,
-                       base: int | None = None, loc_cells: int | None = None
-                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Window tables over the capped sub frame (kept rows only, compacted
-    to the front in cid order): plain cumulative positions, plane-local
-    (every kept row is queryable, so nothing lies below the range)."""
-    nxny = cfg.grid_nx * cfg.grid_ny
-    if base is None:
-        base = -nxny
-    if loc_cells is None:
-        loc_cells = (cfg.grid_nz + 2) * nxny
-    nblocks = cid_loc.shape[0] // sw._blane(cfg)
-    lo_cell, hi_cell = _rod_cells(cfg, cid_loc, nblocks)
-    # unkept rows carry cid_search = num_cells >= base + loc_cells: the
-    # sentinel bucket
-    search = (cid_search.long() - base).clamp(0, loc_cells)
-    cum = F.pad(torch.bincount(search, minlength=loc_cells + 1).cumsum(0),
-                (1, 0))
-    w_start = cum[(lo_cell - base).clamp(0, loc_cells - 1)]
-    w_end = cum[(hi_cell + 1 - base).clamp(0, loc_cells)]
-    return _chunked(cfg, w_start, w_end, _sub_pad(cfg, sub_len), cnt, nblocks)
-
-
 class LazySlabCarry(NamedTuple):
     """One rank's slab store + frozen binning structure (lazy rebinning).
 
@@ -482,12 +370,10 @@ class LazySlabCarry(NamedTuple):
     bin-time cell id); only the values evolve.  ``pos_bin``, ``cid`` and
     ``tabs`` are the frozen structure, rebuilt when the global per-axis
     displacement spread exceeds cell - h (the single-chip lazy driver's
-    invariant).  ``tabs`` is (rng_s, rng_e) for the celllist sweeps, (ws,
-    wc, band) for the exact kernels (``band`` the band walks'
-    ``slab_sweeps.SlabBand``, ``ws``/``wc`` the block windows of the twins),
-    (ws, wc, sub_src, cand_cid, w_sub, sub_dropped, sub_band) in capped mode
-    (``sub_band`` the capped and fused band walks' ``slab_sweeps.SubBand``),
-    + (ws_sub, wc_sub) when fused (the pre-pass twin's block windows).
+    invariant).  ``tabs`` is (rng_s, rng_e) for the celllist sweeps, (band,)
+    for the exact kernels (the band walks' ``slab_sweeps.SlabBand``), and
+    (sub_src, cand_cid, w_sub, sub_dropped, sub_band) in capped mode, two-pass
+    and fused (``sub_band`` the band walks' ``slab_sweeps.SubBand``).
     """
 
     fields: torch.Tensor   # [p_cap, 8] f32, bin-time sorted order
@@ -596,9 +482,6 @@ def prepare_frame(cfg: SphConfig, group: SlabGroup, p_cap: int, h_cap: int,
     nxny = cfg.grid_nx * cfg.grid_ny
     fields, cnt = carry.fields, carry.count
     slab_lo, slab_hi = zsplit[d] * nxny, zsplit[d + 1] * nxny
-    # plane-local window-table extent: widest slab + one halo plane a side
-    tab_base = slab_lo - nxny
-    tab_cells = (max(b - a for a, b in zip(zsplit, zsplit[1:])) + 2) * nxny
 
     # ---- rebin decision: one pmax of the per-axis extrema ------------------
     # the SPREAD of displacements expires frozen bins (common-mode
@@ -659,22 +542,10 @@ def prepare_frame(cfg: SphConfig, group: SlabGroup, p_cap: int, h_cap: int,
     elif capped:
         sub_src, cand_cid, cid_search, w_sub, sub_dropped = _capped_sub_frame(
             cfg, ext, cid_ext, sub_len, slab_lo, slab_hi)
-        tabs = _pallas_sub_tables(cfg, cid_s, cid_search, sub_len, cnt,
-                                  tab_base, tab_cells) + (
-            sub_src, cand_cid, w_sub, sub_dropped,
-            _sub_band(cfg, cid_search, cid_s, cnt))
-        if cfg.capped_fused:
-            # the pre-pass sweeps the sub frame from the sub frame
-            b = sw._blane(cfg)
-            cid_sub_loc = F.pad(cid_search, (0, -(-sub_len // b) * b - sub_len),
-                                value=cfg.num_cells)
-            tabs += _pallas_sub_tables(cfg, cid_sub_loc, cid_search, sub_len,
-                                       (cand_cid >= 0).sum(), tab_base,
-                                       tab_cells)
+        tabs = (sub_src, cand_cid, w_sub, sub_dropped,
+                _sub_band(cfg, cid_search, cid_s, cnt))
     elif sweeps == "pallas":
-        tabs = _pallas_tables(cfg, cid_s, cid_ext, h_cap, p_cap, cnt,
-                              slab_hi, tab_base, tab_cells) + (
-            _band_tables(cfg, ext, cid_ext, cid_s, cnt, h_cap),)
+        tabs = (_band_tables(cfg, ext, cid_ext, cid_s, cnt, h_cap),)
     else:
         tabs = _local_ranges(cfg, cid_ext, cid_s, fields_s[:, _OID] >= 0.0)
     return SlabFrame(fields_s, cid_s, cnt, pos_bin, ext, cid_ext, tabs, need,
@@ -739,8 +610,8 @@ def slab_step_body(cfg: SphConfig, group: SlabGroup, p_cap: int, h_cap: int,
     slab_lo, slab_hi = zsplit[d] * nxny, zsplit[d + 1] * nxny
     fr = prepare_frame(cfg, group, p_cap, h_cap, m_cap, sweeps, zsplit, lazy,
                        sub_len, carry)
-    fields_s, cid_s, cnt2, ext, cid_ext, tabs = (
-        fr.fields_s, fr.cid_s, fr.count, fr.ext, fr.cid_ext, fr.tabs)
+    fields_s, cid_s, cnt2, ext, tabs = (
+        fr.fields_s, fr.cid_s, fr.count, fr.ext, fr.tabs)
     row_valid = fields_s[:, _OID] >= 0.0
     capped = bool(cfg.capped_candidates) and sweeps == "pallas"
     fused = capped and bool(cfg.capped_fused)
@@ -750,22 +621,20 @@ def slab_step_body(cfg: SphConfig, group: SlabGroup, p_cap: int, h_cap: int,
     vel_i = fields_s[:, _VEL]
     mass_i = fields_s[:, _MASS]
     if capped:
-        ws, wc, sub_src, cand_cid, w_sub, sub_dropped, sub_band = tabs[:7]
+        sub_src, cand_cid, w_sub, sub_dropped, sub_band = tabs
         g8 = ext[sub_src.long()]     # one gather, shared by the step's sweeps
         trunc = sub_dropped
         if fused:
             rho_l = scatter_sub_rho(
                 ss.density_sub_local(cfg, g8, sub_src, cand_cid, w_sub,
-                                     *tabs[7:9], sub_band),
+                                     sub_band),
                 sub_src, cand_cid, h_cap, p_cap)
         else:
             rho_l, nc_l = ss.density_local_capped(
-                cfg, ext, g8, cid_ext, ws, wc, sub_src, cand_cid, w_sub,
-                h_cap, p_cap, sub_band)
+                cfg, ext, g8, sub_src, w_sub, h_cap, p_cap, sub_band)
     elif sweeps == "pallas":
-        ws, wc, band = tabs
-        rho_l, nc_l = ss.density_local(cfg, ext, cid_ext, ws, wc, h_cap,
-                                       p_cap, band)
+        band, = tabs
+        rho_l, nc_l = ss.density_local(cfg, ext, h_cap, p_cap, band)
         trunc = torch.zeros((), dtype=torch.int32, device=dev)
     else:
         rng_s, rng_e = tabs
@@ -782,15 +651,12 @@ def slab_step_body(cfg: SphConfig, group: SlabGroup, p_cap: int, h_cap: int,
     if fused:
         rho_cand, w_cand = fused_candidates(rho_e, sub_src, w_sub)
         acc_l, rho_l, nc_l = ss.fused_local_capped(
-            cfg, ext, g8, cid_ext, rho_cand, ws, wc, sub_src, cand_cid,
-            w_cand, h_cap, p_cap, sub_band)
+            cfg, ext, g8, rho_cand, sub_src, w_cand, h_cap, p_cap, sub_band)
     elif capped:
-        acc_l = ss.force_local_capped(cfg, ext, g8, cid_ext, rho_e, rho_l, ws,
-                                      wc, sub_src, cand_cid, w_sub, h_cap,
-                                      p_cap, sub_band)
+        acc_l = ss.force_local_capped(cfg, ext, g8, rho_e, rho_l, sub_src,
+                                      w_sub, h_cap, p_cap, sub_band)
     elif sweeps == "pallas":
-        acc_l = ss.force_local(cfg, ext, cid_ext, rho_e, rho_l, ws, wc, h_cap,
-                               p_cap, band)
+        acc_l = ss.force_local(cfg, ext, rho_e, rho_l, h_cap, p_cap, band)
     else:
         acc_l = celllist.force_rows(
             cfg, pos_e, vel_e, mass_e, rho_e, rng_s, rng_e, own_idx, pos_i,
@@ -845,22 +711,15 @@ def _table_zeros(cfg: SphConfig, sweeps: str, p_cap: int, sub_len: int = 0,
     i32 = dict(dtype=torch.int32, device=device)
     if sweeps != "pallas":
         return (torch.zeros(p_cap, 9, **i32), torch.zeros(p_cap, 9, **i32))
-    b = sw._blane(cfg)
-    tsize = (p_cap // b) * cfg.pallas_groups * sw.NRODS
-    tabs = (torch.zeros(tsize, **i32), torch.zeros(tsize, **i32))
     if not cfg.capped_candidates:
-        return tabs + (ss.SlabBand(
+        return (ss.SlabBand(
             torch.zeros(cfg.num_cells + 1, **i32), torch.zeros(p_cap, **i32),
             torch.zeros(0, dtype=torch.int64, device=device), 0, 0),)
-    tabs += (torch.zeros(sub_len, **i32), torch.zeros(sub_len, **i32),
-             torch.zeros(sub_len, dtype=torch.float32, device=device),
-             torch.zeros((), **i32),
-             ss.SubBand(torch.zeros(cfg.num_cells + 1, **i32),
-                        torch.zeros(p_cap, **i32)))
-    if cfg.capped_fused:
-        ssize = -(-sub_len // b) * cfg.pallas_groups * sw.NRODS
-        tabs += (torch.zeros(ssize, **i32), torch.zeros(ssize, **i32))
-    return tabs
+    return (torch.zeros(sub_len, **i32), torch.zeros(sub_len, **i32),
+            torch.zeros(sub_len, dtype=torch.float32, device=device),
+            torch.zeros((), **i32),
+            ss.SubBand(torch.zeros(cfg.num_cells + 1, **i32),
+                       torch.zeros(p_cap, **i32)))
 
 
 def init_lazy_slab(cfg: SphConfig, group: SlabGroup, carry: SlabCarry,
@@ -1073,7 +932,7 @@ def run_slab_steps(group: SlabGroup, cfg: SphConfig, state, caps, zsplit,
     oid = rows[:, _OID][rows[:, _OID] >= 0].astype(np.int64)
     # the exact band tables (a rebalance on the last step leaves a fresh
     # SlabCarry, without tables)
-    band = (carry.tabs[2] if sweeps == "pallas" and not cfg.capped_candidates
+    band = (carry.tabs[0] if sweeps == "pallas" and not cfg.capped_candidates
             and isinstance(carry, LazySlabCarry) else None)
     return dict(
         band_halo=None if band is None else (band.nl, band.nr),
@@ -1148,14 +1007,12 @@ class SlabRanks:
         self._make()
 
     def report(self) -> dict:
-        """This rank's launch counts (the slab kernels' wrappers and the
-        sublane block walks, which no step path may launch), its valid
+        """This rank's launch counts (the slab kernels' wrappers), its valid
         rows, and the live halo rows (nl, nr) of the exact band tables
         (None in other modes)."""
-        band = (self.carry.tabs[2] if isinstance(self.carry, LazySlabCarry)
+        band = (self.carry.tabs[0] if isinstance(self.carry, LazySlabCarry)
                 and self.sweeps == "pallas"
                 and not self.cfg.capped_candidates else None)
-        return dict(launches={**{w.__name__: w.launches for w in ss.WRAPPERS},
-                              **sw.BLOCK_WALK_LAUNCHES},
+        return dict(launches={w.__name__: w.launches for w in ss.WRAPPERS},
                     count=self.carry.count,
                     band_halo=None if band is None else (band.nl, band.nr))

@@ -48,7 +48,7 @@ def frozen_step(cfg, carry: lazy.LazyCarry):
     st = carry.state
     p = pst.PreparedT(order=carry.order, pos_s=st.position,
                       vel_s=st.velocity, mass_s=st.mass, cid=carry.cid,
-                      ws=carry.ws, wc=carry.wc, cell_start=carry.cell_start,
+                      cell_start=carry.cell_start,
                       **{k: getattr(carry, k) for k in pst.SUB_FIELDS})
     acc_s, rho_s, ncount_s = pst.sweeps_sorted(cfg, p)
     st = st._replace(density=rho_s, neighbor_count=ncount_s)

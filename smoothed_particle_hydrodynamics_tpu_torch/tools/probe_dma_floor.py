@@ -18,8 +18,10 @@ Kernels (``csrc/floor_t.cu``), which replace ``_probe_kernel``
   TPU kernel's walk.  For self row i of block b and each rod r, the rows
   ``[ws[9 b + r], + L)`` of the padded candidate frame (``window_frame``:
   the JAX tool's columns x y z cid m iota, exact, or the sub frame's,
-  capped, ``sweeps_t._n_pad`` rows) give u = x_j - x_i, then K times
+  capped, ``n_pad`` rows) give u = x_j - x_i, then K times
   u = u c + y_j (one rounding, an FMA) with c = 0.9999999; out[i] sums u.
+  The window starts ``ws`` are the JAX package's (``window_tables``: no
+  sweep of the port reads a window table, so the probe builds its own).
 * ``floor_band_t`` (``floor_band_t_plain``): the port's production walk
   (``csrc/band_walk.cuh``, K1's, K2's and K3's) with the same ladder on
   every row of each lane's own bands, over a frame of W words a row
@@ -63,6 +65,7 @@ import torch
 
 from ..models import make_scene
 from ..ops import sweeps_t
+from ..ops.grid import rod_deltas
 from ..ops.launch import check, raise_on, stream, use_plain
 from ..utils import build
 from . import ISSUE_PER_CLK, bound, card, host_tag, start, sync, timing
@@ -107,12 +110,53 @@ def _cand_columns(cfg, p) -> list[torch.Tensor]:
             iota.float()[:, None]]
 
 
+def n_pad(cfg, rows: int) -> int:
+    """The JAX package's padded length of a candidate frame of ``rows``
+    rows: its window starts clip to ``n_pad - window``."""
+    return -(-(rows + cfg.pallas_window_t) // sweeps_t.LANE) * sweeps_t.LANE
+
+
+def window_tables(cfg, p) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's window tables of ``p``'s self rows over its
+    candidates (``pallas_step_t._block_windows_t``): per (block, group,
+    rod), flattened, the 8-aligned window start and the count of
+    ``pallas_window_t``-row chunks.  A group's rod window spans the cells
+    from (first cid + delta - 1) to (last cid + delta + 1) of its rows,
+    looked up in one bincount + cumsum of the candidates' cids (the capped
+    sub frame's tail at num_cells, past every window)."""
+    cid, n = p.cid, p.cid.shape[0]
+    if cfg.capped_candidates:
+        search = torch.where(p.cand_cid == sweeps_t.TAIL_CID, cfg.num_cells,
+                             p.cand_cid)
+    else:
+        search = cid
+    b, window, last = sweeps_t._blane(cfg), cfg.pallas_window_t, \
+        cfg.num_cells - 1
+    nblocks = -(-n // b)
+    deltas = torch.tensor(rod_deltas(cfg), dtype=torch.int64,
+                          device=cid.device)
+    blocks = torch.nn.functional.pad(cid.long(), (0, nblocks * b - n),
+                                     value=last).view(
+        nblocks * cfg.pallas_groups, -1)
+    lo = (blocks[:, :1] + deltas - 1).clamp(0, last)
+    hi = (blocks[:, -1:] + deltas + 1).clamp(0, last)
+    cum = torch.nn.functional.pad(torch.bincount(
+        search.long().clamp(0, cfg.num_cells),
+        minlength=cfg.num_cells + 1).cumsum(0), (1, 0))
+    start = (cum[lo] & ~(sweeps_t.SUB - 1)).clamp(
+        0, max(n_pad(cfg, search.shape[0]) - window, 0))
+    length = (cum[hi + 1] - start).clamp(min=0)
+    chunks = torch.where(length > 0, -(-length // window), 0)
+    return (start.to(torch.int32).reshape(-1),
+            chunks.to(torch.int32).reshape(-1))
+
+
 def window_frame(cfg, p) -> torch.Tensor:
     """[n_pad, 6] padded candidate frame of the window walk: x y z cid m
-    iota (capped: the sub frame's, src for iota), zero rows to
-    ``sweeps_t._n_pad`` of the candidates (the JAX tool's frame)."""
+    iota (capped: the sub frame's, src for iota), zero rows to ``n_pad``
+    of the candidates (the JAX tool's frame)."""
     cols = torch.cat(_cand_columns(cfg, p), dim=1)
-    pad = sweeps_t._n_pad(cfg, cols.shape[0]) - cols.shape[0]
+    pad = n_pad(cfg, cols.shape[0]) - cols.shape[0]
     return torch.nn.functional.pad(cols, (0, 0, 0, pad)).contiguous()
 
 
@@ -217,7 +261,8 @@ def floor_window_t(frame: torch.Tensor, x: torch.Tensor, ws: torch.Tensor,
                    s_t: int, block: int, mode: str, k: int) -> torch.Tensor:
     """The window walk's sums [n] over the padded frame ``frame`` [n_pad,
     6] at the window starts ``ws`` [ceil(n / block) * 9] (multiples of 8,
-    as ``prepare_t`` builds them); CPU tensors take the plain version."""
+    as ``window_tables`` builds them); CPU tensors take the plain
+    version."""
     if use_plain(x):
         return floor_window_t_plain(frame, x, ws, s_t, block, mode, k)
     code = _mode_k(mode, k)
@@ -301,14 +346,15 @@ def walks(cfg, p) -> dict:
     s_t = cfg.pallas_window_t
     x = p.pos_s[:, 0].contiguous()
     frame = window_frame(cfg, p)
+    ws, _ = window_tables(cfg, p)
     nblocks = -(-n // block)
     win_rows = nblocks * sweeps_t.NRODS * s_t       # rows the blocks stage
     out = {"window": dict(
-        run=lambda mode, k: floor_window_t(frame, x, p.ws, s_t, block, mode,
+        run=lambda mode, k: floor_window_t(frame, x, ws, s_t, block, mode,
                                            k),
-        plain=lambda mode, k: floor_window_t_plain(frame, x, p.ws, s_t,
+        plain=lambda mode, k: floor_window_t_plain(frame, x, ws, s_t,
                                                    block, mode, k),
-        reads=(frame, x, p.ws),
+        reads=(frame, x, ws),
         bytes=dict(full=win_rows * FRAME_COLS * 4,
                    halfbytes=win_rows // 2 * FRAME_COLS * 4, nostage=0),
         tested=nblocks * block * sweeps_t.NRODS * s_t,
@@ -337,24 +383,22 @@ def real_sweeps(cfg, p) -> dict:
     (exact, or capped over the sub frame), the force sweep at K1's rho."""
     if cfg.capped_candidates:
         pos_c, vel_c = sweeps_t.gather_sub_pv(p)
-        args = (p.pos_s, p.mass_s, p.cid, p.ws, p.wc, pos_c, p.wm_sub,
-                p.cand_cid, p.sub_perm, p.cell_start)
+        args = (p.pos_s, p.mass_s, p.cid, p.cell_start, pos_c, p.wm_sub,
+                p.sub_perm)
         rho = sweeps_t.density_capped_t(cfg, *args)[0]
         cand = sweeps_t.fused_cand_cols(cfg, pos_c, vel_c, rho[p.sub_perm],
                                         p.wm_sub)
         return {"K1 density_capped_t": lambda: sweeps_t.density_capped_t(
                     cfg, *args),
                 "K2 force_capped_t": lambda: sweeps_t.force_capped_t(
-                    cfg, p.pos_s, p.vel_s, rho, cand, p.cid, p.ws, p.wc,
-                    p.cand_cid, p.sub_perm, p.cell_start)}
-    rho = sweeps_t.density_t(cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc,
-                             p.cell_start)[0]
+                    cfg, p.pos_s, p.vel_s, rho, cand, p.cid, p.cell_start,
+                    p.sub_perm)}
+    rho = sweeps_t.density_t(cfg, p.pos_s, p.mass_s, p.cid, p.cell_start)[0]
     cand = sweeps_t.fused_cand_cols(cfg, p.pos_s, p.vel_s, rho, p.mass_s)
     return {"K1 density_t": lambda: sweeps_t.density_t(
-                cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc, p.cell_start),
+                cfg, p.pos_s, p.mass_s, p.cid, p.cell_start),
             "K2 force_t": lambda: sweeps_t.force_t(
-                cfg, p.pos_s, p.vel_s, rho, cand, p.cid, p.ws, p.wc,
-                p.cell_start)}
+                cfg, p.pos_s, p.vel_s, rho, cand, p.cid, p.cell_start)}
 
 
 def ladder_ops(walk: dict, k: int) -> float:
@@ -394,13 +438,14 @@ def main(n=1_000_000, k_c=0, device="cuda", iters=20) -> dict:
     host = host_tag(dev)
     w = walks(cfg, p)
     win = w["window"]
+    _, wc = window_tables(cfg, p)
     print(f"n={n} K_c={k_c} window_t={cfg.pallas_window_t} block_t="
           f"{sweeps_t._blane(cfg)} device={dev}")
     print(f"probe swept: window walk {win['rows']} rows a self row, "
           f"{win['tested'] / 1e9:.3f} G lane-rows, staged "
-          f"{win['bytes']['full'] / 1e6:.1f} MB (production chunks "
-          f"{int(p.wc.sum())}, windows {int((p.wc > 0).sum())} of "
-          f"{p.wc.numel()}); band walk {w['band W4']['rows']:.1f} rows a "
+          f"{win['bytes']['full'] / 1e6:.1f} MB (the JAX tables' chunks "
+          f"{int(wc.sum())}, windows {int((wc > 0).sum())} of "
+          f"{wc.numel()}); band walk {w['band W4']['rows']:.1f} rows a "
           f"self row, staged {w['band W4']['bytes']['full'] / 1e6:.1f} MB "
           f"at W 4, {w['band W9']['bytes']['full'] / 1e6:.1f} MB at W 9")
     rows, decomp = {}, {}

@@ -87,7 +87,7 @@ MUFU_SASS = dict(sqrt=("MUFU.RSQ",), rsqrt=("MUFU.RSQ",), div=("MUFU.RCP",),
                  center_recip=("MUFU.RSQ", "MUFU.RCP"),
                  center_rsqrt=("MUFU.RSQ", "MUFU.RCP"))
 UNROLL = 16  # csrc/probes.cu: #pragma unroll 16
-# f32 ops K2 (csrc/sweep_t.cu force_kernel_t) spends on a pair within h,
+# f32 ops K2 (csrc/sweep_t.cu force_pair) spends on a pair within h,
 # the sqrtf and the divide among them
 K2_FLOPS_PER_PAIR = 36
 

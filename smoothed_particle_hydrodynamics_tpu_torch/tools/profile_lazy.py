@@ -45,7 +45,6 @@ def step_fn(cfg, diagnostics=make_step_diagnostics, integrate=kdk_integrate,
         st = carry.state
         p = pst.PreparedT(order=carry.order, pos_s=st.position,
                           vel_s=st.velocity, mass_s=st.mass, cid=carry.cid,
-                          ws=carry.ws, wc=carry.wc,
                           cell_start=carry.cell_start,
                           **{k: getattr(carry, k) for k in pst.SUB_FIELDS})
         acc_s, rho_s, ncount_s = sweeps(cfg, p)

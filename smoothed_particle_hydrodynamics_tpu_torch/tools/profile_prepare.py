@@ -13,10 +13,9 @@ ids, the (cell, hash) sort (``_capped_order``; exact's plain stable sort
 beside it), the stacked [N, 7] field gather, the rank/occupancy scans
 (``_run_rank_occ``), the sub frame (``_sub_frame``: those scans, the
 kept-compaction sort and the sub-frame gathers; the line after it is its
-time less the scans'), the window tables (``_block_windows_t``; the fused
-sub-block tables with ``capped_fused``), the band ranges the kernels' twins
-read (``band_ranges``, not a part of the rebuild) and ``prepare_t`` end to
-end.  ``compose`` is that rebuild; ``tests/test_torch_tools_profile.py``
+time less the scans'), the candidates' cell-start table
+(``cell_start_t``), the band ranges the twins read (``band_ranges``, not a
+part of the rebuild) and ``prepare_t`` end to end.  ``compose`` is that rebuild; ``tests/test_torch_tools_profile.py``
 holds it bit-equal to ``prepare_t``.
 """
 
@@ -35,7 +34,6 @@ from . import Phases, derive_settings, start
 def compose(cfg, state, ph: Phases, iters: int = 10) -> pst.PreparedT:
     """``prepare_t(cfg, state)`` from its helpers, each timed by ``ph``."""
     n = state.n
-    nblocks = -(-n // pst._blane(cfg))
     capped = bool(cfg.capped_candidates)
     cid = ph.host("cell ids",
                   lambda pos: linear_cell_id(cfg, cell_coords(cfg, pos)),
@@ -55,7 +53,7 @@ def compose(cfg, state, ph: Phases, iters: int = 10) -> pst.PreparedT:
                              state.mass[:, None]], dim=1)[o],
         order, iters=iters)
     mass_s = stacked[:, 6].contiguous()
-    sub, cid_search, n_cand = {}, cid_sorted, n
+    sub, cid_search = {}, cid_sorted
     if capped:
         ph.host("rank/occ scans", pst._run_rank_occ, cid_sorted, iters=iters)
         sub, cid_search = ph.host("sub frame (_sub_frame)", pst._sub_frame,
@@ -63,21 +61,12 @@ def compose(cfg, state, ph: Phases, iters: int = 10) -> pst.PreparedT:
         ph.show("  compaction sort + gathers",
                 ph.ms["sub frame (_sub_frame)"] - ph.ms["rank/occ scans"],
                 "   (difference)")
-        n_cand = pst.sub_len(cfg, n)
-    ws, wc, cum = ph.host(
-        "window tables (bincount+cum)", pst._block_windows_t, cfg,
-        cid_sorted, nblocks, cfg.pallas_window_t, n, pst._n_pad(cfg, n_cand),
-        cid_search, iters=iters)
-    if capped and cfg.capped_fused:
-        sub["ws_sub"], sub["wc_sub"], _ = ph.host(
-            "fused sub-block windows", pst._block_windows_t, cfg, cid_search,
-            -(-n_cand // pst._blane(cfg)), cfg.pallas_window_t, n_cand,
-            pst._n_pad(cfg, n_cand), cid_search, iters=iters)
-    cell_start = cum[:cfg.num_cells + 1].to(torch.int32)
+    cell_start = ph.host("cell starts (bincount+cum)", pst.cell_start_t, cfg,
+                         cid_search, iters=iters)
     p = pst.PreparedT(order=order, pos_s=stacked[:, 0:3].contiguous(),
                       vel_s=stacked[:, 3:6].contiguous(), mass_s=mass_s,
-                      cid=cid_sorted.contiguous(), ws=ws, wc=wc,
-                      cell_start=cell_start, **sub)
+                      cid=cid_sorted.contiguous(), cell_start=cell_start,
+                      **sub)
     ph.host("band ranges [N,9] (twins only)", pst.band_ranges, cfg, p.cid,
             cell_start, iters=iters)
     return p

@@ -14,11 +14,7 @@ runs) join the trace on the profiler's clock: per span, its host ms and
 stream ms a step, and the idle gaps between device operations a step put
 down to the innermost span around their midpoint, all of them and those
 that fall between the host's top-level events (the driver's Python).  The
-counters are printed with them, and ``integrate_fused_share``, the rows
-the integrator's kernel integrated over N x steps (1.0 when it took every
-step), and ``cand_fused_share``, the candidate rows the kernel
-``cand_cols_t`` built over all that ``fused_cand_cols`` built (1.0 on the
-card, 0.0 on the CPU).
+counters are printed with them.
 The loop is the one ``run`` and ``bench`` pick (``uses_lazy``) unless
 ``--eager``; ``--partition slab`` profiles the distributed slab step on a
 one-rank NCCL group instead (``run_slab_benchmark``'s splash run).  The
@@ -62,32 +58,7 @@ def profile(scene: str, overrides: dict, backend: str, lazy: bool,
 
         def run():
             return drive_loop(cfg, state, steps, backend=backend)
-    rec = _trace(run, steps, top)
-    rec["integrate_fused_share"] = fused_share(rec["counters"], state.n,
-                                               steps)
-    rec["cand_fused_share"] = cand_fused_share(rec["counters"])
-    return rec
-
-
-def fused_share(counters: dict, n: int, steps: int) -> float:
-    """The counter ``integrate.fused_rows`` (the rows the integrator's
-    kernel integrated while the profiler ran) over ``n`` x ``steps``: 1.0
-    when every step integrated every row in the kernel, 0.0 on the CPU."""
-    from ..ops.integrate import FUSED_ROWS
-
-    return counters.get(FUSED_ROWS, {"total": 0.0})["total"] / (n * steps)
-
-
-def cand_fused_share(counters: dict) -> float:
-    """The counter ``sweeps.cand_rows_fused`` (candidate rows the kernel
-    ``cand_cols_t`` built while the profiler ran) over ``sweeps.cand_rows``
-    (those ``fused_cand_cols`` built on any path): 1.0 when the kernel built
-    every one, 0.0 on the CPU or where none was built."""
-    from ..ops.sweeps_t import CAND_ROWS, CAND_ROWS_FUSED
-
-    total = counters.get(CAND_ROWS, {"total": 0.0})["total"]
-    fused = counters.get(CAND_ROWS_FUSED, {"total": 0.0})["total"]
-    return fused / total if total else 0.0
+    return _trace(run, steps, top)
 
 
 def profile_slab(overrides: dict, steps: int, warmup: int,
@@ -111,9 +82,7 @@ def profile_slab(overrides: dict, steps: int, warmup: int,
         def run():
             for _ in range(steps):
                 carry[0], _ = step(carry[0])
-        rec = _trace(run, steps, top)
-    rec["cand_fused_share"] = cand_fused_share(rec["counters"])
-    return rec
+        return _trace(run, steps, top)
 
 
 def _trace(run, steps: int, top: int) -> dict:

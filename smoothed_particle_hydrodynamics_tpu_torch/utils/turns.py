@@ -53,8 +53,8 @@ PATHS = {
     "slab_fused": ("slab", True, dict(_SLAB_CAPPED, capped_fused=True)),
     "run": ("cli", True, {}),
     "splash": ("single", True, {}),
-    # the exact path with lane groups: the band kernels read no window
-    # table, so only the size of prepare_t's tables changes
+    # the exact path with lane groups: no sweep reads a window table, so
+    # the groups change nothing on this path
     "groups2": ("single", True, dict(_SPLASH, pallas_window_t=208,
                                      pallas_groups=2)),
     "groups4": ("single", True, dict(_SPLASH, pallas_window_t=208,

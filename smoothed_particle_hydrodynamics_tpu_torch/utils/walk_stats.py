@@ -1,5 +1,6 @@
-"""Rows a sweep kernel tests per thread, read from its window tables: the
-quantity the sweep kernels' time follows (most tested rows are rejected).
+"""Rows a sweep kernel tests per thread, read from its bands (and the lane
+layout's window tables): the quantity the sweep kernels' time follows (most
+tested rows are rejected).
 
     python -m smoothed_particle_hydrodynamics_tpu_torch.utils.walk_stats
 
@@ -8,12 +9,12 @@ keeps the 1M scene's 128-cell x-rows and its pool height at ~124k
 particles, for the lane layout (1.0h cells, window 512), for the sublane
 headline shapes (1.25h cells, window 208) and for capped mode on them
 (``capped_candidates`` 4; block, window and sub frame derived as the CLI
-derives them) and its fused pre-pass: the block walk's rows and the band
-kernels' (``band_rows_per_lane``; the lane band kernels'
+derives them) and its fused pre-pass: the lane block walk's rows and the
+band kernels' (``band_rows_per_lane``; the lane band kernels'
 ``lane_band_rows_per_lane``; the slab engine's exact and capped band
 kernels' ``slab_band_rows_per_lane`` and ``slab_sub_band_rows_per_lane``;
-the fused path's sub-frame pre-pass, both walks, ``prepass_rows``), with
-the mean neighbor count.
+the fused path's sub-frame pre-pass, ``prepass_rows``), with the mean
+neighbor count.
 ``corner_state`` builds the 4-slab frame on which a slab table over the raw
 extended frame would test dead rows.  ``band_sums`` is ``band_stats`` left
 on the device, with no host read; 32 times its ``warp_union`` is the
@@ -33,15 +34,6 @@ def lane_rows_per_thread(cfg, p) -> float:
     """Mean over blocks of sum over rods of chunks * window (the lane
     kernels walk whole chunks)."""
     return float(p.wc.double().sum() * cfg.pallas_window
-                 / (p.wc.numel() // 9))
-
-
-def sublane_rows_per_thread(cfg, p, m: int) -> float:
-    """Mean over blocks of sum over rods of min(ws + wc*s_t, m) - ws (the
-    sublane kernels stop at the candidate count)."""
-    stop = torch.clamp(p.ws.long() + p.wc.long() * cfg.pallas_window_t,
-                       max=m)
-    return float((stop - p.ws.long()).clamp(min=0).double().sum()
                  / (p.wc.numel() // 9))
 
 
@@ -115,27 +107,15 @@ def slab_sub_band_rows_per_lane(cfg, band, count: int) -> dict:
                               int(band.cell_start[-1]))
 
 
-def prepass_rows(cfg, cid_sub, ws_sub, wc_sub, cell_start
-                 ) -> tuple[float, dict]:
+def prepass_rows(cfg, cid_sub, cell_start) -> dict:
     """The fused path's sub-frame pre-pass over the S sub rows (self cids
-    ``cid_sub``, ``TAIL_CID`` on the unkept tail): its block walk's rows per
-    thread over the pre-pass window tables ``ws_sub``/``wc_sub``, in the
-    blocks that hold kept rows, and its band kernel's ``band_stats`` over
-    the kept rows (``cell_start[num_cells]`` of them; the tail rows walk
-    nothing) in the sub frame's table ``cell_start``.  One device:
-    ``prepare_t``'s ``cand_cid``, ``ws_sub``, ``wc_sub`` and
-    ``cell_start``; the slab engine: ``cand_cid``, the fused ``tabs[7:9]``
-    and ``SubBand.cell_start``."""
-    from types import SimpleNamespace
-
-    from ..ops.sweeps_t import NRODS, _blane
-
+    ``cid_sub``, ``TAIL_CID`` on the unkept tail): its band kernel's
+    ``band_stats`` over the kept rows (``cell_start[num_cells]`` of them;
+    the tail rows walk nothing) in the sub frame's table ``cell_start``.
+    One device: ``prepare_t``'s ``cand_cid`` and ``cell_start``; the slab
+    engine: ``cand_cid`` and ``SubBand.cell_start``."""
     kept = int(cell_start[-1])
-    nt = -(-kept // _blane(cfg)) * NRODS
-    window = sublane_rows_per_thread(
-        cfg, SimpleNamespace(ws=ws_sub[:nt], wc=wc_sub[:nt]),
-        cid_sub.shape[0])
-    return window, band_rows_per_lane(cfg, cid_sub[:kept], cell_start, kept)
+    return band_rows_per_lane(cfg, cid_sub[:kept], cell_start, kept)
 
 
 def corner_state(cfg, counts: tuple = (600, 900, 1200), short: int = 40,
@@ -211,9 +191,8 @@ def main() -> None:
                          pallas_window_t=208, **thin)
     p = sweeps_t.prepare_t(cfg, st)
     _, nc = sweeps_t.density_sweep_t(cfg, p)
-    print(f"sublane (1.25h cells, window {cfg.pallas_window_t}): "
-          f"{sublane_rows_per_thread(cfg, p, st.n):.1f} rows/thread, "
-          f"mean neighbors {nc.double().mean().item():.2f}")
+    print(f"sublane (1.25h cells): mean neighbors "
+          f"{nc.double().mean().item():.2f}")
     _print_band("1.25h cells, exact",
                 band_rows_per_lane(cfg, p.cid, p.cell_start, st.n))
     capped = dict(num_particles=124_603, cell_size_factor=1.25,
@@ -223,17 +202,14 @@ def main() -> None:
     p = sweeps_t.prepare_t(cfg, st)
     s_len = p.sub_perm.shape[0]
     _, nc = sweeps_t.density_sweep_t(cfg, p)
-    print(f"capped  (1.25h cells, K_c {cfg.capped_candidates}, block "
-          f"{cfg.pallas_block_t}, window {cfg.pallas_window_t}, S {s_len}): "
-          f"{sublane_rows_per_thread(cfg, p, s_len):.1f} rows/thread, "
+    print(f"capped  (1.25h cells, K_c {cfg.capped_candidates}, S {s_len}): "
           f"mean neighbors {nc.double().mean().item():.2f}")
     _print_band("1.25h cells, capped",
                 band_rows_per_lane(cfg, p.cid, p.cell_start, s_len))
-    window, band = prepass_rows(cfg, p.cand_cid, p.ws_sub, p.wc_sub,
-                                p.cell_start)
     print(f"pre-pass (the sub frame over itself, {int(p.cell_start[-1])} "
-          f"kept rows): {window:.1f} rows/thread")
-    _print_band("1.25h cells, fused pre-pass", band)
+          f"kept rows)")
+    _print_band("1.25h cells, fused pre-pass",
+                prepass_rows(cfg, p.cand_cid, p.cell_start))
 
 
 if __name__ == "__main__":

@@ -2,23 +2,23 @@
 kernels ``density_band_t``/``force_band_t`` walk, ``csrc/sweep_t.cu``):
 exact mode over the sorted frame, capped mode over the sub frame.
 
-On the card the band kernels are held bit-equal to the block-walk kernels
-(``chip_smoke.py`` phases 2, 4, 5 and 7); that rests on two facts checked
-here on the CPU, by brute force against the window tables the JAX package
-defines (``tests/test_torch_grid_integrate.py`` and
-``tests/test_torch_capped.py`` hold those equal to JAX's):
+The JAX kernels walk each block's rod windows and mask them by cell id;
+the band kernels and their twins walk the bands.  Two facts make them sum
+the same pairs, checked here on the CPU by brute force against the JAX
+package's own window tables (``tests/jax_windows.py``):
 
 * each self row's band for a rod lies inside its block's rod window
   ``[ws, min(ws + wc*s_t, m))`` over the m candidate rows;
-* it holds exactly the rows of that window that pass the block walk's cid
-  mask ``|cid_j - cid_i - delta| <= 1`` (never a capped tail row), so
-  walking it in row order sums the same pairs in the same order.
+* it holds exactly the rows of that window that pass the cid mask
+  ``|cid_j - cid_i - delta| <= 1`` (never a capped tail row), in the
+  window's order.
 
 Also: each table against ``np.searchsorted``, the lazy carry freezing it and
 rebuilding it on a rebin, a launch without a table refused, and the band
 counts of ``utils/walk_stats.py`` against a brute-force count.
 """
 
+import jax_windows
 import numpy as np
 import pytest
 import torch
@@ -79,12 +79,14 @@ def _kept_cids(p) -> np.ndarray:
 
 def _check_bands(cfg, cid, cand_cid, p, m):
     """Brute force over every self row and rod: the band [a, e) lies in the
-    block's rod window over the m candidates and equals the window rows
-    passing the cid mask.  Returns how many (row, rod) cell ranges reach
-    past the grid's first or last cell."""
-    b, s_t = sweeps_t._blane(cfg), cfg.pallas_window_t
-    ws = p.ws.numpy().reshape(-1, 9).astype(np.int64)
-    wc = p.wc.numpy().reshape(-1, 9).astype(np.int64)
+    block's rod window over the m candidates (the JAX package's table, each
+    group's at G > 1) and equals the window rows passing the cid mask.
+    Returns how many (row, rod) cell ranges reach past the grid's first or
+    last cell."""
+    b, s_t = sweeps_t._blane(cfg) // cfg.pallas_groups, cfg.pallas_window_t
+    search = (cand_cid if p.sub_perm is None
+              else jax_windows.sub_search(cfg, cand_cid))
+    ws, wc = jax_windows.single_chip(cfg, cid, search)
     a, e = (x.numpy() for x in sweeps_t.band_ranges(cfg, p.cid, p.cell_start))
     deltas = np.asarray(rod_deltas(cfg))
     rows = np.arange(m)
@@ -279,7 +281,8 @@ def test_band_launch_refuses_a_missing_table():
 def test_capped_launch_refuses_a_missing_table(kernel, monkeypatch):
     """On the card (here: the kernel path forced for CPU tensors) a capped
     sweep without the sub frame's table raises before any library is
-    built; it never falls back to the block walk."""
+    built; on the CPU its twin raises too: no sweep falls back to a window
+    walk."""
     cfg, st, p = _prepared(*CAPPED_CASES[0])
     monkeypatch.setattr(sweeps_t, "_use_plain", lambda x: False)
     monkeypatch.setattr(sweeps_t, "_kernels", None)  # a build would fail
@@ -287,13 +290,17 @@ def test_capped_launch_refuses_a_missing_table(kernel, monkeypatch):
     with pytest.raises(ValueError, match="cell-start table"):
         if kernel == "density":
             sweeps_t.density_capped_t(
-                cfg, p.pos_s, p.mass_s, p.cid, p.ws, p.wc, pos_c, p.wm_sub,
-                p.cand_cid, p.sub_perm, None)
+                cfg, p.pos_s, p.mass_s, p.cid, None, pos_c, p.wm_sub,
+                p.sub_perm)
         else:
             cand = sweeps_t.fused_cand_cols_plain(
                 cfg, pos_c, vel_c, p.mass_s[p.sub_perm], p.wm_sub)
             sweeps_t.force_capped_t(
-                cfg, p.pos_s, p.vel_s, p.mass_s, cand, p.cid, p.ws, p.wc,
-                p.cand_cid, p.sub_perm, None)
+                cfg, p.pos_s, p.vel_s, p.mass_s, cand, p.cid, None,
+                p.sub_perm)
+    monkeypatch.setattr(sweeps_t, "_use_plain", lambda x: True)
+    with pytest.raises(ValueError, match="cell-start table"):
+        sweeps_t.density_capped_t(cfg, p.pos_s, p.mass_s, p.cid, None, pos_c,
+                                  p.wm_sub, p.sub_perm)
     assert sweeps_t.density_capped_t.launches == 0
     assert sweeps_t.force_capped_t.launches == 0

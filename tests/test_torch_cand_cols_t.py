@@ -22,13 +22,10 @@ from smoothed_particle_hydrodynamics_tpu_torch.config import SphConfig
 from smoothed_particle_hydrodynamics_tpu_torch.models import make_scene
 from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
 from smoothed_particle_hydrodynamics_tpu_torch.ops.sweeps_t import (
-    CAND_ROWS, CAND_ROWS_FUSED, cand_cols_t, fused_cand_cols,
-    fused_cand_cols_plain)
+    cand_cols_t, fused_cand_cols, fused_cand_cols_plain)
 from smoothed_particle_hydrodynamics_tpu_torch.utils import trace
 from smoothed_particle_hydrodynamics_tpu_torch.utils.benchmark import (
     resolve_sweep_settings)
-from smoothed_particle_hydrodynamics_tpu_torch.utils.profile_step import (
-    cand_fused_share)
 
 torch.set_num_threads(1)
 
@@ -266,10 +263,11 @@ def test_card_path_refuses_what_the_kernel_does_not_take(fake_card, case):
 
 
 def test_counters_record_rows_on_the_plain_path():
-    """On the CPU every call counts its M in ``sweeps.cand_rows``, none in
-    ``sweeps.cand_rows_fused``: the share is 0.0; nothing counts while the
-    profiler is off."""
+    """On the CPU ``fused_cand_cols`` builds every column with its twin:
+    ``cand_cols_t`` launches nothing, and nothing is counted, with the
+    profiler off or on."""
     trace.take()
+    launches = cand_cols_t.launches
     fused_cand_cols(CFG, *frame(50)[:4])
     assert trace.take()["counts"] == {}
     with torch.profiler.profile(
@@ -277,15 +275,14 @@ def test_counters_record_rows_on_the_plain_path():
         for name in ("exact", "indexed", "strided"):
             pos, vel, rho, mass, idx = frame(**CASES[name])
             fused_cand_cols(CFG, pos, vel, rho, mass, index=idx)
-    counts = trace.take()["counts"]
-    assert counts == {CAND_ROWS: {"total": 1000.0 + 700 + 600, "times": 3}}
-    assert cand_fused_share(counts) == 0.0
-    assert cand_fused_share({}) == 0.0
+    assert trace.take()["counts"] == {}
+    assert cand_cols_t.launches == launches
 
 
 def test_counters_record_the_kernel_s_rows(fake_card, monkeypatch):
-    """Through the kernel every call counts its M twice: the share is 1.0,
-    and half where the twin built as many rows."""
+    """Through the kernel every call launches ``cand_cols_t`` once, over
+    all its rows; the plain path launches nothing; neither counts a
+    counter while the profiler records."""
     pos, vel, rho, mass, idx = frame(**CASES["indexed"])
     trace.take()
     with torch.profiler.profile(
@@ -294,17 +291,12 @@ def test_counters_record_the_kernel_s_rows(fake_card, monkeypatch):
             mp.setattr(sw, "_use_plain", lambda x: False)
             for _ in range(2):
                 fused_cand_cols(CFG, pos, vel, rho, mass, index=idx)
-        kernel = trace.take()["counts"]
+        assert cand_cols_t.launches == 2
+        assert [c["m"] for c in fake_card.calls] == [700, 700]
         for _ in range(2):
             fused_cand_cols(CFG, pos, vel, rho, mass, index=idx)
-        plain = trace.take()["counts"]
-    assert kernel == {CAND_ROWS: {"total": 1400.0, "times": 2},
-                      CAND_ROWS_FUSED: {"total": 1400.0, "times": 2}}
-    assert cand_fused_share(kernel) == 1.0
-    assert cand_fused_share({CAND_ROWS: {"total": 2800.0},
-                             CAND_ROWS_FUSED: kernel[CAND_ROWS_FUSED]}) == 0.5
-    assert plain == {CAND_ROWS: {"total": 1400.0, "times": 2}}
-    assert cand_cols_t.launches == 2
+    assert trace.take()["counts"] == {}
+    assert cand_cols_t.launches == 2 and len(fake_card.calls) == 2
 
 
 def _capped(fused=False):
@@ -338,8 +330,8 @@ def test_capped_force_sweep_folds_the_gather_in(monkeypatch):
     rows = p.sub_perm.long()
     cand = fused_cand_cols_plain(cfg, p.pos_s[rows], p.vel_s[rows],
                                  rho[rows], p.wm_sub)
-    want = sw.force_t_plain(cfg, p.pos_s, p.vel_s, rho, cand, p.cid, p.ws,
-                            p.wc, p.cand_cid, p.sub_perm)
+    want = sw.force_t_plain(cfg, p.pos_s, p.vel_s, rho, cand, p.cid,
+                            p.cell_start, p.sub_perm)
     assert torch.equal(bits(acc), bits(want))
 
     def no_gather(p_):

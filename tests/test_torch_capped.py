@@ -13,6 +13,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+import jax_windows
 import numpy as np
 import pytest
 import torch
@@ -123,17 +124,20 @@ def test_derive_sub_len_and_window_match_jax(capped):
 
 @pytest.mark.parametrize("s_len", ["derived", 256])
 def test_prepare_capped_bit_equal(capped, s_len):
-    """order, the kept set and its cids, reweighted masses, the overflow
-    count and every window table equal JAX's; 256 rows overflow."""
+    """order, the kept set and its cids, reweighted masses and the overflow
+    count equal JAX's, and the bands (two-pass and the fused pre-pass's)
+    are the masked rows of JAX's window tables; 256 rows overflow."""
     jc, js, tc, ts = (capped[k] for k in ("jc", "js", "tc", "ts"))
     if s_len != "derived":
         jc, tc = jc.replace(capped_sub_len=s_len), tc.replace(capped_sub_len=s_len)
     jc, tc = jc.replace(capped_fused=True), tc.replace(capped_fused=True)
     p_j = jax.jit(partial(jpt.prepare_t, jc))(js)
     p_t = sweeps_t.prepare_t(tc, ts)
-    for name in ("order", "ws", "wc", "sub_perm", "wm_sub", "sub_dropped",
-                 "ws_sub", "wc_sub", "pos_s", "mass_s"):
+    for name in ("order", "sub_perm", "wm_sub", "sub_dropped", "pos_s",
+                 "mass_s"):
         _eq(getattr(p_t, name), getattr(p_j, name))
+    jax_windows.assert_prepared(tc, p_t, p_j.ws, p_j.wc, p_j.ws_sub,
+                                p_j.wc_sub)
     _eq(p_t.cid, np.asarray(p_j.cid_f).astype(np.int32))
     kept = np.asarray(p_j.cand_cid_f) >= 0
     _eq(p_t.cand_cid[kept], np.asarray(p_j.cand_cid_f)[kept].astype(np.int32))
@@ -177,8 +181,9 @@ def test_keep_all_cap_equals_exact():
 
 
 def test_lazy_capped_steps_match_jax(capped):
-    """Six lazy steps: the same rebin steps, order, kept set and tables,
-    counts equal every step, state within 1e-5, truncated_ranges equal."""
+    """Six lazy steps: the same rebin steps, order and kept set, bands the
+    masked rows of JAX's tables, counts equal every step, state within
+    1e-5, truncated_ranges equal."""
     jc, js, tc, ts = (capped[k] for k in ("jc", "js", "tc", "ts"))
     jcarry = jax.jit(partial(jlazy.init_lazy, jc))(js)
     jstep = jax.jit(partial(jlazy.lazy_step, jc))
@@ -187,8 +192,9 @@ def test_lazy_capped_steps_match_jax(capped):
         jcarry, jd = jstep(jcarry)
         tcarry, td = tlazy.lazy_step(tc, tcarry)
         assert tcarry.rebin_count == int(jcarry.rebin_count), f"step {k}"
-        for name in ("order", "ws", "wc", "sub_perm", "wm_sub"):
+        for name in ("order", "sub_perm", "wm_sub"):
             _eq(getattr(tcarry, name), getattr(jcarry, name))
+        jax_windows.assert_prepared(tc, tcarry, jcarry.ws, jcarry.wc)
         _eq(tcarry.state.neighbor_count, jcarry.state.neighbor_count)
         assert _rel(tcarry.state.position.numpy(),
                     jcarry.state.position) <= STATE_BAR, f"step {k}"

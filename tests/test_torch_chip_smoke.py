@@ -400,12 +400,11 @@ def test_phase21_tally_bar(smoke):
 def test_phase22_cand_checks(smoke, monkeypatch, capsys):
     """Phase 22 on the CPU at 4,096 particles (the slab frame on a 16^3
     grid), ``cand_cols_t``'s launcher writing the twin's columns (the
-    kernel runs only on the card) and the profiled solves stood in."""
+    kernel runs only on the card) and the counted solves stood in."""
     from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
-    from smoothed_particle_hydrodynamics_tpu_torch.utils import profile_step
 
     cs, dev = smoke
-    calls, profiled = [], []
+    calls, solved = [], []
 
     def launch(cfg, pos, vel, rho, mass, index, out):
         if index is not None:
@@ -417,10 +416,8 @@ def test_phase22_cand_checks(smoke, monkeypatch, capsys):
     monkeypatch.setattr(sw, "_launch_cand_cols", launch)
     monkeypatch.setattr(cs, "time_ms", lambda fn, iters=1, warmup=0: (
         fn(), 1.0)[1])
-    monkeypatch.setattr(profile_step, "profile", lambda *a: (
-        profiled.append(a[:2]), {"cand_fused_share": 1.0})[1])
-    monkeypatch.setattr(profile_step, "profile_slab", lambda ov, *a: (
-        profiled.append(("slab", ov)), {"cand_fused_share": 1.0})[1])
+    monkeypatch.setattr(cs, "cand_solve_launches", lambda dev_, name: (
+        solved.append(name), cs.CAND_STEPS)[1])
     grid = dict(num_particles=4096, grid_nx=16, grid_ny=16, grid_nz=16)
     monkeypatch.setattr(cs, "CAND", {
         name: (scene, dict(ov, **grid))
@@ -432,7 +429,7 @@ def test_phase22_cand_checks(smoke, monkeypatch, capsys):
     assert set(out) == {"splash_1m", "dam_break_10m", "capped_k4_10m",
                         "slab_1m"}
     for name, r in out.items():
-        assert r["differ"] == 0 and r["cand_fused_share"] == 1.0
+        assert r["differ"] == 0 and r["solve_launches"] == cs.CAND_STEPS
         assert r["ms"] == r["plain_ms"] == 1.0
     for name in ("splash_1m", "dam_break_10m"):
         assert out[name]["m"] == 4096
@@ -446,8 +443,8 @@ def test_phase22_cand_checks(smoke, monkeypatch, capsys):
     # comparison
     assert calls == [False, False, False, False, True, False, True, False,
                      False]
-    assert [a[0] for a in profiled] == ["splash", "dam_break_10m", "splash",
-                                        "slab"]
+    assert solved == ["splash_1m", "dam_break_10m", "capped_k4_10m",
+                      "slab_1m"]
     text = capsys.readouterr().out
     assert text.count("elements differing 0") == 5
     assert "[p22] phase 22 took" in text

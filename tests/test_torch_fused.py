@@ -13,6 +13,7 @@ the port's fused rho and counts equal its two-pass ones bit for bit.
 from functools import partial
 
 import jax
+import jax_windows
 import numpy as np
 import pytest
 import torch
@@ -105,9 +106,9 @@ def test_fused_equals_two_pass(fused):
 
 
 def test_lazy_fused_steps_match_jax(fused):
-    """Six lazy steps of the fused path: the same rebin steps, order, kept
-    set and both table pairs, counts equal every step, state within 1e-5,
-    truncated_ranges equal."""
+    """Six lazy steps of the fused path: the same rebin steps, order and
+    kept set, both walks' bands the masked rows of JAX's two table pairs,
+    counts equal every step, state within 1e-5, truncated_ranges equal."""
     jc, js, tc, ts = (fused[k] for k in ("jc", "js", "tc", "ts"))
     jcarry = jax.jit(partial(jlazy.init_lazy, jc))(js)
     jstep = jax.jit(partial(jlazy.lazy_step, jc))
@@ -116,9 +117,10 @@ def test_lazy_fused_steps_match_jax(fused):
         jcarry, jd = jstep(jcarry)
         tcarry, td = tlazy.lazy_step(tc, tcarry)
         assert tcarry.rebin_count == int(jcarry.rebin_count), f"step {k}"
-        for name in ("order", "ws", "wc", "sub_perm", "wm_sub", "ws_sub",
-                     "wc_sub"):
+        for name in ("order", "sub_perm", "wm_sub"):
             _eq(getattr(tcarry, name), getattr(jcarry, name))
+        jax_windows.assert_prepared(tc, tcarry, jcarry.ws, jcarry.wc,
+                                    jcarry.ws_sub, jcarry.wc_sub)
         _eq(tcarry.state.neighbor_count, jcarry.state.neighbor_count)
         assert _rel(tcarry.state.position.numpy(),
                     jcarry.state.position) <= STATE_BAR, f"step {k}"

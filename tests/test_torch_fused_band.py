@@ -4,28 +4,27 @@ the capped sub frame's cell-start table, on one device (``prepare_t`` with
 ``capped_fused``: ``PreparedT.cell_start``) and in the slab engine (the
 ``SubBand`` of ``prepare_frame``'s fused frames on 1, 2 and 4 gloo ranks).
 
-On the card each band kernel is held bit-equal to its block walk
-(``density_kernel_t<kExclSrcSrc>`` on the kept sub rows, ``fused_kernel_t``
-on every row and own row; ``chip_smoke.py`` phases 5, 7 and 11).  That rests
-on what is checked here on the CPU, by brute force against the window
-tables the block walks read (other tests hold those tables and the twins
-equal to the JAX package's):
+The JAX package's pre-pass and fused kernels walk block windows of the
+sub frame and mask them by cell id.  Checked here on the CPU, by brute
+force against the JAX package's own window tables (``tests/jax_windows.py``):
 
 * the pre-pass: each kept sub row's band for a rod is exactly the rows of
-  its sub block's rod window (``ws_sub``/``wc_sub``) that pass the block
-  walk's cid mask, in order (the self row's own src is excluded by both
-  walks alike); a tail row (self cid ``TAIL_CID``) has empty bands;
+  its sub block's rod window that pass the cid mask, in order (the self
+  row's own src is excluded by both walks alike); a tail row (self cid
+  ``TAIL_CID``) has empty bands;
 * K3: each self row's (each live own row's) bands are capped K2's, exactly
   the masked rows of its block's rod window over the sub frame, and reach
   no tail row.
 
 Also: the pairs within h through the bands against a brute force, the
-wrappers' arguments against the twins (a PyTorch walk of the bands in place
-of each launch), the tail rows' values through the band path, a card call
-without the table refused, and ``utils/walk_stats.prepass_rows`` against a
-brute-force count.
+twins on the wrappers' arguments against a pairwise oracle handed the
+kernels' arguments (a dense walk of every kept candidate in place of each
+launch), the tail rows' values through the twins, a card call without the
+table refused, and ``utils/walk_stats.prepass_rows`` against a brute-force
+count.
 """
 
+import jax_windows
 import numpy as np
 import pytest
 import torch
@@ -45,7 +44,7 @@ from smoothed_particle_hydrodynamics_tpu_torch.utils.walk_stats import (
 from test_torch_band import (CAPPED_CASES, CAPPED_IDS, CASES, _brute_rows,
                              _check_bands, _check_walk_stats)
 from test_torch_slab_band import (ACC_BAR, RHO_BAR, TIMEOUT_S, _d2,
-                                  _in_band, _rel)
+                                  _in_band, _rel, _twin_cand_cols)
 from test_torch_slab_capped_band import _corner_cfg, _dam_cfg, _job
 
 torch.set_num_threads(1)
@@ -77,13 +76,12 @@ def _n_kept(cand_cid) -> int:
 
 def _window_bands(cfg, cid, cand, ws, wc, a, e, rows):
     """Brute force over the self ``rows`` and every rod: the band [a, e) is
-    exactly the rows of the row's block's rod window over the ``cand`` cids
-    that pass the block walk's cid mask, in order.  Rows of one block and
-    cell share windows and bands, so each (block, cell) is checked once."""
+    exactly the rows of the row's block's rod window (the JAX package's
+    table ``ws``, ``wc``) over the ``cand`` cids that pass the cid mask, in
+    order.  Rows of one block and cell share windows and bands, so each
+    (block, cell) is checked once."""
     b, s_t = sw._blane(cfg), cfg.pallas_window_t
     m = cand.shape[0]
-    ws = np.asarray(ws).reshape(-1, 9).astype(np.int64)
-    wc = np.asarray(wc).reshape(-1, 9).astype(np.int64)
     cand = cand.astype(np.int64)
     deltas = np.asarray(rod_deltas(cfg))
     _, first = np.unique(np.stack([rows // b, cid[rows]]), axis=1,
@@ -99,9 +97,10 @@ def _window_bands(cfg, cid, cand, ws, wc, a, e, rows):
 
 def _prepass_windows(cfg, cand, ws_s, wc_s, cell_start):
     """The pre-pass's bands (self rows and candidates the sub frame): each
-    kept row's band is its sub block's masked window rows, in order (both
-    walks then drop the row's own src alike); a tail row's bands are
-    empty.  Returns the kept count."""
+    kept row's band is its sub block's masked window rows (the JAX package's
+    pre-pass table ``ws_s``, ``wc_s``), in order (both walks then drop the
+    row's own src alike); a tail row's bands are empty.  Returns the kept
+    count."""
     n_kept = _n_kept(cand)
     a, e = (x.numpy() for x in sw.band_ranges(
         cfg, torch.from_numpy(cand), torch.from_numpy(cell_start)))
@@ -125,7 +124,7 @@ def _pairs_vs_brute_force(cfg, pos_self, cid_self, own, pos_c, src_c, n_kept,
 
 
 # ---------------------------------------------------------------------------
-# The kernels' arguments: a PyTorch walk of the bands in place of a launch
+# The kernels' arguments: a pairwise oracle in place of a launch
 # ---------------------------------------------------------------------------
 
 PREPASS = ("density_band_t<prepass>", "density_band_t<prepass>[slab]")
@@ -133,19 +132,25 @@ FUSED = ("fused_band_t", "fused_band_t[slab]")
 CHUNK = 1024  # self rows per dense [rows, m] block of a walk
 
 
+def _kept(cell_start, m: int) -> torch.Tensor:
+    """[1, m]: the candidates in a cell (the table's last entry counts
+    them), every one a pairwise oracle tests."""
+    return (torch.arange(m) < int(cell_start[-1]))[None]
+
+
 def _walk_prepass(cfg, pos_s, mass_s, cid, cell_start, cand_pos, cand_mass,
-                  cand_src, kernel, self_base=0, self_src=None):
-    """The pre-pass band kernel's sums with dense tensors: each self row's
-    band pairs within h whose src is not its own ``self_src[i]``.  The
-    counts are kept in ``_walk_prepass.counts``."""
+                  cand_src=None, self_base=0, self_src=None, *, kernel):
+    """The pairwise oracle on the pre-pass band kernel's arguments, with
+    dense tensors: each self row's pairs within h over every kept
+    candidate, less those whose src is its own ``self_src[i]``.  The counts
+    are kept in ``_walk_prepass.counts``."""
     assert kernel in PREPASS and self_src is not None
     m = cand_pos.shape[0]
     rho, nc = [], []
     for i0 in range(0, pos_s.shape[0], CHUNK):
         rows = slice(i0, i0 + CHUNK)
-        a, e = sw.band_ranges(cfg, cid[rows], cell_start)
         d2 = _d2(pos_s[rows], cand_pos)
-        mask = (_in_band(a, e, m) & (d2 < cfg.h2)
+        mask = (_kept(cell_start, m) & (d2 < cfg.h2)
                 & (cand_src.long()[None] != self_src[rows].long()[:, None]))
         t = cfg.h_scaled2 - d2 * np.float32(cfg.sim_scale * cfg.sim_scale)
         w = torch.where(mask, cand_mass[None] * (cfg.poly6_norm * t * t * t),
@@ -157,9 +162,10 @@ def _walk_prepass(cfg, pos_s, mass_s, cid, cell_start, cand_pos, cand_mass,
 
 
 def _walk_fused(cfg, pos_s, vel_s, mass_s, cid, cell_start, cand, cand_src,
-                kernel, self_base=0):
-    """K3's sums with dense tensors: ``fused_t_plain``'s formulas on each
-    self row's band pairs, less its own id ``self_base + i``."""
+                self_base=0, *, kernel):
+    """The pairwise oracle on K3's arguments, with dense tensors:
+    ``fused_t_plain``'s formulas on each self row's pairs within h over
+    every kept candidate, less its own id ``self_base + i``."""
     assert kernel in FUSED
     m = cand.shape[0]
     scale = np.float32(cfg.sim_scale)
@@ -170,11 +176,10 @@ def _walk_fused(cfg, pos_s, vel_s, mass_s, cid, cell_start, cand, cand_src,
         rows = slice(i0, i0 + CHUNK)
         pos, vel = pos_s[rows], vel_s[rows]
         n = pos.shape[0]
-        a, e = sw.band_ranges(cfg, cid[rows], cell_start)
         dxyz = [cand[None, :, c] - pos[:, None, c] for c in range(3)]
         d2 = dxyz[0] * dxyz[0] + dxyz[1] * dxyz[1] + dxyz[2] * dxyz[2]
         own = self_base + i0 + torch.arange(n)
-        mask = (_in_band(a, e, m) & (d2 < cfg.h2)
+        mask = (_kept(cell_start, m) & (d2 < cfg.h2)
                 & (cand_src.long()[None] != own[:, None]))
         t = cfg.h_scaled2 - d2 * np.float32(cfg.sim_scale * cfg.sim_scale)
         w = torch.where(mask, cand[None, :, 7] * (cfg.poly6_norm * t * t * t),
@@ -201,20 +206,11 @@ def _walk_fused(cfg, pos_s, vel_s, mass_s, cid, cell_start, cand, cand_src,
     return tuple(torch.cat(x) for x in zip(*out))
 
 
-def _twin_cand_cols(cfg, pos_c, vel_c, rho_c, m_c, index, out):
-    """``sw._launch_cand_cols`` on the CPU: the twin's columns."""
-    if index is not None:
-        rows = index.long()
-        pos_c, vel_c, rho_c = pos_c[rows], vel_c[rows], rho_c[rows]
-    out.copy_(sw.fused_cand_cols_plain(cfg, pos_c, vel_c, rho_c, m_c))
-
-
-def _band_path(monkeypatch, *modules):
-    """Force the kernel path for CPU tensors, with the walks in place of
-    the launches (and the twin's candidate columns in place of
+def _band_path(monkeypatch):
+    """Force the kernel path for CPU tensors, with the pairwise oracles in
+    place of the launches (and the twin's candidate columns in place of
     ``cand_cols_t``'s)."""
-    for mod in modules:
-        monkeypatch.setattr(mod, "_use_plain", lambda x: False)
+    monkeypatch.setattr(sw, "_use_plain", lambda x: False)
     monkeypatch.setattr(sw, "_launch_density_band", _walk_prepass)
     monkeypatch.setattr(sw, "_launch_fused_band", _walk_fused)
     monkeypatch.setattr(sw, "_launch_cand_cols", _twin_cand_cols)
@@ -228,10 +224,18 @@ def _self_term(cfg, mass) -> torch.Tensor:
 # One device
 # ---------------------------------------------------------------------------
 
+def _prepass_tables(cfg, cand_cid) -> tuple[np.ndarray, np.ndarray]:
+    """The JAX package's pre-pass tables on one device: the sub frame's
+    blocks over the sub frame itself."""
+    search = jax_windows.sub_search(cfg, cand_cid)
+    return jax_windows.single_chip(cfg, search, search)
+
+
 @pytest.mark.parametrize("name", FUSED_IDS)
 def test_prepass_band_is_the_masked_part_of_its_block_window(prepared, name):
     cfg, p = prepared[name]
-    n_kept = _prepass_windows(cfg, p.cand_cid.numpy(), p.ws_sub, p.wc_sub,
+    n_kept = _prepass_windows(cfg, p.cand_cid.numpy(),
+                              *_prepass_tables(cfg, p.cand_cid),
                               p.cell_start.numpy())
     assert 0 < n_kept == int(p.cell_start[-1])
 
@@ -266,23 +270,23 @@ def test_pairs_within_h_through_the_bands_equal_a_brute_force(prepared,
 
 @pytest.mark.parametrize("name", FUSED_IDS)
 def test_band_arguments_give_the_twins_sums(prepared, name, monkeypatch):
-    """``density_sub_t``/``fused_sweep_t`` on the kernel path (launches
-    replaced by a PyTorch walk of the bands they are handed) against the
-    block-walk twins: counts equal, rho and acc within the bars, the
-    pre-pass on the kept rows, K3 on every row; the tail rows get the self
-    term and count 0."""
+    """``density_sub_t``/``fused_sweep_t``'s twins against a pairwise
+    oracle handed the kernels' arguments (the kernel path, its launches
+    replaced by a dense walk of every kept candidate): counts equal, rho
+    and acc within the bars, the pre-pass on the kept rows, K3 on every
+    row; the twins give the tail rows the self term and count 0."""
     cfg, p = prepared[name]
     pv = sw.gather_sub_pv(p)
     n_kept = _n_kept(p.cand_cid)
     kept = slice(0, n_kept)
     sub_t = sw.density_sub_t(cfg, p, pv)
-    _, nc_t = sw.density_t_plain(
-        cfg, pv[0], p.mass_s[p.sub_perm], p.cand_cid, p.ws_sub, p.wc_sub,
-        pv[0], p.wm_sub, p.cand_cid, p.sub_perm, p.sub_perm)
+    _, nc_t = sw.density_t_plain(*sw._pre_args(
+        cfg, pv[0], p.mass_s[p.sub_perm], p.wm_sub, p.cand_cid, p.sub_perm,
+        p.cell_start))
     acc_t, rho_t, fnc_t = sw.fused_sweep_t(cfg, p, sub_t, pv)
     sw.density_pre_t.launches = sw.fused_t.launches = 0
     with monkeypatch.context() as mp:
-        _band_path(mp, sw)
+        _band_path(mp)
         sub_k = sw.density_sub_t(cfg, p, pv)
         nc_k = _walk_prepass.counts
         acc_k, rho_k, fnc_k = sw.fused_sweep_t(cfg, p, sub_k, pv)
@@ -293,17 +297,17 @@ def test_band_arguments_give_the_twins_sums(prepared, name, monkeypatch):
     assert torch.equal(fnc_k, fnc_t)
     assert _rel(rho_k, rho_t) <= RHO_BAR
     assert _rel(acc_k, acc_t) <= ACC_BAR
-    assert torch.isfinite(acc_k).all() and int(fnc_k.sum()) > 0
+    assert torch.isfinite(acc_t).all() and int(fnc_t.sum()) > 0
     tail = slice(n_kept, None)
-    assert not nc_k[tail].any()
-    assert torch.equal(sub_k[tail], _self_term(cfg, p.mass_s[p.sub_perm])[tail])
+    assert not nc_t[tail].any()
+    assert torch.equal(sub_t[tail], _self_term(cfg, p.mass_s[p.sub_perm])[tail])
 
 
 @pytest.mark.parametrize("kernel", ["prepass", "fused"])
 def test_card_call_refuses_a_missing_table(prepared, kernel, monkeypatch):
     """On the card (here: the kernel path forced for CPU tensors) a fused
     sweep without the sub frame's table raises before any library is
-    built; it never falls back to the block walk."""
+    built; it never falls back to a window walk."""
     cfg, p = prepared["k4"]
     pos_c, vel_c = sw.gather_sub_pv(p)
     monkeypatch.setattr(sw, "_use_plain", lambda x: False)
@@ -312,43 +316,40 @@ def test_card_call_refuses_a_missing_table(prepared, kernel, monkeypatch):
     with pytest.raises(ValueError, match="cell-start table"):
         if kernel == "prepass":
             sw.density_pre_t(cfg, pos_c, p.mass_s[p.sub_perm], p.wm_sub,
-                             p.cand_cid, p.sub_perm, p.ws_sub, p.wc_sub, None)
+                             p.cand_cid, p.sub_perm, None)
         else:
             cand = sw.fused_cand_cols_plain(cfg, pos_c, vel_c, p.wm_sub,
                                             p.wm_sub)
-            sw.fused_t(cfg, p.pos_s, p.vel_s, p.mass_s, p.cid, p.ws, p.wc,
-                       cand, p.cand_cid, p.sub_perm, None)
+            sw.fused_t(cfg, p.pos_s, p.vel_s, p.mass_s, p.cid, None, cand,
+                       p.sub_perm)
     assert sw.density_pre_t.launches == sw.fused_t.launches == 0
 
 
 def _check_prepass_rows(cfg, cand, ws_s, wc_s, cell_start):
-    """``prepass_rows`` against a brute force: the block walk's rows per
-    thread over the kept rows' blocks, and the band counts of the kept
-    rows over the kept candidates."""
+    """``prepass_rows`` against a brute force: the band counts of the kept
+    rows over the kept candidates.  Returns them and the rows per thread
+    of the JAX package's pre-pass windows (``ws_s``, ``wc_s``) over the
+    kept rows' blocks."""
     b, s_t = sw._blane(cfg), cfg.pallas_window_t
     s_len, n_kept = cand.shape[0], _n_kept(cand)
-    window, band = prepass_rows(cfg, torch.from_numpy(cand),
-                                torch.from_numpy(np.asarray(ws_s)),
-                                torch.from_numpy(np.asarray(wc_s)),
-                                torch.from_numpy(cell_start))
-    ws = np.asarray(ws_s).reshape(-1, 9).astype(np.int64)
-    wc = np.asarray(wc_s).reshape(-1, 9).astype(np.int64)
+    band = prepass_rows(cfg, torch.from_numpy(cand),
+                        torch.from_numpy(cell_start))
     nb = -(-n_kept // b)
-    rows = [sum(max(min(ws[k, r] + wc[k, r] * s_t, s_len) - ws[k, r], 0)
-                for r in range(9)) for k in range(nb)]
-    assert window == pytest.approx(np.mean(rows), rel=1e-12)
+    rows = [sum(max(min(ws_s[k, r] + wc_s[k, r] * s_t, s_len) - ws_s[k, r],
+                    0) for r in range(9)) for k in range(nb)]
     kept = cand[:n_kept].astype(np.int64)
     brute, union = _brute_rows(kept, kept, np.asarray(rod_deltas(cfg)))
     _check_walk_stats(band, brute, union)
     assert brute.max() <= 3 * cfg.capped_candidates
-    return window, band
+    return np.mean(rows), band
 
 
 @pytest.mark.parametrize("name", ["k4", "dam-break-k4"])
 def test_prepass_rows_against_brute_force(prepared, name):
     cfg, p = prepared[name]
-    window, band = _check_prepass_rows(cfg, p.cand_cid.numpy(), p.ws_sub,
-                                       p.wc_sub, p.cell_start.numpy())
+    window, band = _check_prepass_rows(cfg, p.cand_cid.numpy(),
+                                       *_prepass_tables(cfg, p.cand_cid),
+                                       p.cell_start.numpy())
     assert band["warp_max"] < window
 
 
@@ -370,15 +371,28 @@ def fused_frames(group, jobs: list[dict]) -> list[dict]:
             caps[0], "pallas", sub_len)
         fr = ts.prepare_frame(cfg, group, *caps, "pallas", zs, True, sub_len,
                               carry)
-        ws, wc, sub_src, cand_cid, w_sub, _, band, ws_s, wc_s = fr.tabs
+        sub_src, cand_cid, w_sub, _, band = fr.tabs
+        nxny = cfg.grid_nx * cfg.grid_ny
         out.append(dict(
             ext=fr.ext.numpy(), cid_ext=fr.cid_ext.numpy(), count=fr.count,
-            ws=ws.numpy(), wc=wc.numpy(), sub_src=sub_src.numpy(),
+            cid_s=fr.cid_s.numpy(), sub_src=sub_src.numpy(),
             cand_cid=cand_cid.numpy(), w_sub=w_sub.numpy(),
             cell_start=band.cell_start.numpy(), cid=band.cid.numpy(),
-            ws_s=ws_s.numpy(), wc_s=wc_s.numpy(), h_cap=caps[1],
-            p_cap=caps[0]))
+            h_cap=caps[1], p_cap=caps[0], base=(zs[group.rank] - 1) * nxny,
+            loc=(max(b - a for a, b in zip(zs, zs[1:])) + 2) * nxny))
     return out
+
+
+def _slab_tables(cfg, f, prepass: bool = False):
+    """The JAX engine's tables of a fused frame ``f``: the own slab's over
+    the sub frame, or (``prepass``) the sub frame's over itself."""
+    search = jax_windows.sub_search(cfg, f["cand_cid"])
+    if prepass:
+        return jax_windows.slab_sub(
+            cfg, jax_windows.prepass_self(cfg, search), search,
+            search.shape[0], _n_kept(f["cand_cid"]), f["base"], f["loc"])
+    return jax_windows.slab_sub(cfg, f["cid_s"], search, search.shape[0],
+                                f["count"], f["base"], f["loc"])
 
 
 def _fused_dam_job(world: int) -> dict:
@@ -429,7 +443,7 @@ def test_slab_prepass_band_is_the_masked_part_of_its_block_window(frames,
     cfg = _slab_cfg(name)
     for f in frames[name]:
         assert f["cell_start"][cfg.num_cells] == _n_kept(f["cand_cid"])
-        _prepass_windows(cfg, f["cand_cid"], f["ws_s"], f["wc_s"],
+        _prepass_windows(cfg, f["cand_cid"], *_slab_tables(cfg, f, True),
                          f["cell_start"])
 
 
@@ -444,7 +458,7 @@ def test_slab_k3_bands_are_the_masked_part_of_the_block_window(frames, name):
         a, e = (x.numpy() for x in sw.band_ranges(
             cfg, torch.from_numpy(f["cid"]), torch.from_numpy(f["cell_start"])))
         assert np.all(e[cnt:] <= a[cnt:]) and e.max() <= _n_kept(cand)
-        _window_bands(cfg, f["cid"], cand, f["ws"], f["wc"], a, e,
+        _window_bands(cfg, f["cid"], cand, *_slab_tables(cfg, f), a, e,
                       np.arange(cnt))
 
 
@@ -471,53 +485,51 @@ def test_slab_pairs_within_h_through_the_bands_equal_a_brute_force(frames,
 
 @pytest.mark.parametrize("name", SLAB_FRAMES)
 def test_slab_band_arguments_give_the_twins_sums(frames, name, monkeypatch):
-    """``density_sub_local``/``fused_local_capped`` on the kernel path
-    (launches replaced by a PyTorch walk of the bands they are handed)
-    against the block-walk twins: counts equal, rho and acc within the bars,
-    the pre-pass on the kept rows, K3 on every own row (the dead rows 0 on
-    both sides)."""
+    """``density_sub_local``/``fused_local_capped``'s twins against a
+    pairwise oracle handed the kernels' arguments (the kernel path, its
+    launches replaced by a dense walk of every kept candidate): counts
+    equal, rho and acc within the bars, the pre-pass on the kept rows, K3
+    on every own row (the dead rows 0 on both sides); the twins give the
+    tail rows the self term and count 0."""
     cfg = _slab_cfg(name)
     ss.density_sub_pre.launches = ss.fused_ext.launches = 0
     pairs = live = 0
     for f in frames[name]:
-        ext, cid_ext = torch.from_numpy(f["ext"]), torch.from_numpy(f["cid_ext"])
+        ext = torch.from_numpy(f["ext"])
         sub_src = torch.from_numpy(f["sub_src"])
         cand_cid = torch.from_numpy(f["cand_cid"])
         w_sub = torch.from_numpy(f["w_sub"])
-        ws, wc = torch.from_numpy(f["ws"]), torch.from_numpy(f["wc"])
-        tabs_s = (torch.from_numpy(f["ws_s"]), torch.from_numpy(f["wc_s"]))
         hp = (f["h_cap"], f["p_cap"])
         g8 = ext[sub_src.long()]
         n_kept, cnt = _n_kept(f["cand_cid"]), f["count"]
         kept = slice(0, n_kept)
         args = ss.density_sub_local_args(cfg, g8, sub_src, cand_cid, w_sub,
-                                         *tabs_s, _sub_band(f))
+                                         _sub_band(f))
         sub_t = ss.density_sub_pre(*args)
         _, pos_sub, mass_sub, wm_sub = args[:4]
-        _, nc_t = sw.density_t_plain(cfg, pos_sub, mass_sub, cand_cid,
-                                     *tabs_s, pos_sub, wm_sub, cand_cid,
-                                     sub_src, sub_src)
+        _, nc_t = sw.density_t_plain(*sw._pre_args(
+            cfg, pos_sub, mass_sub, wm_sub, cand_cid, sub_src,
+            _sub_band(f).cell_start))
         # the candidates' densities: the pre-pass's, one rank's rows only
         rho_cand = torch.where(cand_cid >= 0, sub_t, 0.0)
-        fargs = (cfg, ext, g8, cid_ext, rho_cand, ws, wc, sub_src, cand_cid,
-                 w_sub, *hp, _sub_band(f))
+        fargs = (cfg, ext, g8, rho_cand, sub_src, w_sub, *hp, _sub_band(f))
         acc_t, rho_t, fnc_t = ss.fused_local_capped(*fargs)
         with monkeypatch.context() as mp:
-            _band_path(mp, ss)
+            _band_path(mp)
             sub_k = ss.density_sub_local(cfg, g8, sub_src, cand_cid, w_sub,
-                                         *tabs_s, _sub_band(f))
+                                         _sub_band(f))
             nc_k = _walk_prepass.counts
             acc_k, rho_k, fnc_k = ss.fused_local_capped(*fargs)
         assert torch.equal(nc_k[kept], nc_t[kept])
         assert _rel(sub_k[kept], sub_t[kept]) <= RHO_BAR
-        assert not nc_k[n_kept:].any()
-        assert torch.equal(sub_k[n_kept:], _self_term(cfg, mass_sub)[n_kept:])
+        assert not nc_t[n_kept:].any()
+        assert torch.equal(sub_t[n_kept:], _self_term(cfg, mass_sub)[n_kept:])
         assert torch.equal(fnc_k, fnc_t)
         assert _rel(rho_k, rho_t) <= RHO_BAR
         assert _rel(acc_k, acc_t) <= ACC_BAR
-        assert not fnc_k[cnt:].any() and not rho_k[cnt:].any()
-        assert torch.isfinite(acc_k).all()
-        pairs += int(fnc_k.sum())
+        assert not fnc_t[cnt:].any() and not rho_t[cnt:].any()
+        assert torch.isfinite(acc_t).all()
+        pairs += int(fnc_t.sum())
         live += cnt
     assert pairs > 3 * live, "neighbors must be found"
     assert ss.density_sub_pre.launches == ss.fused_ext.launches == len(
@@ -529,24 +541,21 @@ def test_slab_band_arguments_give_the_twins_sums(frames, name, monkeypatch):
 def test_slab_card_call_refuses_a_missing_table(frames, kernel, monkeypatch):
     cfg = _slab_cfg("dam-w1")
     f = frames["dam-w1"][0]
-    ext, cid_ext = torch.from_numpy(f["ext"]), torch.from_numpy(f["cid_ext"])
+    ext = torch.from_numpy(f["ext"])
     sub_src = torch.from_numpy(f["sub_src"])
     cand_cid = torch.from_numpy(f["cand_cid"])
     w_sub = torch.from_numpy(f["w_sub"])
     g8 = ext[sub_src.long()]
-    monkeypatch.setattr(ss, "_use_plain", lambda x: False)
+    monkeypatch.setattr(sw, "_use_plain", lambda x: False)
     monkeypatch.setattr(sw, "_kernels", None)  # a build would fail
+    monkeypatch.setattr(sw, "_launch_cand_cols", _twin_cand_cols)
     ss.density_sub_pre.launches = ss.fused_ext.launches = 0
     with pytest.raises(ValueError, match="cell-start table"):
         if kernel == "prepass":
-            ss.density_sub_local(cfg, g8, sub_src, cand_cid, w_sub,
-                                 torch.from_numpy(f["ws_s"]),
-                                 torch.from_numpy(f["wc_s"]))
+            ss.density_sub_local(cfg, g8, sub_src, cand_cid, w_sub, None)
         else:
-            ss.fused_local_capped(cfg, ext, g8, cid_ext, w_sub,
-                                  torch.from_numpy(f["ws"]),
-                                  torch.from_numpy(f["wc"]), sub_src,
-                                  cand_cid, w_sub, f["h_cap"], f["p_cap"])
+            ss.fused_local_capped(cfg, ext, g8, w_sub, sub_src, w_sub,
+                                  f["h_cap"], f["p_cap"], None)
     assert ss.density_sub_pre.launches == ss.fused_ext.launches == 0
 
 
@@ -554,5 +563,5 @@ def test_slab_card_call_refuses_a_missing_table(frames, kernel, monkeypatch):
 def test_slab_prepass_rows_against_brute_force(frames, name):
     cfg = _slab_cfg(name)
     for f in frames[name]:
-        _check_prepass_rows(cfg, f["cand_cid"], f["ws_s"], f["wc_s"],
+        _check_prepass_rows(cfg, f["cand_cid"], *_slab_tables(cfg, f, True),
                             f["cell_start"])

@@ -3,38 +3,37 @@ against the JAX package.
 
 In JAX a block's lanes split into G spatial groups, each with its own rod
 windows (``ops/pallas_step_t.py::_block_windows_t``, the (block, group,
-rod) layout), merged in the kernels by ``_merge_cols``.  The port builds the
-same tables, bit for bit, on one GPU and on the slab engine, and its plain
-twins walk each group's windows for that group's rows.  The band kernels
-read no window table, so on the card the knob changes only the tables'
-size (``chip_smoke.py`` phase 17 holds the card's step at G = 2 and 4
+rod) layout), merged in the kernels by ``_merge_cols``.  The port's sweeps
+and twins walk each row's cell bands and read no window table, so G
+changes nothing on its path; each band holds exactly the masked rows of
+its group's window in JAX's tables at every G, on one GPU and on the slab
+engine (``chip_smoke.py`` phase 17 holds the card's step at G = 2 and 4
 bit-equal to G = 1).
 
-Bars: window tables bit-equal; step quantities against JAX's Pallas
-kernels in interpreter mode on the 512-particle disk of
+Bars: bands against the JAX tables by brute force; step quantities against
+JAX's Pallas kernels in interpreter mode on the 512-particle disk of
 ``tests/test_pallas_transposed.py``: neighbor counts equal, rho rel-L2 <=
 1e-6, acc rel-L2 <= 1e-4 (the ROADMAP's bars; JAX reduces its force terms
 through block-relative MXU dots, the twins sum pairs directly).
 """
 
-import jax.numpy as jnp
+import jax_windows
 import numpy as np
 import pytest
 import torch
 
 from smoothed_particle_hydrodynamics_tpu.models import make_scene as jscene
 from smoothed_particle_hydrodynamics_tpu.ops import pallas_step_t as jpt
-from smoothed_particle_hydrodynamics_tpu.parallel import slabs as js
 from smoothed_particle_hydrodynamics_tpu_torch.config import SphConfig as TCfg
 from smoothed_particle_hydrodynamics_tpu_torch.models import make_scene
 from smoothed_particle_hydrodynamics_tpu_torch.ops import pairwise as tpair
 from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
-from smoothed_particle_hydrodynamics_tpu_torch.ops.grid import (
-    cell_coords, linear_cell_id)
+from smoothed_particle_hydrodynamics_tpu_torch.ops.grid import NO_CELL
 from smoothed_particle_hydrodynamics_tpu_torch.parallel import comm
 from smoothed_particle_hydrodynamics_tpu_torch.parallel import slabs as ts
 from smoothed_particle_hydrodynamics_tpu_torch.state import state_from_numpy
-from test_torch_slabs import FRAMES, _frame, _synthetic_cids
+from test_torch_slabs import (FRAMES, _frame, _live_bands, _synthetic_cids,
+                              _synthetic_ext)
 from test_torch_slabs import _scenes as _slab_scenes
 
 # the twins gain nothing from intra-op threads at these sizes
@@ -63,31 +62,26 @@ def _pair(name, **kw):
 @pytest.mark.parametrize("block", [128, 256])
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_block_windows_match_jax(name, block, groups):
-    """``_block_windows_t`` on the sorted cids: [nblocks * G * 9] starts
-    and chunk counts bit-equal to JAX's, in (block, group, rod) order."""
+    """``prepare_t``'s bands against JAX's [nblocks * G, 9] tables
+    (``_block_windows_t``, (block, group, rod) order): each row's band is
+    exactly its group's rod window rows that pass the cid mask, in order;
+    and each group's window lies inside its block's G = 1 window."""
     jc, _, tc, tst = _pair(name, pallas_window_t=64, pallas_block_t=block,
                            pallas_groups=groups, **SCENES[name])
-    cid = torch.sort(linear_cell_id(tc, cell_coords(tc, tst.position))).values
-    n = cid.shape[0]
-    nblocks = -(-n // block)
-    n_pad = sw._n_pad(tc, n)
-    ws, wc, _ = sw._block_windows_t(tc, cid, nblocks, 64, n, n_pad)
-    ws_j, wc_j = jpt._block_windows_t(jc, jnp.asarray(cid.numpy()), nblocks,
-                                      64, n, n_pad)
-    assert ws.shape == (nblocks * groups * sw.NRODS,)
-    # JAX returns them [nblocks * G, 9]; its prepare_t flattens them
-    np.testing.assert_array_equal(ws.numpy(), np.asarray(ws_j).reshape(-1))
-    np.testing.assert_array_equal(wc.numpy(), np.asarray(wc_j).reshape(-1))
-    # prepare_t builds the same tables
     p = sw.prepare_t(tc, tst)
-    assert torch.equal(p.ws, ws) and torch.equal(p.wc, wc)
+    n = p.cid.shape[0]
+    nblocks = -(-n // block)
+    ws, wc = jax_windows.single_chip(tc, p.cid.numpy())
+    assert ws.shape == (nblocks * groups, sw.NRODS)
+    a, e = sw.band_ranges(tc, p.cid, p.cell_start)
+    assert jax_windows.assert_bands(tc, ws, wc, p.cid, p.cid, a.numpy(),
+                                    e.numpy(), n) == 0
     if groups > 1:
-        # each group's window lies inside its block's G = 1 window
-        ws1, wc1, _ = sw._block_windows_t(tc.replace(pallas_groups=1), cid,
-                                          nblocks, 64, n, n_pad)
-        lo1 = ws1.view(nblocks, 1, 9)
-        hi1 = lo1 + 64 * wc1.view(nblocks, 1, 9)
-        lo, cnt = ws.view(nblocks, groups, 9), wc.view(nblocks, groups, 9)
+        ws1, wc1 = jax_windows.single_chip(tc.replace(pallas_groups=1),
+                                           p.cid.numpy())
+        lo1 = ws1.reshape(nblocks, 1, 9)
+        hi1 = lo1 + 64 * wc1.reshape(nblocks, 1, 9)
+        lo, cnt = ws.reshape(nblocks, groups, 9), wc.reshape(nblocks, groups, 9)
         inside = (lo >= lo1) & (lo + 64 * cnt <= hi1 + 64)
         assert bool(inside[cnt > 0].all())
 
@@ -118,13 +112,15 @@ def test_step_quantities_match_jax_interpret(groups):
 @pytest.mark.parametrize("groups", [2, 4])
 def test_twins_at_groups_match_the_oracle_and_g1(groups):
     """A packed splash (~14 neighbors a row, multi-chunk windows at
-    G = 1): the twins at G against the O(N^2) oracle and against G = 1
-    (counts equal; rho and acc to the bars, as their chunks differ)."""
+    G = 1 in JAX's tables): the twins at G against the O(N^2) oracle (to
+    the bars) and against G = 1 (bit-equal: the same bands)."""
     cfg, st = make_scene("splash", device="cpu", num_particles=2048,
                          cell_size_factor=1.25, pallas_window_t=64,
                          grid_nx=16, grid_ny=16, grid_nz=16,
                          gravity=(0.0, 0.0, 0.0), pallas_groups=groups)
-    assert int(sw.prepare_t(cfg.replace(pallas_groups=1), st).wc.max()) > 1
+    cid = sw.prepare_t(cfg, st).cid.numpy()
+    assert int(jax_windows.single_chip(cfg.replace(pallas_groups=1),
+                                       cid)[1].max()) > 1
     acc, rho, aux = sw.compute_step_quantities(cfg, st)
     acc1, rho1, aux1 = sw.compute_step_quantities(
         cfg.replace(pallas_groups=1), st)
@@ -134,54 +130,59 @@ def test_twins_at_groups_match_the_oracle_and_g1(groups):
     assert float(nc_o.float().mean()) > 10
     assert torch.equal(aux.neighbor_count, nc_o)
     assert torch.equal(aux.neighbor_count, aux1.neighbor_count)
-    assert _rel(rho, rho_o) <= RHO_BAR and _rel(rho, rho1) <= RHO_BAR
-    assert _rel(acc, acc_o) <= ACC_BAR and _rel(acc, acc1) <= ACC_BAR
+    assert _rel(rho, rho_o) <= RHO_BAR and torch.equal(rho, rho1)
+    assert _rel(acc, acc_o) <= ACC_BAR and torch.equal(acc, acc1)
 
 
 @pytest.mark.parametrize("ndev,d", FRAMES)
 @pytest.mark.parametrize("groups", [2, 4])
 def test_slab_tables_match_jax(ndev, d, groups):
-    """The slab engine's frozen exact tables (``_pallas_tables``, dead-row
-    aware and plane-local) at G, bit-equal to JAX's, with every (block,
-    group) row of a dead block empty."""
-    jc, _, tc, tst = _slab_scenes()
-    jc = jc.replace(pallas_window_t=64, pallas_groups=groups)
+    """The slab engine's exact band table against JAX's frozen tables at G
+    (``_pallas_tables``, dead-row aware and plane-local): each live own
+    row's band holds its group's rod window rows that pass the cid mask and
+    are live, in order; every (block, group) row of a dead block is empty in
+    JAX's table, and the port's dead rows walk nothing; the placeholder
+    table of the carry before its first rebin has the band's layout."""
+    _, _, tc, tst = _slab_scenes()
     tc = tc.replace(pallas_window_t=64, pallas_groups=groups)
     f = _frame(tc, tst, ndev, d)
-    args = (f["h_cap"], f["p_cap"])
-    got = ts._pallas_tables(tc, f["cid_s"], f["cid_ext"], *args, f["cnt"],
-                            f["slab_hi"], f["base"], f["loc"])
-    ref = js._pallas_tables(jc, jnp.asarray(f["cid_s"]),
-                            jnp.asarray(f["cid_ext"]), *args,
-                            jnp.int32(f["cnt"]), jnp.int32(f["slab_hi"]),
-                            jnp.int32(f["base"]), f["loc"])
-    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
-    np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
+    ws, wc = jax_windows.slab(tc, f["cid_s"], f["cid_ext"], f["h_cap"],
+                              f["p_cap"], f["cnt"], f["slab_hi"], f["base"],
+                              f["loc"])
+    band, a, e = _live_bands(tc, f)
+    valid = (f["ext"][:, 7] >= 0).numpy()
+    jax_windows.assert_bands(tc, ws, wc, f["cid_s"], f["cid_ext"], a, e,
+                             f["ext"].shape[0], band.rows.numpy(), valid,
+                             f["cnt"])
     nblocks = f["p_cap"] // sw._blane(tc)
-    assert got[0].shape == (nblocks * groups * sw.NRODS,)
-    dead = torch.arange(nblocks) * sw._blane(tc) >= f["cnt"]
-    assert not got[1].view(nblocks, groups * 9)[dead].any()
-    # the placeholder tables of the carry before its first rebin
-    zeros = ts._table_zeros(tc, "pallas", f["p_cap"])
-    assert zeros[0].shape == got[0].shape == zeros[1].shape
+    assert ws.shape == (nblocks * groups, sw.NRODS)
+    dead = np.arange(nblocks) * sw._blane(tc) >= f["cnt"]
+    assert not wc.reshape(nblocks, groups * 9)[dead].any()
+    assert (band.cid[f["cnt"]:] == NO_CELL).all()
+    # the placeholder table of the carry before its first rebin
+    zeros, = ts._table_zeros(tc, "pallas", f["p_cap"])
+    assert zeros.cid.shape == band.cid.shape
+    assert zeros.cell_start.shape == band.cell_start.shape
 
 
 @pytest.mark.parametrize("case", ["dead", "mid_slab"])
 def test_slab_tables_synthetic_match_jax(case):
+    """The JAX tests' hand-built layouts at G = 2: the live own rows' bands
+    against JAX's tables of the same cids."""
     jc, _ = jscene("dam_break", num_particles=4096, grid_nx=16, grid_ny=16,
                    grid_nz=16, pallas_window_t=64, pallas_groups=2)
     tc = TCfg.from_json(jc.to_json())
     cid_loc, cid_ext, h_cap, p_cap, cnt, slab_hi, base, loc = \
         _synthetic_cids(case)
-    got = ts._pallas_tables(tc, torch.from_numpy(cid_loc),
-                            torch.from_numpy(cid_ext), h_cap, p_cap, cnt,
-                            slab_hi, base, loc)
-    ref = js._pallas_tables(
-        jc, jnp.asarray(cid_loc), jnp.asarray(cid_ext), h_cap, p_cap,
-        jnp.int32(cnt), jnp.int32(slab_hi),
-        None if base is None else jnp.int32(base), loc)
-    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
-    np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
+    ws, wc = jax_windows.slab(tc, cid_loc, cid_ext, h_cap, p_cap, cnt,
+                              slab_hi, base, loc)
+    ext = _synthetic_ext(cid_ext, h_cap, p_cap, cnt)
+    f = dict(ext=ext, cid_ext=torch.from_numpy(cid_ext),
+             cid_s=torch.from_numpy(cid_loc), cnt=cnt, h_cap=h_cap)
+    band, a, e = _live_bands(tc, f)
+    jax_windows.assert_bands(tc, ws, wc, cid_loc, cid_ext, a, e,
+                             cid_ext.shape[0], band.rows.numpy(),
+                             (ext[:, 7] >= 0).numpy(), cnt)
 
 
 @pytest.mark.parametrize("kw,msg", [

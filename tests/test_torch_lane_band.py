@@ -3,15 +3,14 @@ kernels walk (``density_band_lane``/``force_band_lane``,
 ``csrc/sweep_lane.cu``): each row's cell band per rod, intersected with its
 block's rod window (``sweeps_lane.band_ranges_lane``).
 
-On the card the band kernels are held bit-equal to the block-walk kernels
-(``chip_smoke.py`` phase 8); that rests on the fact checked here on the
+The lane twins walk the block windows; the band kernels walk each row's
+band inside them.  They sum the same pairs by the fact checked here on the
 CPU, by brute force against the window table (which
 ``tests/test_torch_lane.py`` holds equal to the JAX package's): for every
 row and rod, the band rows are exactly the rows of the block's window that
-the block walk's cid mask admits before d^2 (pad rows included, which no
-mask admits), so walking them in row order sums the same pairs in the same
-order.  Where the 127-chunk clamp cuts a window, the intersection cuts the
-same rows.
+the cid mask admits before d^2 (pad rows included, which no mask admits),
+in the window's order.  Where the 127-chunk clamp cuts a window, the
+intersection cuts the same rows.
 
 Also: the table against ``np.searchsorted``, the band counts of
 ``utils/walk_stats.py`` against a brute-force count, and the wrappers: a
@@ -123,7 +122,7 @@ def test_lane_band_is_the_masked_part_of_the_block_window(case):
                                                     p.ws, p.wc))
     n_pad = sl.n_pad(cfg, st.n)
     table = _cid_table(p.cid.numpy().astype(np.int64), n_pad)
-    # the field table's cid row is the one the block walk reads
+    # the field table's cid row is the one the twin's window walk reads
     fd = sl.density_fields(cfg, p)
     np.testing.assert_array_equal(fd[-1].view(torch.int32).numpy(), table)
     assert _check_bands(cfg, table, a, e, p.ws.numpy(), p.wc.numpy(),
@@ -218,7 +217,7 @@ def test_lane_launch_refuses_a_bad_table(kernel, table, monkeypatch):
     """On the card (here: the kernel path forced for CPU tensors) a lane
     sweep without the frame's cell-start table, or with one of the wrong
     shape, raises before any library is built; it never falls back to the
-    block walk or the twin."""
+    twin."""
     cfg, st, p = _prepared("disk")
     monkeypatch.setattr(sl, "use_plain", lambda x: False)
     monkeypatch.setattr(sl, "_kernels", None)  # a build would fail

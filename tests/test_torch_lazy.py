@@ -13,6 +13,7 @@ kinetic energy to rel 1e-5.
 from functools import partial
 
 import jax
+import jax_windows
 import numpy as np
 import pytest
 import torch
@@ -61,8 +62,7 @@ def test_lazy_steps_match_jax_interpret():
         rebins.append(tcarry.rebin_count)
         np.testing.assert_array_equal(tcarry.order.numpy(),
                                       np.asarray(jcarry.order))
-        np.testing.assert_array_equal(tcarry.ws.numpy(), np.asarray(jcarry.ws))
-        np.testing.assert_array_equal(tcarry.wc.numpy(), np.asarray(jcarry.wc))
+        jax_windows.assert_prepared(tc, tcarry, jcarry.ws, jcarry.wc)
         np.testing.assert_array_equal(tcarry.state.neighbor_count.numpy(),
                                       np.asarray(jcarry.state.neighbor_count))
         assert _rel(tcarry.state.position.numpy(),

@@ -101,15 +101,18 @@ def _jax_probe(jc, jp, k: int, mode: str) -> np.ndarray:
 
 def _window(tc, tp, mode: str, k: int) -> np.ndarray:
     frame = pf.window_frame(tc, tp)
-    return pf.floor_window_t(frame, tp.pos_s[:, 0].contiguous(), tp.ws,
-                             tc.pallas_window_t, sweeps_t._blane(tc), mode,
-                             k).numpy()
+    return pf.floor_window_t(frame, tp.pos_s[:, 0].contiguous(),
+                             pf.window_tables(tc, tp)[0], tc.pallas_window_t,
+                             sweeps_t._blane(tc), mode, k).numpy()
 
 
 def test_window_tables_equal_jax():
+    """The probe builds its own window tables (no sweep of the port reads
+    one): the JAX package's, value for value."""
     jc, jp, tc, tp = _exact()
-    np.testing.assert_array_equal(tp.ws.numpy(), np.asarray(jp.ws))
-    np.testing.assert_array_equal(tp.wc.numpy(), np.asarray(jp.wc))
+    ws, wc = pf.window_tables(tc, tp)
+    np.testing.assert_array_equal(ws.numpy(), np.asarray(jp.ws))
+    np.testing.assert_array_equal(wc.numpy(), np.asarray(jp.wc))
     assert pf.window_frame(tc, tp).shape == (pst._n_pad_rows(jc, N), 6)
 
 
@@ -215,16 +218,17 @@ def test_wrappers_take_the_plain_version_on_cpu_and_refuse_other_devices():
     x = tp.pos_s[:, 0].contiguous()
     frame = pf.window_frame(tc, tp)
     block = sweeps_t._blane(tc)
+    ws, _ = pf.window_tables(tc, tp)
     before = pf.floor_window_t.launches
     assert torch.equal(
-        pf.floor_window_t(frame, x, tp.ws, tc.pallas_window_t, block,
+        pf.floor_window_t(frame, x, ws, tc.pallas_window_t, block,
                           "nostage", 2),
-        pf.floor_window_t_plain(frame, x, tp.ws, tc.pallas_window_t, block,
+        pf.floor_window_t_plain(frame, x, ws, tc.pallas_window_t, block,
                                 "nostage", 2))
     assert pf.floor_window_t.launches == before
     meta = x.to("meta")
     with pytest.raises(ValueError, match="cuda"):
-        pf.floor_window_t(frame, meta, tp.ws, tc.pallas_window_t, block,
+        pf.floor_window_t(frame, meta, ws, tc.pallas_window_t, block,
                           "full", 2)
     with pytest.raises(ValueError, match="cuda"):
         pf.floor_band_t(tc, pf.band_frame(tc, tp, 4), meta, tp.cid,

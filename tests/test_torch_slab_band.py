@@ -4,11 +4,10 @@ of ``csrc/sweep_t.cu`` through ``parallel/slab_sweeps.py``): the frozen
 halo], built by the engine's own ``prepare_frame`` on 1, 2 and 4 gloo ranks
 (``parallel.comm.spawn_ranks``, the ranks tests' scenes and setups).
 
-On the card the band kernels are held bit-equal to the ``EXCL_ROW`` block
-walks over the raw frame on every live row (``chip_smoke.py`` phase 11);
-that rests on what is checked here on the CPU, by brute force against the
-raw frame's window tables (``tests/test_torch_slabs.py`` holds those equal
-to JAX's):
+The JAX engine walks each own block's rod windows over the raw frame
+(``parallel/slabs.py::_pallas_tables``) and masks them by cell id.  Checked
+here on the CPU, by brute force against the JAX engine's own tables of the
+same frames (``tests/jax_windows.py``):
 
 * the band kernels' candidates are exactly the frame's valid rows, in
   order: the live left-halo rows, the own slab's first ``count`` rows, the
@@ -16,20 +15,21 @@ to JAX's):
 * ``cell_start`` is the search of those rows' cids, and the own dead rows
   carry self cid ``NO_CELL``;
 * each live own row's band for a rod, mapped back to the raw frame, is
-  exactly the rows of its block's rod window that pass the block walk's cid
-  mask and are live, so walking it in order sums the same pairs in the same
-  order;
+  exactly the rows of its block's rod window that pass the cid mask and are
+  live, in the window's order;
 * no band holds a dead or inert row, also where the slab's top corner cell
   and a short neighbour's last cell are populated (the frames where a table
   over the raw frame puts the dead runs inside real cells).
 
-Also: the pairs within h found through the bands against a brute force, the
-band kernels' argument plumbing against the twins (a PyTorch walk of the
-same bands in place of the launch), ``utils/walk_stats.py``'s slab band
-counts, the lazy carry freezing the tables and rebuilding them at a rebin,
-and a card launch without the table refused.
+Also: the pairs within h found through the bands against a brute force,
+the twins on the wrappers' arguments against a pairwise oracle handed the
+band kernels' arguments (a dense walk of every candidate in place of the
+launch), ``utils/walk_stats.py``'s slab band counts, the lazy carry freezing
+the tables and rebuilding them at a rebin, and a card launch without the
+table refused.
 """
 
+import jax_windows
 import numpy as np
 import pytest
 import torch
@@ -70,12 +70,14 @@ def _record(cfg, fr, band, caps, zsplit, rank) -> dict:
                             caps[1])
     return dict(
         ext=fr.ext.numpy(), cid_ext=fr.cid_ext.numpy(), cid_s=fr.cid_s.numpy(),
-        count=fr.count, ws=fr.tabs[0].numpy(), wc=fr.tabs[1].numpy(),
-        cell_start=band.cell_start.numpy(), cid=band.cid.numpy(),
-        rows=band.rows.numpy(), nl=band.nl, nr=band.nr, need=fr.need,
+        count=fr.count, cell_start=band.cell_start.numpy(),
+        cid=band.cid.numpy(), rows=band.rows.numpy(), nl=band.nl, nr=band.nr,
+        need=fr.need,
         fresh_equal=all(np.array_equal(np.asarray(a), np.asarray(b))
                         for a, b in zip(fresh, band)),
-        h_cap=caps[1], p_cap=caps[0], slab_hi=zsplit[rank + 1] * nxny)
+        h_cap=caps[1], p_cap=caps[0], slab_hi=zsplit[rank + 1] * nxny,
+        base=(zsplit[rank] - 1) * nxny,
+        loc=(max(b - a for a, b in zip(zsplit, zsplit[1:])) + 2) * nxny)
 
 
 def band_frames(group, jobs: list[dict]) -> list[list[dict]]:
@@ -100,9 +102,9 @@ def band_frames(group, jobs: list[dict]) -> list[list[dict]]:
                 carry = carry._replace(fields=f)
             fr = ts.prepare_frame(cfg, group, *caps, "pallas", zs, True, 0,
                                   carry)
-            band = fr.tabs[2]
+            band, = fr.tabs
             rec = _record(cfg, fr, band, caps, zs, group.rank)
-            rec["same"] = band is carry.tabs[2]
+            rec["same"] = band is carry.tabs[0]
             recs.append(rec)
             carry, _ = ts.slab_step_body(cfg, group, *caps, 4096, "pallas",
                                          zs, True, 0, carry)
@@ -239,22 +241,23 @@ def _cell_xyz(cfg, cid):
 @pytest.mark.parametrize("name", FRAMES)
 def test_band_is_the_live_masked_part_of_the_block_window(frames, name):
     """Brute force over every live own row and rod: the band's rows, mapped
-    back to the raw frame, hold the rows of the block's rod window that pass
-    the cid mask and are live, in order (the block walk's candidates: a dead
-    or inert row's d^2 is inf), and beyond them only rows of cells the
-    linear cid band reaches by wrapping in x or y (no 3D neighbour of the
-    row's cell, so never within h): the window tables are plane-local and
-    leave out such cells two planes from the slab, the bands do not.  Both
-    walks therefore sum the same pairs in the same order; the frames with
-    wrapped extras are counted to show the case is exercised."""
+    back to the raw frame, hold the rows of the block's rod window (the JAX
+    engine's table) that pass the cid mask and are live, in order (a dead or
+    inert row's d^2 is inf), and beyond them only rows of cells the linear
+    cid band reaches by wrapping in x or y (no 3D neighbour of the row's
+    cell, so never within h): the window tables are plane-local and leave
+    out such cells two planes from the slab, the bands do not.  Both walks
+    therefore sum the same pairs in the same order; the frames with wrapped
+    extras are counted to show the case is exercised."""
     cfg = _cfg(name)
     b, s_t = sw._blane(cfg), cfg.pallas_window_t
     deltas = np.asarray(rod_deltas(cfg))
     wrapped = 0
     for _, f in _ranks(frames, name):
         e_rows = f["ext"].shape[0]
-        ws = f["ws"].reshape(-1, 9).astype(np.int64)
-        wc = f["wc"].reshape(-1, 9).astype(np.int64)
+        ws, wc = jax_windows.slab(cfg, f["cid_s"], f["cid_ext"], f["h_cap"],
+                                  f["p_cap"], f["count"], f["slab_hi"],
+                                  f["base"], f["loc"])
         cid_ext = f["cid_ext"].astype(np.int64)
         xyz = _cell_xyz(cfg, cid_ext)
         valid = f["ext"][:, OID] >= 0
@@ -350,7 +353,7 @@ def test_pairs_within_h_through_the_bands_equal_a_brute_force(frames, name):
 
 
 # ---------------------------------------------------------------------------
-# The kernels' arguments: a PyTorch walk of the bands in place of the launch
+# The kernels' arguments: a pairwise oracle in place of the launch
 # ---------------------------------------------------------------------------
 
 # the band kernel each slab wrapper launches: exact without candidate src
@@ -361,40 +364,38 @@ WALKED = {("K1", False): "density_band_t[slab]",
           ("K2", True): "force_band_t<capped>[slab]"}
 
 
-def _not_own(n, m, cand_src, self_base):
-    """[n, m]: candidate j is not self row i, whose own id is ``self_base +
-    i``; j's id is its row (exact) or ``cand_src[j]`` (capped)."""
+def _oracle_mask(cfg, d2, cell_start, cand_src, self_base):
+    """[n, m]: the pairs a pairwise oracle sums, every candidate in a cell
+    (the table's last entry counts them: the live rows, or the sub frame's
+    kept rows) within h, less self row i's own id ``self_base + i``; j's id
+    is its row (exact) or ``cand_src[j]`` (capped)."""
+    n, m = d2.shape
     ids = torch.arange(m) if cand_src is None else cand_src.long()
-    return ids[None] != self_base + torch.arange(n)[:, None]
+    return ((torch.arange(m) < int(cell_start[-1]))[None] & (d2 < cfg.h2)
+            & (ids[None] != self_base + torch.arange(n)[:, None]))
 
 
 def _walk_density(cfg, pos_s, mass_s, cid, cell_start, cand_pos, cand_mass,
-                  cand_src, kernel, self_base=0):
-    """The band kernel K1's sums with dense tensors: the pairs of each self
-    row's bands, less its own id ``self_base + i``, within h."""
-    assert kernel == WALKED["K1", cand_src is not None]
-    n, m = pos_s.shape[0], cand_pos.shape[0]
-    a, e = sw.band_ranges(cfg, cid, cell_start)
+                  cand_src=None, self_base=0, self_src=None, *, kernel):
+    """The pairwise oracle on the band kernel K1's arguments, with dense
+    tensors."""
+    assert kernel == WALKED["K1", cand_src is not None] and self_src is None
     d2 = _d2(pos_s, cand_pos)
-    mask = (_in_band(a, e, m) & (d2 < cfg.h2)
-            & _not_own(n, m, cand_src, self_base))
+    mask = _oracle_mask(cfg, d2, cell_start, cand_src, self_base)
     t = cfg.h_scaled2 - d2 * np.float32(cfg.sim_scale * cfg.sim_scale)
     w = torch.where(mask, cand_mass[None] * (cfg.poly6_norm * t * t * t), 0.0)
     return (physics.self_density(cfg, w.sum(1), mass_s),
             mask.sum(1, dtype=torch.int32))
 
 
-def _walk_force(cfg, pos_s, vel_s, rho_s, cand, cid, cell_start, cand_src,
-                kernel, self_base=0):
-    """The band kernel K2's sums with dense tensors (force_t_plain's
-    formulas on each self row's band pairs)."""
+def _walk_force(cfg, pos_s, vel_s, rho_s, cand, cid, cell_start,
+                cand_src=None, self_base=0, *, kernel):
+    """The pairwise oracle on the band kernel K2's arguments, with dense
+    tensors (force_t_plain's formulas)."""
     assert kernel == WALKED["K2", cand_src is not None]
-    n, m = pos_s.shape[0], cand.shape[0]
-    a, e = sw.band_ranges(cfg, cid, cell_start)
     dxyz = [cand[None, :, c] - pos_s[:, None, c] for c in range(3)]
     d2 = dxyz[0] * dxyz[0] + dxyz[1] * dxyz[1] + dxyz[2] * dxyz[2]
-    mask = (_in_band(a, e, m) & (d2 < cfg.h2)
-            & _not_own(n, m, cand_src, self_base))
+    mask = _oracle_mask(cfg, d2, cell_start, cand_src, self_base)
     rhoi = rho_s[:, None]
     rhoi_inv = physics.safe_inv(rhoi)
     pw_i = ((rhoi - np.float32(cfg.rho0)) * np.float32(cfg.stiffness)
@@ -415,6 +416,24 @@ def _walk_force(cfg, pos_s, vel_s, rho_s, cand, cid, cell_start, cand_src,
     return torch.stack(acc, dim=1)
 
 
+def _twin_cand_cols(cfg, pos_c, vel_c, rho_c, m_c, index, out):
+    """``sw._launch_cand_cols`` on the CPU: the twin's columns."""
+    if index is not None:
+        rows = index.long()
+        pos_c, vel_c, rho_c = pos_c[rows], vel_c[rows], rho_c[rows]
+    out.copy_(sw.fused_cand_cols_plain(cfg, pos_c, vel_c, rho_c, m_c))
+
+
+def _oracle_path(mp):
+    """Force the kernel path for CPU tensors, with the pairwise oracles in
+    place of the band launches (and the twin's candidate columns in place
+    of ``cand_cols_t``'s)."""
+    mp.setattr(sw, "_use_plain", lambda x: False)
+    mp.setattr(sw, "_launch_density_band", _walk_density)
+    mp.setattr(sw, "_launch_force_band", _walk_force)
+    mp.setattr(sw, "_launch_cand_cols", _twin_cand_cols)
+
+
 def _rel(a, b):
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
@@ -422,41 +441,36 @@ def _rel(a, b):
 @pytest.mark.parametrize("name", ["dam-w2", "corner-w4"])
 def test_band_arguments_give_the_twins_sums_on_live_rows(frames, name,
                                                          monkeypatch):
-    """``density_local``/``force_local`` on the kernel path (launches
-    replaced by a PyTorch walk of the bands they are handed) against the
-    block-walk twins over the raw frame: counts equal and rho, acc within
-    the bars on the live own rows; the dead rows 0 (the twins count dead
-    rows within h of each other)."""
+    """``density_local``/``force_local``'s twins against a pairwise oracle
+    handed the band kernels' arguments (the kernel path, its launches
+    replaced by a dense walk of every live candidate): counts equal and
+    rho, acc within the bars on the live own rows; the dead rows 0 on both
+    sides."""
     cfg = _cfg(name)
     pairs = live = 0
     for _, f in _ranks(frames, name):
-        ext, cid_ext = torch.from_numpy(f["ext"]), torch.from_numpy(f["cid_ext"])
-        ws, wc = torch.from_numpy(f["ws"]), torch.from_numpy(f["wc"])
+        ext = torch.from_numpy(f["ext"])
         band = ss.SlabBand(torch.from_numpy(f["cell_start"]),
                            torch.from_numpy(f["cid"]),
                            torch.from_numpy(f["rows"]), f["nl"], f["nr"])
         hp = (f["h_cap"], f["p_cap"])
-        rho_t, nc_t = ss.density_local(cfg, ext, cid_ext, ws, wc, *hp, band)
+        rho_t, nc_t = ss.density_local(cfg, ext, *hp, band)
         rho_e = torch.where(ext[:, OID] >= 0, 1000.0 + ext[:, 2], 0.0)
         rho_l = rho_e[hp[0]:hp[0] + hp[1]]
-        acc_t = ss.force_local(cfg, ext, cid_ext, rho_e, rho_l, ws, wc, *hp,
-                               band)
+        acc_t = ss.force_local(cfg, ext, rho_e, rho_l, *hp, band)
         with monkeypatch.context() as mp:
-            mp.setattr(ss, "_use_plain", lambda x: False)
-            mp.setattr(sw, "_launch_density_band", _walk_density)
-            mp.setattr(sw, "_launch_force_band", _walk_force)
-            rho_k, nc_k = ss.density_local(cfg, ext, cid_ext, ws, wc, *hp,
-                                           band)
-            acc_k = ss.force_local(cfg, ext, cid_ext, rho_e, rho_l, ws, wc,
-                                   *hp, band)
+            _oracle_path(mp)
+            rho_k, nc_k = ss.density_local(cfg, ext, *hp, band)
+            acc_k = ss.force_local(cfg, ext, rho_e, rho_l, *hp, band)
         cnt = f["count"]
         assert torch.equal(nc_k[:cnt], nc_t[:cnt])
-        pairs += int(nc_k[:cnt].sum())
+        pairs += int(nc_t[:cnt].sum())
         live += cnt
         assert _rel(rho_k[:cnt], rho_t[:cnt]) <= RHO_BAR
         assert _rel(acc_k[:cnt], acc_t[:cnt]) <= ACC_BAR
+        assert not nc_t[cnt:].any() and not rho_t[cnt:].any()
         assert not nc_k[cnt:].any() and not rho_k[cnt:].any()
-        assert torch.isfinite(acc_k).all()
+        assert torch.isfinite(acc_t).all()
     assert pairs > 3 * live, "neighbors must be found"
     assert ss.density_ext.launches == ss.force_ext.launches == len(
         frames[name])
@@ -467,22 +481,21 @@ def test_band_arguments_give_the_twins_sums_on_live_rows(frames, name,
 def test_card_launch_refuses_a_missing_table(frames, kernel, monkeypatch):
     """On the card (here: the kernel path forced for CPU tensors) an exact
     slab sweep without the live rows' table raises before any library is
-    built; it never falls back to the block walk."""
+    built; it never falls back to a window walk."""
     cfg = _cfg("dam-w1")
     f = frames["dam-w1"][0]
-    ext, cid_ext = torch.from_numpy(f["ext"]), torch.from_numpy(f["cid_ext"])
-    ws, wc = torch.from_numpy(f["ws"]), torch.from_numpy(f["wc"])
+    ext = torch.from_numpy(f["ext"])
     hp = (f["h_cap"], f["p_cap"])
-    monkeypatch.setattr(ss, "_use_plain", lambda x: False)
+    monkeypatch.setattr(sw, "_use_plain", lambda x: False)
     monkeypatch.setattr(sw, "_kernels", None)  # a build would fail
+    monkeypatch.setattr(sw, "_launch_cand_cols", _twin_cand_cols)
     ss.density_ext.launches = ss.force_ext.launches = 0
     with pytest.raises(ValueError, match="cell-start table"):
         if kernel == "density":
-            ss.density_local(cfg, ext, cid_ext, ws, wc, *hp)
+            ss.density_local(cfg, ext, *hp, None)
         else:
             rho_e = torch.ones(ext.shape[0])
-            ss.force_local(cfg, ext, cid_ext, rho_e, rho_e[:hp[1]], ws, wc,
-                           *hp)
+            ss.force_local(cfg, ext, rho_e, rho_e[:hp[1]], *hp, None)
     assert ss.density_ext.launches == 0 and ss.force_ext.launches == 0
 
 

@@ -6,27 +6,27 @@ engine's own ``prepare_frame`` on 1, 2 and 4 gloo ranks
 (``parallel.comm.spawn_ranks``) with ``capped_candidates=4``, on the
 dam-break and populated-corner frames of ``tests/test_torch_slab_band.py``.
 
-On the card the band kernels are held bit-equal to the ``kExclSrc`` block
-walks over the same sub frame on every own row (``chip_smoke.py`` phase
-11); that rests on what is checked here on the CPU, by brute force against
-the sub frame's window tables (``tests/test_torch_slabs.py`` holds the sub
-frame, its tables and the capped callers equal to JAX's):
+The JAX engine walks each own block's rod windows over the sub frame
+(``parallel/slabs.py::_pallas_sub_tables``) and masks them by cell id.
+Checked here on the CPU, by brute force against the JAX engine's own
+tables of the same frames (``tests/jax_windows.py``):
 
 * ``cell_start`` is the search of the kept rows' cids, and
   ``cell_start[num_cells]`` the kept count, so no band reaches the tail;
 * the own dead rows carry self cid ``NO_CELL`` (they walk nothing);
 * each live own row's band for a rod is exactly the rows of its block's rod
-  window that pass the block walk's cid mask, in order, so walking it sums
-  the same pairs in the same order.
+  window that pass the cid mask, in the window's order.
 
 Also: the pairs within h through the bands against a brute force, the
-wrappers' argument plumbing against the twins (a PyTorch walk of the bands
-in place of the launch), ``utils/walk_stats.py``'s capped slab counts, the
+twins on the wrappers' arguments against a pairwise oracle handed the band
+kernels' arguments (a dense walk of every kept candidate in place of the
+launch), ``utils/walk_stats.py``'s capped slab counts, the
 world-1 table against the single-chip capped table, the lazy carry
 freezing the table and rebuilding it at a rebin (two-pass and fused), the
 placeholder tables' layout, and a card call without the table refused.
 """
 
+import jax_windows
 import numpy as np
 import pytest
 import torch
@@ -43,8 +43,8 @@ from smoothed_particle_hydrodynamics_tpu_torch.state import (
 from smoothed_particle_hydrodynamics_tpu_torch.utils.walk_stats import (
     band_rows_per_lane, corner_state, slab_sub_band_rows_per_lane)
 from test_torch_slab_band import (ACC_BAR, OID, RHO_BAR, SCENE, TIMEOUT_S,
-                                  _d2, _in_band, _rel,
-                                  _walk_density, _walk_force)
+                                  _d2, _in_band, _oracle_path, _rel,
+                                  _twin_cand_cols)
 
 torch.set_num_threads(1)
 
@@ -72,20 +72,21 @@ def _record(cfg, fr, job, rank, sub_len) -> dict:
     nxny = cfg.grid_nx * cfg.grid_ny
     zs, (p_cap, h_cap, _) = job["zsplit"], job["caps"]
     slab_lo, slab_hi = zs[rank] * nxny, zs[rank + 1] * nxny
-    ws, wc, sub_src, cand_cid, w_sub, _, band = fr.tabs[:7]
+    sub_src, cand_cid, w_sub, _, band = fr.tabs
     cid_search = ts._capped_sub_frame(cfg, fr.ext, fr.cid_ext, sub_len,
                                       slab_lo, slab_hi)[2]
     fresh = ts._sub_band(cfg, cid_search, fr.cid_s, fr.count)
     zeros = ts._table_zeros(cfg, "pallas", p_cap, sub_len)
     return dict(
         ext=fr.ext.numpy(), cid_ext=fr.cid_ext.numpy(), cid_s=fr.cid_s.numpy(),
-        count=fr.count, ws=ws.numpy(), wc=wc.numpy(), sub_src=sub_src.numpy(),
+        count=fr.count, sub_src=sub_src.numpy(),
         cand_cid=cand_cid.numpy(), w_sub=w_sub.numpy(),
         cell_start=band.cell_start.numpy(), cid=band.cid.numpy(),
         need=fr.need, fresh_equal=all(torch.equal(a, b)
                                       for a, b in zip(fresh, band)),
         layout=_structure(fr.tabs), zero_layout=_structure(zeros),
-        h_cap=h_cap, p_cap=p_cap, slab_hi=slab_hi)
+        h_cap=h_cap, p_cap=p_cap, slab_hi=slab_hi, base=slab_lo - nxny,
+        loc=(max(b - a for a, b in zip(zs, zs[1:])) + 2) * nxny)
 
 
 def capped_frames(group, jobs: list[dict]) -> list[list[dict]]:
@@ -114,7 +115,7 @@ def capped_frames(group, jobs: list[dict]) -> list[list[dict]]:
             fr = ts.prepare_frame(cfg, group, *caps, "pallas", zs, True,
                                   sub_len, carry)
             rec = _record(cfg, fr, job, group.rank, sub_len)
-            rec["same"] = fr.tabs[6] is carry.tabs[6]
+            rec["same"] = fr.tabs[-1] is carry.tabs[-1]
             recs.append(rec)
             carry, _ = ts.slab_step_body(cfg, group, *caps, 4096, "pallas",
                                          zs, True, sub_len, carry)
@@ -245,9 +246,9 @@ def test_own_dead_rows_carry_no_cell(frames, name):
 @pytest.mark.parametrize("name", FRAMES)
 def test_band_is_the_masked_part_of_the_block_window(frames, name):
     """Brute force over every live own row and rod: the band is exactly the
-    rows of the block's rod window over the sub frame that pass the cid
-    mask (the block walk's candidates; the tail's ``TAIL_CID`` fails it),
-    in order, so both walks sum the same pairs in the same order.  Unlike
+    rows of the block's rod window over the sub frame (the JAX engine's
+    table) that pass the cid mask (the tail's ``TAIL_CID`` fails it), in
+    order, so both walks sum the same pairs in the same order.  Unlike
     the exact walk's live rows (``tests/test_torch_slab_band.py``), the sub
     frame holds only the cells the rank can query (own slab +- one plane),
     all inside the plane-local window tables, so no band reaches a row of a
@@ -257,8 +258,9 @@ def test_band_is_the_masked_part_of_the_block_window(frames, name):
     deltas = np.asarray(rod_deltas(cfg))
     for _, f in _ranks(frames, name):
         s_len = f["sub_src"].shape[0]
-        ws = f["ws"].reshape(-1, 9).astype(np.int64)
-        wc = f["wc"].reshape(-1, 9).astype(np.int64)
+        ws, wc = jax_windows.slab_sub(
+            cfg, f["cid_s"], jax_windows.sub_search(cfg, f["cand_cid"]), s_len,
+            f["count"], f["base"], f["loc"])
         cand = f["cand_cid"].astype(np.int64)
         a, e = _bands(cfg, f)
         for i in range(f["count"]):
@@ -310,49 +312,46 @@ def test_pairs_within_h_through_the_bands_equal_a_brute_force(frames, name):
 
 
 # ---------------------------------------------------------------------------
-# The kernels' arguments: a PyTorch walk of the bands in place of the launch
+# The kernels' arguments: a pairwise oracle in place of the launch
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", FRAMES)
 def test_band_arguments_give_the_twins_sums_on_every_own_row(
         frames, name, monkeypatch):
-    """``density_local_capped``/``force_local_capped`` on the kernel path
-    (launches replaced by a PyTorch walk of the bands they are handed)
-    against the block-walk twins over the sub frame: counts equal and rho,
-    acc within the bars on every own row, the dead rows 0 on both sides."""
+    """``density_local_capped``/``force_local_capped``'s twins against a
+    pairwise oracle handed the band kernels' arguments (the kernel path,
+    its launches replaced by a dense walk of every kept candidate): counts
+    equal and rho, acc within the bars on every own row, the dead rows 0 on
+    both sides."""
     cfg = _cfg(name)
     pairs = live = 0
     ss.density_ext_capped.launches = ss.force_ext_capped.launches = 0
     for _, f in _ranks(frames, name):
-        ext, cid_ext = torch.from_numpy(f["ext"]), torch.from_numpy(f["cid_ext"])
-        ws, wc = torch.from_numpy(f["ws"]), torch.from_numpy(f["wc"])
+        ext = torch.from_numpy(f["ext"])
         sub_src = torch.from_numpy(f["sub_src"])
-        cand_cid = torch.from_numpy(f["cand_cid"])
         w_sub = torch.from_numpy(f["w_sub"])
         g8 = ext[sub_src.long()]
         hp = (f["h_cap"], f["p_cap"])
-        sub = (sub_src, cand_cid, w_sub, *hp)
-        rho_t, nc_t = ss.density_local_capped(cfg, ext, g8, cid_ext, ws, wc,
-                                              *sub, _sub_band(f))
+        sub = (sub_src, w_sub, *hp)
+        rho_t, nc_t = ss.density_local_capped(cfg, ext, g8, *sub,
+                                              _sub_band(f))
         rho_e = torch.where(ext[:, OID] >= 0, 1000.0 + ext[:, 2], 0.0)
         rho_l = rho_e[hp[0]:hp[0] + hp[1]]
-        acc_t = ss.force_local_capped(cfg, ext, g8, cid_ext, rho_e, rho_l,
-                                      ws, wc, *sub, _sub_band(f))
+        acc_t = ss.force_local_capped(cfg, ext, g8, rho_e, rho_l, *sub,
+                                      _sub_band(f))
         with monkeypatch.context() as mp:
-            mp.setattr(ss, "_use_plain", lambda x: False)
-            mp.setattr(sw, "_launch_density_band", _walk_density)
-            mp.setattr(sw, "_launch_force_band", _walk_force)
-            rho_k, nc_k = ss.density_local_capped(cfg, ext, g8, cid_ext, ws,
-                                                  wc, *sub, _sub_band(f))
-            acc_k = ss.force_local_capped(cfg, ext, g8, cid_ext, rho_e,
-                                          rho_l, ws, wc, *sub, _sub_band(f))
+            _oracle_path(mp)
+            rho_k, nc_k = ss.density_local_capped(cfg, ext, g8, *sub,
+                                                  _sub_band(f))
+            acc_k = ss.force_local_capped(cfg, ext, g8, rho_e, rho_l, *sub,
+                                          _sub_band(f))
         cnt = f["count"]
         assert torch.equal(nc_k, nc_t)
         assert _rel(rho_k, rho_t) <= RHO_BAR
         assert _rel(acc_k, acc_t) <= ACC_BAR
-        assert not nc_k[cnt:].any() and not rho_k[cnt:].any()
-        assert torch.isfinite(acc_k).all()
-        pairs += int(nc_k.sum())
+        assert not nc_t[cnt:].any() and not rho_t[cnt:].any()
+        assert torch.isfinite(acc_t).all()
+        pairs += int(nc_t.sum())
         live += cnt
     assert pairs > 3 * live, "neighbors must be found"
     assert ss.density_ext_capped.launches == ss.force_ext_capped.launches \
@@ -364,25 +363,24 @@ def test_band_arguments_give_the_twins_sums_on_every_own_row(
 def test_card_call_refuses_a_missing_table(frames, kernel, monkeypatch):
     """On the card (here: the kernel path forced for CPU tensors) a capped
     slab sweep without the sub frame's table raises before any library is
-    built; it never falls back to the block walk."""
+    built; it never falls back to a window walk."""
     cfg = _cfg("dam-w1")
     f = frames["dam-w1"][0]
-    ext, cid_ext = torch.from_numpy(f["ext"]), torch.from_numpy(f["cid_ext"])
-    ws, wc = torch.from_numpy(f["ws"]), torch.from_numpy(f["wc"])
+    ext = torch.from_numpy(f["ext"])
     sub_src = torch.from_numpy(f["sub_src"])
-    sub = (sub_src, torch.from_numpy(f["cand_cid"]),
-           torch.from_numpy(f["w_sub"]), f["h_cap"], f["p_cap"])
+    sub = (sub_src, torch.from_numpy(f["w_sub"]), f["h_cap"], f["p_cap"])
     g8 = ext[sub_src.long()]
-    monkeypatch.setattr(ss, "_use_plain", lambda x: False)
+    monkeypatch.setattr(sw, "_use_plain", lambda x: False)
     monkeypatch.setattr(sw, "_kernels", None)  # a build would fail
+    monkeypatch.setattr(sw, "_launch_cand_cols", _twin_cand_cols)
     ss.density_ext_capped.launches = ss.force_ext_capped.launches = 0
     with pytest.raises(ValueError, match="cell-start table"):
         if kernel == "density":
-            ss.density_local_capped(cfg, ext, g8, cid_ext, ws, wc, *sub)
+            ss.density_local_capped(cfg, ext, g8, *sub, None)
         else:
             rho_e = torch.ones(ext.shape[0])
-            ss.force_local_capped(cfg, ext, g8, cid_ext, rho_e,
-                                  rho_e[:f["p_cap"]], ws, wc, *sub)
+            ss.force_local_capped(cfg, ext, g8, rho_e, rho_e[:f["p_cap"]],
+                                  *sub, None)
     assert ss.density_ext_capped.launches == 0
     assert ss.force_ext_capped.launches == 0
 
@@ -447,10 +445,10 @@ def test_lazy_carry_freezes_the_sub_band_and_rebuilds_it_on_rebin(
 @pytest.mark.parametrize("fused", [False, True])
 def test_placeholder_tables_have_the_frame_layout(frames, fused):
     """``_table_zeros`` (the carry before its first rebin) lays out the
-    capped tables as ``prepare_frame`` does: the ``SubBand`` after
-    ``sub_dropped``, the fused pre-pass tables after it."""
+    capped tables as ``prepare_frame`` does, two-pass and fused alike: the
+    ``SubBand`` after ``sub_dropped``, last."""
     for recs in frames["lazy"][1, fused]:
         r = recs[0]
         assert r["layout"] == r["zero_layout"]
-        assert len(r["layout"]) == (9 if fused else 7)
-        assert r["layout"][6][0] == "SubBand"
+        assert len(r["layout"]) == 5
+        assert r["layout"][4][0] == "SubBand"

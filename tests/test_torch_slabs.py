@@ -3,8 +3,9 @@ JAX package's (``parallel/slabs.py``), on one rank's frames built host-side.
 
 Scene: the 4096-particle dam break on a 32^3 grid of 1.25h cells (the
 multi-chip dry run's scene), split over 1, 2, 4 or 8 slabs.  Bars: the
-partition helpers, sort, candidate ranges, window tables and capped kept
-set bit-equal; the six slab sweep callers (the JAX kernels in interpreter
+partition helpers, sort, candidate ranges and capped kept set bit-equal;
+the band tables' bands exactly the masked live rows of the JAX engine's
+window tables, in order; the six slab sweep callers (the JAX kernels in interpreter
 mode, the torch wrappers' plain twins on CPU tensors) with equal neighbor
 counts, rho rel-L2 <= 1e-6 and acc rel-L2 <= 1e-4 (JAX sums its force
 terms block-relative on the MXU, measured ~5e-5 on the TPU), all finite;
@@ -17,6 +18,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+import jax_windows
 import numpy as np
 import pytest
 import torch
@@ -26,6 +28,7 @@ from smoothed_particle_hydrodynamics_tpu.parallel import slabs as js
 from smoothed_particle_hydrodynamics_tpu.parallel.sharding import make_mesh
 from smoothed_particle_hydrodynamics_tpu_torch.config import SphConfig as TCfg
 from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
+from smoothed_particle_hydrodynamics_tpu_torch.ops.grid import NO_CELL
 from smoothed_particle_hydrodynamics_tpu_torch.parallel import comm
 from smoothed_particle_hydrodynamics_tpu_torch.parallel import slab_sweeps as ss
 from smoothed_particle_hydrodynamics_tpu_torch.parallel import slabs as ts
@@ -178,25 +181,39 @@ def test_local_ranges_match_jax(scene, ndev, d):
     _eq(got[1], ref[1])
 
 
+def _live_bands(tc, f):
+    """The exact band table of frame ``f`` (``_band_tables``) and its live
+    own rows' bands [count, 9]."""
+    band = ts._band_tables(tc, f["ext"], f["cid_ext"], f["cid_s"], f["cnt"],
+                           f["h_cap"])
+    a, e = sw.band_ranges(tc, band.cid[:f["cnt"]], band.cell_start)
+    return band, a.numpy(), e.numpy()
+
+
 @pytest.mark.parametrize("ndev,d", FRAMES)
 def test_pallas_tables_match_jax(scene, ndev, d):
+    """The exact band walks' table of each frame against the JAX engine's
+    window tables (``_pallas_tables``, dead-row aware, plane-local): every
+    live own row's band, mapped back to the raw frame, holds its block's
+    rod window rows that pass the cid mask and are live, in order (and
+    beyond them only cells no 3D neighbour away); it never holds the inert
+    left head or a dead row."""
     jc, _, tc, tst = scene
-    jc, tc = jc.replace(**EXACT), tc.replace(**EXACT)
+    tc = tc.replace(**EXACT)
     f = _frame(tc, tst, ndev, d)
     assert f["cnt"] < f["p_cap"], "the frame must hold dead rows"
-    args = (f["h_cap"], f["p_cap"])
-    got = ts._pallas_tables(tc, f["cid_s"], f["cid_ext"], *args, f["cnt"],
-                            f["slab_hi"], f["base"], f["loc"])
-    ref = js._pallas_tables(jc, jnp.asarray(f["cid_s"]),
-                            jnp.asarray(f["cid_ext"]), *args,
-                            jnp.int32(f["cnt"]), jnp.int32(f["slab_hi"]),
-                            jnp.int32(f["base"]), f["loc"])
-    _eq(got[0], ref[0])
-    _eq(got[1], ref[1])
-    # windows never reach the inert left head (cid -1, position 1e30)
-    n_head = int((f["cid_ext"][:f["h_cap"]] < 0).sum())
-    live = got[1] > 0
-    assert (got[0][live] >= n_head).all()
+    ws, wc = jax_windows.slab(tc, f["cid_s"], f["cid_ext"], f["h_cap"],
+                              f["p_cap"], f["cnt"], f["slab_hi"], f["base"],
+                              f["loc"])
+    band, a, e = _live_bands(tc, f)
+    valid = (f["ext"][:, 7] >= 0).numpy()
+    jax_windows.assert_bands(tc, ws, wc, f["cid_s"], f["cid_ext"], a, e,
+                             f["ext"].shape[0], band.rows.numpy(), valid,
+                             f["cnt"])
+    # no band reaches the inert left head (cid -1, position 1e30) or a
+    # dead row, which sit outside the live rows
+    assert valid[band.rows.numpy()].all()
+    assert int((e > a).sum()) > 0
 
 
 def _synthetic_cids(case: str):
@@ -228,25 +245,42 @@ def _synthetic_cids(case: str):
             cnt, slab_hi, base, loc)
 
 
+def _synthetic_ext(cid_ext, h_cap: int, p_cap: int, cnt: int):
+    """A raw frame for synthetic cids: the chain ends' inert rows (cid -1
+    and past the grid) and the own dead rows invalid, every other row a
+    valid particle."""
+    cid = torch.from_numpy(cid_ext)
+    pos = torch.arange(cid.shape[0])
+    dead = (pos >= h_cap + cnt) & (pos < h_cap + p_cap)
+    ext = torch.zeros(cid.shape[0], 8)
+    ext[:, 7] = torch.where(dead | (cid < 0) | (cid >= 16 ** 3), -1.0,
+                            pos.float())
+    return ext
+
+
 @pytest.mark.parametrize("case", ["dead", "mid_slab"])
 def test_pallas_tables_synthetic_match_jax(case):
+    """The JAX tests' hand-built layouts: the live own rows' bands against
+    the JAX engine's window tables of the same cids (as
+    ``test_pallas_tables_match_jax``); the dead rows walk nothing."""
     kw = dict(num_particles=4096, grid_nx=16, grid_ny=16, grid_nz=16,
               pallas_window_t=64)
     jc, _ = jscene("dam_break", **kw)
     tc = TCfg.from_json(jc.to_json())
     cid_loc, cid_ext, h_cap, p_cap, cnt, slab_hi, base, loc = \
         _synthetic_cids(case)
-    got = ts._pallas_tables(tc, torch.from_numpy(cid_loc),
-                            torch.from_numpy(cid_ext), h_cap, p_cap, cnt,
-                            slab_hi, base, loc)
-    ref = js._pallas_tables(
-        jc, jnp.asarray(cid_loc), jnp.asarray(cid_ext), h_cap, p_cap,
-        jnp.int32(cnt), jnp.int32(slab_hi),
-        None if base is None else jnp.int32(base), loc)
-    _eq(got[0], ref[0])
-    _eq(got[1], ref[1])
+    ws, wc = jax_windows.slab(tc, cid_loc, cid_ext, h_cap, p_cap, cnt,
+                              slab_hi, base, loc)
+    ext = _synthetic_ext(cid_ext, h_cap, p_cap, cnt)
+    f = dict(ext=ext, cid_ext=torch.from_numpy(cid_ext),
+             cid_s=torch.from_numpy(cid_loc), cnt=cnt, h_cap=h_cap)
+    band, a, e = _live_bands(tc, f)
+    valid = (ext[:, 7] >= 0).numpy()
+    jax_windows.assert_bands(tc, ws, wc, cid_loc, cid_ext, a, e,
+                             cid_ext.shape[0], band.rows.numpy(), valid, cnt)
+    assert (band.cid[cnt:] == NO_CELL).all()
+    assert band.rows.shape[0] == int(valid.sum())
     if case == "dead":
-        wc = got[1].view(p_cap // 128, 9)
         assert (wc[4:] == 0).all()        # fully dead blocks: no chunks
         assert wc[:4].max() <= 8          # no window spans the dead run
 
@@ -287,20 +321,23 @@ def test_capped_sub_frame_matches_jax(scene, ndev, d, short):
                                jnp.int32(f["slab_lo"]), jnp.int32(f["slab_hi"]))
     _check_sub_frame(got, ref, tc.num_cells)
     assert (int(got[4]) > 0) == short
-    # the sub frame's tables: own blocks and (fused) sub blocks
-    args = (sub_len, f["cnt"], f["base"], f["loc"])
-    _eq(ts._pallas_sub_tables(tc, f["cid_s"], got[2], *args)[1],
-        js._pallas_sub_tables(jc, jnp.asarray(f["cid_s"]),
-                              jnp.asarray(ref[2]), *args)[1])
+    # the sub frame's band table against the JAX engine's tables: own
+    # blocks and (fused) sub blocks
+    sub = ts._sub_band(tc, got[2], f["cid_s"], f["cnt"])
+    search = ref[2]
+    ws, wc = jax_windows.slab_sub(tc, f["cid_s"], search, sub_len, f["cnt"],
+                                  f["base"], f["loc"])
+    a, e = sw.band_ranges(tc, sub.cid[:f["cnt"]], sub.cell_start)
+    jax_windows.assert_bands(tc, ws, wc, f["cid_s"], got[1], a.numpy(),
+                             e.numpy(), sub_len, n=f["cnt"])
     n_kept = int((got[1] >= 0).sum())
-    pad = -(-sub_len // 128) * 128 - sub_len
-    cid_sub_loc = torch.cat([got[2], torch.full((pad,), tc.num_cells,
-                                                dtype=torch.int32)])
-    sargs = (sub_len, n_kept, f["base"], f["loc"])
-    for k in (0, 1):
-        _eq(ts._pallas_sub_tables(tc, cid_sub_loc, got[2], *sargs)[k],
-            js._pallas_sub_tables(jc, jnp.asarray(cid_sub_loc),
-                                  jnp.asarray(ref[2]), *sargs)[k])
+    ws, wc = jax_windows.slab_sub(tc, jax_windows.prepass_self(tc, search),
+                                  search, sub_len, n_kept, f["base"],
+                                  f["loc"])
+    a, e = sw.band_ranges(tc, got[1], sub.cell_start)
+    jax_windows.assert_bands(tc, ws, wc, got[1], got[1], a.numpy(),
+                             e.numpy(), sub_len, n=n_kept)
+    assert bool((e[n_kept:] <= a[n_kept:]).all())
 
 
 @pytest.mark.parametrize("grid", [(16, 16, 16), (256, 256, 160)])
@@ -399,9 +436,10 @@ def test_capped_sub_frame_last_cell_is_its_own_run(scene, members):
 @pytest.fixture(scope="module")
 def callers(scene):
     """One middle rank's frame of a 4-slab split (live halos both sides,
-    dead rows, a transition block), the exact and capped tables, and
-    physical densities for every row (dead and inert rows 0), from the
-    single-chip step on the whole state."""
+    dead rows, a transition block), the port's exact and capped band
+    tables and the JAX engine's window tables of the same frame (the JAX
+    callers read those), and physical densities for every row (dead and
+    inert rows 0), from the single-chip step on the whole state."""
     jc, jst, tc, tst = scene
     f = _frame(tc, tst, 4, 1)
     rho_all = sw.compute_step_quantities(tc.replace(**EXACT), tst)[1]
@@ -418,18 +456,22 @@ def callers(scene):
                                                 dtype=torch.int32)])
     return dict(
         f=f, rho_e=rho_e, sub=sub, sub_len=sub_len, n_kept=n_kept,
-        tabs=ts._pallas_tables(tc.replace(**EXACT), f["cid_s"], f["cid_ext"],
-                               f["h_cap"], f["p_cap"], f["cnt"], f["slab_hi"],
-                               f["base"], f["loc"]),
-        ctabs=ts._pallas_sub_tables(cc, f["cid_s"], sub[2], sub_len, f["cnt"],
-                                    f["base"], f["loc"]),
-        stabs=ts._pallas_sub_tables(cc, cid_sub_loc, sub[2], sub_len, n_kept,
-                                    f["base"], f["loc"]))
+        band=ts._band_tables(tc, f["ext"], f["cid_ext"], f["cid_s"], f["cnt"],
+                             f["h_cap"]),
+        sub_band=ts._sub_band(cc, sub[2], f["cid_s"], f["cnt"]),
+        tabs=jax_windows.slab(tc.replace(**EXACT), f["cid_s"], f["cid_ext"],
+                              f["h_cap"], f["p_cap"], f["cnt"], f["slab_hi"],
+                              f["base"], f["loc"]),
+        ctabs=jax_windows.slab_sub(cc, f["cid_s"], sub[2], sub_len, f["cnt"],
+                                   f["base"], f["loc"]),
+        stabs=jax_windows.slab_sub(cc, cid_sub_loc, sub[2], sub_len, n_kept,
+                                   f["base"], f["loc"]))
 
 
 def _run_caller(name, c, jc, tc):
     """(torch outputs, JAX outputs) of one caller on the fixture's frame;
-    the JAX side gets the same arrays and its own kept-set columns."""
+    the port walks its band tables, the JAX side gets the same arrays, its
+    own window tables and its own kept-set columns."""
     f = c["f"]
     hp = (f["h_cap"], f["p_cap"])
     ext, cid_ext, rho_e = f["ext"], f["cid_ext"], c["rho_e"]
@@ -437,15 +479,15 @@ def _run_caller(name, c, jc, tc):
     J = jnp.asarray
     if name in ("density_local", "force_local"):
         jc, tc = jc.replace(**EXACT), tc.replace(**EXACT)
-        ws, wc = c["tabs"]
+        ws, wc = (J(t.reshape(-1).astype(np.int32)) for t in c["tabs"])
         if name == "density_local":
-            got = ss.density_local(tc, ext, cid_ext, ws, wc, *hp)
+            got = ss.density_local(tc, ext, *hp, c["band"])
             ref = jax.jit(lambda *a: js._pallas_density_local(jc, *a, *hp))(
-                J(ext), J(cid_ext), J(ws), J(wc))
+                J(ext), J(cid_ext), ws, wc)
         else:
-            got = ss.force_local(tc, ext, cid_ext, rho_e, rho_l, ws, wc, *hp)
+            got = ss.force_local(tc, ext, rho_e, rho_l, *hp, c["band"])
             ref = jax.jit(lambda *a: js._pallas_force_local(jc, *a, *hp))(
-                J(ext), J(cid_ext), J(rho_e), J(rho_l), J(ws), J(wc))
+                J(ext), J(cid_ext), J(rho_e), J(rho_l), ws, wc)
         return got, ref
     jc, tc = jc.replace(**CAPPED), tc.replace(**CAPPED)
     sub_src, cand_cid, _, w_sub, _ = c["sub"]
@@ -453,34 +495,33 @@ def _run_caller(name, c, jc, tc):
     cand_f = J(np.where(cand_cid.numpy() >= 0, cand_cid.numpy(), -10)
                .astype(np.float32))
     g8 = ext[sub_src.long()]
-    ws, wc = c["ctabs"]
+    ws, wc = (J(t.reshape(-1).astype(np.int32)) for t in c["ctabs"])
+    band = c["sub_band"]
     if name == "density_local_capped":
-        got = ss.density_local_capped(tc, ext, g8, cid_ext, ws, wc, sub_src,
-                                      cand_cid, w_sub, *hp)
+        got = ss.density_local_capped(tc, ext, g8, sub_src, w_sub, *hp, band)
         ref = jax.jit(lambda *a: js._pallas_density_local_capped(
-            jc, *a, *hp, s_len))(J(ext), J(g8), J(cid_ext), J(ws), J(wc),
+            jc, *a, *hp, s_len))(J(ext), J(g8), J(cid_ext), ws, wc,
                                  J(sub_src), cand_f, J(w_sub))
     elif name == "force_local_capped":
-        got = ss.force_local_capped(tc, ext, g8, cid_ext, rho_e, rho_l, ws,
-                                    wc, sub_src, cand_cid, w_sub, *hp)
+        got = ss.force_local_capped(tc, ext, g8, rho_e, rho_l, sub_src,
+                                    w_sub, *hp, band)
         ref = jax.jit(lambda *a: js._pallas_force_local_capped(
             jc, *a, *hp, s_len))(J(ext), J(g8), J(cid_ext), J(rho_e),
-                                 J(rho_l), J(ws), J(wc), J(sub_src), cand_f,
+                                 J(rho_l), ws, wc, J(sub_src), cand_f,
                                  J(w_sub))
     elif name == "density_sub_local":
-        got = ss.density_sub_local(tc, g8, sub_src, cand_cid, w_sub,
-                                   *c["stabs"])
+        got = ss.density_sub_local(tc, g8, sub_src, cand_cid, w_sub, band)
+        ws_s, wc_s = (J(t.reshape(-1).astype(np.int32)) for t in c["stabs"])
         ref = jax.jit(lambda *a: js._pallas_density_sub_local(
-            jc, *a, s_len))(J(g8), J(sub_src), cand_f, J(w_sub),
-                            J(c["stabs"][0]), J(c["stabs"][1]))
+            jc, *a, s_len))(J(g8), J(sub_src), cand_f, J(w_sub), ws_s, wc_s)
     else:
         rho_cand = rho_e[sub_src.long()]
         fc = tc.replace(capped_fused=True)
-        got = ss.fused_local_capped(fc, ext, g8, cid_ext, rho_cand, ws, wc,
-                                    sub_src, cand_cid, w_sub, *hp)
+        got = ss.fused_local_capped(fc, ext, g8, rho_cand, sub_src, w_sub,
+                                    *hp, band)
         ref = jax.jit(lambda *a: js._pallas_fused_local_capped(
             jc.replace(capped_fused=True), *a, *hp, s_len))(
-                J(ext), J(g8), J(cid_ext), J(rho_cand), J(ws), J(wc),
+                J(ext), J(g8), J(cid_ext), J(rho_cand), ws, wc,
                 J(sub_src), cand_f, J(w_sub))
     return got, ref
 
@@ -522,14 +563,13 @@ def test_halo_rows_reach_the_sums(callers, scene):
     tc = tc.replace(**EXACT)
     f = callers["f"]
     h = f["h_cap"]
-    ws, wc = callers["tabs"]
-    rho, _ = ss.density_local(tc, f["ext"], f["cid_ext"], ws, wc, h,
-                              f["p_cap"])
+    band = callers["band"]
+    rho, _ = ss.density_local(tc, f["ext"], h, f["p_cap"], band)
     cut = f["ext"].clone()
     cut[:h] = ts._inert(h, "cpu")
     cut[-h:] = ts._inert(h, "cpu")
-    rho_cut, _ = ss.density_local(tc, cut, f["cid_ext"], ws, wc, h,
-                                  f["p_cap"])
+    # the same live rows gathered from the cut frame: its halos at 1e30
+    rho_cut, _ = ss.density_local(tc, cut, h, f["p_cap"], band)
     assert (rho_cut <= rho).all() and (rho_cut < rho).sum() > 50
 
 
@@ -550,12 +590,11 @@ def single_chip():
 
 
 def _shifted(k, cand_pos, *cols):
-    """The candidate frame with k inert rows in front (position 1e30, cid
-    -1, zero elsewhere)."""
+    """The candidate frame with k inert rows in front (position 1e30, zero
+    elsewhere)."""
     out = [torch.cat([torch.full((k, 3), ts._BIG), cand_pos])]
     for c in cols:
-        pad = torch.full((k,) + tuple(c.shape[1:]), -1 if c.dtype ==
-                         torch.int32 else 0, dtype=c.dtype)
+        pad = torch.zeros((k,) + tuple(c.shape[1:]), dtype=c.dtype)
         out.append(torch.cat([pad, c]))
     return out
 
@@ -563,46 +602,49 @@ def _shifted(k, cand_pos, *cols):
 @pytest.mark.parametrize("k", [0, 128, 200])
 def test_self_base_is_a_frame_shift(single_chip, k):
     """``self_base = k`` over a candidate frame with k rows in front (and
-    windows moved by k) gives the bits of the unshifted sweep: the slab
-    engine's own slab at offset h_cap in its extended frame.  k = 0 is the
-    single-chip path, bit-equal to the pre-offset exclusion (own id = the
-    self row, ``self_src = arange``)."""
+    the cell-start table moved by k) gives the bits of the unshifted sweep:
+    the slab engine's own slab at offset ``self_base`` in its candidates.
+    k = 0 is the single-chip path, bit-equal to the src-vs-src exclusion
+    with own id the self row (``self_src = arange``)."""
     tc, p, cc, pc = single_chip
     n = p.pos_s.shape[0]
-    rho, nc = sw.density_t_plain(tc, p.pos_s, p.mass_s, p.cid, p.ws, p.wc)
+    rho, nc = sw.density_t_plain(tc, p.pos_s, p.mass_s, p.cid, p.cell_start,
+                                 p.pos_s, p.mass_s)
     rho0, nc0 = sw.density_t_plain(
-        tc, p.pos_s, p.mass_s, p.cid, p.ws, p.wc, p.pos_s, p.mass_s, p.cid,
-        None, torch.arange(n, dtype=torch.int32))
+        tc, p.pos_s, p.mass_s, p.cid, p.cell_start, p.pos_s, p.mass_s,
+        torch.arange(n, dtype=torch.int32), 0,
+        torch.arange(n, dtype=torch.int32))
     _eq(rho, rho0)
     _eq(nc, nc0)
-    pos_k, mass_k, cid_k = _shifted(k, p.pos_s, p.mass_s, p.cid)
-    rho_k, nc_k = sw.density_t_plain(tc, p.pos_s, p.mass_s, p.cid, p.ws + k,
-                                     p.wc, pos_k, mass_k, cid_k, self_base=k)
+    pos_k, mass_k = _shifted(k, p.pos_s, p.mass_s)
+    rho_k, nc_k = sw.density_t_plain(tc, p.pos_s, p.mass_s, p.cid,
+                                     p.cell_start + k, pos_k, mass_k,
+                                     self_base=k)
     _eq(rho_k, rho)
     _eq(nc_k, nc)
     cand = sw.fused_cand_cols(tc, p.pos_s, p.vel_s, rho, p.mass_s)
-    acc = sw.force_t_plain(tc, p.pos_s, p.vel_s, rho, cand, p.cid, p.ws, p.wc)
+    acc = sw.force_t_plain(tc, p.pos_s, p.vel_s, rho, cand, p.cid,
+                           p.cell_start)
     cand_k = torch.cat([torch.zeros(k, 9), cand])
     cand_k[:k, 0:3] = ts._BIG
     acc_k = sw.force_t_plain(tc, p.pos_s, p.vel_s, rho, cand_k, p.cid,
-                             p.ws + k, p.wc, cid_k, self_base=k)
+                             p.cell_start + k, self_base=k)
     _eq(acc_k, acc)
     # capped and fused: the candidates' src ids move with the self rows
     pos_c, vel_c = sw.gather_sub_pv(pc)
     cand_c = sw.fused_cand_cols(cc, pos_c, vel_c, pc.mass_s[pc.sub_perm],
                                 pc.wm_sub)
-    ref = sw.fused_t_plain(cc, pc.pos_s, pc.vel_s, pc.mass_s, pc.cid, pc.ws,
-                           pc.wc, cand_c, pc.cand_cid, pc.sub_perm)
-    got = sw.fused_t_plain(cc, pc.pos_s, pc.vel_s, pc.mass_s, pc.cid, pc.ws,
-                           pc.wc, cand_c, pc.cand_cid, pc.sub_perm + k,
+    ref = sw.fused_t_plain(cc, pc.pos_s, pc.vel_s, pc.mass_s, pc.cid,
+                           pc.cell_start, cand_c, pc.sub_perm)
+    got = sw.fused_t_plain(cc, pc.pos_s, pc.vel_s, pc.mass_s, pc.cid,
+                           pc.cell_start, cand_c, pc.sub_perm + k,
                            self_base=k)
     for a, b in zip(got, ref):
         _eq(a, b)
-    ref = sw.density_t_plain(cc, pc.pos_s, pc.mass_s, pc.cid, pc.ws, pc.wc,
-                             pos_c, pc.wm_sub, pc.cand_cid, pc.sub_perm)
-    got = sw.density_t_plain(cc, pc.pos_s, pc.mass_s, pc.cid, pc.ws, pc.wc,
-                             pos_c, pc.wm_sub, pc.cand_cid, pc.sub_perm + k,
-                             self_base=k)
+    ref = sw.density_t_plain(cc, pc.pos_s, pc.mass_s, pc.cid, pc.cell_start,
+                             pos_c, pc.wm_sub, pc.sub_perm)
+    got = sw.density_t_plain(cc, pc.pos_s, pc.mass_s, pc.cid, pc.cell_start,
+                             pos_c, pc.wm_sub, pc.sub_perm + k, self_base=k)
     _eq(got[0], ref[0])
     _eq(got[1], ref[1])
 
@@ -613,9 +655,8 @@ def test_wrappers_take_the_twin_on_cpu(callers, scene):
     for w in ss.WRAPPERS:
         w.launches = 0
     f = callers["f"]
-    ws, wc = callers["tabs"]
-    args = ss.density_local_args(tc.replace(**EXACT), f["ext"], f["cid_ext"],
-                                 ws, wc, f["h_cap"], f["p_cap"])
+    args = ss.density_local_args(tc.replace(**EXACT), f["ext"], f["h_cap"],
+                                 f["p_cap"], callers["band"])
     for a, b in zip(ss.density_ext(*args), ss.density_ext_plain(*args)):
         _eq(a, b)
     assert all(w.launches == 0 for w in ss.WRAPPERS)

@@ -47,7 +47,7 @@ def test_sweeps_match_jax_interpret(block):
     jc, js, tc, ts = _scenes(pallas_block_t=block)
     p_j = jpt.prepare_t(jc, js)
     p_t = sweeps_t.prepare_t(tc, ts)
-    assert p_t.wc.max() > 1, "want a multi-chunk window"
+    assert np.asarray(p_j.wc).max() > 1, "want a multi-chunk window"
 
     rho_j, nc_j = jpt.density_sweep_t(jc, p_j)
     rho_t, nc_t = sweeps_t.density_sweep_t(tc, p_t)

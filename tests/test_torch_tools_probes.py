@@ -170,7 +170,7 @@ def test_scan_rebinned_and_load():
     probe_scan.load(static, fresh)
     assert _same(static.state, fresh.state)
     assert all(torch.equal(getattr(static, f), getattr(fresh, f))
-               for f in ("order", "pos_bin", "cid", "ws", "wc", "cell_start"))
+               for f in ("order", "pos_bin", "cid", "cell_start"))
 
 
 def test_device_constants_leave_host_tensors_alone():

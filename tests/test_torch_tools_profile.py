@@ -56,8 +56,8 @@ def test_profile_prepare_composes_prepare_t(mode):
         assert (a is None) == (b is None), f
         if a is not None:
             assert torch.equal(a, b), f
-    if mode == "fused":
-        assert composed.ws_sub is not None
+    if mode != "exact":
+        assert composed.sub_perm is not None
 
 
 @pytest.mark.parametrize("k_c", [0, 4])

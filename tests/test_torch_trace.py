@@ -25,7 +25,7 @@ import torch
 from smoothed_particle_hydrodynamics_tpu_torch.models import make_scene
 from smoothed_particle_hydrodynamics_tpu_torch.ops import lazy
 from smoothed_particle_hydrodynamics_tpu_torch.ops.sweeps_t import (
-    CAND_ROWS, KEPT_ROWS, ROWS_TESTED, _run_rank_occ, band_ranges, band_rows_t,
+    KEPT_ROWS, ROWS_TESTED, _run_rank_occ, band_ranges, band_rows_t,
     band_rows_t_plain, capped_span, prepare_t)
 from smoothed_particle_hydrodynamics_tpu_torch.utils import trace, walk_stats
 from smoothed_particle_hydrodynamics_tpu_torch.utils.benchmark import (
@@ -339,16 +339,12 @@ def test_kept_rows_is_the_sub_frame_s_kept_count(profiled_capped):
 def test_a_profiled_exact_solve_keeps_its_span_tree(profiled):
     """Exact mode: the span names of the tracing's first design, no span
     under ``binning.prepare`` or ``sweeps.sorted``, and no kept-rows
-    count; beside the rows tested only the candidate columns' rows, N a
-    step, none of them built by the kernel on the CPU."""
+    count: the rows tested are the one counter."""
     _, carries, _, got, _ = profiled
     spans = got["spans"]
     assert {s["name"] for s in spans} == CHILDREN | {"driver.step"}
     assert {s["parent"] for s in spans} == {None, "driver.step"}
-    assert set(got["counts"]) == {ROWS_TESTED, CAND_ROWS}
-    n = carries[0].cid.shape[0]
-    assert got["counts"][CAND_ROWS] == {"total": float(n * STEPS),
-                                        "times": STEPS}
+    assert set(got["counts"]) == {ROWS_TESTED}
     assert all(c.kept_rows is None and c.bin_from is None for c in carries)
 
 
