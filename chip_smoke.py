@@ -17,7 +17,12 @@ Phases (every failed check raises, and the script exits nonzero):
    each on the same tensors bit-equal (the walk is deterministic); the
    counter kernel ``band_rows_t`` (the lane-rows of a band sweep,
    ``sweeps.rows_tested``) equal to its twin, 32 times
-   ``walk_stats.band_sums``' warp union, exactly;
+   ``walk_stats.band_sums``' warp union, exactly; K2's own counters (its
+   pairs and its warps' drain rounds, ``sweeps.force_pairs`` and
+   ``sweeps.force_rounds``) equal to its twin's (``walk_stats.drain_sums``)
+   and its pairs to K1's counts, exactly, with the share of lanes its drain
+   rounds keep busy (at 1M beside K2's time in the kernels line; capped
+   the same in phases 5 and 7);
 3. exact mode, 4096-particle splash: the kernel-backed step quantities
    against the O(N^2) pairwise oracle, with the same bars;
 4. exact mode, 1M splash shapes: the same checks at the main path's
@@ -501,6 +506,30 @@ def rows_tested_vs_twin(cfg, p, m: int, label: str) -> int:
     check(launched == int(p.cid.is_cuda),
           f"{label}: band_rows_t launched {launched} times in one call")
     return got
+
+
+# K2's counters at the main path's shapes, in its kernels-line records
+DRAIN_KEYS = ("force_pairs", "force_rounds", "lane_use_pct")
+
+
+def force_drains(label: str, name: str, args: tuple, pairs: int) -> dict:
+    """K2 (``name``) launched on ``args`` with a counter: its pairs and
+    drain rounds equal to its twin's (``walk_stats.drain_sums``) and its
+    pairs to K1's count of the same bands (``pairs``), exactly; returns
+    them and the share of lanes its drain rounds keep busy."""
+    from smoothed_particle_hydrodynamics_tpu_torch.ops import sweeps_t as sw
+
+    got, want = (torch.zeros(2, dtype=torch.int64, device=args[1].device)
+                 for _ in range(2))
+    wrapper(name)(*args, stats=got)
+    sw.force_t_plain(*args, stats=want)
+    got, want = got.tolist(), want.tolist()
+    use = 100.0 * got[0] / (32 * got[1]) if got[1] else float("nan")
+    print(f"[{label}] {name} drains: {got[0]} pairs in {got[1]} warp "
+          f"rounds, lanes busy {use:.2f} %; twin {want}, K1 pairs {pairs}")
+    check(got == want and got[0] == pairs,
+          f"{label}: {name} counters {got} == twin {want}, pairs == {pairs}")
+    return dict(force_pairs=got[0], force_rounds=got[1], lane_use_pct=use)
 
 
 def exact_vs_twins(cfg, p, label: str):
@@ -3136,7 +3165,10 @@ def main() -> int:
     # 2. exact kernels vs twins, 32k splash (packed pool: 32^3 grid of
     #    1.25h cells)
     cfg, st = make_scene("splash", device=dev, num_particles=32768, **small)
-    exact_vs_twins(cfg, sw.prepare_t(cfg, st), "exact 32k")
+    _, (args, _, _), pairs = exact_vs_twins(cfg, sw.prepare_t(cfg, st),
+                                            "exact 32k")
+    force_drains("exact 32k", "force_band_t", args["force_band_t"],
+                 pairs["force_band_t"])
 
     # 3. exact kernels vs the pairwise oracle, n = 4096
     cfg, st = make_scene("splash", device=dev, **oracle_kw)
@@ -3148,6 +3180,9 @@ def main() -> int:
     errs, (args, twin_args, reads), pairs = exact_vs_twins(
         cfg, sw.prepare_t(cfg, st), "exact 1M")
     times = timed(args, pairs, twin_args, reads)
+    times["force_band_t"].update(force_drains(
+        "exact 1M", "force_band_t", args["force_band_t"],
+        pairs["force_band_t"]))
     del args, twin_args, reads
 
     # 5. capped kernels vs twins, 32k splash (derived sub frame, with tail)
@@ -3155,7 +3190,10 @@ def main() -> int:
               capped_fused=True, pallas_block_t=256)
     cfg, st = make_scene("splash", device=dev, **ov)
     cfg = resolve_sweep_settings(cfg, st, ov)
-    capped_vs_twins(cfg, sw.prepare_t(cfg, st), "capped 32k")
+    _, (args, _, _), pairs_c = capped_vs_twins(cfg, sw.prepare_t(cfg, st),
+                                               "capped 32k")
+    force_drains("capped 32k", "force_band_t<capped>",
+                 args["force_band_t<capped>"], pairs_c["force_band_t<capped>"])
 
     # 6. a keep-all cap against the pairwise oracle, two-pass and fused
     cfg, st = make_scene("splash", device=dev, **oracle_kw)
@@ -3175,6 +3213,9 @@ def main() -> int:
     errs.update(capped_errs)
     pairs.update(capped_pairs)
     times.update(timed(args, capped_pairs, twin_args, reads))
+    times["force_band_t<capped>"].update(force_drains(
+        "capped 1M", "force_band_t<capped>", args["force_band_t<capped>"],
+        capped_pairs["force_band_t<capped>"]))
     exact = cfg.replace(capped_candidates=0)
     rho_e = sw.density_sweep_t(exact, sw.prepare_t(exact, st))[0]
     rho_c = sw.density_sweep_t(cfg.replace(capped_fused=False), p)[0]
@@ -3641,7 +3682,8 @@ def main() -> int:
          "bound_by": times[name]["bound_by"],
          "library_ms": times[name].get("library_ms"),
          **({"caller": k.caller} if k.caller else {}),
-         **({"case": times[name]["case"]} if "case" in times[name] else {})}
+         **{key: times[name][key] for key in ("case", *DRAIN_KEYS)
+            if key in times[name]}}
         for name, k in KERNELS.items()],
         # the counter kernel: its launches in the main paths (phase 10)
         "counters": [{"name": "band_rows_t", "route": "cuda",

@@ -148,6 +148,23 @@ __device__ __forceinline__ float dist2(float dx, float dy, float dz) {
 // the walk took 0.147 ms (K1) and 0.241 ms (K2) against the window walk's
 // 1.03 and 1.33, testing ~95 rows per lane against ~1030.
 //
+// K2 tests, then drains.  With the pair term inside the row loop, some lane
+// of 32 hits on nearly every tested row (~8 % of a band's rows are pairs),
+// so the warp issued K2's sqrt, divide and ~20 further ops for one to three
+// lanes.  K2 now tests a piece's band rows into a per-lane hit mask and then
+// drains the mask, issuing the pair term once a drain round: per warp and
+// piece, the most hits of any lane.  On an H100: at the 1M splash (exact)
+// the test pass alone takes 0.330 ms (K1 0.352), the pair term in the loop
+// took 0.322 more and the drain takes 0.261 (36.5 % of the lanes busy), so
+// K2 0.652 -> 0.591 ms; the 10M dam break at rest 7.06 -> 6.39 (test pass
+// 3.69), but at its step 480 (39.8 pairs a particle against 29.6) only
+// 8.66 -> 8.60, the drain 4.19 ms at 31.9 %; capped K_c 4, 1M 0.230 ->
+// 0.209 and 10M 2.25 -> 2.07.  A drain per 32-row word (3 a piece exact)
+// took 6.52 ms at 10M (27.5 % busy), so the drain is per piece.  The drain
+// is bound by issue, not latency: two hits a round ran no faster, while
+// draining a third of each lane's hits cut it ~60 %.  What is left is the
+// idle lanes of each round.
+//
 // The walk (band_rows, Piece, next_piece, stage_rows, band_walk) and its
 // constants live in band_walk.cuh, which csrc/floor_t.cu's floor probe
 // includes too.
@@ -257,6 +274,9 @@ struct ForceBandArgs {
   const int* csrc;        // [m] candidate src rows (kExclSrc only)
   const int* cell_start;  // [num_cells + 1] first candidate row of each cell
   float* acc;             // [n, 3] out: hydro acceleration
+  // [2] or null: the pairs and the drain rounds of the walk, added to
+  // (the counters sweeps.force_pairs and sweeps.force_rounds)
+  unsigned long long* stats;
   int n, m, num_cells, nx, ny;
   int self_base;          // own id of self row i: self_base + i
   float h2, h, scale, eps, stiffness, rho0, viscosity, visc_norm;
@@ -286,11 +306,25 @@ __device__ __forceinline__ void force_pair(const ForceBandArgs& a,
   s.vz += (c[5] - vzi * rim) * hd;
 }
 
+// K2 tests a piece's band rows first and runs the pair term on the hits
+// only.  The test pass sets bit t of a per-lane hit mask (kPiece / 32 words
+// in registers) for the t-th row of the lane's band in the piece that is a
+// pair; t, not the row's slot index, so that every lane of an iteration
+// writes the same word and the mask needs no per-row select.  The drain pass
+// takes each lane's set bits in ascending order, recomputes the row's
+// offsets and d^2 with the same rounded ops (the same bits) and adds its
+// pair term: each lane adds the same pairs in the same order as one loop
+// over the rows would, so the sums are bit-equal to it, while the warp
+// issues the pair term once a drain round (the most hits of any lane in the
+// piece) and not on every tested row in which some lane hits.  The drain
+// ends before band_walk's __syncwarp frees the slot for restaging.
 template <int kExcl>
 __global__ void __launch_bounds__(kBandBlock)
     force_band_t(ForceBandArgs a) {
   // a slot: the kForceCols columns (row-major), then (capped) the src rows
   constexpr int kPiece = kForcePiece<kExcl>;
+  constexpr int kHitWords = kPiece / 32;
+  static_assert(kPiece % 32 == 0, "a piece is a whole number of mask words");
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * kBandBlock + threadIdx.x;
   const bool live = i < a.n;
@@ -311,6 +345,7 @@ __global__ void __launch_bounds__(kBandBlock)
   const float rhoi_inv = 1.f / (rhoi > 0.f ? rhoi : 1.f);
   const float pw_i = (rhoi - a.rho0) * a.stiffness * rhoi_inv * rhoi_inv;
   ForceSums s{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  unsigned pairs = 0, rounds = 0;  // counted where a.stats is set
   auto stage = [&](float* dst, const Piece& p) {
     stage_rows<kForceCols>(dst, a.cand, p.lo, p.hi, lane);
     if constexpr (kExcl != kExclRow)
@@ -318,22 +353,56 @@ __global__ void __launch_bounds__(kBandBlock)
                     a.csrc, p.lo, p.hi, lane);
   };
   auto test = [&](const float* sp, const Piece& p) {
-    const int* ss = reinterpret_cast<const int*>(sp + kForceCols * kPiece);
-    const int j1 = min(p.e, p.hi);
-    for (int j = max(p.a, p.lo); j < j1; ++j) {
-      const int k = j - p.lo;
-      const float* c = sp + k * kForceCols;
+    const int j0 = max(p.a, p.lo);  // this lane's band rows [j0, j0 + len)
+    const int len = min(p.e, p.hi) - j0;
+    const float* c0 = sp + (j0 - p.lo) * kForceCols;
+    const int* s0 =
+        reinterpret_cast<const int*>(sp + kForceCols * kPiece) + (j0 - p.lo);
+    unsigned hit[kHitWords];
+#pragma unroll
+    for (int w = 0; w < kHitWords; ++w) {
+      unsigned bits = 0;
+      const int t1 = min(len, 32 * w + 32);
+      for (int t = 32 * w; t < t1; ++t) {
+        const float* c = c0 + t * kForceCols;
+        const float d2 = dist2(c[0] - xi, c[1] - yi, c[2] - zi);
+        const int id = kExcl == kExclRow ? j0 + t : s0[t];
+        if (id != own && d2 < a.h2) bits |= 1u << (t - 32 * w);
+      }
+      hit[w] = bits;
+    }
+    if (a.stats) {
+      int n = 0;
+#pragma unroll
+      for (int w = 0; w < kHitWords; ++w) n += __popc(hit[w]);
+      pairs += n;
+      rounds += __reduce_max_sync(kFullMask, n);
+    }
+    for (;;) {  // the lowest set bit of the lowest non-empty word
+      int t = -1;
+#pragma unroll
+      for (int w = 0; w < kHitWords; ++w)
+        if (t < 0 && hit[w]) {
+          t = 32 * w + __ffs(hit[w]) - 1;
+          hit[w] &= hit[w] - 1;
+        }
+      if (t < 0) break;
+      const float* c = c0 + t * kForceCols;
       const float dx = c[0] - xi;
       const float dy = c[1] - yi;
       const float dz = c[2] - zi;
-      const float d2 = dist2(dx, dy, dz);
-      const int id = kExcl == kExclRow ? j : ss[k];
-      if (id != own && d2 < a.h2)
-        force_pair(a, c, dx, dy, dz, d2, pw_i, vxi, vyi, vzi, s);
+      force_pair(a, c, dx, dy, dz, dist2(dx, dy, dz), pw_i, vxi, vyi, vzi, s);
     }
   };
   band_walk<kPiece, kForceWords<kExcl>>(a.cell_start, ci, live, a.nx, a.ny,
                                         a.num_cells, a.m, stage, test);
+  if (a.stats) {
+    const unsigned total = __reduce_add_sync(kFullMask, pairs);
+    if (lane == 0 && rounds) {
+      atomicAdd(a.stats, static_cast<unsigned long long>(total));
+      atomicAdd(a.stats + 1, static_cast<unsigned long long>(rounds));
+    }
+  }
   if (live) {
     const float mu_rhoi = a.viscosity * rhoi_inv;
     a.acc[3 * i] = mu_rhoi * s.vx * a.visc_norm + s.ax * a.visc_norm;
@@ -513,7 +582,9 @@ extern "C" {
 // the capped sub frame, csrc its sorted rows (self_base 0) or, in the slab
 // engine, its extended-frame rows (self_base h_cap); kExclSrcSrc (density
 // only, the fused path's pre-pass): the self rows are the sub frame itself,
-// src = csrc its src rows.  src is read by kExclSrcSrc only.
+// src = csrc its src rows.  src is read by kExclSrcSrc only.  K2's stats,
+// where not null, is a [2] counter to which its launch adds the pairs it
+// sums and its warps' drain rounds; null counts nothing (no atomic).
 int sph_density_band_t(const float* pos, const float* mass, const int* cid,
                        const int* src, const float* cpos, const float* cmass,
                        const int* csrc, const int* cell_start, float* rho,
@@ -557,11 +628,12 @@ int sph_density_band_t(const float* pos, const float* mass, const int* cid,
 
 int sph_force_band_t(const float* pos, const float* vel, const float* rho,
                      const int* cid, const float* cand, const int* csrc,
-                     const int* cell_start, float* acc, int n, int m,
-                     int num_cells, int nx, int ny, int excl, int self_base,
-                     float h2, float h, float scale, float eps,
-                     float stiffness, float rho0, float viscosity,
-                     float visc_norm, void* stream) {
+                     const int* cell_start, float* acc,
+                     unsigned long long* stats, int n, int m, int num_cells,
+                     int nx, int ny, int excl, int self_base, float h2,
+                     float h, float scale, float eps, float stiffness,
+                     float rho0, float viscosity, float visc_norm,
+                     void* stream) {
   ForceBandArgs a;
   a.pos = pos;
   a.vel = vel;
@@ -571,6 +643,7 @@ int sph_force_band_t(const float* pos, const float* vel, const float* rho,
   a.csrc = csrc;
   a.cell_start = cell_start;
   a.acc = acc;
+  a.stats = stats;
   a.n = n;
   a.m = m;
   a.num_cells = num_cells;

@@ -23,11 +23,15 @@ While a ``torch.profiler`` session runs, ``lazy_step`` records the spans of
 bin made while recording keeps ``sweeps_t.band_rows_t``'s lane-rows, which
 the sweeps count (``sweeps.rows_tested``) at each band sweep over the bin,
 and in capped mode ``sweeps_t.kept_rows_t``'s kept rows, which each step
-counts once (``capped.kept_rows``).  In capped mode ``binning.prepare`` is
-tiled by ``binning.sort`` (cell ids, the (cell, hash) sort, the sorted
-fields), ``binning.capped_sub`` (the sub frame) and ``binning.tables`` (the
-cell starts, the carry), and ``sweeps.sorted`` by its
-own children (``sweeps_t.sweeps_sorted``); in exact mode both are leaves.
+counts once (``capped.kept_rows``); where K2 runs (not the fused path), it
+also keeps a zeroed [2] counter to which each K2 launch over the bin adds
+its pairs and drain rounds, counted once at the bin
+(``sweeps.force_pairs``, ``sweeps.force_rounds``).  In capped mode
+``binning.prepare`` is tiled by ``binning.sort`` (cell ids, the (cell,
+hash) sort, the sorted fields), ``binning.capped_sub`` (the sub frame) and
+``binning.tables`` (the cell starts, the carry), and ``sweeps.sorted`` by
+its own children (``sweeps_t.sweeps_sorted``); in exact mode both are
+leaves.
 """
 
 from __future__ import annotations
@@ -42,9 +46,10 @@ from ..state import (ParticleState, StepDiagnostics, make_step_diagnostics,
 from ..utils import trace
 from .grid import inverse_order, unsort_stacked
 from .integrate import kdk_integrate
-from .sweeps_t import (SUB_FIELDS, PreparedT, band_rows_t, capped_span,
-                       kept_rows_t, sort_frame_t, sub_frame_t, sweeps_sorted,
-                       tables_t, truncated_ranges)
+from .sweeps_t import (FORCE_PAIRS, FORCE_ROUNDS, SUB_FIELDS, PreparedT,
+                       band_rows_t, capped_span, kept_rows_t, sort_frame_t,
+                       sub_frame_t, sweeps_sorted, tables_t,
+                       truncated_ranges)
 
 
 class LazyCarry(NamedTuple):
@@ -68,6 +73,9 @@ class LazyCarry(NamedTuple):
     # band sweep over these bins tests; capped, 0-d i64 kept rows
     rows_tested: torch.Tensor | None = None
     kept_rows: torch.Tensor | None = None
+    # binned while recording, where K2 runs: [2] i64 that its launches over
+    # these bins add their pairs and drain rounds to
+    force_stats: torch.Tensor | None = None
     # capped mode only: [N] i64 original id of each row of the frame these
     # bins sorted, which the kept set hashes (None: the caller's own order,
     # as after ``init_lazy``)
@@ -128,6 +136,11 @@ def _bin(cfg: SphConfig, state: ParticleState, order: torch.Tensor | None,
             carry = carry._replace(
                 rows_tested=band_rows_t(cfg, p.cid, p.cell_start, m),
                 kept_rows=kept_rows_t(cfg, p) if capped else None)
+            if not (capped and cfg.capped_fused):
+                stats = torch.zeros(2, dtype=torch.int64, device=dev)
+                trace.count(FORCE_PAIRS, stats[0])
+                trace.count(FORCE_ROUNDS, stats[1])
+                carry = carry._replace(force_stats=stats)
     return carry
 
 
@@ -161,6 +174,7 @@ def lazy_step(cfg: SphConfig, carry: LazyCarry
                       cell_start=carry.cell_start,
                       rows_tested=carry.rows_tested,
                       kept_rows=carry.kept_rows,
+                      force_stats=carry.force_stats,
                       **{k: getattr(carry, k) for k in SUB_FIELDS})
         acc_s, rho_s, ncount_s = sweeps_sorted(cfg, p)
         st = st._replace(density=rho_s, neighbor_count=ncount_s)

@@ -27,6 +27,10 @@ Each kernel has a wrapper and a plain PyTorch twin here:
   ``fused_t_plain``;
 * ``band_rows_t`` -> ``band_rows_t``, the counter ``sweeps.rows_tested``
   (``utils/trace.py``; no TPU counterpart); twin ``band_rows_t_plain``;
+  K2 also counts, where handed a counter (``stats``), the pairs it sums
+  and its warps' drain rounds (``sweeps.force_pairs``,
+  ``sweeps.force_rounds``); its twin counts them with
+  ``walk_stats.drain_sums``;
 * ``fused_cand_cols`` -> ``cand_cols_t`` (``csrc/cand_cols_t.cu``), K2's
   and K3's [M, 9] candidate columns in one pass, the capped gather through
   ``sub_perm`` folded in (no TPU kernel: XLA fuses the JAX package's
@@ -103,6 +107,10 @@ _PAIR_BUDGET = 1 << 25
 # The counter of the lane-rows the self band sweeps test (``band_rows_t``),
 # counted by the sweeps that launch them while recording (utils/trace.py).
 ROWS_TESTED = "sweeps.rows_tested"
+# The counters of K2's pairs and drain rounds (``force_band_t``'s ``stats``:
+# per warp and piece, the most hits of any lane), added by the K2 launches
+# over a bin made while recording and counted once at the bin.
+FORCE_PAIRS, FORCE_ROUNDS = "sweeps.force_pairs", "sweeps.force_rounds"
 # The counter of the kept rows of the bins a capped step uses
 # (``kept_rows_t``), counted once a step by ``sweeps_sorted``.
 KEPT_ROWS = "capped.kept_rows"
@@ -113,6 +121,8 @@ _NO_SPAN = contextlib.nullcontext()
 # Self-exclusion modes of the density and force kernels (csrc/sweep_t.cu):
 # candidate row vs self row, candidate src vs self row, src vs src.
 EXCL_ROW, EXCL_SRC, EXCL_SRC_SRC = 0, 1, 2
+# K2's rows a staged piece, by exclusion mode (csrc/sweep_t.cu: kForcePiece)
+FORCE_PIECE = {EXCL_ROW: 96, EXCL_SRC: 32}
 
 
 def _blane(cfg: SphConfig) -> int:
@@ -167,6 +177,9 @@ class PreparedT(NamedTuple):
     # set while recording in capped mode: 0-d i64 kept rows of these bins
     # (``kept_rows_t``)
     kept_rows: torch.Tensor | None = None
+    # set while recording where K2 runs: [2] i64, the pairs and drain rounds
+    # its launches over these bins add (``FORCE_PAIRS``, ``FORCE_ROUNDS``)
+    force_stats: torch.Tensor | None = None
 
 
 SUB_FIELDS = ("sub_perm", "cand_cid", "wm_sub", "sub_dropped")
@@ -534,9 +547,13 @@ def _pair_force_terms(cfg: SphConfig, cj, d2, mask):
 def force_t_plain(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
                   rho_s: torch.Tensor, cand: torch.Tensor, cid: torch.Tensor,
                   cell_start: torch.Tensor | None, cand_src=None,
-                  self_base: int = 0) -> torch.Tensor:
+                  self_base: int = 0, stats: torch.Tensor | None = None
+                  ) -> torch.Tensor:
     """Twin of the force kernel, on its arguments: hydro acceleration
-    [N, 3] f32.  ``cand`` is ``fused_cand_cols`` of the candidates."""
+    [N, 3] f32.  ``cand`` is ``fused_cand_cols`` of the candidates.  With
+    ``stats`` ([2] int64), adds the kernel's pairs and drain rounds to it
+    (``walk_stats.drain_sums`` of the pairs found, out of the profiler's
+    events)."""
     n, dev = pos_s.shape[0], pos_s.device
     scale = _f32(cfg.sim_scale)
     eps = _f32(cfg.pressure_softening)
@@ -545,8 +562,13 @@ def force_t_plain(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
             * rhoi_inv)[:, None]
     # sums[0:3]: pressure sums (x, y, z); sums[3:6]: viscosity sums
     sums = torch.zeros(6, n, dtype=torch.float32, device=dev)
+    pairs = []
     for rows, cols, dxyz, d2, mask in _band_chunks(
             cfg, pos_s, cid, cell_start, cand[:, 0:3], cand_src, self_base):
+        if stats is not None:
+            with trace.hidden():
+                r, k = mask.nonzero(as_tuple=True)
+                pairs.append((r + rows.start, cols[r, k]))
         col, d, hd = _pair_force_terms(cfg, cand[cols], d2, mask)
         zero = torch.zeros_like(d2)
         num = (hd * hd) * (col[7] * pw_i[rows] + col[8])
@@ -555,6 +577,15 @@ def force_t_plain(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
             sums[a, rows] -= torch.where(mask, dxyz[a] * center, zero).sum(-1)
             vis = (col[3 + a] - vel_s[rows, a, None] * col[6]) * hd
             sums[3 + a, rows] += torch.where(mask, vis, zero).sum(-1)
+    if stats is not None:
+        with trace.hidden():
+            none = torch.zeros(0, dtype=torch.long, device=dev)
+            i = torch.cat([none, *(r for r, _ in pairs)])
+            j = torch.cat([none, *(c for _, c in pairs)])
+            got = walk_stats.drain_sums(
+                *band_ranges(cfg, cid, cell_start), i, j,
+                FORCE_PIECE[EXCL_ROW if cand_src is None else EXCL_SRC])
+            stats += torch.stack([got["pairs"], got["rounds"]])
     mu_rhoi = _f32(cfg.viscosity) * rhoi_inv
     norm = cfg.visc_lap_norm
     return torch.stack([mu_rhoi * sums[3 + a] * norm + sums[a] * norm
@@ -614,7 +645,7 @@ def _kernels() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.sph_density_band_t.argtypes = [p] * 10 + [i] * 8 + [f] * 4 + [p]
     lib.sph_density_band_t.restype = i
-    lib.sph_force_band_t.argtypes = [p] * 8 + [i] * 7 + [f] * 8 + [p]
+    lib.sph_force_band_t.argtypes = [p] * 9 + [i] * 7 + [f] * 8 + [p]
     lib.sph_force_band_t.restype = i
     lib.sph_fused_band_t.argtypes = [p] * 10 + [i] * 7 + [f] * 11 + [p]
     lib.sph_fused_band_t.restype = i
@@ -674,27 +705,31 @@ def _launch_density_band(cfg: SphConfig, pos_s, mass_s, cid, cell_start,
 
 
 def _launch_force_band(cfg: SphConfig, pos_s, vel_s, rho_s, cand, cid,
-                       cell_start, cand_src=None, self_base: int = 0, *,
-                       kernel: str) -> torch.Tensor:
+                       cell_start, cand_src=None, self_base: int = 0,
+                       stats=None, *, kernel: str) -> torch.Tensor:
     """K2 band walk over candidates sorted by cell (``cand`` their
     ``fused_cand_cols``): the self rows (``cand_src`` None), a slab's live
-    extended-frame rows (``self_base`` as for K1) or the sub frame.
+    extended-frame rows (``self_base`` as for K1) or the sub frame; with
+    ``stats``, its pairs and drain rounds added to that [2] int64 counter.
     ``force_t_plain``'s arguments."""
     n, m, dev = pos_s.shape[0], cand.shape[0], pos_s.device
+    specs = _band_specs(cfg, n, m, pos_s, cid, cell_start, cand_src)
+    if stats is not None:
+        specs["stats"] = (stats, torch.int64, (2,))
     _check(dev, vel_s=(vel_s, torch.float32, (n, 3)),
            rho_s=(rho_s, torch.float32, (n,)),
-           cand=(cand, torch.float32, (m, 9)),
-           **_band_specs(cfg, n, m, pos_s, cid, cell_start, cand_src))
+           cand=(cand, torch.float32, (m, 9)), **specs)
     excl = EXCL_ROW if cand_src is None else EXCL_SRC
     acc = torch.empty(n, 3, dtype=torch.float32, device=dev)
     lib = _kernels()
     err = lib.sph_force_band_t(
         pos_s.data_ptr(), vel_s.data_ptr(), rho_s.data_ptr(), cid.data_ptr(),
         cand.data_ptr(), _ptr(cand_src), cell_start.data_ptr(),
-        acc.data_ptr(), n, m, cfg.num_cells, cfg.grid_nx, cfg.grid_ny, excl,
-        self_base, cfg.h2, cfg.h_scaled, _f32(cfg.sim_scale),
-        _f32(cfg.pressure_softening), _f32(cfg.stiffness), _f32(cfg.rho0),
-        _f32(cfg.viscosity), cfg.visc_lap_norm, _stream(dev))
+        acc.data_ptr(), _ptr(stats), n, m, cfg.num_cells, cfg.grid_nx,
+        cfg.grid_ny, excl, self_base, cfg.h2, cfg.h_scaled,
+        _f32(cfg.sim_scale), _f32(cfg.pressure_softening),
+        _f32(cfg.stiffness), _f32(cfg.rho0), _f32(cfg.viscosity),
+        cfg.visc_lap_norm, _stream(dev))
     _raise_on(lib, err, kernel)
     return acc
 
@@ -730,13 +765,14 @@ def _launch_fused_band(cfg: SphConfig, pos_s, vel_s, mass_s, cid,
     return acc, rho, ncount
 
 
-def sweep(wrapper, twin, launch, kernel: str, cfg: SphConfig, *args):
-    """``twin(cfg, *args)`` on CPU tensors, else ``launch(cfg, *args)`` of
-    ``kernel``, counted in ``wrapper.launches``: one argument list, the
-    device the only branch.  ``args[0]`` (the self positions) decides."""
+def sweep(wrapper, twin, launch, kernel: str, cfg: SphConfig, *args, **kw):
+    """``twin(cfg, *args, **kw)`` on CPU tensors, else ``launch(cfg, *args,
+    **kw)`` of ``kernel``, counted in ``wrapper.launches``: one argument
+    list, the device the only branch.  ``args[0]`` (the self positions)
+    decides."""
     if _use_plain(args[0]):
-        return twin(cfg, *args)
-    out = launch(cfg, *args, kernel=kernel)
+        return twin(cfg, *args, **kw)
+    out = launch(cfg, *args, kernel=kernel, **kw)
     wrapper.launches += 1
     return out
 
@@ -783,24 +819,28 @@ def density_pre_t(cfg: SphConfig, pos_sub: torch.Tensor,
 
 def force_t(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
             rho_s: torch.Tensor, cand: torch.Tensor, cid: torch.Tensor,
-            cell_start: torch.Tensor | None) -> torch.Tensor:
+            cell_start: torch.Tensor | None,
+            stats: torch.Tensor | None = None) -> torch.Tensor:
     """Exact mode: hydro acceleration [N, 3] f32 of the sorted particles
     over their cell bands (``cell_start``); ``cand`` is ``fused_cand_cols``
-    of the same sorted frame."""
+    of the same sorted frame.  ``stats``: a [2] int64 counter the launch
+    adds its pairs and drain rounds to (None: nothing counted)."""
     return sweep(force_t, force_t_plain, _launch_force_band, "force_band_t",
-                 cfg, pos_s, vel_s, rho_s, cand, cid, cell_start)
+                 cfg, pos_s, vel_s, rho_s, cand, cid, cell_start,
+                 stats=stats)
 
 
 def force_capped_t(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
                    rho_s: torch.Tensor, cand: torch.Tensor, cid: torch.Tensor,
-                   cell_start: torch.Tensor | None, cand_src: torch.Tensor
-                   ) -> torch.Tensor:
+                   cell_start: torch.Tensor | None, cand_src: torch.Tensor,
+                   stats: torch.Tensor | None = None) -> torch.Tensor:
     """Capped mode: hydro acceleration [N, 3] over the sub frame's
     candidates (``fused_cand_cols`` of the sub frame, reweighted masses),
-    each row's cell bands of the sub frame (``cell_start``)."""
+    each row's cell bands of the sub frame (``cell_start``); ``stats`` as
+    for ``force_t``."""
     return sweep(force_capped_t, force_t_plain, _launch_force_band,
                  "force_band_t<capped>", cfg, pos_s, vel_s, rho_s, cand, cid,
-                 cell_start, cand_src)
+                 cell_start, cand_src, stats=stats)
 
 
 def fused_t(cfg: SphConfig, pos_s: torch.Tensor, vel_s: torch.Tensor,
@@ -985,19 +1025,21 @@ def force_sweep_t(cfg: SphConfig, p: PreparedT, rho_s: torch.Tensor
     """acc_s [N, 3] in sorted order (hydro only; gravity/CFL by the caller).
     Capped: the candidates are the sorted rows ``sub_perm`` names, their
     positions, velocities and densities gathered by ``fused_cand_cols``
-    itself, their masses the reweighted ``wm_sub``."""
+    itself, their masses the reweighted ``wm_sub``.  While recording, K2
+    adds its pairs and drain rounds to the bins' ``force_stats``."""
     trace.count(ROWS_TESTED, p.rows_tested)
+    stats = p.force_stats if trace.recording() else None
     if not cfg.capped_candidates:
         cand = fused_cand_cols(cfg, p.pos_s, p.vel_s, rho_s, p.mass_s)
         return force_t(cfg, p.pos_s, p.vel_s, rho_s, cand, p.cid,
-                       p.cell_start)
+                       p.cell_start, stats)
     dev = p.pos_s.device
     with trace.span("sweeps.capped_gather", dev):
         cand = fused_cand_cols(cfg, p.pos_s, p.vel_s, rho_s, p.wm_sub,
                                index=p.sub_perm)
     with trace.span("sweeps.walks", dev):
         return force_capped_t(cfg, p.pos_s, p.vel_s, rho_s, cand, p.cid,
-                              p.cell_start, p.sub_perm)
+                              p.cell_start, p.sub_perm, stats)
 
 
 def density_sub_t(cfg: SphConfig, p: PreparedT, pv_sub) -> torch.Tensor:

@@ -19,7 +19,9 @@ neighbor count.
 extended frame would test dead rows.  ``band_sums`` is ``band_stats`` left
 on the device, with no host read; 32 times its ``warp_union`` is the
 twin of the counter kernel ``sweeps_t.band_rows_t`` (``sweeps.rows_tested``
-of ``utils/trace.py``).
+of ``utils/trace.py``).  ``drain_sums`` is the twin of K2's own counters,
+its pairs and drain rounds (``sweeps.force_pairs``,
+``sweeps.force_rounds``).
 """
 
 from __future__ import annotations
@@ -37,25 +39,55 @@ def lane_rows_per_thread(cfg, p) -> float:
                  / (p.wc.numel() // 9))
 
 
+def _per_warp(x: torch.Tensor, value=0) -> torch.Tensor:
+    """[n, r] -> [warps, WARP, r], the last warp padded with ``value``."""
+    pad = (0, 0, 0, -x.shape[0] % WARP)
+    return F.pad(x, pad, value=value).view(-1, WARP, x.shape[1])
+
+
+def _union_lo(a: torch.Tensor, e: torch.Tensor, big: int) -> torch.Tensor:
+    """[warps, r]: the first row of each warp's union of its non-empty
+    bands in each rod (``big`` where all are empty)."""
+    return _per_warp(torch.where(e > a, a, big), big).amin(1)
+
+
 def band_sums(a: torch.Tensor, e: torch.Tensor, m: int) -> dict:
     """``band_stats``' sums, left on the bands' device (no host read): 0-d
     int64 tensors ``rows`` (over the rows), ``warp_max`` and ``warp_union``
     (over the warps), beside the counts ``n`` of rows and ``warps``."""
     n = a.shape[0]
-    warps = -(-n // WARP)
-    pad = (0, 0, 0, warps * WARP - n)
-
-    def per_warp(x, value=0):
-        return F.pad(x, pad, value=value).view(-1, WARP, x.shape[1])
-
-    big = m + 1   # above every candidate row: a, e <= m
-    some = e > a
-    lo = per_warp(torch.where(some, a, big), big).amin(1)
-    hi = per_warp(torch.where(some, e, 0)).amax(1)
-    longest = per_warp((e - a).clamp(min=0)).amax(1)
+    lo = _union_lo(a, e, m + 1)   # above every candidate row: a, e <= m
+    hi = _per_warp(torch.where(e > a, e, 0)).amax(1)
+    longest = _per_warp((e - a).clamp(min=0)).amax(1)
     return {"rows": (e - a).clamp(min=0).sum(), "warp_max": longest.sum(),
             "warp_union": (hi - lo).clamp(min=0).sum(), "n": n,
-            "warps": warps}
+            "warps": -(-n // WARP)}
+
+
+def drain_sums(a: torch.Tensor, e: torch.Tensor, i: torch.Tensor,
+               j: torch.Tensor, piece: int) -> dict:
+    """The twin of K2's counters (``force_band_t``'s ``stats``), from its
+    bands [a, e) ([n, 9]) and its pairs, self row ``i[k]`` with candidate
+    row ``j[k]`` (a row of one of row i's bands): 0-d int64 tensors
+    ``pairs``, how many, and ``rounds``, the drain rounds its warps issue:
+    summed over the warps (32 consecutive self rows), the rods and the
+    pieces of ``piece`` rows that the walk cuts each rod's warp union [min
+    a, max e) into, the most pairs any one lane has in the piece."""
+    dev = a.device
+    if not i.numel():
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        return {"pairs": zero, "rounds": zero.clone()}
+    i, j = i.long(), j.long()
+    lo = _union_lo(a, e, int(e.max()) + 1)
+    rod = ((j[:, None] >= a[i]) & (j[:, None] < e[i])).int().argmax(1)
+    warp = i // WARP
+    q = (j - lo[warp, rod]) // piece
+    hits = torch.zeros(lo.shape[0], a.shape[1], int(q.max()) + 1, WARP,
+                       dtype=torch.int64, device=dev)
+    hits.index_put_((warp, rod, q, i % WARP), torch.ones_like(i),
+                    accumulate=True)
+    return {"pairs": torch.tensor(i.numel(), device=dev),
+            "rounds": hits.amax(-1).sum()}
 
 
 def band_stats(a: torch.Tensor, e: torch.Tensor, m: int) -> dict:

@@ -25,8 +25,8 @@ import torch
 from smoothed_particle_hydrodynamics_tpu_torch.models import make_scene
 from smoothed_particle_hydrodynamics_tpu_torch.ops import lazy
 from smoothed_particle_hydrodynamics_tpu_torch.ops.sweeps_t import (
-    KEPT_ROWS, ROWS_TESTED, _run_rank_occ, band_ranges, band_rows_t,
-    band_rows_t_plain, capped_span, prepare_t)
+    FORCE_PAIRS, FORCE_ROUNDS, KEPT_ROWS, ROWS_TESTED, _run_rank_occ,
+    band_ranges, band_rows_t, band_rows_t_plain, capped_span, prepare_t)
 from smoothed_particle_hydrodynamics_tpu_torch.utils import trace, walk_stats
 from smoothed_particle_hydrodynamics_tpu_torch.utils.benchmark import (
     resolve_sweep_settings)
@@ -339,12 +339,13 @@ def test_kept_rows_is_the_sub_frame_s_kept_count(profiled_capped):
 def test_a_profiled_exact_solve_keeps_its_span_tree(profiled):
     """Exact mode: the span names of the tracing's first design, no span
     under ``binning.prepare`` or ``sweeps.sorted``, and no kept-rows
-    count: the rows tested are the one counter."""
+    count: the counters are the rows tested and K2's pairs and drain
+    rounds (``tests/test_torch_force_drain.py``)."""
     _, carries, _, got, _ = profiled
     spans = got["spans"]
     assert {s["name"] for s in spans} == CHILDREN | {"driver.step"}
     assert {s["parent"] for s in spans} == {None, "driver.step"}
-    assert set(got["counts"]) == {ROWS_TESTED}
+    assert set(got["counts"]) == {ROWS_TESTED, FORCE_PAIRS, FORCE_ROUNDS}
     assert all(c.kept_rows is None and c.bin_from is None for c in carries)
 
 
